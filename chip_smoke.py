@@ -1,0 +1,489 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's serving slice on one NVIDIA GPU.
+
+Run from the repository root: ``python3 chip_smoke.py``. It needs one
+CUDA device and ``nvcc``; without a device it prints no result and exits
+2. A failed check is printed and the run goes on, so that every reading
+shows; it then exits 1 before the summary lines. Phases:
+
+1. build the hand-written CUDA kernels from ``elastic_tpu_agent_torch/
+   csrc`` (nvcc, sm_90a) into the git-ignored ``_build/`` directory;
+2. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes, and time the kernel, the plain version and one
+   PyTorch library call that computes the same function;
+3. the flagship forward at the full width of the runner's ``small``
+   preset, through the flash kernel, against the same model forced onto
+   the reference attention;
+4. the ServingEngine at the same preset: 16 requests (admit and enqueue,
+   greedy and sampled) through the paged-decode kernel; then a float32
+   two-layer copy whose kernel-path greedy streams must equal the gather
+   path's and ``generate()``'s;
+5. summary: a ``paths`` JSON line, a ``kernels`` JSON line, the card's
+   name and power limit as nvidia-smi reports them, and the result line.
+
+``--profile`` adds a torch.profiler pass over one forward and 20 decode
+steps (device-busy share and top device ops, printed). ``--out DIR``
+writes the full report to ``DIR/chip_smoke.json`` and, with
+``--profile``, the profiler tables and chrome traces to ``DIR/profile/``.
+
+Weights are random, in the JAX ``init_params`` layout, made with numpy
+from ``SEED`` and loaded through the weight bridge. Nothing of JAX or of
+the JAX package is imported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 0
+# elastic_tpu_agent/workloads/runner.py PRESETS["small"]
+SMALL = dict(vocab=32768, d_model=512, n_heads=8, n_layers=8, d_ff=2048)
+# H100 SXM data sheet: memory rate and dense peaks by input type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# max |kernel - plain| on the card. float32 outputs differ by summation
+# order only. bf16 limits sit between the sound kernels' readings and
+# those of kernels with a planted fault, run the same way (PERF.md):
+# flash_fwd o gave 3.9e-3 (one ulp near 1; the plain version rounds p to
+# bf16 as the kernel does) and 1.6e-2 without the kernel's cast of p;
+# paged_decode keeps its math in f32 and rounds only the output, so it
+# gave 3.1e-5, and 4.4e-2 attending one position short of the length.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
+PAGED_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+LSE_TOL = 1e-3
+# bf16 logits, flash kernel vs reference attention through 8 layers: the
+# two round at different places (the reference rounds scores and
+# normalised probabilities to bf16, the kernel keeps f32 scores). Sound
+# kernels gave 0.027; a causal mask dropped or shifted in the kernel gave
+# 2.3 to 2.8.
+FORWARD_BF16_TOL = 0.06
+FORWARD_F32_TOL = 1e-3  # same comparison in float32
+
+
+FAILURES: list = []
+
+
+def fail(msg: str) -> None:
+    """Record a failed check; the run goes on so that every reading is
+    printed, and exits non-zero at the end."""
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    FAILURES.append(msg)
+
+
+def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
+    """Mean device time of fn() in ms over ``iters`` back-to-back calls
+    (CUDA events, after warm-up)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def randn(torch, rng, shape, dtype, dev):
+    return torch.tensor(rng.normal(size=shape), dtype=dtype, device=dev)
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash(torch, A, dev):
+    """Flash forward vs its plain version; returns the kernel's record."""
+    rng = np.random.default_rng(SEED)
+    b, s, n, h = 8, 256, 8, 64     # the forward phase's attention shape
+    cases = [
+        ("bf16 causal", torch.bfloat16, A.FlashConfig()),
+        ("bf16 window 96", torch.bfloat16, A.FlashConfig(window=96)),
+        ("f32 causal", torch.float32, A.FlashConfig()),
+        ("f32 non-causal", torch.float32, A.FlashConfig(causal=False)),
+    ]
+    err_max = 0.0
+    for label, dtype, fc in cases:
+        q, k, v = (randn(torch, rng, (b, s, n, h), dtype, dev)
+                   for _ in range(3))
+        o, lse = A.flash_attention_with_lse(q, k, v, fc)
+        o_ref, lse_ref = A.flash_attention_plain(q, k, v, fc)
+        torch.cuda.synchronize()
+        e_o = (o.float() - o_ref.float()).abs().max().item()
+        e_l = (lse - lse_ref).abs().max().item()
+        name = str(dtype).split(".")[-1]
+        print(f"flash_fwd {label} [{b},{s},{n},{h}]: max|o| err {e_o:.3g}, "
+              f"max|lse| err {e_l:.3g}")
+        if not (e_o <= FLASH_TOL[name] and e_l <= LSE_TOL):
+            fail(f"flash_fwd {label}: o err {e_o}, lse err {e_l}")
+        err_max = max(err_max, e_o, e_l)
+    # timing at the main path's shape
+    q, k, v = (randn(torch, rng, (b, s, n, h), torch.bfloat16, dev)
+               for _ in range(3))
+    fc = A.FlashConfig()
+    ms = cuda_ms(lambda: A.flash_attention_with_lse(q, k, v, fc))
+    plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v, fc))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    nbytes = 4 * b * s * n * h * 2 + b * n * s * 4      # q, k, v, o + lse
+    flops = 4 * b * n * h * (s * (s + 1) // 2)          # QK^T and PV, causal
+    t, by = bound(nbytes, flops, "bfloat16")
+    return dict(
+        name="flash_fwd", route="cuda",
+        source="elastic_tpu_agent_torch/csrc/flash_fwd.cu",
+        replaces="elastic_tpu_agent/workloads/attention.py:100",
+        launches=None, max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
+        bound_ms=t, bound_by=by, library_ms=lib_ms,
+        shape=f"[{b},{s},{n},{h}] bf16 causal",
+    )
+
+
+def _paged_inputs(torch, rng, dev, dtype, g, r, full):
+    slots, bs, nb, h = 8, 16, 32, 64    # serving phase: max_len 512 / bs 16
+    n_blocks = slots * nb + 1
+    q = randn(torch, rng, (slots, g * r, h), dtype, dev)
+    pk, pv = (randn(torch, rng, (n_blocks, bs, g, h), dtype, dev)
+              for _ in range(2))
+    table = rng.permutation(np.arange(1, n_blocks)).reshape(slots, nb)
+    lengths = (np.full(slots, nb * bs) if full
+               else rng.integers(1, nb * bs + 1, slots))
+    return (q, pk, pv,
+            torch.tensor(table.astype(np.int32), device=dev),
+            torch.tensor(lengths.astype(np.int32), device=dev))
+
+
+def check_paged(torch, PA, dev):
+    """Paged decode vs its plain version; returns the kernel's record."""
+    rng = np.random.default_rng(SEED + 1)
+    err_max = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for g, r, window in ((8, 1, 0), (2, 4, 0), (2, 4, 100)):
+            q, pk, pv, table, lengths = _paged_inputs(
+                torch, rng, dev, dtype, g, r, full=False
+            )
+            got = PA.paged_decode_attention(
+                q, pk, pv, table, lengths, g, window=window)
+            want = PA.paged_decode_attention_reference(
+                q, pk, pv, table, lengths, g, window=window)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            name = str(dtype).split(".")[-1]
+            print(f"paged_decode {name} g{g} r{r} window {window}: "
+                  f"max err {err:.3g}")
+            if not err <= PAGED_TOL[name]:
+                fail(f"paged_decode {name} g{g} r{r} window {window}: {err}")
+            err_max = max(err_max, err)
+    # timing: 8 slots x 512 positions x 8 kv heads x 64, bf16
+    q, pk, pv, table, lengths = _paged_inputs(
+        torch, rng, dev, torch.bfloat16, 8, 1, full=True
+    )
+    ms = cuda_ms(lambda: PA.paged_decode_attention(
+        q, pk, pv, table, lengths, 8))
+    plain_ms = cuda_ms(lambda: PA.paged_decode_attention_reference(
+        q, pk, pv, table, lengths, 8))
+    tr = PA.kernel_traffic(8, 32, 16, 8, 64, 2, n_heads=8,
+                           lengths=lengths.tolist())
+    t, by = bound(tr["bytes"], tr["flops"], "bfloat16")
+    return dict(
+        name="paged_decode", route="cuda",
+        source="elastic_tpu_agent_torch/csrc/paged_decode.cu",
+        replaces="elastic_tpu_agent/workloads/paged_attention.py:38",
+        launches=None, max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
+        bound_ms=t, bound_by=by, library_ms=None,
+        shape="8 slots x 512 positions, g 8, r 1, h 64, bs 16, bf16",
+    )
+
+
+def run_forward(torch, W, A, cfg, params, dev):
+    """The flagship forward through the flash kernel: launches counted
+    over exactly one main-path call, logits against attn='reference'."""
+    rng = np.random.default_rng(SEED + 2)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 256)),
+                          device=dev)
+    A.FLASH_FWD.launches = 0
+    logits = W.forward(params, tokens, cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = A.FLASH_FWD.launches
+    if launches != cfg.n_layers:
+        fail(f"forward launched flash_fwd {launches}x, want {cfg.n_layers}")
+    ref = W.forward(params, tokens, dataclasses.replace(cfg, attn="reference"),
+                    device=dev)
+    if tuple(logits.shape) != (8, 256, cfg.vocab):
+        fail(f"logits shape {tuple(logits.shape)}")
+    if not torch.isfinite(logits).all():
+        fail("non-finite logits")
+    err = (logits.float() - ref.float()).abs().max().item()
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    print(f"forward small preset [8,256] bf16: flash_fwd launches {launches}, "
+          f"max|logits - reference| {err:.3g}, argmax agreement {agree:.4f}")
+    if not err <= FORWARD_BF16_TOL:
+        fail(f"forward logits vs reference: {err}")
+    for _ in range(3):
+        W.forward(params, tokens, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 10
+    for _ in range(reps):
+        W.forward(params, tokens, cfg, device=dev)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / reps * 1e3
+    ref_cfg = dataclasses.replace(cfg, attn="reference")
+    ref_ms = cuda_ms(lambda: W.forward(params, tokens, ref_cfg, device=dev),
+                     2, 10)
+    return launches, dict(
+        batch=8, seq=256, ms=fwd_ms, reference_attention_ms=ref_ms,
+        max_abs_err_vs_reference=err, argmax_agreement=agree,
+        flash_launches=launches,
+    )
+
+
+def forward_f32_check(torch, W, cfg32, params32, dev):
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.tensor(rng.integers(0, cfg32.vocab, size=(4, 200)),
+                          device=dev)
+    got = W.forward(params32, tokens, cfg32, device=dev)
+    ref = W.forward(params32, tokens,
+                    dataclasses.replace(cfg32, attn="reference"), device=dev)
+    err = (got - ref).abs().max().item()
+    print(f"forward f32 2-layer [4,200]: max|logits - reference| {err:.3g}")
+    if not err <= FORWARD_F32_TOL:
+        fail(f"f32 forward vs reference: {err}")
+    return err
+
+
+def serve(W, eng, prompts, kinds, new_tokens, step_times=None):
+    """Run ``prompts`` through ``eng`` (kinds[i] = (admit?, sampling
+    kwargs)), releasing each request at ``new_tokens`` tokens; returns
+    the streams in request order."""
+    queue = list(range(len(prompts)))
+    rid_of, streams = {}, {}
+    while queue or rid_of:
+        st = eng.stats()
+        free = st["slots"] - st["live_requests"] - st["pending_prefills"]
+        while queue and free > 0:
+            i = queue.pop(0)
+            use_admit, kw = kinds[i]
+            fn = eng.admit if use_admit else eng.enqueue
+            rid_of[fn(prompts[i], **kw)] = i
+            free -= 1
+        t0 = time.perf_counter()
+        eng.step()
+        if step_times is not None:
+            step_times.append(time.perf_counter() - t0)
+        for rid, i in list(rid_of.items()):
+            if rid in eng.finish_reason or len(eng.stream(rid)) >= new_tokens:
+                streams[i] = eng.release(rid)
+                del rid_of[rid]
+    return [streams[i] for i in range(len(prompts))]
+
+
+def run_serving(torch, W, PA, cfg, params, tree, dev):
+    rng = np.random.default_rng(SEED + 4)
+    n_req, new_tokens = 16, 64
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
+               for n in rng.integers(16, 201, size=n_req)]
+    kinds = [
+        (i % 4 < 2, {} if i % 2 == 0 else dict(temperature=0.8, top_k=50))
+        for i in range(n_req)
+    ]
+    eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
+                          prompt_buckets=(16, 64, 256), device=dev)
+    if not eng.paged_kernel:
+        fail("paged_kernel auto did not resolve ON on the card")
+    step_times = []
+    PA.PAGED_DECODE.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = serve(W, eng, prompts, kinds, new_tokens, step_times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PA.PAGED_DECODE.launches
+    steps = eng.stats()["decode_steps_total"]
+    if launches != cfg.n_layers * steps or steps == 0:
+        fail(f"paged_decode launched {launches}x over {steps} decode steps")
+    for i, s in enumerate(streams):
+        if len(s) != new_tokens or not all(0 <= t < cfg.vocab for t in s):
+            fail(f"request {i}: stream of {len(s)} tokens {s[:4]}...")
+    if eng.used_blocks != 0:
+        fail(f"{eng.used_blocks} pool blocks leaked")
+    tokens = n_req * new_tokens
+    st_ms = np.asarray(step_times) * 1e3
+    print(f"serving small preset: {n_req} requests x {new_tokens} tokens, "
+          f"{steps} decode steps, paged_decode launches {launches}, "
+          f"{tokens / wall:.1f} tokens/s, step p50 {np.median(st_ms):.2f} ms")
+
+    # float32 two-layer copy: kernel path vs gather path vs generate()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    tree32 = dict(tree, layers=tree["layers"][:2])
+    params32 = W.params_from_jax(tree32, cfg32, device=dev)
+    f32_err = forward_f32_check(torch, W, cfg32, params32, dev)
+    few = [p[:40] for p in prompts[:8]]
+    greedy = [(i % 2 == 0, {}) for i in range(8)]
+    runs = {}
+    for paged in (True, False):
+        e = W.ServingEngine(params32, cfg32, slots=8, max_len=512,
+                            prompt_buckets=(16, 64, 256), paged_kernel=paged,
+                            device=dev)
+        runs[paged] = serve(W, e, few, greedy, 32)
+    oracle = [W.generate(params32, [p], cfg32, 32, device=dev)[0, len(p):]
+              .tolist() for p in few]
+    same = runs[True] == runs[False] == oracle
+    print("serving f32 2-layer: kernel path == gather path == generate(): "
+          f"{same}")
+    if not same:
+        fail("f32 kernel-path streams differ from gather path / generate()")
+    return launches, dict(
+        requests=n_req, new_tokens=new_tokens, decode_steps=steps,
+        wall_s=wall, tokens_per_s=tokens / wall,
+        step_ms_mean=float(st_ms.mean()), step_ms_p50=float(np.median(st_ms)),
+        paged_launches=launches, f32_forward_err=f32_err,
+        f32_streams_equal=same,
+    )
+
+
+def _device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total", None) or getattr(
+        evt, "self_cuda_time_total", 0.0)
+
+
+def profile_paths(torch, W, cfg, params, dev, out_dir):
+    """torch.profiler over one forward and over 20 steady decode steps (8
+    live greedy rows at ~128 positions): device-busy share of the host
+    wall time and the top device ops; tables and traces go to ``out_dir``
+    unless it is None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 5)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 256)),
+                          device=dev)
+    eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
+                          prompt_buckets=(16, 64, 256), device=dev)
+    for _ in range(8):
+        eng.admit(rng.integers(0, cfg.vocab, size=128).tolist())
+    for _ in range(3):
+        eng.step()
+    out = {}
+    for name, fn, reps in (
+        ("forward", lambda: W.forward(params, tokens, cfg, device=dev), 3),
+        ("decode_step", eng.step, 20),
+    ):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        avg = prof.key_averages()
+        kernels_ = [e for e in avg if e.device_type != DeviceType.CPU]
+        busy_us = sum(_device_us(e) for e in kernels_)
+        top = sorted(kernels_, key=_device_us, reverse=True)[:8]
+        out[name] = dict(
+            wall_ms_per_call=wall_us / reps / 1e3,
+            device_busy_share=busy_us / wall_us,
+            device_ms_per_call=busy_us / reps / 1e3,
+            top_device_ops=[
+                (e.key[:60], _device_us(e) / reps / 1e3, e.count // reps)
+                for e in top
+            ],
+        )
+        if out_dir is not None:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+                f.write(avg.table(sort_by=(
+                    "self_device_time_total"
+                    if hasattr(avg[0], "self_device_time_total")
+                    else "self_cuda_time_total"), row_limit=40))
+            prof.export_chrome_trace(
+                os.path.join(out_dir, f"{name}_trace.json"))
+    return out
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler pass over forward and decode")
+    ap.add_argument("--out", default=None,
+                    help="directory for the full report and profiler files")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from elastic_tpu_agent_torch import kernels
+    from elastic_tpu_agent_torch import workloads as W
+    from elastic_tpu_agent_torch.workloads import attention as A
+    from elastic_tpu_agent_torch.workloads import paged_attention as PA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "--id=0"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"build_seconds {time.perf_counter() - t0:.2f}")
+
+    flash = check_flash(torch, A, dev)
+    paged = check_paged(torch, PA, dev)
+
+    cfg = W.ModelConfig(**SMALL, max_seq=1024, dtype=torch.bfloat16)
+    tree = W.random_tree(cfg, SEED)
+    params = W.params_from_jax(tree, cfg, device=dev)
+    flash["launches"], fwd = run_forward(torch, W, A, cfg, params, dev)
+    paged["launches"], srv = run_serving(torch, W, PA, cfg, params, tree, dev)
+
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
+        return 1
+    report = {"card": card, "forward": fwd, "serving": srv,
+              "kernels": [flash, paged]}
+    if args.profile:
+        report["profile"] = profile_paths(
+            torch, W, cfg, params, dev,
+            args.out and os.path.join(args.out, "profile"))
+        print(json.dumps({"profile": report["profile"]}))
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"paths": {"forward": fwd, "serving": srv}}))
+    print(json.dumps(
+        {"kernels": [{k: x[k] for k in keys} for x in (flash, paged)]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,153 @@
+"""Weight bridge between the JAX package's parameter tree and the port's.
+
+``params_from_jax`` takes the tree ``elastic_tpu_agent.workloads.
+transformer.init_params`` builds (numpy arrays, or anything ``np.asarray``
+takes) and returns the port's params: the same keys and the same axis
+layout (``wqkv [d,3,n,h]``, ``wq [d,n,h]``, ``wkv [d,2,g,h]``, ``wo [n,h,d]``,
+``w1``, ``w2``, ``embed``, ``pos_embed``, ``lm_head`` and the norm scales)
+as torch tensors. ``params_to_jax`` goes back to numpy.
+
+Every leaf is stored in ``cfg.dtype``. The JAX code keeps f32 leaves and
+casts each to ``cfg.dtype`` at every use (``.astype(cfg.dtype)``), so
+casting once at load gives the same numbers the JAX forward computes with.
+
+This module imports neither JAX nor the JAX package: the tree is plain
+data, checked against the shapes ``jax_layout_shapes`` derives from the
+config.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from .quantize import is_quantized
+
+
+def _tree_map(fn: Callable, tree, path: Tuple = ()):
+    """Map fn(path, leaf) over nested dicts/lists; anything else is a
+    leaf (so a shape tuple is one)."""
+    if isinstance(tree, dict) and not is_quantized(tree):
+        return {k: _tree_map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def jax_layout_shapes(cfg) -> Dict:
+    """The JAX ``init_params`` tree for ``cfg`` with each leaf replaced by
+    its shape (dense layers)."""
+    d, n, g, h = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    if cfg.is_gqa and n % g:
+        raise ValueError(f"n_heads {n} must be a multiple of n_kv_heads {g}")
+    if cfg.pos == "rope" and h % 2:
+        raise ValueError("rope needs an even head_dim")
+    tree: Dict[str, Any] = {
+        "embed": (cfg.vocab, d),
+        "final_norm_scale": (d,),
+        "lm_head": (d, cfg.vocab),
+        "layers": [],
+    }
+    if cfg.pos == "learned":
+        tree["pos_embed"] = (cfg.max_seq, d)
+    for _ in range(cfg.n_layers):
+        layer = {
+            "ln1_scale": (d,),
+            "wo": (n, h, d),
+            "ln2_scale": (d,),
+            "w1": (d, cfg.d_ff),
+            "w2": (cfg.d_ff, d),
+        }
+        if cfg.is_gqa:
+            layer["wq"] = (d, n, h)
+            layer["wkv"] = (d, 2, g, h)
+        else:
+            layer["wqkv"] = (d, 3, n, h)
+        tree["layers"].append(layer)
+    return tree
+
+
+def _keys(tree, path=()):
+    if isinstance(tree, dict) and not is_quantized(tree):
+        out = set()
+        for k, v in tree.items():
+            out |= _keys(v, path + (k,))
+        return out
+    if isinstance(tree, list):
+        out = {path + ("#len", len(tree))}
+        for i, v in enumerate(tree):
+            out |= _keys(v, path + (i,))
+        return out
+    return {path}
+
+
+def params_from_jax(tree: Dict, cfg, device="cuda") -> Dict:
+    """JAX-layout tree -> the port's params (tensors in cfg.dtype on
+    ``device``). Raises on an int8 ``{"q","s"}`` leaf (a later slice), an
+    MoE layer, or any key or shape that ``cfg`` does not give."""
+    shapes = jax_layout_shapes(cfg)
+    for layer in tree.get("layers", []):
+        if "moe" in layer:
+            raise NotImplementedError(
+                "MoE layers come with a later slice of the port"
+            )
+    if _keys(tree) != _keys(shapes):
+        raise ValueError(
+            "params tree does not match the config's layout: "
+            f"missing {sorted(map(str, _keys(shapes) - _keys(tree)))[:4]}, "
+            f"unexpected {sorted(map(str, _keys(tree) - _keys(shapes)))[:4]}"
+        )
+
+    def leaf(path, x):
+        name = "/".join(map(str, path))
+        if is_quantized(x):
+            raise NotImplementedError(
+                f"int8 leaf {name}: int8 weights come with a later slice "
+                "of the port"
+            )
+        a = np.asarray(x)
+        want = _lookup(shapes, path)
+        if a.shape != tuple(want):
+            raise ValueError(f"{name}: shape {a.shape}, config gives {want}")
+        if a.dtype.kind != "f" or a.dtype.itemsize not in (4, 8):
+            a = a.astype(np.float32)  # bf16/f16 widen exactly
+        return torch.from_numpy(np.array(a, order="C")).to(
+            device=device, dtype=cfg.dtype
+        )
+
+    return _tree_map(leaf, tree)
+
+
+def _lookup(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def params_to_jax(params: Dict) -> Dict:
+    """The port's params -> a JAX-layout tree of numpy arrays (float32
+    for bfloat16 leaves, which numpy cannot hold; the widening is
+    exact)."""
+    def leaf(path, t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return _tree_map(leaf, params)
+
+
+def random_tree(cfg, seed: int = 0) -> Dict:
+    """A JAX-layout numpy tree drawn like ``init_params`` draws it
+    (normal(0.02) weights in f32, unit norm scales), from a numpy seed.
+    Not the JAX values: ``jax.random`` streams are not numpy's."""
+    rng = np.random.default_rng(seed)
+    return _tree_map(
+        lambda path, shape: (
+            np.ones(shape, np.float32) if path[-1].endswith("_scale")
+            else (rng.standard_normal(shape, np.float32) * 0.02)
+        ),
+        jax_layout_shapes(cfg),
+    )

@@ -1,0 +1,139 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. These need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
+Run them there with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+
+Tolerances, as in chip_smoke.py: float32 outputs 1e-4 (summation order
+only); bfloat16 flash outputs 8e-3 (both versions round p to bf16 before
+P.V, so they differ by about an output ulp); bfloat16 paged outputs 1e-3
+(f32 math, one rounding of the output); lse 1e-3 (f32 exp/log order)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from elastic_tpu_agent_torch.workloads import attention as A  # noqa: E402
+from elastic_tpu_agent_torch.workloads import (  # noqa: E402
+    paged_attention as PA,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dtype, bf16):
+    return 1e-4 if dtype == torch.float32 else bf16
+
+
+@pytest.mark.parametrize(
+    "b,s,n,g,h,dtype,causal,window",
+    [
+        (2, 256, 8, 8, 64, torch.bfloat16, True, 0),
+        (2, 256, 8, 8, 64, torch.float32, True, 0),
+        (1, 200, 4, 4, 128, torch.bfloat16, True, 0),   # ragged last tile
+        (1, 200, 4, 2, 128, torch.float32, False, 0),   # GQA, non-causal
+        (2, 256, 4, 4, 64, torch.bfloat16, True, 48),   # sliding window
+        (1, 130, 2, 1, 64, torch.float32, True, 100),
+    ],
+)
+def test_flash_kernel_matches_plain(dev, b, s, n, g, h, dtype, causal, window):
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(b, s, n, h)), dtype=dtype, device=dev)
+    k = torch.tensor(rng.normal(size=(b, s, g, h)), dtype=dtype, device=dev)
+    v = torch.tensor(rng.normal(size=(b, s, g, h)), dtype=dtype, device=dev)
+    fc = A.FlashConfig(causal=causal, window=window)
+    o, lse = A.flash_attention_with_lse(q, k, v, fc)
+    o_ref, lse_ref = A.flash_attention_plain(q, k, v, fc)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    assert err <= _tol(dtype, 8e-3)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_flash_kernel_reads_strided_views(dev):
+    """q/k/v as views of one fused [b, s, 3, n, h] projection."""
+    rng = np.random.default_rng(1)
+    qkv = torch.tensor(
+        rng.normal(size=(2, 128, 3, 4, 64)), dtype=torch.float32, device=dev
+    )
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, _ = A.flash_attention_with_lse(q, k, v)
+    o_ref, _ = A.flash_attention_plain(q, k, v, A.FlashConfig())
+    assert (o - o_ref).abs().max().item() <= 1e-4
+
+
+def _paged_case(rng, slots, g, r, h, bs, n_blocks, nb, dtype, dev):
+    def randn(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype, device=dev)
+
+    q = randn(slots, g * r, h)
+    pk, pv = randn(n_blocks, bs, g, h), randn(n_blocks, bs, g, h)
+    table = np.zeros((slots, nb), np.int32)
+    lengths = np.zeros((slots,), np.int32)
+    ids = rng.permutation(np.arange(1, n_blocks))
+    cur = 0
+    for s in range(slots):
+        used = int(rng.integers(1, nb + 1))
+        table[s, :used] = ids[cur:cur + used]
+        cur += used
+        lengths[s] = int(rng.integers(1, used * bs + 1))
+    return (q, pk, pv, torch.tensor(table, device=dev),
+            torch.tensor(lengths, device=dev))
+
+
+@pytest.mark.parametrize("g,r", [(8, 1), (2, 4), (1, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("window", [0, 37])
+def test_paged_kernel_matches_plain(dev, g, r, dtype, h, window):
+    rng = np.random.default_rng(2)
+    q, pk, pv, table, lengths = _paged_case(
+        rng, 8, g, r, h, 16, 8 * 12 + 1, 12, dtype, dev
+    )
+    got = PA.paged_decode_attention(
+        q, pk, pv, table, lengths, g, window=window
+    )
+    want = PA.paged_decode_attention_reference(
+        q, pk, pv, table, lengths, g, window=window
+    )
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(dtype, 1e-3)
+
+
+def test_paged_kernel_skips_nonfinite_masked_entries(dev):
+    """Masked positions are skipped, not multiplied by 0: NaN in the junk
+    block and past a row's length must not reach the output."""
+    rng = np.random.default_rng(3)
+    q, pk, pv, table, lengths = _paged_case(
+        rng, 4, 2, 2, 64, 16, 4 * 6 + 1, 6, torch.float32, dev
+    )
+    want = PA.paged_decode_attention_reference(q, pk, pv, table, lengths, 2)
+    pk[0], pv[0] = float("nan"), float("nan")
+    for s in range(4):
+        ln = int(lengths[s])
+        blk, off = int(table[s, (ln - 1) // 16]), ln % 16
+        if off:
+            pk[blk, off:], pv[blk, off:] = float("nan"), float("nan")
+    got = PA.paged_decode_attention(q, pk, pv, table, lengths, 2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_launch_counters_count_launches(dev):
+    q = torch.zeros((1, 64, 2, 64), device=dev)
+    before = A.FLASH_FWD.launches
+    A.flash_attention(q, q, q)
+    assert A.FLASH_FWD.launches == before + 1
+    with pytest.raises(ValueError):
+        A.flash_attention_with_lse(q.half(), q.half(), q.half())
+    assert A.FLASH_FWD.launches == before + 1
