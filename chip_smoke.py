@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving slice on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training slices on one
+NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -10,7 +11,11 @@ shows; it then exits 1 before the summary lines. Phases:
    csrc`` (nvcc, sm_90a) into the git-ignored ``_build/`` directory;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time the kernel, the plain version and one
-   PyTorch library call that computes the same function;
+   PyTorch library call that computes the same function (for the flash
+   backward kernels: the backward of scaled_dot_product_attention), all
+   three by device time: CUDA events around calls queued behind a sleep
+   kernel, so that the host's gaps are not timed (the kernel also by
+   CUDA events around calls the host paces);
 3. the flagship forward at the full width of the runner's ``small``
    preset, through the flash kernel, against the same model forced onto
    the reference attention;
@@ -18,11 +23,19 @@ shows; it then exits 1 before the summary lines. Phases:
    greedy and sampled) through the paged-decode kernel; then a float32
    two-layer copy whose kernel-path greedy streams must equal the gather
    path's and ``generate()``'s;
-5. summary: a ``paths`` JSON line, a ``kernels`` JSON line, the card's
+5. the train step at the same preset (batch 8, seq 256, lr 1e-3, f32
+   params computed in bf16: the JAX runner's defaults) for 20 steps on
+   one fixed batch, through the flash forward and both backward kernels,
+   against the same run on the reference attention; then a float32
+   two-layer copy whose kernel-path gradients must equal the reference
+   path's; a short torch.profiler pass gives the device-busy share
+   (reported as not measured when the profiler sees no device time);
+6. summary: a ``paths`` JSON line, a ``kernels`` JSON line, the card's
    name and power limit as nvidia-smi reports them, and the result line.
 
-``--profile`` adds a torch.profiler pass over one forward and 20 decode
-steps (device-busy share and top device ops, printed). ``--out DIR``
+``--profile`` adds a torch.profiler pass over one forward, 20 decode
+steps and 3 train steps (device-busy share and top device ops, printed).
+``--out DIR``
 writes the full report to ``DIR/chip_smoke.json`` and, with
 ``--profile``, the profiler tables and chrome traces to ``DIR/profile/``.
 
@@ -65,6 +78,27 @@ LSE_TOL = 1e-3
 # 2.3 to 2.8.
 FORWARD_BF16_TOL = 0.06
 FORWARD_F32_TOL = 1e-3  # same comparison in float32
+# flash backward kernels, for each of dq, dk, dv: max |kernel - plain|
+# over max |plain| (BWD_TOL), and mean |kernel - plain| over mean |plain|
+# (BWD_MEAN_TOL), which sees a rounding fault that moves every element by
+# less than the largest element's ulp. float32 differs by summation order
+# only. In bf16 one rounding that lands the other way on the largest
+# element is an ulp, up to 2^-8 = 3.9e-3 of it, so the max limit is two
+# ulps; the mean limit sits between the sound kernels' readings and those
+# of kernels with a planted fault (PERF.md, Findings): sound kernels
+# gave up to 3.4e-3 (max) and 1.1e-6 (mean); ds not rounded before dK gave
+# 4.6e-3 to 5.8e-3 and 1.6e-3; the other faults gave 0.2 or more.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+BWD_MEAN_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
+# bf16 training losses over 20 steps, flash kernels vs reference attention
+# (they round scores and probabilities at different places): sound
+# kernels gave 0.045; delta dropped gave 0.71, the q-tile lower bound one
+# tile late 1.1 (PERF.md, Findings).
+TRAIN_BF16_TOL = 0.2
+# float32 two-layer gradients, kernel path vs reference path, relative to
+# each leaf's largest gradient (summation order only)
+TRAIN_GRAD_F32_TOL = 1e-4
+TRAIN_STEPS = 20
 
 
 FAILURES: list = []
@@ -78,8 +112,8 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
-    """Mean device time of fn() in ms over ``iters`` back-to-back calls
-    (CUDA events, after warm-up)."""
+    """Mean time of fn() in ms over ``iters`` back-to-back calls (CUDA
+    events, after warm-up): device time plus any gap the host leaves."""
     import torch
 
     for _ in range(warmup):
@@ -93,6 +127,58 @@ def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, reps: int = 20) -> tuple:
+    """Device time of one fn() in ms: CUDA events around ``reps`` calls
+    that the host queued while a sleep kernel held the card, so that the
+    calls run back to back on the card and the host's gaps between them
+    are not timed (CUDA events around host-bound calls would time them).
+    Returns (ms, queued): ``queued`` is False when the host had not queued
+    every call before the card reached the first, even after a longer
+    sleep and fewer calls; the time then includes host gaps."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0      # the host's time to queue reps
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = int(host_s * 4e9) + 2_000_000  # ~2x that at <= 2 GHz
+    for _ in range(3):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()          # the card still sleeping
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        if queued:
+            break
+        cycles *= 4
+        reps = max(5, reps // 2)            # fewer launches in the queue
+    return ms, queued
+
+
+def timings(torch, fn, plain, library=None) -> dict:
+    """Device ms of the kernel, its plain version and the library call
+    (the kernels line), with the kernel's CUDA-event ms over calls the
+    host paces (``unqueued_ms``) beside."""
+    out = {}
+    for key, f in (("ms", fn), ("plain_ms", plain), ("library_ms", library)):
+        if f is None:
+            out[key] = None
+            continue
+        out[key], queued = device_ms(torch, f)
+        if not queued:
+            print(f"chip_smoke: {key} could not be queued ahead of the card; "
+                  "it includes host gaps", file=sys.stderr)
+    out["unqueued_ms"] = cuda_ms(fn)
+    return out
 
 
 def randn(torch, rng, shape, dtype, dev):
@@ -134,11 +220,12 @@ def check_flash(torch, A, dev):
     q, k, v = (randn(torch, rng, (b, s, n, h), torch.bfloat16, dev)
                for _ in range(3))
     fc = A.FlashConfig()
-    ms = cuda_ms(lambda: A.flash_attention_with_lse(q, k, v, fc))
-    plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v, fc))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
+    times = timings(
+        torch, lambda: A.flash_attention_with_lse(q, k, v, fc),
+        lambda: A.flash_attention_plain(q, k, v, fc),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
     nbytes = 4 * b * s * n * h * 2 + b * n * s * 4      # q, k, v, o + lse
     flops = 4 * b * n * h * (s * (s + 1) // 2)          # QK^T and PV, causal
     t, by = bound(nbytes, flops, "bfloat16")
@@ -146,10 +233,99 @@ def check_flash(torch, A, dev):
         name="flash_fwd", route="cuda",
         source="elastic_tpu_agent_torch/csrc/flash_fwd.cu",
         replaces="elastic_tpu_agent/workloads/attention.py:100",
-        launches=None, max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
-        bound_ms=t, bound_by=by, library_ms=lib_ms,
-        shape=f"[{b},{s},{n},{h}] bf16 causal",
+        launches=None, max_abs_err=err_max, bound_ms=t, bound_by=by,
+        shape=f"[{b},{s},{n},{h}] bf16 causal", **times,
     )
+
+
+def _bwd_inputs(torch, A, rng, dev, shape, dtype, fc, dlse):
+    b, s, n, g, h = shape
+    q, do = (randn(torch, rng, (b, s, n, h), dtype, dev) for _ in range(2))
+    k, v = (randn(torch, rng, (b, s, g, h), dtype, dev) for _ in range(2))
+    o, lse = A.flash_attention_plain(q, k, v, fc)
+    dl = randn(torch, rng, (b, n, s), torch.float32, dev) if dlse else None
+    return q, k, v, do, lse, A.flash_bwd_delta(o, do, dl)
+
+
+def check_flash_bwd(torch, A, dev):
+    """The backward kernels vs their plain versions; returns their
+    records (dK/dV, dQ)."""
+    rng = np.random.default_rng(SEED + 6)
+    b, s, n, h = 8, 256, 8, 64     # the training phase's attention shape
+    fc = A.FlashConfig()
+    cases = [
+        ("bf16 causal", torch.bfloat16, (b, s, n, n, h), fc, False),
+        ("bf16 window 37", torch.bfloat16, (b, s, n, n, h),
+         A.FlashConfig(window=37), False),
+        ("bf16 GQA g2", torch.bfloat16, (b, s, n, 2, h), fc, False),
+        ("bf16 dlse", torch.bfloat16, (b, s, n, n, h), fc, True),
+        ("bf16 h128 s200", torch.bfloat16, (2, 200, n, n, 128), fc, False),
+        ("f32 causal", torch.float32, (b, s, n, n, h), fc, False),
+        ("f32 non-causal GQA h128 s200", torch.float32, (2, 200, n, 2, 128),
+         A.FlashConfig(causal=False), True),
+    ]
+    plains = {"flash_bwd_dkdv": A.flash_bwd_dkdv_plain,
+              "flash_bwd_dq": A.flash_bwd_dq_plain}
+    kerns = {"flash_bwd_dkdv": A.flash_bwd_dkdv,
+             "flash_bwd_dq": A.flash_bwd_dq}
+    abs_max = dict.fromkeys(kerns, 0.0)
+    for label, dtype, shape, cfg, dlse in cases:
+        args = _bwd_inputs(torch, A, rng, dev, shape, dtype, cfg, dlse)
+        name = str(dtype).split(".")[-1]
+        for kname, kern in kerns.items():
+            got, want = kern(*args, cfg), plains[kname](*args, cfg)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            errs, rels, means = [], [], []
+            for x, y in zip(got, want):
+                d, y = (x.float() - y.float()).abs(), y.float().abs()
+                errs.append(d.max().item())
+                rels.append(errs[-1] / y.max().item())
+                means.append((d.mean() / y.mean()).item())
+            print(f"{kname} {label} {list(shape)}: max|err| "
+                  + ", ".join(f"{e:.3g}" for e in errs) + "; relative max "
+                  + ", ".join(f"{r:.3g}" for r in rels) + "; relative mean "
+                  + ", ".join(f"{r:.3g}" for r in means))
+            if not (max(rels) <= BWD_TOL[name]
+                    and max(means) <= BWD_MEAN_TOL[name]):
+                fail(f"{kname} {label}: relative max {rels}, mean {means}")
+            abs_max[kname] = max(abs_max[kname], *errs)
+    # timing at the main path's shape, bf16 causal
+    args = _bwd_inputs(torch, A, rng, dev, (b, s, n, n, h), torch.bfloat16,
+                       fc, False)
+    q, k, v, do = args[:4]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():                     # dq, dk and dv together
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    pairs = b * n * (s * (s + 1) // 2)                 # causal (q, key) pairs
+    in_bytes = 4 * b * s * n * h * 2 + 2 * b * n * s * 4  # q,k,v,dO; lse,delta
+    out_bytes = {"flash_bwd_dkdv": 2 * b * s * n * h * 2,
+                 "flash_bwd_dq": b * s * n * h * 2}
+    flops = {"flash_bwd_dkdv": 4 * 2 * h * pairs,  # QK^T dO.V^T P^T.dO dS^T.Q
+             "flash_bwd_dq": 3 * 2 * h * pairs}    # QK^T dO.V^T dS.K
+    line = {"flash_bwd_dkdv": "attention.py:188", "flash_bwd_dq":
+            "attention.py:249"}
+    out_recs = []
+    for kname, kern in kerns.items():
+        times = timings(torch, lambda: kern(*args, fc),
+                        lambda: plains[kname](*args, fc), library)
+        t, by = bound(in_bytes + out_bytes[kname], flops[kname], "bfloat16")
+        out_recs.append(dict(
+            name=kname, route="cuda",
+            source="elastic_tpu_agent_torch/csrc/flash_bwd.cu",
+            replaces=f"elastic_tpu_agent/workloads/{line[kname]}",
+            launches=None, max_abs_err=abs_max[kname], bound_ms=t,
+            bound_by=by, shape=f"[{b},{s},{n},{h}] bf16 causal; library_ms "
+            "is SDPA's whole backward (dq, dk, dv)", **times,
+        ))
+    return out_recs
 
 
 def _paged_inputs(torch, rng, dev, dtype, g, r, full):
@@ -191,10 +367,10 @@ def check_paged(torch, PA, dev):
     q, pk, pv, table, lengths = _paged_inputs(
         torch, rng, dev, torch.bfloat16, 8, 1, full=True
     )
-    ms = cuda_ms(lambda: PA.paged_decode_attention(
-        q, pk, pv, table, lengths, 8))
-    plain_ms = cuda_ms(lambda: PA.paged_decode_attention_reference(
-        q, pk, pv, table, lengths, 8))
+    times = timings(
+        torch, lambda: PA.paged_decode_attention(q, pk, pv, table, lengths, 8),
+        lambda: PA.paged_decode_attention_reference(
+            q, pk, pv, table, lengths, 8))
     tr = PA.kernel_traffic(8, 32, 16, 8, 64, 2, n_heads=8,
                            lengths=lengths.tolist())
     t, by = bound(tr["bytes"], tr["flops"], "bfloat16")
@@ -202,9 +378,9 @@ def check_paged(torch, PA, dev):
         name="paged_decode", route="cuda",
         source="elastic_tpu_agent_torch/csrc/paged_decode.cu",
         replaces="elastic_tpu_agent/workloads/paged_attention.py:38",
-        launches=None, max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
-        bound_ms=t, bound_by=by, library_ms=None,
+        launches=None, max_abs_err=err_max, bound_ms=t, bound_by=by,
         shape="8 slots x 512 positions, g 8, r 1, h 64, bs 16, bf16",
+        **times,
     )
 
 
@@ -226,6 +402,8 @@ def run_forward(torch, W, A, cfg, params, dev):
         fail(f"logits shape {tuple(logits.shape)}")
     if not torch.isfinite(logits).all():
         fail("non-finite logits")
+    if logits.requires_grad:
+        fail("the serving forward recorded an autograd graph")
     err = (logits.float() - ref.float()).abs().max().item()
     agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
     print(f"forward small preset [8,256] bf16: flash_fwd launches {launches}, "
@@ -355,18 +533,137 @@ def run_serving(torch, W, PA, cfg, params, tree, dev):
     )
 
 
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _flat(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _flat(v)]
+    return [tree]
+
+
+def _train(torch, W, cfg, tree, dev, tokens, steps):
+    """``steps`` train steps from the bridged f32 params; returns the
+    losses, the host-clock step times (each ends in the loss's copy to
+    the host) and a closure that runs one more step."""
+    params = W.params_from_jax(tree, cfg, device=dev, dtype=torch.float32)
+    step, _, opt = W.make_train_step(cfg, learning_rate=1e-3, device=dev)
+    state = opt.init(params)
+    losses, times = [], []
+
+    def one():
+        loss = step(params, state, tokens)[2].item()
+        losses.append(loss)
+        return loss
+
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        one()
+        times.append(time.perf_counter() - t0)
+    return losses, times, one
+
+
+def run_train(torch, W, A, cfg, tree, dev):
+    """The train step through the flash kernels: launches counted over
+    exactly the TRAIN_STEPS main-path steps, losses against the same run on
+    reference attention, f32 gradients against the reference path's."""
+    rng = np.random.default_rng(SEED + 7)
+    batch, seq = 8, 256
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(batch, seq + 1)),
+                          device=dev)
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    for kern in kerns:
+        kern.launches = 0
+    losses, times, one = _train(torch, W, cfg, tree, dev, tokens, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = {kern.symbol: kern.launches for kern in kerns}
+    want = cfg.n_layers * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        fail(f"train launches {launches}, want {want} each")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite train losses {losses}")
+    if not losses[-1] < 0.9 * losses[0]:
+        fail(f"train loss {losses[0]} -> {losses[-1]}: not falling")
+    step_ms = np.asarray(times) * 1e3
+    p50 = float(np.median(step_ms))
+    busy = _profiled(torch, one, 3)[1] or None   # None: no device time seen
+    ref_losses, ref_times, _ = _train(
+        torch, W, dataclasses.replace(cfg, attn="reference"), tree, dev,
+        tokens, TRAIN_STEPS)
+    gap = float(np.max(np.abs(np.asarray(losses[:TRAIN_STEPS])
+                              - np.asarray(ref_losses))))
+    print(f"train small preset [{batch},{seq}] bf16, {TRAIN_STEPS} steps: "
+          f"loss {losses[0]:.4f} -> {losses[TRAIN_STEPS - 1]:.4f}, "
+          f"launches {launches}, step p50 {p50:.2f} ms, "
+          f"{batch * seq / p50 * 1e3:.0f} tokens/s, device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f}'}; "
+          "reference attention step p50 "
+          f"{np.median(ref_times) * 1e3:.2f} ms, max|loss - reference| "
+          f"{gap:.4g}")
+    print("train losses " + " ".join(f"{x:.4f}" for x in losses[:TRAIN_STEPS]))
+    print("reference losses " + " ".join(f"{x:.4f}" for x in ref_losses))
+    if not gap <= TRAIN_BF16_TOL:
+        fail(f"bf16 train losses vs reference attention: {gap}")
+
+    # float32 two-layer copy: one step's gradients, kernels vs reference
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    tree32 = dict(tree, layers=tree["layers"][:2])
+    p32 = W.params_from_jax(tree32, cfg32, device=dev, dtype=torch.float32)
+    tok32 = torch.tensor(rng.integers(0, cfg.vocab, size=(4, 201)),
+                         device=dev)
+    _, g_k = W.loss_and_grads(p32, tok32, cfg32, dev)
+    _, g_r = W.loss_and_grads(
+        p32, tok32, dataclasses.replace(cfg32, attn="reference"), dev)
+    grad_err = max(
+        ((a - b).abs().max() / b.abs().max()).item()
+        for a, b in zip(_flat(g_k), _flat(g_r)))
+    print(f"train f32 2-layer [4,200]: max leaf gradient error vs reference "
+          f"{grad_err:.3g} (relative to the leaf's largest)")
+    if not grad_err <= TRAIN_GRAD_F32_TOL:
+        fail(f"f32 kernel-path gradients vs reference: {grad_err}")
+    return launches, dict(
+        batch=batch, seq=seq, steps=TRAIN_STEPS, loss_first=losses[0],
+        loss_last=losses[TRAIN_STEPS - 1], step_ms_p50=p50,
+        step_ms_mean=float(step_ms.mean()),
+        tokens_per_s=batch * seq / p50 * 1e3, device_busy_share=busy,
+        reference_step_ms_p50=float(np.median(ref_times) * 1e3),
+        max_abs_loss_gap_vs_reference=gap, f32_grad_rel_err=grad_err,
+        launches=launches,
+    )
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
 
 
-def profile_paths(torch, W, cfg, params, dev, out_dir):
-    """torch.profiler over one forward and over 20 steady decode steps (8
-    live greedy rows at ~128 positions): device-busy share of the host
-    wall time and the top device ops; tables and traces go to ``out_dir``
-    unless it is None."""
+def _profiled(torch, fn, reps):
+    """torch.profiler over ``reps`` calls of fn (after one warm call):
+    (the profile, device-busy share of the host wall time, wall us, device
+    busy us)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(_device_us(e) for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU)
+    return prof, busy_us / wall_us, wall_us, busy_us
+
+
+def profile_paths(torch, W, cfg, params, dev, out_dir, train_step):
+    """torch.profiler over one forward, over 20 steady decode steps (8
+    live greedy rows at ~128 positions) and over 3 train steps
+    (``train_step`` runs one): device-busy share of the host wall time
+    and the top device ops; tables and traces go to ``out_dir`` unless it
+    is None."""
+    from torch.autograd import DeviceType
 
     rng = np.random.default_rng(SEED + 5)
     tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 256)),
@@ -381,19 +678,11 @@ def profile_paths(torch, W, cfg, params, dev, out_dir):
     for name, fn, reps in (
         ("forward", lambda: W.forward(params, tokens, cfg, device=dev), 3),
         ("decode_step", eng.step, 20),
+        ("train_step", train_step, 3),
     ):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        prof, _, wall_us, busy_us = _profiled(torch, fn, reps)
         avg = prof.key_averages()
         kernels_ = [e for e in avg if e.device_type != DeviceType.CPU]
-        busy_us = sum(_device_us(e) for e in kernels_)
         top = sorted(kernels_, key=_device_us, reverse=True)[:8]
         out[name] = dict(
             wall_ms_per_call=wall_us / reps / 1e3,
@@ -452,22 +741,35 @@ def main() -> int:
 
     flash = check_flash(torch, A, dev)
     paged = check_paged(torch, PA, dev)
+    dkdv, dq = check_flash_bwd(torch, A, dev)
 
     cfg = W.ModelConfig(**SMALL, max_seq=1024, dtype=torch.bfloat16)
     tree = W.random_tree(cfg, SEED)
     params = W.params_from_jax(tree, cfg, device=dev)
     flash["launches"], fwd = run_forward(torch, W, A, cfg, params, dev)
     paged["launches"], srv = run_serving(torch, W, PA, cfg, params, tree, dev)
+    launches, train = run_train(torch, W, A, cfg, tree, dev)
+    dkdv["launches"] = launches["flash_bwd_dkdv"]
+    dq["launches"] = launches["flash_bwd_dq"]
+    kernel_recs = [flash, paged, dkdv, dq]
+    for x in kernel_recs:
+        print(f"{x['name']} timing: device ms {x['ms']:.4g} (host-paced "
+              f"{x['unqueued_ms']:.4g}), plain {x['plain_ms']:.4g}, library "
+              f"{x['library_ms']}, bound {x['bound_ms']:.3g} ({x['bound_by']})")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
-    report = {"card": card, "forward": fwd, "serving": srv,
-              "kernels": [flash, paged]}
+    report = {"card": card, "forward": fwd, "serving": srv, "train": train,
+              "kernels": kernel_recs}
     if args.profile:
+        rng = np.random.default_rng(SEED + 8)
+        tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 257)),
+                              device=dev)
+        one = _train(torch, W, cfg, tree, dev, tokens, 0)[2]
         report["profile"] = profile_paths(
             torch, W, cfg, params, dev,
-            args.out and os.path.join(args.out, "profile"))
+            args.out and os.path.join(args.out, "profile"), one)
         print(json.dumps({"profile": report["profile"]}))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -475,9 +777,10 @@ def main() -> int:
             json.dump(report, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"paths": {"forward": fwd, "serving": srv}}))
+    print(json.dumps({"paths": {"forward": fwd, "serving": srv,
+                                "train": train}}))
     print(json.dumps(
-        {"kernels": [{k: x[k] for k in keys} for x in (flash, paged)]}))
+        {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,108 @@
+"""Readings of the card checks with planted faults.
+
+Copies the repository (without ``.git``, build outputs and run outputs)
+once per fault, plants the fault by replacing one exact line in the
+copy's CUDA source, runs the copy's ``chip_smoke.py`` and keeps its
+output; the sound tree is run the same way first. The bf16 limits in
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` sit between the sound
+readings and the faulty ones. Needs the card, as ``chip_smoke.py`` does:
+
+    python3 -m elastic_tpu_agent_torch.planted_faults --out DIR
+
+``DIR`` gets one ``<fault>.log`` per run and ``faults.json``: for each
+run its exit code, the readings of the backward-kernel and training
+checks, and the checks that failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+BWD = "elastic_tpu_agent_torch/csrc/flash_bwd.cu"
+
+# name -> (file, exact text, replacement); each text occurs exactly once
+FAULTS = {
+    "sound": None,
+    "F5_ds_not_cast_before_dK": (
+        BWD, "sds[row * PP + sub + TPR * c] = round_to<T>(ds[c]);   // Q's",
+        "sds[row * PP + sub + TPR * c] = ds[c];   // Q's",
+    ),
+    "F6_delta_dropped": (
+        BWD, "ds[c] = p[c] * (dp[c] - dl) * scale;",
+        "ds[c] = p[c] * dp[c] * scale;",
+    ),
+    "F7_gqa_sum_over_wrong_heads": (
+        BWD, "const int head = kvh * group + t;",
+        "const int head = t * kv_heads + kvh;",
+    ),
+    "F8_q_tile_lower_bound_one_late": (
+        BWD, "    lo = blockIdx.y;\n", "    lo = blockIdx.y + 1;\n",
+    ),
+}
+TIMEOUT_S = 900.0  # for each chip_smoke.py run
+KEEP = ("flash_bwd_", "train ", "reference losses", "forward ", "chip_smoke:")
+SKIP = (".git", "_build", "__pycache__", ".pytest_cache")
+
+
+def plant(tree: Path, fault) -> None:
+    if fault is None:
+        return
+    rel, old, new = fault
+    path = tree / rel
+    text = path.read_text()
+    if text.count(old) != 1:
+        raise RuntimeError(f"{rel}: {old!r} occurs {text.count(old)} times")
+    path.write_text(text.replace(old, new))
+
+
+def run(name: str, fault, out: Path) -> dict:
+    tree = out / "trees" / name
+    shutil.rmtree(tree, ignore_errors=True)
+    # the output directory may lie inside the repository: never copy it
+    top = out.relative_to(ROOT).parts[0] if out.is_relative_to(ROOT) \
+        else None
+
+    def ignore(path, names):
+        return [n for n in names
+                if n in SKIP or (Path(path) == ROOT and n == top)]
+
+    shutil.copytree(ROOT, tree, ignore=ignore)
+    plant(tree, fault)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
+        text=True, timeout=TIMEOUT_S,
+    )
+    text = proc.stdout + proc.stderr
+    (out / f"{name}.log").write_text(text)
+    shutil.rmtree(tree, ignore_errors=True)
+    lines = text.splitlines()
+    return dict(
+        rc=proc.returncode, seconds=time.perf_counter() - t0,
+        readings=[x for x in lines if x.startswith(KEEP)],
+    )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", required=True, help="directory for the logs")
+    args = ap.parse_args(argv)
+    out = Path(args.out).resolve()
+    out.mkdir(parents=True, exist_ok=True)
+    results = {}
+    for name, fault in FAULTS.items():
+        results[name] = run(name, fault, out)
+        print(name, "rc", results[name]["rc"], flush=True)
+    (out / "faults.json").write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

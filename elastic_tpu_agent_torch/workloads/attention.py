@@ -1,14 +1,19 @@
-"""Attention for the PyTorch port: the flash-attention forward.
+"""Attention for the PyTorch port: flash attention, forward and backward.
 
 Counterpart of ``elastic_tpu_agent/workloads/attention.py``. The Pallas
-TPU kernel ``_fwd_kernel`` becomes a CUDA kernel written by hand for
-Hopper (``csrc/flash_fwd.cu``); ``flash_attention_plain`` beside it
-computes the same ``(o, lse)`` with materialised scores. The wrapper takes
-the plain version only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+TPU kernels become CUDA kernels written by hand for Hopper: ``_fwd_kernel``
+is ``csrc/flash_fwd.cu``; the backward's ``_dkdv_kernel`` and
+``_dq_kernel`` are ``flash_bwd_dkdv`` and ``flash_bwd_dq`` in
+``csrc/flash_bwd.cu``. Beside each kernel a plain version computes the
+same function with materialised scores (``flash_attention_plain``,
+``flash_bwd_dkdv_plain``, ``flash_bwd_dq_plain``). Every wrapper takes the
+plain version only for tensors on the CPU; for a CUDA tensor it launches
+the kernel or raises.
 
-Forward only: the backward kernels (``_dkdv_kernel``, ``_dq_kernel``)
-belong to the training slice, so asking for a gradient raises.
+``flash_attention`` and ``flash_attention_with_lse`` share one
+``torch.autograd.Function``: the forward saves ``(q, k, v, o, lse)`` and
+the backward recomputes the probabilities from ``lse``, as ``_flash_bwd``
+does, folding the lse cotangent (if lse was used) into ``delta``.
 """
 
 from __future__ import annotations
@@ -117,6 +122,94 @@ def flash_attention_plain(
     return o, lse
 
 
+# -- backward: plain versions --------------------------------------------
+
+
+def _scale(cfg: FlashConfig, head_dim: int) -> float:
+    return cfg.sm_scale if cfg.sm_scale is not None else 1.0 / math.sqrt(
+        head_dim
+    )
+
+
+def flash_bwd_delta(
+    o: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32 from the stored dtypes, minus the lse
+    cotangent when one is given: [b, n, s] f32, contiguous. Elementwise
+    work that the JAX package leaves to XLA, so a torch expression here
+    too. Folding -dlse into delta routes d lse / d s = p through the
+    kernels unchanged (``_flash_bwd``)."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def _recompute_p(q, k, lse, cfg: FlashConfig) -> torch.Tensor:
+    """p = exp(s - lse) [b, n, s, t] f32: f32 scores from the inputs'
+    values, masked at NEG_INF (so masked p is exactly 0)."""
+    n, s = q.shape[2], q.shape[1]
+    scores = torch.einsum(
+        "bsnh,btnh->bnst", q.float(), _repeat_kv(k, n).float()
+    ) * _scale(cfg, q.shape[-1])
+    if cfg.causal:
+        mask = _causal_mask(s, s, cfg.window, q.device)
+        scores = torch.where(mask[None, None], scores, NEG_INF)
+    return torch.exp(scores - lse[..., None])
+
+
+def _ds(q, k, v, do, lse, delta, cfg: FlashConfig):
+    """(p, ds = p * (dO.V^T - delta) * scale), both [b, n, s, t] f32."""
+    p = _recompute_p(q, k, lse, cfg)
+    dp = torch.einsum(
+        "bsnh,btnh->bnst", do.float(), _repeat_kv(v, q.shape[2]).float()
+    )
+    return p, p * (dp - delta[..., None]) * _scale(cfg, q.shape[-1])
+
+
+def _group_sum(x: torch.Tensor, g: int) -> torch.Tensor:
+    """[b, s, n, h] -> [b, s, g, h]: the sum over each kv head's n/g query
+    heads (the gradient of the JAX layer's contiguous-group repeat)."""
+    b, s, n, h = x.shape
+    return x.reshape(b, s, g, n // g, h).sum(3)
+
+
+def flash_bwd_dkdv_plain(
+    q, k, v, do, lse, delta, cfg: FlashConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel's function: (dk, dv) [b, s, g, h] in k's / v's
+    dtype. Rounds where ``_dkdv_kernel`` rounds: p to dO's dtype before
+    p^T.dO, ds to q's dtype before ds^T.q; sums in f32 over q rows and over
+    the group's query heads, then casts once."""
+    p, ds = _ds(q, k, v, do, lse, delta, cfg)
+    dv = torch.einsum("bnst,bsnh->btnh", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bnst,bsnh->btnh", ds.to(q.dtype).float(), q.float())
+    g = k.shape[2]
+    return _group_sum(dk, g).to(k.dtype), _group_sum(dv, g).to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, cfg: FlashConfig):
+    """The dQ kernel's function: dq [b, s, n, h] in q's dtype, with ds
+    rounded to k's dtype before ds.k, as ``_dq_kernel`` does."""
+    _, ds = _ds(q, k, v, do, lse, delta, cfg)
+    dq = torch.einsum(
+        "bnst,btnh->bsnh", ds.to(k.dtype).float(),
+        _repeat_kv(k, q.shape[2]).float(),
+    )
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_plain(
+    q, k, v, o, lse, do, cfg: FlashConfig, dlse=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention from the forward's saved (q, k, v,
+    o, lse) and the cotangents (do, dlse), as ``_flash_bwd`` computes
+    them; k/v may carry g | n heads and get [b, s, g, h] gradients."""
+    delta = flash_bwd_delta(o, do, dlse)
+    dk, dv = flash_bwd_dkdv_plain(q, k, v, do, lse, delta, cfg)
+    return flash_bwd_dq_plain(q, k, v, do, lse, delta, cfg), dk, dv
+
+
 # C entry: csrc/flash_fwd.cu `flash_fwd`
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
@@ -127,30 +220,58 @@ FLASH_FWD = CudaKernel(
 )
 
 
+def _check_kernel_inputs(q, k, v, *others) -> None:
+    """Raise unless q [b,s,n,h], k/v [b,s,g,h] (g | n) and the [b,s,n,h]
+    ``others`` share q's device and dtype (float32 or bfloat16), head_dim
+    is 64 or 128 and every head_dim axis is contiguous."""
+    b, s, n, h = q.shape
+    g = k.shape[2]
+    named = [("k", k, g), ("v", v, g)] + [
+        (f"input {i + 4}", x, n) for i, x in enumerate(others)
+    ]
+    for name, x, heads in named:
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
+        if x.dim() != 4 or tuple(x.shape) != (b, s, heads, h):
+            raise ValueError(
+                f"{name} shape {tuple(x.shape)} vs q {tuple(q.shape)}"
+            )
+    if n % g:
+        raise ValueError(f"{g} kv heads do not divide {n} query heads")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"flash kernel takes float32/bfloat16, not {q.dtype}")
+    if h not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim 64/128, not {h}")
+    if any(x.stride(-1) != 1 for x in (q, k, v, *others)):
+        raise ValueError("flash kernel needs a contiguous head_dim axis")
+
+
+def _check_rows(q, *rows) -> None:
+    """lse/delta: contiguous f32 [b, n, s] on q's device."""
+    b, s, n, _ = q.shape
+    for x in rows:
+        if (x.device != q.device or x.dtype != torch.float32
+                or tuple(x.shape) != (b, n, s) or not x.is_contiguous()):
+            raise ValueError(
+                f"lse/delta must be contiguous float32 {(b, n, s)} on "
+                f"{q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+
+
+def _strides(*xs):
+    return [st for x in xs for st in (x.stride(0), x.stride(1), x.stride(2))]
+
+
 def _flash_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: FlashConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper flash-forward kernel on [b, s, n, h] tensors
     (k/v may have g | n heads), read through their strides."""
+    _check_kernel_inputs(q, k, v)
     b, s, n, h = q.shape
     g = k.shape[2]
-    for name, x in (("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != q.dtype:
-            raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
-        if x.dim() != 4 or (x.shape[0], x.shape[1], x.shape[3]) != (b, s, h):
-            raise ValueError(
-                f"{name} shape {tuple(x.shape)} vs q {tuple(q.shape)}"
-            )
-    if v.shape[2] != g or n % g:
-        raise ValueError(f"kv heads {g}/{v.shape[2]} do not divide {n}")
-    if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"flash kernel takes float32/bfloat16, not {q.dtype}")
-    if h not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim 64/128, not {h}")
-    if any(x.stride(-1) != 1 for x in (q, k, v)):
-        raise ValueError("flash kernel needs a contiguous head_dim axis")
     o = torch.empty((b, s, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, s), dtype=torch.float32, device=q.device)
     scale = cfg.sm_scale if cfg.sm_scale is not None else 1.0 / math.sqrt(h)
@@ -159,37 +280,108 @@ def _flash_fwd_cuda(
         FLASH_FWD(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), KERNEL_DTYPES[q.dtype], b, s, n, g, h,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
+            *_strides(q, k, v),
             scale, int(cfg.causal), int(cfg.window), stream,
         )
     return o, lse
 
 
-def flash_attention_with_lse(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    cfg: FlashConfig = FlashConfig(),
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash attention forward returning (o [b,s,n,h], lse [b,n,s]).
-    Requires the shape gate (callers dispatch; no fallback here)."""
-    if torch.is_grad_enabled() and (
-        q.requires_grad or k.requires_grad or v.requires_grad
-    ):
-        raise NotImplementedError(
-            "flash attention is forward-only in this port: its backward "
-            "kernels (_dkdv_kernel, _dq_kernel) come with the training "
-            "slice; call under torch.no_grad()"
+# C entries: csrc/flash_bwd.cu `flash_bwd_dkdv`, `flash_bwd_dq`
+_BWD_ARGS = [_I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _I, _P]
+FLASH_BWD_DKDV = CudaKernel(
+    "flash_bwd", "flash_bwd_dkdv", [_P] * 8 + _BWD_ARGS
+)
+FLASH_BWD_DQ = CudaKernel("flash_bwd", "flash_bwd_dq", [_P] * 7 + _BWD_ARGS)
+
+
+def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, cfg) -> None:
+    _check_kernel_inputs(q, k, v, do)
+    _check_rows(q, lse, delta)
+    b, s, n, h = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        kernel(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+            KERNEL_DTYPES[q.dtype], b, s, n, k.shape[2], h,
+            *_strides(q, k, v, do), _scale(cfg, h), int(cfg.causal),
+            int(cfg.window), stream,
         )
+
+
+def flash_bwd_dkdv(
+    q, k, v, do, lse, delta, cfg: FlashConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [b, s, g, h]: the Hopper dK/dV kernel for CUDA tensors
+    (read through their strides), its plain version for CPU ones."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, cfg)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd(FLASH_BWD_DKDV, (dk, dv), q, k, v, do, lse, delta, cfg)
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, cfg: FlashConfig) -> torch.Tensor:
+    """dq [b, s, n, h]: the Hopper dQ kernel for CUDA tensors, its plain
+    version for CPU ones."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, cfg)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd(FLASH_BWD_DQ, (dq,), q, k, v, do, lse, delta, cfg)
+    return dq
+
+
+def _flash_fwd(q, k, v, cfg: FlashConfig):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, cfg)
+    return _flash_fwd_cuda(q, k, v, cfg)
+
+
+class _FlashAttentionWithLse(torch.autograd.Function):
+    """(o, lse) = flash(q, k, v); backward through the dK/dV and dQ
+    kernels, with the lse cotangent folded into delta. A cotangent of an
+    output that was not used arrives as None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg):
+        o, lse = _flash_fwd(q, k, v, cfg)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = cfg
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:          # only lse was used downstream
+            do = torch.zeros_like(o)
+        elif do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = flash_bwd_delta(o, do, dlse)
+        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, ctx.cfg)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.cfg)
+        return dq, dk, dv, None
+
+
+def _check_call(q, cfg: FlashConfig) -> None:
     if not supports_flash(q.shape[1], q.shape[3]):
         raise ValueError(
             f"shape {tuple(q.shape)} / {cfg} is outside the flash gate"
         )
     if cfg.window > 0 and not cfg.causal:
         raise ValueError("sliding-window attention requires causal")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, cfg)
-    return _flash_fwd_cuda(q, k, v, cfg)
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    cfg: FlashConfig = FlashConfig(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention returning (o [b,s,n,h], lse [b,n,s]), both
+    differentiable. Requires the shape gate (callers dispatch; no
+    fallback here)."""
+    _check_call(q, cfg)
+    return _FlashAttentionWithLse.apply(q, k, v, cfg)
 
 
 def flash_attention(
@@ -206,4 +398,5 @@ def flash_attention(
             q, k, v, causal=cfg.causal, sm_scale=cfg.sm_scale,
             window=cfg.window,
         )
-    return flash_attention_with_lse(q, k, v, cfg)[0]
+    _check_call(q, cfg)
+    return _FlashAttentionWithLse.apply(q, k, v, cfg)[0]

@@ -1,24 +1,32 @@
-"""Flagship decoder-only transformer LM, PyTorch port (forward only).
+"""Flagship decoder-only transformer LM, PyTorch port: forward, train step
+and eval.
 
 Counterpart of ``elastic_tpu_agent/workloads/transformer.py``: the same
 config fields, the same parameter tree (``weights.params_from_jax`` loads a
 JAX ``init_params`` tree, axis layout kept), the same layer body. Plain
 functions on a dict of tensors, as the JAX code is functions on a pytree.
-The attention core is the Hopper flash kernel wherever its gate admits the
-shape (head_dim 64 or 128); the projections and MLP stay ``torch.einsum``,
-as the JAX package leaves them to XLA.
+The attention core is the Hopper flash kernel (forward and backward)
+wherever its gate admits the shape (head_dim 64 or 128); the projections
+and MLP stay ``torch.einsum``, as the JAX package leaves them to XLA.
 
-Dense models on one device only: MoE layers and ring attention come with
-later slices and raise here.
+``make_train_step`` is the JAX train step on one device: the shifted
+cross entropy, autograd for ``jax.value_and_grad``, optax's ``adamw`` as
+``AdamW``, gradient accumulation, the parameter EMA and f32 master
+weights. ``make_eval_fn`` is the eval loss.
+
+Dense models on one device only: MoE layers, ring attention and zero1
+come with later slices and raise here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (
     auto_flash_config,
@@ -27,6 +35,7 @@ from .attention import (
     supports_flash,
 )
 from .quantize import embed_lookup, wdense
+from .weights import _tree_map, jax_layout_shapes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +59,10 @@ class ModelConfig:
     # the shape, the materialised-scores einsum otherwise; "flash" and
     # "reference" force one ("ring" comes with the multi-GPU slice).
     attn: str = "auto"
-    remat: bool = False  # training only; no effect on the forward
+    # Recompute each layer in the backward (torch.utils.checkpoint, as
+    # jax.checkpoint): more FLOPs for fewer saved activations. Only acts
+    # where autograd records the forward.
+    remat: bool = False
     moe_experts: int = 0
     moe_every: int = 2
     moe_capacity_factor: float = 1.25
@@ -89,13 +101,13 @@ class ModelConfig:
 
 
 def init_params(
-    cfg: ModelConfig, generator: torch.Generator, device="cuda"
+    cfg: ModelConfig, generator: torch.Generator, device="cuda", dtype=None,
 ) -> Dict:
     """Random params in the JAX ``init_params`` layout (normal(0.02)
     weights, unit norm scales), drawn from ``generator`` on the CPU and
-    stored in cfg.dtype on ``device``. For convenience only: parity with
-    the JAX package always goes through ``weights.params_from_jax``."""
-    from .weights import _tree_map, jax_layout_shapes
+    stored in ``dtype`` (default cfg.dtype) on ``device``. For convenience
+    only: parity with the JAX package always goes through
+    ``weights.params_from_jax``."""
 
     def draw(shape):
         return torch.randn(shape, generator=generator) * 0.02
@@ -107,7 +119,7 @@ def init_params(
         jax_layout_shapes(cfg),
     )
     return _tree_map(
-        lambda path, t: t.to(device=device, dtype=cfg.dtype), tree
+        lambda path, t: t.to(device=device, dtype=dtype or cfg.dtype), tree
     )
 
 
@@ -204,13 +216,14 @@ def as_device(device) -> torch.device:
     return device
 
 
-@torch.no_grad()
 def forward_with_aux(
     params: Dict, tokens, cfg: ModelConfig, device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(token logits [b, s, vocab] in cfg.dtype, aux loss = 0.0: dense
     models have no MoE aux term). Runs on ``device``, where ``params``
-    must already live."""
+    must already live. Differentiable: autograd records a graph only when
+    a parameter requires grad, so bridged serving params run without
+    one."""
     device = as_device(device)
     _check_device(params, device)
     tokens = torch.as_tensor(tokens, device=device).long()
@@ -218,9 +231,16 @@ def forward_with_aux(
     x = embed_lookup(params, tokens, cfg.dtype)
     if cfg.pos == "learned":
         x = x + params["pos_embed"].to(cfg.dtype)[:s][None]
-    for layer in params["layers"]:
+
+    def layer_fn(x, layer):
         x = x + _attention(_rmsnorm(x, layer["ln1_scale"]), layer, cfg)
-        x = x + _mlp(_rmsnorm(x, layer["ln2_scale"]), layer, cfg)
+        return x + _mlp(_rmsnorm(x, layer["ln2_scale"]), layer, cfg)
+
+    for layer in params["layers"]:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(layer_fn, x, layer, use_reentrant=False)
+        else:
+            x = layer_fn(x, layer)
     x = _rmsnorm(x, params["final_norm_scale"])
     logits = torch.einsum(
         "bsd,dv->bsv", x, wdense(params, "lm_head", cfg.dtype)
@@ -233,3 +253,228 @@ def forward(
 ) -> torch.Tensor:
     """Token logits (aux loss discarded; see forward_with_aux)."""
     return forward_with_aux(params, tokens, cfg, device)[0]
+
+
+# -- training step ---------------------------------------------------------
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    _tree_map(lambda path, t: out.append(t), tree)
+    return out
+
+
+def _like(tree, leaves) -> Dict:
+    """A tree shaped like ``tree`` holding ``leaves`` in _leaves order."""
+    it = iter(leaves)
+    return _tree_map(lambda path, _: next(it), tree)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy on f32 logits (optax's
+    softmax_cross_entropy_with_integer_labels, then the mean)."""
+    return F.cross_entropy(
+        logits.float().flatten(0, 1), targets.flatten(), reduction="mean"
+    )
+
+
+def loss_and_grads(
+    params: Dict, tokens, cfg: ModelConfig, device="cuda",
+) -> Tuple[torch.Tensor, Dict]:
+    """(loss, grads) of the train step's loss on tokens [b, seq+1]: the
+    mean cross entropy of the shifted targets plus moe_aux_coef * aux, and
+    its gradient as a tree shaped like ``params`` in each leaf's dtype
+    (``jax.value_and_grad(loss_fn)`` in the JAX ``make_train_step``). The
+    caller's tensors are left as they are: the gradient is taken through
+    aliases that require grad."""
+    device = as_device(device)
+    tokens = torch.as_tensor(tokens, device=device).long()
+    live = _tree_map(lambda path, p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        logits, aux = forward_with_aux(live, tokens[:, :-1], cfg, device)
+        loss = _nll(logits, tokens[:, 1:]) + cfg.moe_aux_coef * aux
+        grads = torch.autograd.grad(loss, _leaves(live))
+    return loss.detach(), _like(params, grads)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+class AdamW:
+    """``optax.adamw(learning_rate)`` as the JAX train step builds it
+    (b1 0.9, b2 0.999, eps 1e-8 added outside the square root, weight
+    decay 1e-4 on every leaf, bias correction from the step count,
+    ``learning_rate`` a float or a schedule ``count -> lr``), chained, for
+    ``ema_decay`` > 0, with the parameter EMA of the JAX ``EmaState``
+    stage, and holding the f32 masters under ``master_weights``.
+
+    The state is a plain dict of tensors, as optax's is a tree: ``count``
+    (int32, kept on the host so the bias correction and a schedule read
+    it without waiting on the device), ``mu`` and ``nu`` (trees like the
+    params), then ``ema`` (the EmaState's tree) and ``masters`` (f32)
+    where enabled. ``update_`` applies one step in place."""
+
+    # optax.adamw's defaults; weight decay is 1e-4 there, not torch's 1e-2
+    b1, b2, eps, weight_decay = 0.9, 0.999, 1e-8, 1e-4
+
+    def __init__(
+        self, learning_rate: Union[float, Callable[[int], float]] = 1e-3,
+        ema_decay: float = 0.0, master_weights: bool = False,
+    ):
+        if not 0.0 <= ema_decay < 1.0:
+            # decay 1.0 would freeze the EMA at its init forever
+            raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
+        self.learning_rate = learning_rate
+        self.ema_decay = ema_decay
+        self.master_weights = master_weights
+
+    def init(self, params: Dict) -> Dict:
+        """Optimizer state for ``params`` as stored (``cfg.dtype`` live
+        leaves under master_weights, whose f32 masters it copies)."""
+        base = params
+        if self.master_weights:
+            base = _tree_map(lambda path, p: p.detach().float(), params)
+        state = {
+            "count": torch.zeros((), dtype=torch.int32),
+            "mu": _tree_map(lambda path, p: torch.zeros_like(p), base),
+            "nu": _tree_map(lambda path, p: torch.zeros_like(p), base),
+        }
+        if self.ema_decay > 0.0:
+            state["ema"] = _tree_map(lambda path, p: p.detach().clone(), base)
+        if self.master_weights:
+            state["masters"] = base
+        return state
+
+    @torch.no_grad()
+    def update_(self, grads: Dict, state: Dict, params: Dict) -> None:
+        """One AdamW step from ``grads``, in place on ``state`` and
+        ``params`` (the JAX step donates both). Under master_weights the
+        f32 masters take the update and the live leaves are re-rounded
+        from them."""
+        count = int(state["count"])
+        lr = (
+            self.learning_rate(count) if callable(self.learning_rate)
+            else self.learning_rate
+        )
+        # f32 bias corrections from the incremented count, as optax
+        bc1 = _f32(1.0 - np.float32(self.b1) ** np.float32(count + 1))
+        bc2 = _f32(1.0 - np.float32(self.b2) ** np.float32(count + 1))
+        targets = _leaves(state["masters"] if self.master_weights else params)
+        gs = _leaves(grads)
+        if self.master_weights:
+            gs = [g.float() for g in gs]
+        mus, nus = _leaves(state["mu"]), _leaves(state["nu"])
+        torch._foreach_mul_(mus, self.b1)
+        torch._foreach_add_(mus, gs, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nus, self.b2)
+        torch._foreach_addcmul_(nus, gs, gs, value=1.0 - self.b2)
+        denom = torch._foreach_div(nus, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mus, bc1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(upd, targets, alpha=self.weight_decay)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(targets, upd)
+        if self.ema_decay > 0.0:
+            ema = _leaves(state["ema"])
+            torch._foreach_mul_(ema, self.ema_decay)
+            torch._foreach_add_(ema, targets, alpha=1.0 - self.ema_decay)
+        if self.master_weights:
+            torch._foreach_copy_(_leaves(params), targets)
+        state["count"] += 1
+
+
+def ema_params(opt_state: Dict) -> Optional[Dict]:
+    """The EMA tree of an optimizer state built with ema_decay > 0 (None
+    without): the JAX package's ``EmaState.ema``."""
+    return opt_state.get("ema")
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    learning_rate: Union[float, Callable[[int], float]] = 1e-3,
+    accum_steps: int = 1, ema_decay: float = 0.0,
+    master_weights: bool = False, zero1: bool = False, device="cuda",
+):
+    """(train_step, init_all, optimizer) for one device, as the JAX
+    ``make_train_step`` returns them.
+
+    ``train_step(params, opt_state, tokens) -> (params, opt_state, loss)``
+    takes tokens [batch, seq+1] (targets are the shift by one), or
+    [accum_steps, batch, seq+1] when ``accum_steps`` > 1: then the f32
+    gradients of the micro-batches are summed, their mean is cast back to
+    each param's dtype (not under master_weights, whose f32 optimizer
+    takes the f32 mean) and one optimizer update applies it; the loss is
+    the micro-batches' mean. The step UPDATES ``params`` and ``opt_state``
+    IN PLACE (the JAX step donates both) and returns the same objects;
+    the loss is a 0-dim f32 tensor on the device.
+
+    ``init_all(generator)`` draws params like ``init_params`` and stores
+    them as the JAX step does: f32, or cfg.dtype live leaves under
+    ``master_weights``. ``optimizer`` is the ``AdamW``; its ``init(params)``
+    starts the state for params loaded another way (the weight bridge with
+    ``dtype=torch.float32``). ``learning_rate``, ``ema_decay`` and
+    ``master_weights`` are those of the JAX step. ``zero1`` shards the
+    optimizer state over data-parallel ranks and raises here."""
+    if zero1:
+        raise NotImplementedError(
+            "zero1 shards the optimizer state over data-parallel ranks: it "
+            "comes with the multi-GPU slice of the port"
+        )
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    device = as_device(device)
+    optimizer = AdamW(
+        learning_rate, ema_decay=ema_decay, master_weights=master_weights
+    )
+
+    def grads_of(params, tokens):
+        if accum_steps == 1:
+            return loss_and_grads(params, tokens, cfg, device)
+        if tokens.dim() != 3 or tokens.shape[0] != accum_steps:
+            raise ValueError(
+                f"tokens {tuple(tokens.shape)}: want [{accum_steps}, batch, "
+                "seq+1] with accum_steps > 1"
+            )
+        gsum, lsum = None, None
+        for micro in tokens:
+            loss, grads = loss_and_grads(params, micro, cfg, device)
+            g32 = [g.float() for g in _leaves(grads)]
+            if gsum is None:
+                gsum, lsum = g32, loss
+            else:
+                torch._foreach_add_(gsum, g32)
+                lsum = lsum + loss
+        torch._foreach_div_(gsum, accum_steps)
+        if not master_weights:
+            gsum = [g.to(p.dtype) for g, p in zip(gsum, _leaves(params))]
+        return lsum / accum_steps, _like(params, gsum)
+
+    def train_step(params, opt_state, tokens):
+        tokens = torch.as_tensor(tokens, device=device).long()
+        loss, grads = grads_of(params, tokens)
+        optimizer.update_(grads, opt_state, params)
+        return params, opt_state, loss
+
+    def init_all(generator: torch.Generator):
+        stored = cfg.dtype if master_weights else torch.float32
+        params = init_params(cfg, generator, device, dtype=stored)
+        return params, optimizer.init(params)
+
+    return train_step, init_all, optimizer
+
+
+def make_eval_fn(cfg: ModelConfig, device="cuda"):
+    """(params, tokens [b, seq+1]) -> mean next-token NLL (f32 0-dim
+    tensor), with no MoE aux term and no graph."""
+    device = as_device(device)
+
+    @torch.no_grad()
+    def eval_loss(params, tokens):
+        tokens = torch.as_tensor(tokens, device=device).long()
+        logits, _ = forward_with_aux(params, tokens[:, :-1], cfg, device)
+        return _nll(logits, tokens[:, 1:])
+
+    return eval_loss

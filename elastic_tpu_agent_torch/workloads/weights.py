@@ -7,9 +7,13 @@ layout (``wqkv [d,3,n,h]``, ``wq [d,n,h]``, ``wkv [d,2,g,h]``, ``wo [n,h,d]``,
 ``w1``, ``w2``, ``embed``, ``pos_embed``, ``lm_head`` and the norm scales)
 as torch tensors. ``params_to_jax`` goes back to numpy.
 
-Every leaf is stored in ``cfg.dtype``. The JAX code keeps f32 leaves and
-casts each to ``cfg.dtype`` at every use (``.astype(cfg.dtype)``), so
-casting once at load gives the same numbers the JAX forward computes with.
+Leaves are stored in the dtype the caller asks for, ``cfg.dtype`` by
+default. The JAX code casts each leaf to ``cfg.dtype`` at every use
+(``.astype(cfg.dtype)``, ``wdense``), so for serving, casting once at load
+gives the same numbers the JAX forward computes with. The JAX train step
+stores f32 leaves and updates them in f32 (or, under ``master_weights``,
+``cfg.dtype`` live leaves beside f32 masters): load with
+``dtype=torch.float32`` to train as it does.
 
 This module imports neither JAX nor the JAX package: the tree is plain
 data, checked against the shapes ``jax_layout_shapes`` derives from the
@@ -83,9 +87,9 @@ def _keys(tree, path=()):
     return {path}
 
 
-def params_from_jax(tree: Dict, cfg, device="cuda") -> Dict:
-    """JAX-layout tree -> the port's params (tensors in cfg.dtype on
-    ``device``). Raises on an int8 ``{"q","s"}`` leaf (a later slice), an
+def params_from_jax(tree: Dict, cfg, device="cuda", dtype=None) -> Dict:
+    """JAX-layout tree -> the port's params (tensors in ``dtype``, default
+    cfg.dtype, on ``device``). Raises on an int8 ``{"q","s"}`` leaf (a later slice), an
     MoE layer, or any key or shape that ``cfg`` does not give."""
     shapes = jax_layout_shapes(cfg)
     for layer in tree.get("layers", []):
@@ -114,7 +118,7 @@ def params_from_jax(tree: Dict, cfg, device="cuda") -> Dict:
         if a.dtype.kind != "f" or a.dtype.itemsize not in (4, 8):
             a = a.astype(np.float32)  # bf16/f16 widen exactly
         return torch.from_numpy(np.array(a, order="C")).to(
-            device=device, dtype=cfg.dtype
+            device=device, dtype=dtype or cfg.dtype
         )
 
     return _tree_map(leaf, tree)

@@ -5,7 +5,14 @@ Run them there with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerances, as in chip_smoke.py: float32 outputs 1e-4 (summation order
 only); bfloat16 flash outputs 8e-3 (both versions round p to bf16 before
 P.V, so they differ by about an output ulp); bfloat16 paged outputs 1e-3
-(f32 math, one rounding of the output); lse 1e-3 (f32 exp/log order)."""
+(f32 math, one rounding of the output); lse 1e-3 (f32 exp/log order).
+The backward kernels are held, for each of dq, dk, dv, by max |kernel -
+plain| over max |plain| and by mean |kernel - plain| over mean |plain|:
+float32 1e-5 for both; bfloat16 BWD_BF16_TOL, two ulps of the largest
+element, and BWD_BF16_MEAN_TOL (both versions round p and ds to bf16
+where the TPU kernels do, so they differ by an output ulp in a few
+elements; chip_smoke.py's limits, set from sound and planted-fault
+readings)."""
 
 import numpy as np
 import pytest
@@ -137,3 +144,97 @@ def test_launch_counters_count_launches(dev):
     with pytest.raises(ValueError):
         A.flash_attention_with_lse(q.half(), q.half(), q.half())
     assert A.FLASH_FWD.launches == before + 1
+
+
+BWD_BF16_TOL = 8e-3
+BWD_BF16_MEAN_TOL = 1e-5
+
+
+def _bwd_inputs(rng, b, s, n, g, h, dtype, dev, cfg, dlse, fused=False):
+    def randn(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype, device=dev)
+
+    if fused:   # q, k, v and dO as strided views, as the layer makes them
+        qkv = randn(b, s, 3, n, h)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = randn(b, n, s, h).transpose(1, 2)
+    else:
+        q, do = randn(b, s, n, h), randn(b, s, n, h)
+        k, v = randn(b, s, g, h), randn(b, s, g, h)
+    o, lse = A.flash_attention_plain(q, k, v, cfg)
+    dl = (torch.tensor(rng.normal(size=(b, n, s)), dtype=torch.float32,
+                       device=dev) if dlse else None)
+    return q, k, v, do, lse, A.flash_bwd_delta(o, do, dl)
+
+
+def _bwd_errors(q, k, v, do, lse, delta, cfg):
+    got = (A.flash_bwd_dq(q, k, v, do, lse, delta, cfg),
+           *A.flash_bwd_dkdv(q, k, v, do, lse, delta, cfg))
+    want = (A.flash_bwd_dq_plain(q, k, v, do, lse, delta, cfg),
+            *A.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, cfg))
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype
+    out = []
+    for x, y in zip(got, want):
+        d, y = (x.float() - y.float()).abs(), y.float().abs()
+        out.append(((d.max() / y.max()).item(), (d.mean() / y.mean()).item()))
+    return out
+
+
+def _assert_bwd_close(errs, dtype):
+    tol, mean_tol = ((1e-5, 1e-5) if dtype == torch.float32
+                     else (BWD_BF16_TOL, BWD_BF16_MEAN_TOL))
+    assert all(e <= tol and m <= mean_tol for e, m in errs), (
+        f"(max, mean) relative errors of dq, dk, dv: {errs}")
+
+
+@pytest.mark.parametrize("dlse", [False, True], ids=["delta", "dlse"])
+@pytest.mark.parametrize("s", [256, 200])
+@pytest.mark.parametrize(
+    "causal,window", [(True, 0), (True, 37), (False, 0)],
+    ids=["causal", "window37", "noncausal"],
+)
+@pytest.mark.parametrize("n,g", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain(dev, dtype, h, n, g, causal, window,
+                                       s, dlse):
+    rng = np.random.default_rng(4)
+    cfg = A.FlashConfig(causal=causal, window=window)
+    _assert_bwd_close(_bwd_errors(
+        *_bwd_inputs(rng, 2, s, n, g, h, dtype, dev, cfg, dlse), cfg), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_read_strided_views(dev, dtype):
+    rng = np.random.default_rng(5)
+    cfg = A.FlashConfig()
+    inputs = _bwd_inputs(rng, 2, 192, 4, 4, 64, dtype, dev, cfg, False,
+                         fused=True)
+    assert not inputs[0].is_contiguous() and not inputs[3].is_contiguous()
+    _assert_bwd_close(_bwd_errors(*inputs, cfg), dtype)
+
+
+def test_flash_autograd_launches_the_backward_kernels(dev):
+    """One backward through the op launches each backward kernel once;
+    its gradients match autograd through the reference attention."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.tensor(rng.normal(size=(2, 130, 4, 64)),
+                            dtype=torch.float32, device=dev,
+                            requires_grad=True) for _ in range(3))
+    w = torch.tensor(rng.normal(size=(2, 130, 4, 64)), dtype=torch.float32,
+                     device=dev)
+    before = (A.FLASH_BWD_DKDV.launches, A.FLASH_BWD_DQ.launches)
+    got = torch.autograd.grad((A.flash_attention(q, k, v) * w).sum(),
+                              (q, k, v))
+    assert (A.FLASH_BWD_DKDV.launches, A.FLASH_BWD_DQ.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(
+        (A.reference_attention(q, k, v) * w).sum(), (q, k, v))
+    for x, y in zip(got, want):
+        assert (x - y).abs().max().item() <= 1e-4
+    with pytest.raises(ValueError):     # lse must be f32 [b, n, s]
+        A.flash_bwd_dq(q, k, v, w, torch.zeros(2, 4, 130, device=dev).half(),
+                       torch.zeros(2, 4, 130, device=dev), A.FlashConfig())
+    assert A.FLASH_BWD_DQ.launches == before[1] + 1
