@@ -10,7 +10,9 @@ shows; it then exits 1 before the summary lines. Phases:
 1. build the hand-written CUDA kernels from ``elastic_tpu_agent_torch/
    csrc`` (nvcc, sm_90a) into the git-ignored ``_build/`` directory;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, and time the kernel, the plain version and one
+   main path's shapes (and at a few edges: q/k/v as strided views of one
+   fused projection, a paged row of length 0, the largest query group at
+   head_dim 128 and block 64), and time the kernel, the plain version and one
    PyTorch library call that computes the same function (for the flash
    backward kernels: the backward of scaled_dot_product_attention), all
    three by device time: CUDA events around calls queued behind a sleep
@@ -66,8 +68,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # those of kernels with a planted fault, run the same way (PERF.md):
 # flash_fwd o gave 3.9e-3 (one ulp near 1; the plain version rounds p to
 # bf16 as the kernel does) and 1.6e-2 without the kernel's cast of p;
-# paged_decode keeps its math in f32 and rounds only the output, so it
-# gave 3.1e-5, and 4.4e-2 attending one position short of the length.
+# paged_decode keeps its math in f32 and rounds only the output: up to
+# 4.9e-4 (one output ulp in [1/16, 1/8)), and 4.4e-2 attending one
+# position short of the length.
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 PAGED_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 LSE_TOL = 1e-3
@@ -198,13 +201,18 @@ def check_flash(torch, A, dev):
     cases = [
         ("bf16 causal", torch.bfloat16, A.FlashConfig()),
         ("bf16 window 96", torch.bfloat16, A.FlashConfig(window=96)),
+        ("bf16 fused-view", torch.bfloat16, A.FlashConfig()),
         ("f32 causal", torch.float32, A.FlashConfig()),
         ("f32 non-causal", torch.float32, A.FlashConfig(causal=False)),
     ]
     err_max = 0.0
     for label, dtype, fc in cases:
-        q, k, v = (randn(torch, rng, (b, s, n, h), dtype, dev)
-                   for _ in range(3))
+        if "fused" in label:   # views of one [b, s, 3, n, h] projection
+            qkv = randn(torch, rng, (b, s, 3, n, h), dtype, dev)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q, k, v = (randn(torch, rng, (b, s, n, h), dtype, dev)
+                       for _ in range(3))
         o, lse = A.flash_attention_with_lse(q, k, v, fc)
         o_ref, lse_ref = A.flash_attention_plain(q, k, v, fc)
         torch.cuda.synchronize()
@@ -328,8 +336,8 @@ def check_flash_bwd(torch, A, dev):
     return out_recs
 
 
-def _paged_inputs(torch, rng, dev, dtype, g, r, full):
-    slots, bs, nb, h = 8, 16, 32, 64    # serving phase: max_len 512 / bs 16
+def _paged_inputs(torch, rng, dev, dtype, g, r, full, h=64, bs=16, nb=32):
+    slots = 8                    # serving phase: max_len 512 / bs 16
     n_blocks = slots * nb + 1
     q = randn(torch, rng, (slots, g * r, h), dtype, dev)
     pk, pv = (randn(torch, rng, (n_blocks, bs, g, h), dtype, dev)
@@ -337,6 +345,8 @@ def _paged_inputs(torch, rng, dev, dtype, g, r, full):
     table = rng.permutation(np.arange(1, n_blocks)).reshape(slots, nb)
     lengths = (np.full(slots, nb * bs) if full
                else rng.integers(1, nb * bs + 1, slots))
+    if not full:
+        lengths[3] = 0           # attends nothing: the mean of V, as JAX
     return (q, pk, pv,
             torch.tensor(table.astype(np.int32), device=dev),
             torch.tensor(lengths.astype(np.int32), device=dev))
@@ -347,9 +357,12 @@ def check_paged(torch, PA, dev):
     rng = np.random.default_rng(SEED + 1)
     err_max = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for g, r, window in ((8, 1, 0), (2, 4, 0), (2, 4, 100)):
+        for g, r, window, h, bs, nb in ((8, 1, 0, 64, 16, 32),
+                                        (2, 4, 0, 64, 16, 32),
+                                        (2, 4, 100, 64, 16, 32),
+                                        (1, 16, 0, 128, 64, 8)):
             q, pk, pv, table, lengths = _paged_inputs(
-                torch, rng, dev, dtype, g, r, full=False
+                torch, rng, dev, dtype, g, r, False, h, bs, nb
             )
             got = PA.paged_decode_attention(
                 q, pk, pv, table, lengths, g, window=window)
@@ -358,10 +371,11 @@ def check_paged(torch, PA, dev):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             name = str(dtype).split(".")[-1]
-            print(f"paged_decode {name} g{g} r{r} window {window}: "
-                  f"max err {err:.3g}")
+            label = (f"paged_decode {name} g{g} r{r} h{h} bs{bs} window "
+                     f"{window} splits {PA.paged_splits(8, g, nb)}")
+            print(f"{label}: max err {err:.3g}")
             if not err <= PAGED_TOL[name]:
-                fail(f"paged_decode {name} g{g} r{r} window {window}: {err}")
+                fail(f"{label}: {err}")
             err_max = max(err_max, err)
     # timing: 8 slots x 512 positions x 8 kv heads x 64, bf16
     q, pk, pv, table, lengths = _paged_inputs(
@@ -372,14 +386,17 @@ def check_paged(torch, PA, dev):
         lambda: PA.paged_decode_attention_reference(
             q, pk, pv, table, lengths, 8))
     tr = PA.kernel_traffic(8, 32, 16, 8, 64, 2, n_heads=8,
-                           lengths=lengths.tolist())
+                           lengths=lengths.tolist())  # the H100's grid
+    # the bound counts what the function must move: K/V rows, q, out and
+    # the table once; the partials (tr["partial_bytes"]) are the kernel's
     t, by = bound(tr["bytes"], tr["flops"], "bfloat16")
     return dict(
         name="paged_decode", route="cuda",
         source="elastic_tpu_agent_torch/csrc/paged_decode.cu",
         replaces="elastic_tpu_agent/workloads/paged_attention.py:38",
         launches=None, max_abs_err=err_max, bound_ms=t, bound_by=by,
-        shape="8 slots x 512 positions, g 8, r 1, h 64, bs 16, bf16",
+        shape=f"8 slots x 512 positions, g 8, r 1, h 64, bs 16, bf16; grid "
+        f"{tr['grid']}, kernel bytes {tr['kernel_bytes']}",
         **times,
     )
 

@@ -5,35 +5,57 @@
 //
 // What it computes, exactly as the TPU kernel does: per (batch, head) an
 // online softmax over key tiles with f32 running max `m`, sum `l` and
-// accumulator `acc`; masked scores are NEG_INF = -1e30 (not -inf), the
-// unnormalised probabilities are rounded to V's dtype before P.V, `l` is
-// clamped at 1e-30 and lse = m + log(l) uses the clamped `l`. Causal and
-// sliding-window masks are applied per element; key tiles wholly above the
-// diagonal or wholly before the window are skipped. The skip range follows
-// from this kernel's own 64-row tile; the per-element mask makes the result
-// independent of it, because a fully masked tile seen before the first
-// visible one is wiped exactly by the later exp(NEG_INF - m) = 0 correction.
+// accumulator `acc`; masked scores are NEG_INF = -1e30 (not -inf), keys
+// past the sequence end -inf; the unnormalised probabilities are rounded
+// to V's dtype before P.V, `l` sums them unrounded, is clamped at 1e-30
+// and lse = m + log(l) uses the clamped `l`. Causal and sliding-window
+// masks are applied per element; key tiles wholly above the diagonal or
+// wholly before the window are skipped. The skip range follows from the
+// 64-row tile; the per-element mask makes the result independent of it,
+// because a fully masked tile seen before the first visible one is wiped
+// exactly by the later exp(NEG_INF - m) = 0 correction. GQA is read in
+// place: query head i reads kv head i / (n_heads / kv_heads). q, k and v
+// are read through their strides from the [b, s, heads, h] layout (the MHA
+// layer passes views of one fused projection), so no copy is made.
 //
-// Bound on this card: at the serving preset's shapes ([8, 256, 8, 64]) the
-// work is ~0.5 GFLOP against 8 MiB of q/k/v/o, so the bf16 tensor-core
-// roofline puts it on the bytes side (~2.5 us at 3.35 TB/s). This first
-// version does the products with plain FP32 FMAs from shared memory (no
-// wgmma, no TMA), so it is bound by FMA throughput instead; what its
-// design does about bytes is the flash structure itself: q, k and v are
-// read from device memory once per (q tile, key tile), scores never leave
-// the SM, and q/k/v are read through strides from the [b, s, n, h]
-// layout, so no transposed copy is made. GQA is read in place: query
-// head i reads kv head i / (n_heads / kv_heads).
+// Bound on this card: at the serving preset's shapes ([8, 256, 8, 64],
+// causal) the work is ~0.54 GFLOP against 8 MiB of q/k/v/o, so the bf16
+// tensor-core roofline puts it on the bytes side (~2.5 us at 3.35 TB/s).
 //
-// Layout: one CTA of 256 threads per (batch*head, 64-row q tile); four
-// threads share a q row. Q, K, V and P tiles are staged in shared memory
-// as f32 (rows padded by one word to keep the strided reads conflict-free).
+// Two instances, chosen by dtype in `flash_fwd`:
+// - bfloat16 (`flash_fwd_wgmma`): one CTA of two warpgroups (256 threads)
+//   per (batch * head, 64-row q tile); the warpgroups take alternate key
+//   tiles and merge at the end. Q and the K/V tiles come in by TMA
+//   (cp.async.bulk.tensor over 4-D maps of the strided views, 128-byte
+//   swizzle, rows past the end zero-filled), K and V through a 2-stage
+//   mbarrier ring per warpgroup, so that its next tile loads while one
+//   computes. S = Q.K^T is wgmma m64n64k16 (bf16 in, f32 out) from shared
+//   memory. The online softmax runs on the accumulator fragment in
+//   registers: each row lives in one quad of lanes, so its max and sum
+//   take two shuffles; no shared P tile and no CTA barrier. P is rounded to
+//   bf16 into the register A operand of a second wgmma, O += P.V, with V
+//   the B operand read from shared memory transposed; that rounding is the
+//   TPU kernel's p.astype(v.dtype). The f32 accumulator layout of S is the
+//   bf16 A layout of P.V, so no data moves between lanes. At the main
+//   path's shapes the kernel is latency-bound (a few tiles per CTA, every
+//   CTA resident at once), so the design shortens each CTA's serial chain:
+//   two warpgroups per q tile, masks only on edge tiles and compiled per
+//   mask kind, exp2 on the SFU.
+// - float32 (`flash_fwd_kernel`): the tensor cores have no exact f32
+//   product (TF32 would miss the f32 limits), so both products are FP32
+//   FMAs from f32 staging in shared memory: one CTA of 256 threads per
+//   (batch * head, 64-row q tile), four threads to a q row, Q, K, V and P
+//   tiles staged as f32 (rows padded by one word against bank conflicts).
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is reached by dlsym
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
+
+// -- float32: FP32 FMAs ---------------------------------------------------
 
 constexpr int BQ = 64;             // q rows per CTA
 constexpr int BK = 64;             // keys per tile
@@ -42,19 +64,12 @@ constexpr int THREADS = BQ * TPR;  // 256
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
 }
 
 template <int H>
@@ -207,11 +222,502 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+
+// -- bfloat16: wgmma and TMA ---------------------------------------------
+
+constexpr int WG_THREADS = 128;  // one warpgroup
+constexpr int TILE = 64;         // q rows and keys per tile; wgmma's M
+constexpr int ATOM = TILE * 64 * 2;  // one [64 rows][64 bf16] swizzled tile
+constexpr int STAGES = 2;
+constexpr int WGS = 2;           // warpgroups per CTA; they split the keys
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a phase that
+// never completes (a lost copy) traps, so the launch fails and the card
+// does not hang
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  long long spins = 0;
+  do {
+    if (++spins > (1ll << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one [64 rows][64 cols] box of a [b, s, heads, h] map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row,
+                                         int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// 2^x by the SFU (ex2.approx, subnormal results flushed to 0); exact at
+// 0, 0 at -inf and at NEG_INF
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from touching an accumulator across an async wgmma
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A.B^T, A [64 x 16] and B [64 x 16] K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A.B, A [64 x 16] bf16 in registers, B [16 x 64] MN-major (trans-b)
+// in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, "
+      "p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  // round to nearest even, as XLA's convert: the TPU kernel's
+  // p.astype(v.dtype)
+  __nv_bfloat162 two = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&two);
+}
+
+// Accumulator fragment of m64nN (f32): element i of a thread (warp w of
+// its warpgroup, lane 4 * g + t) sits at row 16 w + g + 8 ((i >> 1) & 1)
+// and column 8 (i >> 2) + 2 t + (i & 1).
+//
+// The CTA's two warpgroups split the q tile's key tiles (warpgroup w takes
+// tiles lo + w, lo + w + 2, ...), each with its own online softmax and its
+// own 2-stage K/V ring, which halves the serial chain of the longest
+// (diagonal) q tiles; at the end warpgroup 1 hands its (m, l, O) to
+// warpgroup 0 through shared memory, thread by thread (both hold the same
+// rows and columns), and warpgroup 0 merges and writes. Scores are kept in
+// log2 units (scale * log2 e folded into one multiply) for exp2. The
+// instances are compiled per mask kind (CAUSAL, WINDOWED), so that the
+// mask is branch-free selects on compile-time column offsets.
+template <int H, bool CAUSAL, bool WINDOWED>
+__global__ void __launch_bounds__(WGS * WG_THREADS, H == 64 ? 2 : 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int n_heads, int kv_heads, int seq, float scale,
+                    int window) {
+  constexpr int NA = H / 64;  // swizzle atoms across the head dim
+  constexpr uint32_t KV_BYTES = 2 * NA * ATOM;
+  constexpr int RING = STAGES * 2 * NA * ATOM;  // one warpgroup's K and V
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, full[WGS][STAGES],
+      empty[WGS][STAGES];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS;
+  const int wtid = tid % WG_THREADS;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  uint8_t* sq = smem;                           // [NA][64][64]
+  uint8_t* sk = sq + NA * ATOM + wg * RING;     // [STAGES][NA][64][64]
+  uint8_t* sv = sk + STAGES * NA * ATOM;        // [STAGES][NA][64][64]
+
+  const int bh = blockIdx.x;
+  const int b = bh / n_heads;
+  const int head = bh % n_heads;
+  const int kvh = head / (n_heads / kv_heads);
+  const int q0 = blockIdx.y * TILE;
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  int lo = 0;
+  int hi = (seq + TILE - 1) / TILE;
+  if (CAUSAL) {
+    const int last_row = min(q0 + TILE - 1, seq - 1);
+    hi = min(hi, last_row / TILE + 1);
+    if (WINDOWED) lo = max(0, q0 - window + 1) / TILE;
+  }
+  // this warpgroup's tiles: lo + wg + WGS * it
+  const int n_tiles = (hi - lo - wg + WGS - 1) / WGS;
+
+  auto load_kv = [&](int it) {  // into stage it % STAGES
+    const int st = it % STAGES;
+    const int k0 = (lo + wg + WGS * it) * TILE;
+    mbar_expect_tx(&full[wg][st], KV_BYTES);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      tma_load(sk + (st * NA + a) * ATOM, &map_k, &full[wg][st], 64 * a, k0,
+               kvh, b);
+      tma_load(sv + (st * NA + a) * ATOM, &map_v, &full[wg][st], 64 * a, k0,
+               kvh, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+    for (int w = 0; w < WGS; ++w)
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&full[w][s], 1);
+        mbar_init(&empty[w][s], WG_THREADS / 32);  // one arrival per warp
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar_q, NA * ATOM);
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+      tma_load(sq + a * ATOM, &map_q, &bar_q, 64 * a, q0, head, b);
+  }
+  if (wtid == 0)
+    for (int it = 0; it < min(STAGES, n_tiles); ++it) load_kv(it);
+  __syncwarp();
+
+  float oacc[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[a][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // rows r0 = q0 + 16 warp + g and r0 + 8
+  float l[2] = {0.f, 0.f};          // this thread's share of each row's sum
+  const int r0 = q0 + 16 * warp + g;
+  const uint32_t q_base = smem_u32(sq);
+  mbar_wait(&bar_q, 0);
+  __syncwarp();
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES;
+    const int phase = (it / STAGES) & 1;
+    const int k0 = (lo + wg + WGS * it) * TILE;
+    const uint32_t k_base = smem_u32(sk + st * NA * ATOM);
+    const uint32_t v_base = smem_u32(sv + st * NA * ATOM);
+    mbar_wait(&full[wg][st], phase);
+    __syncwarp();  // the wgmma instructions take the warp converged
+
+    // S = Q.K^T: H / 16 k-steps, 32 bytes apart inside a 128-byte atom
+    float s[32] = {};
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      const uint32_t off = (kk / 4) * ATOM + (kk % 4) * 32;
+      wgmma_ss(s, sw128_desc(q_base + off, 16, 1024),
+               sw128_desc(k_base + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale, mask (only a tile on the diagonal, at the window's edge or
+    // past the end has masked elements), row max over the quad
+    const bool edge =
+        (CAUSAL && (k0 + TILE - 1 > q0 ||
+                    (WINDOWED && q0 + TILE - 1 - k0 >= window))) ||
+        k0 + TILE > seq;
+    // element i: row - col = rel0 + 8 ((i >> 1) & 1) - 8 (i >> 2) - (i & 1)
+    // and col - k0 - 2 t = 8 (i >> 2) + (i & 1)
+    const int rel0 = r0 - k0 - 2 * t;
+    const int seq_left = seq - k0 - 2 * t;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (edge) {
+        const int rel = rel0 + 8 * ((i >> 1) & 1) - 8 * (i >> 2) - (i & 1);
+        if (CAUSAL) {
+          bool keep = rel >= 0;  // row >= col
+          if (WINDOWED) keep = keep & (rel < window);
+          x = keep ? x : NEG_INF;
+        }
+        // keys past the sequence end do not exist: -inf gives p = 0 exactly
+        x = 8 * (i >> 2) + (i & 1) < seq_left ? x : -INFINITY;
+      }
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = exp2_approx(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+    // p = exp(s - m), summed unrounded, rounded to bf16 for P.V
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1;
+      const float p0 = exp2_approx(s[i] - m[h]);
+      const float p1 = exp2_approx(s[i + 1] - m[h]);
+      l[h] += p0 + p1;
+      pa[i >> 1] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[a][i] *= corr[(i >> 1) & 1];
+
+    // O += P.V: 4 k-steps of 16 keys (2048 bytes of V apart), one
+    // 64-column atom of V per instruction
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk)
+        wgmma_rs(oacc[a], pa + 4 * kk,
+                 sw128_desc(v_base + a * ATOM + kk * 2048, 1024, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(oacc[a]);
+
+    // this warp is done with the stage; refill it with tile it + STAGES
+    if (lane == 0) mbar_arrive(&empty[wg][st]);
+    if (wtid == 0 && it + STAGES < n_tiles) {
+      mbar_wait(&empty[wg][st], phase);
+      load_kv(it + STAGES);
+    }
+    __syncwarp();
+  }
+
+  // warpgroup 1 hands (O, m, l) to warpgroup 0, thread by thread, through
+  // the rings both are done with
+  float* xch = reinterpret_cast<float*>(sq + NA * ATOM);  // [NA*32+4][128]
+  __syncthreads();
+  if (wg == 1) {
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        xch[(a * 32 + i) * WG_THREADS + wtid] = oacc[a][i];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      xch[(NA * 32 + h) * WG_THREADS + wtid] = m[h];
+      xch[(NA * 32 + 2 + h) * WG_THREADS + wtid] = l[h];
+    }
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  float c0[2], c1[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m1 = xch[(NA * 32 + h) * WG_THREADS + wtid];
+    const float l1 = xch[(NA * 32 + 2 + h) * WG_THREADS + wtid];
+    const float mm = fmaxf(m[h], m1);
+    c0[h] = exp2_approx(m[h] - mm);
+    c1[h] = exp2_approx(m1 - mm);
+    l[h] = l[h] * c0[h] + l1 * c1[h];
+    m[h] = mm;
+  }
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      oacc[a][i] = oacc[a][i] * c0[h] +
+                   xch[(a * 32 + i) * WG_THREADS + wtid] * c1[h];
+    }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= seq) continue;
+    __nv_bfloat16* orow = o + (((long long)b * seq + row) * n_heads + head) * H;
+    const float inv_l = 1.f / l[h];
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * h;
+        *reinterpret_cast<uint32_t*>(orow + 64 * a + 8 * j + 2 * t) =
+            pack_bf16(oacc[a][i] * inv_l, oacc[a][i + 1] * inv_l);
+      }
+    // lse in natural units: m * ln 2 + log(l)
+    if (t == 0)
+      lse[(long long)bh * seq + row] = m[h] * 0.6931471805599453f + logf(l[h]);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the process already loaded
+// (this library is bound by ctypes and not linked against libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [b, s, heads, h] bf16 with element strides (sb, ss, sn, 1) as a 4-D map,
+// innermost first (h, s, heads, b); boxes of 64 x 64 x 1 x 1, 128-byte
+// swizzle, rows past the end read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
+              int heads, int h, long long sb, long long ss, long long sn) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)h, (cuuint64_t)seq,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sn * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, TILE, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int H, bool CAUSAL, bool WINDOWED>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int batch, int seq, int n_heads,
+                         int kv_heads, long long q_sb, long long q_ss,
+                         long long q_sn, long long k_sb, long long k_ss,
+                         long long k_sn, long long v_sb, long long v_ss,
+                         long long v_sn, float scale, int causal, int window,
+                         cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, batch, seq, n_heads, H, q_sb, q_ss, q_sn) ||
+      !make_map(&mk, k, batch, seq, kv_heads, H, k_sb, k_ss, k_sn) ||
+      !make_map(&mv, v, batch, seq, kv_heads, H, v_sb, v_ss, v_sn))
+    return cudaErrorInvalidValue;
+  // Q, each warpgroup's two stages of K and V, and the slack to align
+  // them to 1024 bytes
+  const int smem = (1 + WGS * 2 * STAGES) * (H / 64) * ATOM + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma<H, CAUSAL, WINDOWED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(batch * n_heads, (seq + TILE - 1) / TILE);
+  flash_fwd_wgmma<H, CAUSAL, WINDOWED>
+      <<<grid, WGS * WG_THREADS, smem, stream>>>(
+          mq, mk, mv, static_cast<__nv_bfloat16*>(o),
+          static_cast<float*>(lse), n_heads, kv_heads, seq, scale, window);
+  return cudaGetLastError();
+}
+
+template <int H>
+cudaError_t launch_wgmma_masked(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int batch, int seq,
+                                int n_heads, int kv_heads, long long q_sb,
+                                long long q_ss, long long q_sn,
+                                long long k_sb, long long k_ss,
+                                long long k_sn, long long v_sb,
+                                long long v_ss, long long v_sn, float scale,
+                                int causal, int window, cudaStream_t stream) {
+#define WG_ARGS                                                             \
+  q, k, v, o, lse, batch, seq, n_heads, kv_heads, q_sb, q_ss, q_sn, k_sb, \
+      k_ss, k_sn, v_sb, v_ss, v_sn, scale, causal, window, stream
+  if (!causal) return launch_wgmma<H, false, false>(WG_ARGS);
+  if (window > 0) return launch_wgmma<H, true, true>(WG_ARGS);
+  return launch_wgmma<H, true, false>(WG_ARGS);
+#undef WG_ARGS
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head_dim
-// axis must be contiguous. o is a contiguous [b, s, n, h] tensor of q's
-// dtype, lse a contiguous f32 [b, n, s] tensor. Returns a cudaError_t.
+// axis must be contiguous (bfloat16: 16-byte aligned bases and strides,
+// as TMA reads them). o is a contiguous [b, s, n, h] tensor of q's dtype,
+// lse a contiguous f32 [b, n, s] tensor. Returns a cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int dtype, int batch, int seq,
                          int n_heads, int kv_heads, int head_dim,
@@ -227,9 +733,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(FLASH_ARGS);
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(FLASH_ARGS);
   if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(FLASH_ARGS);
+    return launch_wgmma_masked<64>(FLASH_ARGS);
   if (dtype == 1 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(FLASH_ARGS);
+    return launch_wgmma_masked<128>(FLASH_ARGS);
 #undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }

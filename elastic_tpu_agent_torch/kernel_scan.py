@@ -1,0 +1,141 @@
+"""Device and host time of the flash forward and paged decode kernels
+around the main path's shapes. Needs the card, as ``chip_smoke.py`` does:
+
+    python3 -m elastic_tpu_agent_torch.kernel_scan [--out FILE]
+
+Prints one line per reading and, with ``--out``, writes them all as JSON:
+
+- ``floor``: one tiny PyTorch kernel (a 16-element fill), the least a
+  queued launch costs on the card;
+- ``flash``: the bf16 flash forward and SDPA (the library yardstick) over
+  batch, sequence length and causality, device time;
+- ``paged``: the paged decode at 8 slots x 512 positions x 8 kv heads with
+  each split count forced, then through the wrapper (the policy's splits)
+  at shorter lengths, device time;
+- ``host``: host time per call of the flash forward's C entry (which
+  encodes its three TMA maps) against the float32 entry (no maps), of the
+  Python wrappers, and of the paged wrapper (calls the host paces, at a
+  tiny shape).
+
+Device times are ``chip_smoke.device_ms``: CUDA events around calls queued
+behind a sleep kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None, help="JSON file for the readings")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_scan: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as C
+    from elastic_tpu_agent_torch.workloads import attention as A
+    from elastic_tpu_agent_torch.workloads import paged_attention as PA
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(C.SEED)
+    out = {"floor": {}, "flash": [], "paged": [], "host": {}}
+
+    def us(fn):
+        return C.device_ms(torch, fn)[0] * 1e3
+
+    def host_us(fn, n=2000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    x = torch.zeros(16, device=dev)
+    out["floor"]["fill_us"] = us(x.zero_)
+    print(f"floor: 16-element fill {out['floor']['fill_us']:.2f} us")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, s, causal in ((8, 64, True), (8, 256, True), (8, 256, False),
+                         (1, 256, True), (8, 1024, True)):
+        q, k, v = (C.randn(torch, rng, (b, s, 8, 64), torch.bfloat16, dev)
+                   for _ in range(3))
+        fc = A.FlashConfig(causal=causal)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rec = dict(b=b, s=s, causal=causal,
+                   kernel_us=us(lambda: A.flash_attention_with_lse(q, k, v,
+                                                                   fc)),
+                   sdpa_us=us(lambda: sdpa(qt, kt, vt, is_causal=causal)))
+        out["flash"].append(rec)
+        print(f"flash [{b},{s},8,64] causal {causal}: kernel "
+              f"{rec['kernel_us']:.2f} us, SDPA {rec['sdpa_us']:.2f} us")
+
+    q, pk, pv, table, lengths = C._paged_inputs(torch, rng, dev,
+                                                torch.bfloat16, 8, 1, True)
+    slots, n, h = q.shape
+    nb, bs = table.shape[1], pk.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    counters = PA._counters(dev, stream, slots * 8)
+    for splits in (1, 2, 4, 8, 16):
+        o = torch.empty_like(q)
+        part = torch.empty(slots * n * splits * (h + 2), dtype=torch.float32,
+                           device=dev)
+
+        def call():
+            PA.PAGED_DECODE(
+                q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr(),
+                lengths.data_ptr(), o.data_ptr(), part.data_ptr(),
+                counters.data_ptr(), 1, slots, n, 8, h, nb, bs, q.stride(0),
+                q.stride(1), pk.stride(0), pk.stride(1), pk.stride(2),
+                table.stride(0), 1 / math.sqrt(h), 0, splits, stream)
+        rec = dict(splits=splits, length=nb * bs, us=us(call))
+        out["paged"].append(rec)
+        print(f"paged 512 positions, {splits} splits: {rec['us']:.2f} us")
+    for length in (16, 128):
+        ln = torch.full((slots,), length, dtype=torch.int32, device=dev)
+        rec = dict(splits=PA.paged_splits(slots, 8, nb), length=length,
+                   us=us(lambda: PA.paged_decode_attention(
+                       q, pk, pv, table, ln, 8)))
+        out["paged"].append(rec)
+        print(f"paged {length} positions (wrapper): {rec['us']:.2f} us")
+
+    hq = out["host"]
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q1, k1, v1 = (C.randn(torch, rng, (1, 64, 1, 64), dt, dev)
+                      for _ in range(3))
+        o1 = torch.empty_like(q1)
+        lse = torch.empty((1, 1, 64), device=dev)
+        cargs = (q1.data_ptr(), k1.data_ptr(), v1.data_ptr(), o1.data_ptr(),
+                 lse.data_ptr(), A.KERNEL_DTYPES[dt], 1, 64, 1, 1, 64,
+                 *A._strides(q1, k1, v1), 0.125, 1, 0, stream)
+        fc = A.FlashConfig()
+        hq[f"flash_c_entry_{name}_us"] = host_us(lambda: A.FLASH_FWD(*cargs))
+        hq[f"flash_wrapper_{name}_us"] = host_us(
+            lambda: A.flash_attention_with_lse(q1, k1, v1, fc))
+    hq["paged_wrapper_us"] = host_us(
+        lambda: PA.paged_decode_attention(q, pk, pv, table, lengths, 8))
+    print("host per call: " + ", ".join(f"{k} {v:.1f}" for k, v in hq.items()))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,8 +10,12 @@ readings and the faulty ones. Needs the card, as ``chip_smoke.py`` does:
     python3 -m elastic_tpu_agent_torch.planted_faults --out DIR
 
 ``DIR`` gets one ``<fault>.log`` per run and ``faults.json``: for each
-run its exit code, the readings of the backward-kernel and training
-checks, and the checks that failed.
+run its exit code, the readings of the kernel, forward, serving and
+training checks, and the checks that failed.
+
+The bf16 flash forward's rounding of p to bf16 before P.V cannot be
+planted away: P is the register A operand of a bf16 wgmma, so the
+rounding is the only way into the product.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BWD = "elastic_tpu_agent_torch/csrc/flash_bwd.cu"
+FWD = "elastic_tpu_agent_torch/csrc/flash_fwd.cu"
+PAGED = "elastic_tpu_agent_torch/csrc/paged_decode.cu"
 
 # name -> (file, exact text, replacement); each text occurs exactly once
 FAULTS = {
@@ -45,9 +51,22 @@ FAULTS = {
     "F8_q_tile_lower_bound_one_late": (
         BWD, "    lo = blockIdx.y;\n", "    lo = blockIdx.y + 1;\n",
     ),
+    "F9_bf16_causal_mask_one_column_late": (
+        FWD, "bool keep = rel >= 0;  // row >= col",
+        "bool keep = rel >= -1;  // row >= col",
+    ),
+    "F10_paged_length_one_short": (
+        PAGED, "    end = min(len, nb * bs);\n",
+        "    end = min(len - 1, nb * bs);\n",
+    ),
+    "F11_split_merged_without_rescale": (
+        PAGED, "const float w = exp2_approx(__ldcg(pk) - mx);",
+        "const float w = 1.f;",
+    ),
 }
 TIMEOUT_S = 900.0  # for each chip_smoke.py run
-KEEP = ("flash_bwd_", "train ", "reference losses", "forward ", "chip_smoke:")
+KEEP = ("flash_fwd ", "paged_decode ", "flash_bwd_", "forward ", "serving ",
+        "train ", "reference losses", "chip_smoke:")
 SKIP = (".git", "_build", "__pycache__", ".pytest_cache")
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``elastic_tpu_agent/workloads/attention.py``. The Pallas
 TPU kernels become CUDA kernels written by hand for Hopper: ``_fwd_kernel``
-is ``csrc/flash_fwd.cu``; the backward's ``_dkdv_kernel`` and
+is ``csrc/flash_fwd.cu`` (wgmma and TMA for bfloat16, FP32 FMAs for
+float32); the backward's ``_dkdv_kernel`` and
 ``_dq_kernel`` are ``flash_bwd_dkdv`` and ``flash_bwd_dq`` in
 ``csrc/flash_bwd.cu``. Beside each kernel a plain version computes the
 same function with materialised scores (``flash_attention_plain``,
@@ -268,8 +269,17 @@ def _flash_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: FlashConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper flash-forward kernel on [b, s, n, h] tensors
-    (k/v may have g | n heads), read through their strides."""
+    (k/v may have g | n heads), read through their strides: the wgmma/TMA
+    instance for bfloat16, the FP32-FMA instance for float32."""
     _check_kernel_inputs(q, k, v)
+    if q.dtype == torch.bfloat16 and any(
+        (x.data_ptr() | x.stride(0) * 2 | x.stride(1) * 2 | x.stride(2) * 2)
+        % 16 for x in (q, k, v)
+    ):
+        raise ValueError(
+            "the bf16 flash kernel reads q/k/v by TMA: 16-byte aligned "
+            "bases and strides"
+        )
     b, s, n, h = q.shape
     g = k.shape[2]
     o = torch.empty((b, s, n, h), dtype=q.dtype, device=q.device)
