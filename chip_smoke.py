@@ -12,7 +12,9 @@ shows; it then exits 1 before the summary lines. Phases:
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (and at a few edges: q/k/v as strided views of one
    fused projection, a paged row of length 0, the largest query group at
-   head_dim 128 and block 64), and time the kernel, the plain version and one
+   head_dim 128 and block 64, the backward at 1024 positions, one kv head,
+   windows 1 and 64, 17 positions and batch 1, a misaligned bf16 dO view
+   that must raise), and time the kernel, the plain version and one
    PyTorch library call that computes the same function (for the flash
    backward kernels: the backward of scaled_dot_product_attention), all
    three by device time: CUDA events around calls queued behind a sleep
@@ -32,8 +34,10 @@ shows; it then exits 1 before the summary lines. Phases:
    two-layer copy whose kernel-path gradients must equal the reference
    path's; a short torch.profiler pass gives the device-busy share
    (reported as not measured when the profiler sees no device time);
-6. summary: a ``paths`` JSON line, a ``kernels`` JSON line, the card's
-   name and power limit as nvidia-smi reports them, and the result line.
+6. summary: the device time of the whole bf16 backward (delta, dK/dV
+   and dQ) against SDPA's whole backward, a ``paths`` JSON line, a
+   ``kernels`` JSON line, the card's name and power limit as nvidia-smi
+   reports them, and the result line.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -88,15 +92,17 @@ FORWARD_F32_TOL = 1e-3  # same comparison in float32
 # only. In bf16 one rounding that lands the other way on the largest
 # element is an ulp, up to 2^-8 = 3.9e-3 of it, so the max limit is two
 # ulps; the mean limit sits between the sound kernels' readings and those
-# of kernels with a planted fault (PERF.md, Findings): sound kernels
-# gave up to 3.4e-3 (max) and 1.1e-6 (mean); ds not rounded before dK gave
-# 4.6e-3 to 5.8e-3 and 1.6e-3; the other faults gave 0.2 or more.
+# of kernels with a planted fault (PERF.md, Findings): the sound wgmma
+# kernels gave up to 2.6e-3 (max) and 4.6e-6 (mean); the planted faults
+# 0.95 or more (max) and 0.18 or more (mean). (The FMA kernels' fault "ds
+# not rounded before dK", 1.6e-3 mean, cannot be planted in the wgmma
+# ones: ds reaches the product only as a bf16 register operand.)
 BWD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 BWD_MEAN_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
 # bf16 training losses over 20 steps, flash kernels vs reference attention
 # (they round scores and probabilities at different places): sound
-# kernels gave 0.045; delta dropped gave 0.71, the q-tile lower bound one
-# tile late 1.1 (PERF.md, Findings).
+# kernels gave 0.045-0.046; delta dropped in dQ gave 0.235, the q-tile lower
+# bound one tile late 1.26, lse/delta read by row 2.17 (PERF.md, Findings).
 TRAIN_BF16_TOL = 0.2
 # float32 two-layer gradients, kernel path vs reference path, relative to
 # each leaf's largest gradient (summation order only)
@@ -268,6 +274,19 @@ def check_flash_bwd(torch, A, dev):
         ("bf16 GQA g2", torch.bfloat16, (b, s, n, 2, h), fc, False),
         ("bf16 dlse", torch.bfloat16, (b, s, n, n, h), fc, True),
         ("bf16 h128 s200", torch.bfloat16, (2, 200, n, n, 128), fc, False),
+        # the wgmma instances' edges: 16 tiles queued per CTA (each ring's
+        # phase wraps), one kv head for 8 query heads, windows of 1 and of
+        # one tile, one ragged tile, batch 1. Window 1 leaves a row only
+        # itself (p = 1, dp = delta up to rounding), so without an lse
+        # cotangent its dq and dk would be rounding noise.
+        ("bf16 s1024", torch.bfloat16, (2, 1024, n, n, h), fc, False),
+        ("bf16 GQA g1", torch.bfloat16, (b, s, n, 1, h), fc, False),
+        ("bf16 window 1", torch.bfloat16, (b, s, n, n, h),
+         A.FlashConfig(window=1), True),
+        ("bf16 window 64", torch.bfloat16, (b, s, n, 2, h),
+         A.FlashConfig(window=64), True),
+        ("bf16 s17", torch.bfloat16, (b, 17, n, n, h), fc, False),
+        ("bf16 batch 1", torch.bfloat16, (1, s, n, n, h), fc, False),
         ("f32 causal", torch.float32, (b, s, n, n, h), fc, False),
         ("f32 non-causal GQA h128 s200", torch.float32, (2, 200, n, 2, 128),
          A.FlashConfig(causal=False), True),
@@ -299,6 +318,28 @@ def check_flash_bwd(torch, A, dev):
                     and max(means) <= BWD_MEAN_TOL[name]):
                 fail(f"{kname} {label}: relative max {rels}, mean {means}")
             abs_max[kname] = max(abs_max[kname], *errs)
+    # a bf16 dO view whose head stride (68 elements) is no 16-byte
+    # multiple: TMA cannot read it, so both wrappers raise before a launch
+    args = _bwd_inputs(torch, A, rng, dev, (b, s, n, n, h), torch.bfloat16,
+                       fc, False)
+    pad = torch.zeros((b, s, n, h + 4), dtype=torch.bfloat16, device=dev)
+    pad[..., :h] = args[3]
+    bad = args[:3] + (pad[..., :h],) + args[4:]
+    counters = (A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    before = [c.launches for c in counters]
+    raised = []
+    for kname, kern in kerns.items():
+        try:
+            kern(*bad, fc)
+        except ValueError:
+            raised.append(kname)
+    torch.cuda.synchronize()
+    launched = [c.launches - n0 for c, n0 in zip(counters, before)]
+    print(f"flash_bwd misaligned bf16 dO view: ValueError from {raised}, "
+          f"launches {launched}")
+    if len(raised) != len(kerns) or any(launched):
+        fail(f"misaligned bf16 dO: raised {raised}, launches {launched}")
+
     # timing at the main path's shape, bf16 causal
     args = _bwd_inputs(torch, A, rng, dev, (b, s, n, n, h), torch.bfloat16,
                        fc, False)
@@ -333,7 +374,21 @@ def check_flash_bwd(torch, A, dev):
             bound_by=by, shape=f"[{b},{s},{n},{h}] bf16 causal; library_ms "
             "is SDPA's whole backward (dq, dk, dv)", **times,
         ))
-    return out_recs
+    # the whole bf16 backward as the autograd Function runs it: delta, then
+    # both kernels
+    o = A.flash_attention_plain(q, k, v, fc)[0]
+
+    def whole():
+        delta = A.flash_bwd_delta(o, do)
+        A.flash_bwd_dkdv(q, k, v, do, args[4], delta, fc)
+        A.flash_bwd_dq(q, k, v, do, args[4], delta, fc)
+
+    whole_rec = dict(shape=f"[{b},{s},{n},{h}] bf16 causal",
+                     ms=device_ms(torch, whole)[0],
+                     delta_ms=device_ms(
+                         torch, lambda: A.flash_bwd_delta(o, do))[0],
+                     sdpa_backward_ms=out_recs[0]["library_ms"])
+    return (*out_recs, whole_rec)
 
 
 def _paged_inputs(torch, rng, dev, dtype, g, r, full, h=64, bs=16, nb=32):
@@ -758,7 +813,7 @@ def main() -> int:
 
     flash = check_flash(torch, A, dev)
     paged = check_paged(torch, PA, dev)
-    dkdv, dq = check_flash_bwd(torch, A, dev)
+    dkdv, dq, bwd_whole = check_flash_bwd(torch, A, dev)
 
     cfg = W.ModelConfig(**SMALL, max_seq=1024, dtype=torch.bfloat16)
     tree = W.random_tree(cfg, SEED)
@@ -773,12 +828,16 @@ def main() -> int:
         print(f"{x['name']} timing: device ms {x['ms']:.4g} (host-paced "
               f"{x['unqueued_ms']:.4g}), plain {x['plain_ms']:.4g}, library "
               f"{x['library_ms']}, bound {x['bound_ms']:.3g} ({x['bound_by']})")
+    print(f"flash_bwd whole bf16 backward {bwd_whole['shape']} (delta + "
+          f"dK/dV + dQ): device ms {bwd_whole['ms']:.4g} (delta alone "
+          f"{bwd_whole['delta_ms']:.4g}), SDPA's whole backward "
+          f"{bwd_whole['sdpa_backward_ms']:.4g}")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     report = {"card": card, "forward": fwd, "serving": srv, "train": train,
-              "kernels": kernel_recs}
+              "kernels": kernel_recs, "flash_bwd_whole": bwd_whole}
     if args.profile:
         rng = np.random.default_rng(SEED + 8)
         tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 257)),

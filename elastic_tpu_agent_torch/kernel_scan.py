@@ -1,5 +1,6 @@
-"""Device and host time of the flash forward and paged decode kernels
-around the main path's shapes. Needs the card, as ``chip_smoke.py`` does:
+"""Device and host time of the flash forward, flash backward and paged
+decode kernels around the main path's shapes. Needs the card, as
+``chip_smoke.py`` does:
 
     python3 -m elastic_tpu_agent_torch.kernel_scan [--out FILE]
 
@@ -9,6 +10,12 @@ Prints one line per reading and, with ``--out``, writes them all as JSON:
   queued launch costs on the card;
 - ``flash``: the bf16 flash forward and SDPA (the library yardstick) over
   batch, sequence length and causality, device time;
+- ``bwd``: the bf16 flash backward kernels (dK/dV and dQ, causal) and
+  SDPA's whole backward (dq, dk, dv; the library yardstick) over batch,
+  sequence length and head_dim, device time;
+- ``ptxas``: what ``-Xptxas -v`` reported for every instance in
+  ``csrc/flash_bwd.cu`` (registers, stack frame, spills), from the build
+  log beside its library;
 - ``paged``: the paged decode at 8 slots x 512 positions x 8 kv heads with
   each split count forced, then through the wrapper (the policy's splits)
   at shorter lengths, device time;
@@ -26,6 +33,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -33,6 +43,30 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+def ptxas_lines(log: str) -> list:
+    """One record per compiled entry function of a ``-Xptxas -v`` log:
+    its (demangled, where c++filt exists) name, registers, stack frame
+    and spill bytes."""
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        out.append(dict(
+            name=name, registers=int(regs.group(1)) if regs else None,
+            stack_frame=int(frame.group(1)) if frame else None,
+            spill_stores=int(frame.group(2)) if frame else None,
+            spill_loads=int(frame.group(3)) if frame else None))
+    if shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r["name"] for r in out),
+            capture_output=True, text=True).stdout.split("\n")
+        for r, n in zip(out, names):
+            r["name"] = n or r["name"]
+    return out
 
 
 def main(argv=None) -> int:
@@ -46,12 +80,21 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
+    from elastic_tpu_agent_torch import kernels
     from elastic_tpu_agent_torch.workloads import attention as A
     from elastic_tpu_agent_torch.workloads import paged_attention as PA
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(C.SEED)
-    out = {"floor": {}, "flash": [], "paged": [], "host": {}}
+    out = {"floor": {}, "flash": [], "bwd": [], "ptxas": [], "paged": [],
+           "host": {}}
+    kernels.build_all()
+    log = kernels._library_path(kernels.CSRC / "flash_bwd.cu")
+    out["ptxas"] = ptxas_lines(log.with_suffix(".log").read_text())
+    for r in out["ptxas"]:
+        print(f"ptxas {r['name']}: {r['registers']} registers, stack frame "
+              f"{r['stack_frame']}, spill stores {r['spill_stores']}, "
+              f"loads {r['spill_loads']}")
 
     def us(fn):
         return C.device_ms(torch, fn)[0] * 1e3
@@ -85,6 +128,27 @@ def main(argv=None) -> int:
         out["flash"].append(rec)
         print(f"flash [{b},{s},8,64] causal {causal}: kernel "
               f"{rec['kernel_us']:.2f} us, SDPA {rec['sdpa_us']:.2f} us")
+
+    for b, s, h in ((8, 64, 64), (1, 256, 64), (8, 256, 64), (8, 1024, 64),
+                    (8, 256, 128)):
+        fc = A.FlashConfig()
+        inputs = C._bwd_inputs(torch, A, rng, dev, (b, s, 8, 8, h),
+                               torch.bfloat16, fc, False)
+        q, k, v, do = inputs[:4]
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        o_sdpa = sdpa(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        rec = dict(
+            b=b, s=s, h=h,
+            dkdv_us=us(lambda: A.flash_bwd_dkdv(*inputs, fc)),
+            dq_us=us(lambda: A.flash_bwd_dq(*inputs, fc)),
+            sdpa_backward_us=us(lambda: torch.autograd.grad(
+                o_sdpa, (qt, kt, vt), dot, retain_graph=True)))
+        out["bwd"].append(rec)
+        print(f"flash_bwd [{b},{s},8,{h}] bf16 causal: dK/dV "
+              f"{rec['dkdv_us']:.2f} us, dQ {rec['dq_us']:.2f} us, SDPA's "
+              f"whole backward {rec['sdpa_backward_us']:.2f} us")
 
     q, pk, pv, table, lengths = C._paged_inputs(torch, rng, dev,
                                                 torch.bfloat16, 8, 1, True)

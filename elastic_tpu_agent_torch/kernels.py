@@ -5,9 +5,11 @@ own shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers: a build takes seconds, not minutes). All sources build at
 once, one ``nvcc`` process each, started together, the first time any
 kernel is launched. Libraries land in ``_build/`` beside this file, named
-by a digest of their source and flags, so an edited source is rebuilt and
-an unchanged one is reused. Each build's compiler output (``-Xptxas -v``:
-registers, shared memory, spills) is kept beside its library as ``.log``.
+by a digest of their source, the shared headers (``csrc/*.cuh``, which
+every source may include) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. Each build's compiler output
+(``-Xptxas -v``: registers, shared memory, spills) is kept beside its
+library as ``.log``.
 
 Nothing here runs at import: the CPU-only test environment imports every
 module of the port and has no ``nvcc``.
@@ -52,10 +54,11 @@ def _nvcc() -> str:
 
 
 def _library_path(src: Path) -> Path:
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:

@@ -13,9 +13,16 @@ readings and the faulty ones. Needs the card, as ``chip_smoke.py`` does:
 run its exit code, the readings of the kernel, forward, serving and
 training checks, and the checks that failed.
 
-The bf16 flash forward's rounding of p to bf16 before P.V cannot be
-planted away: P is the register A operand of a bf16 wgmma, so the
-rounding is the only way into the product.
+The backward faults F6-F8 and F12 sit in the bf16 (wgmma/TMA) instances
+of ``csrc/flash_bwd.cu``, the ones the bf16 checks and the train step run:
+F6 in dQ, F7, F8 and F12 in dK/dV. F12 reads lse and delta by the
+accumulator fragment's row instead of its column, the slip that the
+transposed scores of dK/dV invite.
+
+Two roundings cannot be planted away: P in the bf16 flash forward and dS
+in the bf16 backward (F5, "ds not cast before dK", retired) are register
+A operands of a bf16 wgmma, so the rounding to bf16 (``pack_bf16``) is
+the only way into the product.
 """
 
 from __future__ import annotations
@@ -36,20 +43,22 @@ PAGED = "elastic_tpu_agent_torch/csrc/paged_decode.cu"
 # name -> (file, exact text, replacement); each text occurs exactly once
 FAULTS = {
     "sound": None,
-    "F5_ds_not_cast_before_dK": (
-        BWD, "sds[row * PP + sub + TPR * c] = round_to<T>(ds[c]);   // Q's",
-        "sds[row * PP + sub + TPR * c] = ds[c];   // Q's",
-    ),
     "F6_delta_dropped": (
-        BWD, "ds[c] = p[c] * (dp[c] - dl) * scale;",
-        "ds[c] = p[c] * dp[c] * scale;",
+        BWD, "d2[e] = p * (dp[j] - dl[h]) * scale;",
+        "d2[e] = p * dp[j] * scale;",
     ),
     "F7_gqa_sum_over_wrong_heads": (
-        BWD, "const int head = kvh * group + t;",
-        "const int head = t * kv_heads + kvh;",
+        BWD, "return kvh * group + (wg + WGS * it) / nq;",
+        "return (wg + WGS * it) / nq * kv_heads + kvh;",
     ),
     "F8_q_tile_lower_bound_one_late": (
-        BWD, "    lo = blockIdx.y;\n", "    lo = blockIdx.y + 1;\n",
+        BWD, "const int q_lo = CAUSAL ? (int)blockIdx.y : 0;",
+        "const int q_lo = CAUSAL ? (int)blockIdx.y + 1 : 0;",
+    ),
+    "F12_lse_delta_read_by_row": (
+        BWD, "const int c = 8 * (j >> 2) + 2 * t + e;  // the element's q",
+        "const int c = 16 * warp + g + 8 * ((j >> 1) & 1);"
+        "  // the element's q",
     ),
     "F9_bf16_causal_mask_one_column_late": (
         FWD, "bool keep = rel >= 0;  // row >= col",
@@ -65,7 +74,7 @@ FAULTS = {
     ),
 }
 TIMEOUT_S = 900.0  # for each chip_smoke.py run
-KEEP = ("flash_fwd ", "paged_decode ", "flash_bwd_", "forward ", "serving ",
+KEEP = ("flash_fwd ", "paged_decode ", "flash_bwd", "forward ", "serving ",
         "train ", "reference losses", "chip_smoke:")
 SKIP = (".git", "_build", "__pycache__", ".pytest_cache")
 

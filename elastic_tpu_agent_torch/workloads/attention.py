@@ -5,7 +5,9 @@ TPU kernels become CUDA kernels written by hand for Hopper: ``_fwd_kernel``
 is ``csrc/flash_fwd.cu`` (wgmma and TMA for bfloat16, FP32 FMAs for
 float32); the backward's ``_dkdv_kernel`` and
 ``_dq_kernel`` are ``flash_bwd_dkdv`` and ``flash_bwd_dq`` in
-``csrc/flash_bwd.cu``. Beside each kernel a plain version computes the
+``csrc/flash_bwd.cu`` (wgmma and TMA for bfloat16, FP32 FMAs for
+float32; the Hopper helpers both sources share are ``csrc/sm90.cuh``).
+Beside each kernel a plain version computes the
 same function with materialised scores (``flash_attention_plain``,
 ``flash_bwd_dkdv_plain``, ``flash_bwd_dq_plain``). Every wrapper takes the
 plain version only for tensors on the CPU; for a CUDA tensor it launches
@@ -261,6 +263,26 @@ def _check_rows(q, *rows) -> None:
             )
 
 
+def _tma_aligned(x: torch.Tensor) -> bool:
+    """Whether TMA can read the [b, s, heads, h] tensor x in place: a
+    16-byte aligned base and 16-byte multiples for the b, s and head
+    strides (the head_dim axis is contiguous)."""
+    size = x.element_size()
+    return not (x.data_ptr() | x.stride(0) * size | x.stride(1) * size
+                | x.stride(2) * size) % 16
+
+
+def _check_tma(*xs) -> None:
+    """The bf16 kernels (wgmma/TMA) read their [b, s, heads, h] inputs by
+    TMA: raise unless every one is ``_tma_aligned``. The float32 kernels
+    read through plain loads and take any strides."""
+    if xs[0].dtype == torch.bfloat16 and not all(map(_tma_aligned, xs)):
+        raise ValueError(
+            "the bf16 flash kernels read q/k/v/dO by TMA: 16-byte aligned "
+            "bases and strides"
+        )
+
+
 def _strides(*xs):
     return [st for x in xs for st in (x.stride(0), x.stride(1), x.stride(2))]
 
@@ -272,14 +294,7 @@ def _flash_fwd_cuda(
     (k/v may have g | n heads), read through their strides: the wgmma/TMA
     instance for bfloat16, the FP32-FMA instance for float32."""
     _check_kernel_inputs(q, k, v)
-    if q.dtype == torch.bfloat16 and any(
-        (x.data_ptr() | x.stride(0) * 2 | x.stride(1) * 2 | x.stride(2) * 2)
-        % 16 for x in (q, k, v)
-    ):
-        raise ValueError(
-            "the bf16 flash kernel reads q/k/v by TMA: 16-byte aligned "
-            "bases and strides"
-        )
+    _check_tma(q, k, v)
     b, s, n, h = q.shape
     g = k.shape[2]
     o = torch.empty((b, s, n, h), dtype=q.dtype, device=q.device)
@@ -305,8 +320,12 @@ FLASH_BWD_DQ = CudaKernel("flash_bwd", "flash_bwd_dq", [_P] * 7 + _BWD_ARGS)
 
 
 def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, cfg) -> None:
+    """Launch one backward kernel on CUDA tensors, read through their
+    strides: the wgmma/TMA instance for bfloat16, the FP32-FMA instance for
+    float32."""
     _check_kernel_inputs(q, k, v, do)
     _check_rows(q, lse, delta)
+    _check_tma(q, k, v, do)
     b, s, n, h = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -366,8 +385,10 @@ class _FlashAttentionWithLse(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do is None:          # only lse was used downstream
             do = torch.zeros_like(o)
-        elif do.stride(-1) != 1:
-            do = do.contiguous()
+        elif do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                                    and not _tma_aligned(do)):
+            # a copy the kernels can read (the bf16 ones by TMA)
+            do = do.clone(memory_format=torch.contiguous_format)
         delta = flash_bwd_delta(o, do, dlse)
         dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, ctx.cfg)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.cfg)

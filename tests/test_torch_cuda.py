@@ -230,11 +230,8 @@ def _bwd_inputs(rng, b, s, n, g, h, dtype, dev, cfg, dlse, fused=False):
     return q, k, v, do, lse, A.flash_bwd_delta(o, do, dl)
 
 
-def _bwd_errors(q, k, v, do, lse, delta, cfg):
-    got = (A.flash_bwd_dq(q, k, v, do, lse, delta, cfg),
-           *A.flash_bwd_dkdv(q, k, v, do, lse, delta, cfg))
-    want = (A.flash_bwd_dq_plain(q, k, v, do, lse, delta, cfg),
-            *A.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, cfg))
+def _rel_errors(got, want):
+    """(max, mean) of |got - want| relative to |want|, per output."""
     torch.cuda.synchronize()
     for x, y in zip(got, want):
         assert x.shape == y.shape and x.dtype == y.dtype
@@ -245,6 +242,14 @@ def _bwd_errors(q, k, v, do, lse, delta, cfg):
     return out
 
 
+def _bwd_errors(q, k, v, do, lse, delta, cfg):
+    got = (A.flash_bwd_dq(q, k, v, do, lse, delta, cfg),
+           *A.flash_bwd_dkdv(q, k, v, do, lse, delta, cfg))
+    want = (A.flash_bwd_dq_plain(q, k, v, do, lse, delta, cfg),
+            *A.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, cfg))
+    return _rel_errors(got, want)
+
+
 def _assert_bwd_close(errs, dtype):
     tol, mean_tol = ((1e-5, 1e-5) if dtype == torch.float32
                      else (BWD_BF16_TOL, BWD_BF16_MEAN_TOL))
@@ -252,21 +257,53 @@ def _assert_bwd_close(errs, dtype):
         f"(max, mean) relative errors of dq, dk, dv: {errs}")
 
 
-@pytest.mark.parametrize("dlse", [False, True], ids=["delta", "dlse"])
-@pytest.mark.parametrize("s", [256, 200])
-@pytest.mark.parametrize(
-    "causal,window", [(True, 0), (True, 37), (False, 0)],
-    ids=["causal", "window37", "noncausal"],
-)
-@pytest.mark.parametrize("n,g", [(8, 8), (8, 2)], ids=["mha", "gqa"])
-@pytest.mark.parametrize("h", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_kernels_match_plain(dev, dtype, h, n, g, causal, window,
-                                       s, dlse):
+_BWD_MASKS = {"causal": (True, 0), "window37": (True, 37),
+              "noncausal": (False, 0)}
+# name: (b, s, n, g, h, causal, window, dlse). The bf16 (wgmma/TMA)
+# instances' edges: many tiles queued per CTA, so each warpgroup's ring
+# wraps its phase several times (s 1024); one kv head for 8 query heads
+# (g 1: dK/dV sums the whole group); windows of 1 (the diagonal only) and
+# of one tile; one ragged tile (s 17); batch 1. Under window 1 a row sees
+# only itself, so p = 1 and dp = delta up to rounding: without an lse
+# cotangent dq and dk are rounding noise, with one ds = p * dlse * scale.
+BWD_EDGES = {
+    "s1024": (2, 1024, 8, 8, 64, True, 0, False),
+    "s1024_h128_gqa_window64": (1, 1024, 8, 2, 128, True, 64, True),
+    "g1": (2, 256, 8, 1, 64, True, 0, False),
+    "g1_h128_noncausal": (2, 200, 8, 1, 128, False, 0, True),
+    "window1": (2, 256, 8, 8, 64, True, 1, True),
+    "window1_h128_gqa": (1, 200, 8, 2, 128, True, 1, True),
+    "window64": (2, 256, 8, 2, 64, True, 64, True),
+    "s17": (2, 17, 4, 4, 64, True, 0, False),
+    "s17_h128_g1_noncausal": (1, 17, 4, 1, 128, False, 0, True),
+    "batch1": (1, 256, 8, 8, 64, True, 0, False),
+    "batch1_h128_window64": (1, 256, 8, 8, 128, True, 64, False),
+}
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+BWD_CASES = [
+    pytest.param(dtype, 2, s, n, g, h, *_BWD_MASKS[mask], dlse,
+                 id=f"{dn}-h{h}-{heads}-{mask}-s{s}-"
+                    f"{'dlse' if dlse else 'delta'}")
+    for dn, dtype in _DTYPES.items()
+    for h in (64, 128)
+    for heads, (n, g) in (("mha", (8, 8)), ("gqa", (8, 2)))
+    for mask in _BWD_MASKS
+    for s in (256, 200)
+    for dlse in (False, True)
+] + [
+    pytest.param(dtype, *case, id=f"{dn}-{name}")
+    for dn, dtype in _DTYPES.items()
+    for name, case in BWD_EDGES.items()
+]
+
+
+@pytest.mark.parametrize("dtype,b,s,n,g,h,causal,window,dlse", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(dev, dtype, b, s, n, g, h, causal,
+                                       window, dlse):
     rng = np.random.default_rng(4)
     cfg = A.FlashConfig(causal=causal, window=window)
     _assert_bwd_close(_bwd_errors(
-        *_bwd_inputs(rng, 2, s, n, g, h, dtype, dev, cfg, dlse), cfg), dtype)
+        *_bwd_inputs(rng, b, s, n, g, h, dtype, dev, cfg, dlse), cfg), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -277,6 +314,41 @@ def test_flash_bwd_kernels_read_strided_views(dev, dtype):
                          fused=True)
     assert not inputs[0].is_contiguous() and not inputs[3].is_contiguous()
     _assert_bwd_close(_bwd_errors(*inputs, cfg), dtype)
+
+
+def test_flash_bwd_misaligned_bf16_views(dev):
+    """The bf16 kernels read q/k/v/dO by TMA: a view whose head stride is
+    not a 16-byte multiple raises ValueError before any launch, and the
+    autograd backward copies such a dO and launches the kernels."""
+    rng = np.random.default_rng(8)
+    cfg = A.FlashConfig()
+    q, k, v, do, _, _ = _bwd_inputs(rng, 2, 130, 4, 4, 64, torch.bfloat16,
+                                    dev, cfg, False)
+
+    def misaligned(x):          # head stride 68 elements: 136 bytes
+        pad = torch.zeros(x.shape[:3] + (68,), dtype=x.dtype, device=dev)
+        pad[..., :64] = x
+        return pad[..., :64]
+
+    bad_do, bad_q = misaligned(do), misaligned(q)
+    o, lse = A.flash_attention_with_lse(q, k, v, cfg)
+    delta = A.flash_bwd_delta(o, do)
+    before = (A.FLASH_BWD_DKDV.launches, A.FLASH_BWD_DQ.launches)
+    for args in ((q, k, v, bad_do), (bad_q, k, v, do)):
+        with pytest.raises(ValueError, match="TMA"):
+            A.flash_bwd_dq(*args, lse, delta, cfg)
+        with pytest.raises(ValueError, match="TMA"):
+            A.flash_bwd_dkdv(*args, lse, delta, cfg)
+    assert (A.FLASH_BWD_DKDV.launches, A.FLASH_BWD_DQ.launches) == before
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(A.flash_attention(*leaves, cfg), leaves,
+                              bad_do)
+    assert (A.FLASH_BWD_DKDV.launches, A.FLASH_BWD_DQ.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = (A.flash_bwd_dq_plain(q, k, v, do, lse, delta, cfg),
+            *A.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, cfg))
+    _assert_bwd_close(_rel_errors(got, want), torch.bfloat16)
 
 
 def test_flash_autograd_launches_the_backward_kernels(dev):

@@ -125,6 +125,38 @@ def test_flash_gate_and_forward_only():
     _close(g_flash, g_ref)
 
 
+def test_tma_alignment_gate():
+    """The bf16 kernels read [b, s, heads, h] inputs by TMA: 16-byte
+    aligned bases and b/s/head strides, checked before a launch; float32
+    takes any strides. The autograd backward copies a dO that fails the
+    check (on the CPU, where the plain versions run, the result is the
+    same either way)."""
+    bf = torch.bfloat16
+    x = torch.zeros((2, 8, 4, 64), dtype=bf)
+    fused = torch.zeros((2, 8, 3, 4, 64), dtype=bf)[:, :, 1]
+    padded = torch.zeros((2, 8, 4, 68), dtype=bf)[..., :64]   # 136-byte head
+    shifted = torch.zeros(2 * 8 * 4 * 64 + 1, dtype=bf)[1:].view(2, 8, 4, 64)
+    assert ta._tma_aligned(x) and ta._tma_aligned(fused)
+    assert not ta._tma_aligned(padded) and not ta._tma_aligned(shifted)
+    ta._check_tma(x, fused)
+    for bad in (padded, shifted):
+        with pytest.raises(ValueError, match="TMA"):
+            ta._check_tma(x, bad)
+    ta._check_tma(padded.float(), torch.zeros((2, 8, 4, 68))[..., :64])
+
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.tensor(rng.normal(size=(1, 8, 2, 64)), dtype=bf,
+                            requires_grad=True) for _ in range(3))
+    do = torch.tensor(rng.normal(size=(1, 8, 2, 64)), dtype=bf)
+    do_pad = torch.zeros((1, 8, 2, 68), dtype=bf)
+    do_pad[..., :64] = do
+    got = torch.autograd.grad(ta.flash_attention(q, k, v), (q, k, v),
+                              do_pad[..., :64])
+    want = torch.autograd.grad(ta.flash_attention(q, k, v), (q, k, v), do)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 BASE = dict(vocab=97, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=96)
 
 
