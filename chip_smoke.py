@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training slices on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and runtime slices on
+one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -34,7 +34,18 @@ shows; it then exits 1 before the summary lines. Phases:
    two-layer copy whose kernel-path gradients must equal the reference
    path's; a short torch.profiler pass gives the device-busy share
    (reported as not measured when the profiler sees no device time);
-6. summary: the device time of the whole bf16 backward (delta, dK/dV
+6. the in-pod runtime: ``runner.main`` in this process on the card at the
+   same preset, each report read from its printed JSON line. Train: 20
+   steps with evals and checkpoints on a Zipf-distributed token file,
+   launch counts of the three attention kernels over exactly that run
+   (its warm-up pass included), eval loss falling, a flight-recorder
+   record per step; decode mode from that checkpoint; resume: 10 steps,
+   then the same command again, whose final loss must equal the
+   uninterrupted run's within RESUME_TOL; pre-copy drain: an alloc spec
+   with the drain already stamped, delta rounds while training goes on
+   (each split into the copy to the host and the rest), a final delta, an
+   ack whose digest is the verified chain, and a resume from that chain;
+7. summary: the device time of the whole bf16 backward (delta, dK/dV
    and dQ) against SDPA's whole backward, a ``paths`` JSON line, a
    ``kernels`` JSON line, the card's name and power limit as nvidia-smi
    reports them, and the result line.
@@ -108,6 +119,19 @@ TRAIN_BF16_TOL = 0.2
 # each leaf's largest gradient (summation order only)
 TRAIN_GRAD_F32_TOL = 1e-4
 TRAIN_STEPS = 20
+# |final loss of a run resumed at step 10 - the uninterrupted run's|: none
+# at all. The resumed run restores the f32 params and optimizer state bit
+# for bit and reads the same batches at the same schedule counts, so it
+# repeats the same computation with the same kernels on the same shapes,
+# and no op on the path sums in thread order (the flash backward has no
+# atomics; the embedding gradient's index_put sorts its indices; cuBLAS is
+# deterministic on one stream): every sound run gave a gap of exactly 0.
+# Restore faults planted in the runner (planted_faults.py F13-F15) gave:
+# optimizer state left at its init 0.051, step count reset 0.036, second
+# moment reset 51.8.
+RESUME_TOL = 0.0
+RUNTIME_STEPS = 20
+EVAL_BATCHES = 2
 
 
 FAILURES: list = []
@@ -703,6 +727,195 @@ def run_train(torch, W, A, cfg, tree, dev):
     )
 
 
+def _zipf_tokens(rng, vocab: int, n: int, a: float = 1.1):
+    """n tokens with a Zipf(a) unigram law over a random permutation of
+    the vocabulary: text-like frequencies, so that losses fall."""
+    p = 1.0 / np.arange(1, vocab + 1) ** a
+    return rng.permutation(vocab)[rng.choice(vocab, size=n, p=p / p.sum())]
+
+
+# env the runner reads; the runtime phase sets it per run and restores it
+RUNTIME_ENV = ("TPU", "GPU", "ELASTIC_TPU_ALLOC_DIR", "TPU_WORKER_HOSTNAMES",
+               "ELASTIC_TPU_HBM_FRACTION", "ELASTIC_TPU_ENV_FILE",
+               "ELASTIC_TPU_RESTORE_WAIT_S", "ELASTIC_TPU_RESTORE_DIR",
+               "ELASTIC_TPU_RESTORE_STEP", "ELASTIC_TPU_FLIGHT_RECORDER",
+               "ELASTIC_TPU_TRACE_ID")
+
+
+def _runner(R, argv: str, dev) -> dict:
+    """runner.main(argv) in this process; the report is its printed last
+    line, which is echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = R.main(argv.split(), device=dev)
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"runner {argv}: {line}")
+    if rc != 0:
+        fail(f"runner {argv}: exit {rc}")
+    return json.loads(line)
+
+
+def run_runtime(torch, A, dev, tmp) -> dict:
+    """Phase 6: the runner's train and decode modes, resume, and the
+    pre-copy drain, in this process on the card (``tmp`` holds the data
+    file and checkpoints; each checkpoint directory goes when its checks
+    are done)."""
+    import shutil
+
+    from elastic_tpu_agent_torch.workloads import checkpointing as C
+    from elastic_tpu_agent_torch.workloads import data as D
+    from elastic_tpu_agent_torch.workloads import lifecycle as L
+    from elastic_tpu_agent_torch.workloads import runner as R
+    from elastic_tpu_agent_torch.workloads import telemetry as T
+
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    saved = {k: os.environ.pop(k, None) for k in RUNTIME_ENV}
+    os.environ["ELASTIC_TPU_ENV_FILE"] = os.path.join(tmp, "no-env-file")
+    out = {}
+    try:
+        data = os.path.join(tmp, "tokens.bin")
+        D.write_token_file(data, _zipf_tokens(
+            np.random.default_rng(SEED + 9), SMALL["vocab"], 1 << 20))
+        base = f"--preset small --batch 8 --seq 256 --data {data}"
+
+        # train: 20 steps, evals at steps 9 and 19, saves at 9 and 19
+        a = os.path.join(tmp, "a")
+        fr = os.path.join(tmp, "fr.jsonl")
+        for kern in kerns:
+            kern.launches = 0
+        rep = _runner(R, f"{base} --steps {RUNTIME_STEPS} --warmup-steps 5 "
+                      f"--total-steps {RUNTIME_STEPS} --eval-every 10 "
+                      f"--eval-batches {EVAL_BATCHES} --checkpoint-dir {a} "
+                      f"--checkpoint-every 10 --flight-recorder {fr}", dev)
+        torch.cuda.synchronize()
+        launches = {k.symbol: k.launches for k in kerns}
+        n_layers = SMALL["n_layers"]
+        # one forward and backward of the warm-up, then the steps and the
+        # two evals
+        want = {"flash_fwd": n_layers * (1 + RUNTIME_STEPS + 2 * EVAL_BATCHES),
+                "flash_bwd_dkdv": n_layers * (1 + RUNTIME_STEPS),
+                "flash_bwd_dq": n_layers * (1 + RUNTIME_STEPS)}
+        if launches != want:
+            fail(f"runner train launches {launches}, want {want}")
+        ev = [e["loss"] for e in rep.get("eval", [])]
+        recs = T.load_jsonl(fr)
+        steps = [r for r in recs if r["kind"] == "step"]
+        saves = [r["duration_ms"] for r in recs
+                 if r["kind"] == "checkpoint_save"]
+        print(f"runtime train: step_time_ms {rep['step_time_ms']:.2f} with "
+              f"checkpoint saves of {saves} ms in the window; step records "
+              + ", ".join(f"{r['duration_ms']:.1f}" for r in steps) + " ms")
+        if rep["steps"] != RUNTIME_STEPS or rep["platform"] != "gpu":
+            fail(f"runner train: {rep['steps']} steps on {rep['platform']}")
+        if not np.isfinite(rep["final_loss"] or np.nan):
+            fail(f"runner train final loss {rep['final_loss']}")
+        if len(ev) != 2 or not ev[1] < ev[0]:
+            fail(f"runner eval losses {ev}: not two, falling")
+        if len(steps) != RUNTIME_STEPS:
+            fail(f"flight recorder: {len(steps)} step records")
+        mem = steps[-1].get("device_memory") if steps else None
+        out["train"] = dict(
+            steps=rep["steps"], step_time_ms=rep["step_time_ms"],
+            tokens_per_s=rep["tokens_per_s"], final_loss=rep["final_loss"],
+            eval_losses=ev, launches=launches, checkpoint_save_ms=saves,
+            flight_mean_step_ms=rep["flight_recorder"].get("mean_step_ms"),
+            step_ms=[r["duration_ms"] for r in steps], device_memory=mem,
+        )
+
+        # decode from that checkpoint (generate's cached attention: no
+        # hand-written kernel on this path)
+        for kern in kerns:
+            kern.launches = 0
+        dec = _runner(R, f"--mode decode --preset small --batch 8 "
+                      f"--prompt-len 32 --new-tokens 64 --checkpoint-dir {a}",
+                      dev)
+        if dec["restored_step"] != RUNTIME_STEPS - 1:
+            fail(f"decode restored step {dec['restored_step']}")
+        if dec["decode_tokens_per_s"] is None:
+            fail("decode_tokens_per_s is null")
+        out["decode"] = {k: dec[k] for k in (
+            "restored_step", "prefill_ms", "decode_tokens_per_s",
+            "ms_per_token", "end_to_end_s")}
+        out["decode"]["launches"] = {k.symbol: k.launches for k in kerns}
+        shutil.rmtree(a)
+
+        # resume: 10 steps, then the same command resumes at step 10
+        b = os.path.join(tmp, "b")
+        cmd = (f"{base} --steps 10 --warmup-steps 5 --total-steps "
+               f"{RUNTIME_STEPS} --checkpoint-dir {b} --checkpoint-every 10")
+        first = _runner(R, cmd, dev)
+        second = _runner(R, cmd, dev)
+        gap = abs(second["final_loss"] - rep["final_loss"])
+        print(f"runtime resume: start_step {first['start_step']} then "
+              f"{second['start_step']}, final loss {second['final_loss']:.6f}"
+              f" vs uninterrupted {rep['final_loss']:.6f}: gap {gap:.3g} "
+              f"(limit {RESUME_TOL})")
+        if (first["start_step"], second["start_step"]) != (0, 10):
+            fail(f"resume start steps {first['start_step']}, "
+                 f"{second['start_step']}")
+        if not gap <= RESUME_TOL:
+            fail(f"resumed final loss off the uninterrupted run by {gap}")
+        out["resume"] = dict(start_step=second["start_step"],
+                             final_loss=second["final_loss"], gap=gap,
+                             step_time_ms=second["step_time_ms"])
+        shutil.rmtree(b)
+
+        # pre-copy drain: the spec carries the drain stamp from the start
+        alloc, h = os.path.join(tmp, "alloc"), "chipsmoke0"
+        os.makedirs(alloc)
+        with open(os.path.join(alloc, f"{h}.json"), "w") as f:
+            json.dump({"env": {"ELASTIC_TPU_DRAIN": "maintenance:smoke",
+                               "ELASTIC_TPU_DRAIN_DEADLINE":
+                               str(time.time() + 3600)}}, f)
+        os.environ.update(TPU=h, ELASTIC_TPU_ALLOC_DIR=alloc,
+                          ELASTIC_TPU_RESTORE_WAIT_S="0")
+        c = os.path.join(tmp, "c")
+        fr_c = os.path.join(tmp, "fr_c.jsonl")
+        pre = _runner(R, f"{base} --steps 10 --precopy-every 5 "
+                      f"--checkpoint-every 0 --checkpoint-dir {c} "
+                      f"--flight-recorder {fr_c}", dev)
+        ack = L.read_checkpoint_ack(alloc, h) or {}
+        chain = C.DeltaCheckpointer(c).verify()
+        rounds = [r for r in T.load_jsonl(fr_c)
+                  if r["kind"] in ("precopy_round", "cutover")]
+        print("runtime pre-copy: " + "; ".join(
+            f"{r['kind']} {r['round']} at step {r['step']}: "
+            f"{r['delta_bytes']} of {r['total_bytes']} bytes in "
+            f"{r['duration_ms']:.1f} ms (copy to the host "
+            f"{r['copy_ms']:.1f})" for r in rounds)
+            + f"; ack cutover_ms {ack.get('cutover_ms')}; step_time_ms "
+            f"{pre['step_time_ms']:.2f}")
+        if pre["precopy_rounds"] < 1 or ack.get("precopy_rounds") is None:
+            fail(f"pre-copy rounds {pre['precopy_rounds']}, ack {ack}")
+        if not (chain["ok"] and ack.get("digest") == chain["chain"]
+                and ack.get("kind") == "checkpoint"):
+            fail(f"pre-copy ack {ack} vs verified chain {chain}")
+        for k in ("TPU", "ELASTIC_TPU_ALLOC_DIR"):
+            os.environ.pop(k)
+        back = _runner(R, f"{base} --steps 1 --checkpoint-every 0 "
+                       f"--checkpoint-dir {c}", dev)
+        if back["start_step"] != 10:
+            fail(f"resume from the delta chain at {back['start_step']}")
+        out["precopy"] = dict(
+            rounds=pre["precopy_rounds"], payload_bytes=chain["total_bytes"],
+            round_log=rounds, cutover_ms=ack.get("cutover_ms"),
+            final_delta_bytes=ack.get("delta_bytes"),
+            resumed_start_step=back["start_step"],
+            step_time_ms=pre["step_time_ms"],
+        )
+        shutil.rmtree(c)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -821,6 +1034,10 @@ def main() -> int:
     flash["launches"], fwd = run_forward(torch, W, A, cfg, params, dev)
     paged["launches"], srv = run_serving(torch, W, PA, cfg, params, tree, dev)
     launches, train = run_train(torch, W, A, cfg, tree, dev)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
+        runtime = run_runtime(torch, A, dev, tmp)
     dkdv["launches"] = launches["flash_bwd_dkdv"]
     dq["launches"] = launches["flash_bwd_dq"]
     kernel_recs = [flash, paged, dkdv, dq]
@@ -837,7 +1054,8 @@ def main() -> int:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     report = {"card": card, "forward": fwd, "serving": srv, "train": train,
-              "kernels": kernel_recs, "flash_bwd_whole": bwd_whole}
+              "runtime": runtime, "kernels": kernel_recs,
+              "flash_bwd_whole": bwd_whole}
     if args.profile:
         rng = np.random.default_rng(SEED + 8)
         tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 257)),
@@ -854,7 +1072,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"paths": {"forward": fwd, "serving": srv,
-                                "train": train}}))
+                                "train": train, "runtime": runtime}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

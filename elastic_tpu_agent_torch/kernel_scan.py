@@ -1,6 +1,6 @@
 """Device and host time of the flash forward, flash backward and paged
-decode kernels around the main path's shapes. Needs the card, as
-``chip_smoke.py`` does:
+decode kernels around the main path's shapes, and host time of the
+pre-copy transport. Needs the card, as ``chip_smoke.py`` does:
 
     python3 -m elastic_tpu_agent_torch.kernel_scan [--out FILE]
 
@@ -22,7 +22,13 @@ Prints one line per reading and, with ``--out``, writes them all as JSON:
 - ``host``: host time per call of the flash forward's C entry (which
   encodes its three TMA maps) against the float32 entry (no maps), of the
   Python wrappers, and of the paged wrapper (calls the host paces, at a
-  tiny shape).
+  tiny shape);
+- ``transport``: the runner's pre-copy transport on the ``small``
+  preset's train state (f32 params, Adam moments, the count; 706 MB): its
+  copy to pinned host memory (the first, which allocates the buffer, and
+  one that reuses it), then delta rounds that write every block
+  and rounds that write none (hashing only), with the block pool at 8
+  workers and at 1, in turns (8, 1, 1, 8), host time.
 
 Device times are ``chip_smoke.device_ms``: CUDA events around calls queued
 behind a sleep kernel.
@@ -67,6 +73,49 @@ def ptxas_lines(log: str) -> list:
         for r, n in zip(out, names):
             r["name"] = n or r["name"]
     return out
+
+
+def transport(torch, C, dev) -> dict:
+    import tempfile
+
+    from elastic_tpu_agent_torch.workloads import checkpointing as CK
+    from elastic_tpu_agent_torch.workloads import transformer as TR
+
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    cfg = TR.ModelConfig(**C.SMALL, max_seq=256, dtype=torch.bfloat16)
+    state = TR.make_train_step(cfg, device=dev)[1](
+        torch.Generator().manual_seed(0))
+    # the first copy allocates the pinned buffer; a dropped buffer goes
+    # back to the cache, so the second copy reuses it
+    copy_first_ms = ms(lambda: CK.tree_to_bytes(state))
+    rec = dict(copy_first_ms=copy_first_ms,
+               copy_ms=ms(lambda: CK.tree_to_bytes(state)), rounds=[])
+    payload = CK.tree_to_bytes(state)
+    rec["payload_bytes"] = len(payload)
+    default = CK.BLOCK_WORKERS
+    try:
+        for workers in (8, 1, 1, 8):
+            CK.BLOCK_WORKERS = workers
+            with tempfile.TemporaryDirectory() as d:
+                delta = CK.DeltaCheckpointer(d)
+                rec["rounds"].append(dict(
+                    workers=workers,
+                    write_all_ms=ms(lambda: delta.save(0, payload)),
+                    hash_only_ms=ms(lambda: delta.save(1, payload))))
+    finally:
+        CK.BLOCK_WORKERS = default
+    print(f"transport: {rec['payload_bytes']} bytes, copy to the host "
+          f"{rec['copy_ms']:.1f} ms ({rec['copy_first_ms']:.1f} the first "
+          "time); " + "; ".join(
+              f"{r['workers']} worker(s): every block hashed and written "
+              f"{r['write_all_ms']:.1f} ms, hashed only "
+              f"{r['hash_only_ms']:.1f} ms" for r in rec["rounds"]))
+    return rec
 
 
 def main(argv=None) -> int:
@@ -195,6 +244,7 @@ def main(argv=None) -> int:
     hq["paged_wrapper_us"] = host_us(
         lambda: PA.paged_decode_attention(q, pk, pv, table, lengths, 8))
     print("host per call: " + ", ".join(f"{k} {v:.1f}" for k, v in hq.items()))
+    out["transport"] = transport(torch, C, dev)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))

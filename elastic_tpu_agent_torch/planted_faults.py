@@ -2,22 +2,29 @@
 
 Copies the repository (without ``.git``, build outputs and run outputs)
 once per fault, plants the fault by replacing one exact line in the
-copy's CUDA source, runs the copy's ``chip_smoke.py`` and keeps its
-output; the sound tree is run the same way first. The bf16 limits in
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` sit between the sound
-readings and the faulty ones. Needs the card, as ``chip_smoke.py`` does:
+copy's CUDA source or runner, runs the copy's ``chip_smoke.py`` and keeps
+its output; the sound tree is run the same way first. The bf16 limits in
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``, and its resume limit,
+sit between the sound readings and the faulty ones. Needs the card, as
+``chip_smoke.py`` does:
 
-    python3 -m elastic_tpu_agent_torch.planted_faults --out DIR
+    python3 -m elastic_tpu_agent_torch.planted_faults --out DIR [--only F...]
 
 ``DIR`` gets one ``<fault>.log`` per run and ``faults.json``: for each
-run its exit code, the readings of the kernel, forward, serving and
-training checks, and the checks that failed.
+run its exit code, the readings of the kernel, forward, serving, training
+and runtime checks, and the checks that failed. ``--only`` runs the named
+runs alone.
 
 The backward faults F6-F8 and F12 sit in the bf16 (wgmma/TMA) instances
 of ``csrc/flash_bwd.cu``, the ones the bf16 checks and the train step run:
 F6 in dQ, F7, F8 and F12 in dK/dV. F12 reads lse and delta by the
 accumulator fragment's row instead of its column, the slip that the
 transposed scores of dK/dV invite.
+
+The restore faults F13-F15 sit in the runner's resume from a full
+checkpoint, which chip_smoke's resume check reads: the optimizer state
+left at its init, the step count (which drives the schedule and the bias
+correction) reset, the second moment reset.
 
 Two roundings cannot be planted away: P in the bf16 flash forward and dS
 in the bf16 backward (F5, "ds not cast before dK", retired) are register
@@ -39,6 +46,8 @@ ROOT = Path(__file__).resolve().parent.parent
 BWD = "elastic_tpu_agent_torch/csrc/flash_bwd.cu"
 FWD = "elastic_tpu_agent_torch/csrc/flash_fwd.cu"
 PAGED = "elastic_tpu_agent_torch/csrc/paged_decode.cu"
+RUNNER = "elastic_tpu_agent_torch/workloads/runner.py"
+RESTORE = "params, opt_state, start_step = ckpt.restore(params, opt_state)"
 
 # name -> (file, exact text, replacement); each text occurs exactly once
 FAULTS = {
@@ -72,10 +81,21 @@ FAULTS = {
         PAGED, "const float w = exp2_approx(__ldcg(pk) - mx);",
         "const float w = 1.f;",
     ),
+    "F13_optimizer_state_reinitialised_on_resume": (
+        RUNNER, RESTORE,
+        "params, _, start_step = ckpt.restore(params, opt_state)",
+    ),
+    "F14_step_count_reset_on_resume": (
+        RUNNER, RESTORE, RESTORE + '; opt_state["count"].zero_()',
+    ),
+    "F15_second_moment_reset_on_resume": (
+        RUNNER, RESTORE,
+        RESTORE + '; opt_state["nu"] = optimizer.init(params)["nu"]',
+    ),
 }
 TIMEOUT_S = 900.0  # for each chip_smoke.py run
 KEEP = ("flash_fwd ", "paged_decode ", "flash_bwd", "forward ", "serving ",
-        "train ", "reference losses", "chip_smoke:")
+        "train ", "reference losses", "runtime ", "chip_smoke:")
 SKIP = (".git", "_build", "__pycache__", ".pytest_cache")
 
 
@@ -121,12 +141,14 @@ def run(name: str, fault, out: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True, help="directory for the logs")
+    ap.add_argument("--only", nargs="+", choices=sorted(FAULTS),
+                    default=list(FAULTS), help="the runs to make")
     args = ap.parse_args(argv)
     out = Path(args.out).resolve()
     out.mkdir(parents=True, exist_ok=True)
     results = {}
-    for name, fault in FAULTS.items():
-        results[name] = run(name, fault, out)
+    for name in args.only:
+        results[name] = run(name, FAULTS[name], out)
         print(name, "rc", results[name]["rc"], flush=True)
     (out / "faults.json").write_text(json.dumps(results, indent=1))
     return 0

@@ -1,6 +1,7 @@
-"""The PyTorch port imports neither JAX nor the JAX package: every module
-of elastic_tpu_agent_torch imports in a fresh interpreter where importing
-jax fails, and no elastic_tpu_agent module gets loaded."""
+"""The PyTorch port imports neither JAX (nor optax or orbax) nor the JAX
+package: every module of elastic_tpu_agent_torch imports in a fresh
+interpreter where importing jax, optax or orbax fails, and no
+elastic_tpu_agent module gets loaded."""
 
 import os
 import subprocess
@@ -14,7 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None          # any `import jax` now raises
+for blocked in ("jax", "optax", "orbax"):
+    sys.modules[blocked] = None    # any `import jax` etc. now raises
 import elastic_tpu_agent_torch as pkg
 names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -38,5 +40,5 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     count, leaked = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 9          # workloads and every module in it
+    assert int(count) >= 17         # workloads and every module in it
     assert leaked == "[]"
