@@ -45,7 +45,29 @@ shows; it then exits 1 before the summary lines. Phases:
    with the drain already stamped, delta rounds while training goes on
    (each split into the copy to the host and the rest), a final delta, an
    ack whose digest is the verified chain, and a resume from that chain;
-7. summary: the device time of the whole bf16 backward (delta, dK/dV
+7. MoE (the same preset with 4 experts in every second layer, the
+   repo's MoE count): the layer held against the JAX layer's one-hot
+   einsum form on the card (float32: outputs, aux loss, routes and
+   gradients; bf16: outputs); the forward at ``[8,256]`` through the
+   flash kernel against reference attention; 20 train steps through the
+   flash forward and both backward kernels against the same run on
+   reference attention, with the aux loss, drop rate and imbalance; 16
+   requests on the kernel-path engine; a float32 two-layer copy whose
+   kernel-path streams must equal the gather path's (and, at the
+   drop-free capacity factor, ``generate()``'s) and whose gradients must
+   match the reference path's (routes that differ between the runs are
+   counted);
+8. int8 at the dense preset: ``quantize_params`` on the card byte-equal
+   to the CPU's, ``generate`` on the int8 weights (tokens/s, greedy
+   agreement with the bf16 stream), a ``kv_int8`` engine over 16 requests
+   (the gather path: no paged-decode launch), ``runner --mode decode
+   --int8``;
+9. the engine's flight recorder and lifecycle drain: 16 admitted
+   requests give one ``serving_admit`` record each and one
+   ``serving_step`` per step; then a drain stamped into the alloc spec
+   refuses admission, ``drain_serving`` finishes the streams and writes
+   the ack;
+10. summary: the device time of the whole bf16 backward (delta, dK/dV
    and dQ) against SDPA's whole backward, a ``paths`` JSON line, a
    ``kernels`` JSON line, the card's name and power limit as nvidia-smi
    reports them, and the result line.
@@ -65,6 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -132,6 +155,32 @@ TRAIN_STEPS = 20
 RESUME_TOL = 0.0
 RUNTIME_STEPS = 20
 EVAL_BATCHES = 2
+# the MoE cell: the small preset with the repo's MoE count
+# (__graft_entry__.py's MoE leg) and the config's defaults (every second
+# layer, capacity factor 1.25, aux coefficient 0.01)
+MOE_EXPERTS = 4
+# moe_mlp against the JAX layer's one-hot einsum form on the same inputs:
+# each slot holds one token, so the einsums' sums have one nonzero term
+# and the two forms differ only where the expert matmuls sum in another
+# order; relative to the largest element (outputs, aux, each gradient).
+# Sound: outputs and aux exactly equal, gradients 5.7e-7 at most; the MoE
+# faults planted in moe.py (PERF.md, Findings): the gate dropped 1.18 or
+# more, capacity C + 1 0.0495 or more (and a route differing)
+MOE_LAYER_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+# bf16 MoE model, flash kernels vs reference attention. A route that
+# flips between the two runs (29-48 of 8,192 with sound kernels) changes
+# that token's MLP output outright, so the forward's logits are compared
+# on their mean |difference|: sound attention 0.0043-0.0083, the causal
+# mask one column late (F9) 0.0495. Train losses over 20 steps drift apart
+# as flipped routes compound: with sound attention kernels 0.110-0.258
+# (the sound tree and the runs with MoE faults, whose kernels are sound),
+# with backward or forward faults 0.594 (F9), 1.65 (F8), 1.90 (F12); F6
+# (0.337) sits below the limit and fails the dQ check and the dense gap.
+MOE_FORWARD_BF16_MEAN_TOL = 0.02
+MOE_TRAIN_BF16_TOL = 0.5
+# float32 two-layer gradients, as the dense cell's: sound 1.10e-6 to
+# 1.14e-6 with no route flipped; no planted fault reaches the f32 kernels
+MOE_GRAD_F32_TOL = 1e-4
 
 
 FAILURES: list = []
@@ -565,15 +614,21 @@ def serve(W, eng, prompts, kinds, new_tokens, step_times=None):
     return [streams[i] for i in range(len(prompts))]
 
 
-def run_serving(torch, W, PA, cfg, params, tree, dev):
-    rng = np.random.default_rng(SEED + 4)
-    n_req, new_tokens = 16, 64
+def _serving_requests(cfg, seed):
+    """16 prompts of 16-200 tokens and their kinds (admit or enqueue,
+    greedy or sampled), as phase 4 draws them."""
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
-               for n in rng.integers(16, 201, size=n_req)]
-    kinds = [
-        (i % 4 < 2, {} if i % 2 == 0 else dict(temperature=0.8, top_k=50))
-        for i in range(n_req)
-    ]
+               for n in rng.integers(16, 201, size=16)]
+    kinds = [(i % 4 < 2, {} if i % 2 == 0 else dict(temperature=0.8,
+                                                     top_k=50))
+             for i in range(16)]
+    return prompts, kinds
+
+
+def run_serving(torch, W, PA, cfg, params, tree, dev):
+    n_req, new_tokens = 16, 64
+    prompts, kinds = _serving_requests(cfg, SEED + 4)
     eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
                           prompt_buckets=(16, 64, 256), device=dev)
     if not eng.paged_kernel:
@@ -916,6 +971,469 @@ def run_runtime(torch, A, dev, tmp) -> dict:
     return out
 
 
+def moe_onehot(torch, x, params, factor):
+    """The JAX MoE layer's one-hot einsum form
+    (elastic_tpu_agent/workloads/moe.py:160-207) in torch: the plain
+    version ``moe_mlp`` is held against. Returns (y, aux, expert, kept)."""
+    F = torch.nn.functional
+    b, s, d = x.shape
+    n_exp = params["wg"].shape[1]
+    dtype = x.dtype
+    xt = x.reshape(b * s, d)
+    cap = max(1, math.ceil(b * s * factor / n_exp))
+    probs = torch.softmax(xt.float() @ params["wg"].float(), dim=-1)
+    expert = torch.argmax(probs, dim=-1)
+    mask = F.one_hot(expert, n_exp).float()
+    aux = n_exp * torch.sum(mask.mean(0) * probs.mean(0))
+    imask = mask.to(torch.int32)
+    position = torch.cumsum(imask, dim=0) * imask
+    imask = imask * (position <= cap)
+    mask = imask.float()
+    gate = torch.sum(probs * mask, dim=-1)
+    slot = torch.sum((position - 1) * imask, dim=-1)
+    dispatch = mask[:, :, None] * F.one_hot(slot, cap).float()[:, None, :]
+    combine = (dispatch * gate[:, None, None]).to(dtype)
+    dispatch = dispatch.to(dtype)
+    xin = torch.einsum("tec,td->ecd", dispatch, xt)
+    h = F.gelu(torch.einsum("ecd,edf->ecf", xin, params["w1"].to(dtype)),
+               approximate="tanh")
+    out = torch.einsum("ecf,efd->ecd", h, params["w2"].to(dtype))
+    y = torch.einsum("tec,ecd->td", combine, out)
+    return y.reshape(b, s, d), aux, expert, imask.sum(-1) > 0
+
+
+def check_moe_layer(torch, M, layer, dev):
+    """moe_mlp against its one-hot einsum form at the MoE cell's layer
+    shape (8 x 256 tokens, d 512, ff 2048, 4 experts), on the bridged
+    weights of the preset's first MoE layer: float32 outputs, aux loss,
+    routes and gradients of sum(y * r) + aux, at the cell's factor 1.25
+    and at 1.0, where some expert must overflow (so that drops are
+    checked); bf16 outputs at 1.25."""
+    rng = np.random.default_rng(SEED + 10)
+    d = layer["wg"].shape[0]
+    out = {}
+    for name, factor in (("float32", 1.25), ("float32", 1.0),
+                         ("bfloat16", 1.25)):
+        dtype = getattr(torch, name)
+        x = randn(torch, rng, (8, 256, d), dtype, dev)
+        r = randn(torch, rng, (8, 256, d), dtype, dev)
+        params = {k: v.detach().float().clone() for k, v in layer.items()}
+        leaves = [x] + [params[k] for k in ("wg", "w1", "w2")]
+        for t in leaves:
+            t.requires_grad_(name == "float32")
+        with torch.enable_grad():
+            y, aux = M.moe_mlp(x, params, factor)
+            y_ref, aux_ref, expert_ref, kept_ref = moe_onehot(
+                torch, x, params, factor)
+            _, expert, _, kept, _ = M.route(
+                x.detach().reshape(-1, d), params["wg"], factor)
+            errs = {
+                "y": ((y.float() - y_ref.float()).abs().max()
+                      / y_ref.float().abs().max()).item(),
+                "aux": abs(aux.item() - aux_ref.item()) / aux_ref.item(),
+            }
+            if name == "float32":
+                g = torch.autograd.grad((y * r).sum() + aux, leaves)
+                g_ref = torch.autograd.grad(
+                    (y_ref * r).sum() + aux_ref, leaves)
+                for k, a, b in zip(("dx", "dwg", "dw1", "dw2"), g, g_ref):
+                    errs[k] = ((a - b).abs().max() / b.abs().max()).item()
+        routes = int((expert != expert_ref).sum().item()
+                     + (kept != kept_ref).sum().item())
+        dropped = int((~kept_ref).sum().item())
+        label = f"moe layer {name} factor {factor}"
+        print(f"{label} [8,256,{d}] E{MOE_EXPERTS} vs one-hot einsum form: "
+              "relative max err "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; routes differing {routes}; dropped {dropped} of 2048")
+        if routes or max(errs.values()) > MOE_LAYER_TOL[name]:
+            fail(f"{label}: errors {errs}, routes differing {routes}")
+        if factor == 1.0 and not dropped:
+            fail(f"{label}: no token dropped, the capacity went unchecked")
+        out[f"{name} factor {factor}"] = dict(
+            errors=errs, routes_differing=routes, dropped=dropped)
+    return out
+
+
+class RouteLog:
+    """While active, records each ``moe.route`` call's inputs and
+    decisions (read-only instrumentation: the call's results are
+    returned unchanged)."""
+
+    def __init__(self, M):
+        self.M = M
+        self.calls = []
+
+    def __enter__(self):
+        self.real = real = self.M.route
+
+        def logged(xt, wg, factor):
+            res = real(xt, wg, factor)
+            self.calls.append(dict(xt=xt.detach(), wg=wg.detach(),
+                                   factor=factor, expert=res[1], kept=res[3]))
+            return res
+
+        self.M.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.M.route = self.real
+
+
+def routes_differing(a: "RouteLog", b: "RouteLog") -> int:
+    return sum(int((x["expert"] != y["expert"]).sum().item())
+               for x, y in zip(a.calls, b.calls))
+
+
+def routing_stats(M, log: "RouteLog", aux=None) -> dict:
+    st = M.MoeRoutingStats()
+    for c in log.calls:
+        st.observe(c["xt"], {"wg": c["wg"]}, c["factor"])
+    out = st.stats()
+    out["aux_loss"] = aux
+    return out
+
+
+def run_moe(torch, W, A, PA, M, tree, dev):
+    """The MoE cell: the layer against its one-hot form, the forward, 20
+    train steps, 16 requests on the kernel-path engine and a float32
+    two-layer copy. Each path's kernel counts are set to 0 just before it
+    and read just after."""
+    cfg = W.ModelConfig(**SMALL, max_seq=1024, dtype=torch.bfloat16,
+                        moe_experts=MOE_EXPERTS)
+    n_params = sum(int(np.prod(x.shape)) for x in _flat(tree))
+    params = W.params_from_jax(tree, cfg, device=dev)
+    moe_layers = [i for i in range(cfg.n_layers) if cfg.is_moe_layer(i)]
+    out = dict(params=n_params, moe_layers=moe_layers,
+               layer=check_moe_layer(torch, M, params["layers"][
+                   moe_layers[0]]["moe"], dev))
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+
+    # forward [8, 256] through the flash kernel vs reference attention
+    rng = np.random.default_rng(SEED + 11)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 256)),
+                          device=dev)
+    A.FLASH_FWD.launches = 0
+    with RouteLog(M) as got_log:
+        logits, aux = W.forward_with_aux(params, tokens, cfg, device=dev)
+    torch.cuda.synchronize()
+    fwd_launches = A.FLASH_FWD.launches
+    ref_cfg = dataclasses.replace(cfg, attn="reference")
+    with RouteLog(M) as ref_log:
+        ref = W.forward(params, tokens, ref_cfg, device=dev)
+    d = (logits.float() - ref.float()).abs()
+    flips = routes_differing(got_log, ref_log)
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    for _ in range(3):
+        W.forward(params, tokens, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        W.forward(params, tokens, cfg, device=dev)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"moe forward small preset E{MOE_EXPERTS} [8,256] bf16 "
+          f"({n_params} params): flash_fwd launches {fwd_launches}, "
+          f"{fwd_ms:.2f} ms, aux {aux.item():.4f}; vs reference attention: "
+          f"max|logits diff| {d.max().item():.3g}, mean {d.mean().item():.3g}"
+          f", argmax agreement {agree:.4f}, routes differing {flips} of "
+          f"{len(moe_layers) * 2048}")
+    if fwd_launches != cfg.n_layers:
+        fail(f"moe forward launched flash_fwd {fwd_launches}x")
+    if tuple(logits.shape) != (8, 256, cfg.vocab) or not torch.isfinite(
+            logits).all():
+        fail(f"moe forward logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    if not d.mean().item() <= MOE_FORWARD_BF16_MEAN_TOL:
+        fail(f"moe forward logits vs reference: mean {d.mean().item()}")
+    out["forward"] = dict(ms=fwd_ms, flash_launches=fwd_launches,
+                          aux=aux.item(), max_abs_err=d.max().item(),
+                          mean_abs_err=d.mean().item(), argmax_agreement=agree,
+                          routes_differing=flips)
+
+    # 20 train steps at [8, 256]
+    rng = np.random.default_rng(SEED + 12)
+    batch = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 257)),
+                         device=dev)
+    for kern in kerns:
+        kern.launches = 0
+    losses, times, _ = _train(torch, W, cfg, tree, dev, batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in kerns}
+    want = cfg.n_layers * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        fail(f"moe train launches {launches}, want {want} each")
+    if not all(np.isfinite(losses)) or not losses[-1] < 0.9 * losses[0]:
+        fail(f"moe train losses {losses[0]} -> {losses[-1]}")
+    ref_losses, ref_times, _ = _train(torch, W, ref_cfg, tree, dev, batch,
+                                      TRAIN_STEPS)
+    gaps = np.abs(np.asarray(losses) - np.asarray(ref_losses))
+    gap = float(gaps.max())
+    p50 = float(np.median(times) * 1e3)
+    p32 = W.params_from_jax(tree, cfg, device=dev, dtype=torch.float32)
+    with torch.no_grad(), RouteLog(M) as log0:
+        aux0 = W.forward_with_aux(p32, batch[:, :-1], cfg, dev)[1].item()
+    stats0 = routing_stats(M, log0, aux0)
+    print(f"moe train small preset [8,256] bf16, {TRAIN_STEPS} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}, step "
+          f"p50 {p50:.2f} ms ({8 * 256 / p50 * 1e3:.0f} tokens/s); reference"
+          f" attention step p50 {np.median(ref_times) * 1e3:.2f} ms, "
+          f"max|loss - reference| {gap:.4g} (steps 0-9 "
+          f"{gaps[:10].max():.4g}, mean {gaps.mean():.4g}); at step 0: aux "
+          f"{aux0:.4f}, "
+          f"drop rate {stats0['drop_rate']}, imbalance "
+          f"{stats0['imbalance']}, expert load {stats0['expert_load']}")
+    print("moe train losses " + " ".join(f"{x:.4f}" for x in losses))
+    print("moe reference losses " + " ".join(f"{x:.4f}" for x in ref_losses))
+    if not gap <= MOE_TRAIN_BF16_TOL:
+        fail(f"moe bf16 train losses vs reference attention: {gap}")
+    out["train"] = dict(steps=TRAIN_STEPS, loss_first=losses[0],
+                        loss_last=losses[-1], step_ms_p50=p50,
+                        tokens_per_s=8 * 256 / p50 * 1e3,
+                        reference_step_ms_p50=float(
+                            np.median(ref_times) * 1e3),
+                        max_abs_loss_gap_vs_reference=gap,
+                        mean_abs_loss_gap=float(gaps.mean()),
+                        max_abs_loss_gap_first10=float(gaps[:10].max()),
+                        launches=launches,
+                        routing_step0=stats0)
+    del p32
+
+    # 16 requests on the kernel-path engine
+    n_req, new_tokens = 16, 64
+    prompts, kinds = _serving_requests(cfg, SEED + 4)
+    eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
+                          prompt_buckets=(16, 64, 256), device=dev)
+    PA.PAGED_DECODE.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = serve(W, eng, prompts, kinds, new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paged = PA.PAGED_DECODE.launches
+    steps = eng.stats()["decode_steps_total"]
+    if paged == 0 or paged != cfg.n_layers * steps:
+        fail(f"moe serving: paged_decode launched {paged}x over {steps} "
+             "decode steps")
+    if any(len(x) != new_tokens for x in streams) or eng.used_blocks:
+        fail("moe serving streams or pool blocks")
+    print(f"moe serving small preset: {n_req} requests x {new_tokens} "
+          f"tokens, {steps} decode steps, paged_decode launches {paged}, "
+          f"{n_req * new_tokens / wall:.1f} tokens/s")
+    out["serving"] = dict(requests=n_req, new_tokens=new_tokens,
+                          decode_steps=steps, paged_launches=paged,
+                          tokens_per_s=n_req * new_tokens / wall)
+    out["launches"] = dict(launches, flash_fwd_forward=fwd_launches,
+                           paged_decode=paged)
+    del eng, params
+
+    # float32 two-layer copy (layer 1 is MoE): streams and gradients. The
+    # engine's prefill routes a bucket-padded row, or a block-sized chunk,
+    # with the training factor, as the JAX engine does, so where a prompt
+    # drops tokens there its stream may leave generate()'s (whose prefill
+    # routes the bare prompt): at factor 1.25 the two engine paths must
+    # agree, and generate() must agree with both at the drop-free factor E
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    tree32 = dict(tree, layers=tree["layers"][:2])
+    params32 = W.params_from_jax(tree32, cfg32, device=dev)
+    few = [p[:40] for p in prompts[:8]]
+    greedy = [(i % 2 == 0, {}) for i in range(8)]
+    same, agree_125 = True, None
+    for factor in (cfg.moe_capacity_factor, float(MOE_EXPERTS)):
+        c = dataclasses.replace(cfg32, moe_capacity_factor=factor)
+        runs = {}
+        for paged_path in (True, False):
+            e = W.ServingEngine(params32, c, slots=8, max_len=512,
+                                prompt_buckets=(16, 64, 256),
+                                paged_kernel=paged_path, device=dev)
+            runs[paged_path] = serve(W, e, few, greedy, 32)
+        oracle = [W.generate(params32, [p], c, 32, device=dev)[0, len(p):]
+                  .tolist() for p in few]
+        if factor == cfg.moe_capacity_factor:
+            same &= runs[True] == runs[False]
+            agree_125 = sum(a == b for a, b in zip(runs[False], oracle))
+        else:
+            same &= runs[True] == runs[False] == oracle
+    tok32 = torch.tensor(rng.integers(0, cfg.vocab, size=(4, 201)),
+                         device=dev)
+    with RouteLog(M) as k_log:
+        _, g_k = W.loss_and_grads(params32, tok32, cfg32, dev)
+    with RouteLog(M) as r_log:
+        _, g_r = W.loss_and_grads(
+            params32, tok32, dataclasses.replace(cfg32, attn="reference"),
+            dev)
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(_flat(g_k), _flat(g_r)))
+    flips32 = routes_differing(k_log, r_log)
+    print(f"moe f32 2-layer: kernel path == gather path (factor 1.25, and "
+          f"== generate() at the drop-free factor {MOE_EXPERTS}): {same} "
+          f"({agree_125} of 8 streams equal generate()'s at 1.25); "
+          "gradients [4,200] max leaf error vs reference "
+          f"{grad_err:.3g} (relative to the leaf's largest), routes "
+          f"differing {flips32} of 800")
+    if not same:
+        fail("moe f32 kernel-path streams differ from gather path / "
+             "generate()")
+    if not grad_err <= MOE_GRAD_F32_TOL:
+        fail(f"moe f32 kernel-path gradients vs reference: {grad_err}")
+    out["f32"] = dict(streams_equal=same, grad_rel_err=grad_err,
+                      routes_differing=flips32,
+                      generate_agreement_at_factor_1_25=agree_125)
+    return out
+
+
+def _bytes_of(Q, tree) -> dict:
+    """{path: bytes} over an int8 tree's arrays, copied to the host."""
+    out = {}
+
+    def add(path, leaf):
+        for k, t in (leaf.items() if Q.is_quantized(leaf) else [("", leaf)]):
+            out[(*path, k)] = t.cpu().numpy().tobytes()
+
+    Q._tree_map(add, tree)
+    return out
+
+
+def run_int8(torch, W, PA, Q, R, cfg, tree, params, dev):
+    """int8 at the dense preset: the quantized tree on the card against
+    the CPU's, generate on int8 weights, a kv_int8 engine, runner --int8."""
+    p32 = W.params_from_jax(tree, cfg, device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = Q.quantize_params(p32)
+    torch.cuda.synchronize()
+    q_ms = (time.perf_counter() - t0) * 1e3
+    del p32
+    q_cpu = Q.quantize_params(
+        W.params_from_jax(tree, cfg, device="cpu", dtype=torch.float32))
+    got, want = _bytes_of(Q, q), _bytes_of(Q, q_cpu)
+    differ = sorted(k for k in want if got.get(k) != want[k])
+    same = got.keys() == want.keys() and not differ
+    nbytes = Q.quantized_bytes(q)
+    print(f"int8 quantize_params on the card: {q_ms:.1f} ms, byte-equal to "
+          f"the CPU's: {same} ({len(want)} arrays, differing {differ[:6]}); "
+          f"{nbytes} bytes stored vs {Q.quantized_bytes(params)} in bf16")
+    if not same:
+        fail(f"int8 tree on the card differs from the CPU's: {differ}")
+    del q_cpu
+
+    rng = np.random.default_rng(SEED + 13)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 32)),
+                          device=dev)
+    rates, toks = {}, {}
+    for name, p in (("int8", q), ("bf16", params)):
+        W.generate(p, prompt, cfg, 64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks[name] = W.generate(p, prompt, cfg, 64, device=dev)[:, 32:]
+        torch.cuda.synchronize()
+        rates[name] = 8 * 64 / (time.perf_counter() - t0)
+    agree = (toks["int8"] == toks["bf16"]).float().mean().item()
+    print(f"int8 generate [8, 32 + 64] greedy: {rates['int8']:.1f} tokens/s "
+          f"(bf16 weights {rates['bf16']:.1f}); greedy tokens agreeing with "
+          f"the bf16 stream {agree:.4f}")
+    if not bool(((toks["int8"] >= 0) & (toks["int8"] < cfg.vocab)).all()):
+        fail("int8 generate tokens out of range")
+    del q
+
+    prompts, kinds = _serving_requests(cfg, SEED + 4)
+    eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
+                          prompt_buckets=(16, 64, 256), kv_int8=True,
+                          device=dev)
+    PA.PAGED_DECODE.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = serve(W, eng, prompts, kinds, 64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paged = PA.PAGED_DECODE.launches
+    print(f"kv_int8 serving small preset: 16 requests x 64 tokens, "
+          f"paged_kernel {eng.paged_kernel}, paged_decode launches {paged}, "
+          f"{16 * 64 / wall:.1f} tokens/s")
+    if paged or eng.paged_kernel or not eng.stats()["kv_int8"]:
+        fail(f"kv_int8 engine: paged_kernel {eng.paged_kernel}, launches "
+             f"{paged}")
+    if any(len(x) != 64 for x in streams) or eng.used_blocks:
+        fail("kv_int8 serving streams or pool blocks")
+    del eng
+
+    saved = {k: os.environ.pop(k, None) for k in RUNTIME_ENV}
+    os.environ["ELASTIC_TPU_ENV_FILE"] = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "no-env-file")
+    try:
+        rep = _runner(R, "--mode decode --preset small --batch 8 "
+                      "--prompt-len 32 --new-tokens 64 --int8", dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rep.get("int8") is not True or rep.get("decode_tokens_per_s") is None:
+        fail(f"runner --int8 report {rep}")
+    return dict(quantize_ms=q_ms, byte_equal=same, stored_bytes=nbytes,
+                generate_tokens_per_s=rates, greedy_agreement=agree,
+                kv_int8_tokens_per_s=16 * 64 / wall,
+                kv_int8_paged_launches=paged,
+                runner={k: rep.get(k) for k in (
+                    "int8", "prefill_ms", "decode_tokens_per_s",
+                    "ms_per_token", "sample_tail")})
+
+
+def run_drain(torch, W, L, T, cfg, params, dev, tmp):
+    """The engine's recorder and lifecycle: 16 admitted requests on the
+    kernel-path engine with a FlightRecorder and a LifecycleWatcher over
+    an alloc spec; then a drain stamped into the spec."""
+    alloc, h = os.path.join(tmp, "alloc_serving"), "chipsmokesrv"
+    os.makedirs(alloc)
+    spec = os.path.join(alloc, f"{h}.json")
+    with open(spec, "w") as f:
+        json.dump({"env": {}}, f)
+    watcher = L.LifecycleWatcher(alloc, h, poll_interval_s=0.0)
+    rec = T.FlightRecorder(path="", trace_id="")
+    eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
+                          prompt_buckets=(16, 64, 256), recorder=rec,
+                          lifecycle=watcher, device=dev)
+    prompts, kinds = _serving_requests(cfg, SEED + 14)
+    kinds = [(True, kw) for _, kw in kinds]       # every request admitted
+    step_times = []
+    serve(W, eng, prompts, kinds, 32, step_times)
+    kinds_ = [r["kind"] for r in rec.records]
+    admits = kinds_.count("serving_admit")
+    steps = kinds_.count("serving_step")
+    print(f"recorder: {admits} serving_admit records for 16 admissions, "
+          f"{steps} serving_step records for {len(step_times)} steps")
+    if admits != 16 or steps != len(step_times):
+        fail(f"recorder: {admits} admit and {steps} step records")
+
+    live = [eng.admit(p[:50]) for p in prompts[:4]]
+    for _ in range(3):
+        eng.step()
+    with open(spec, "w") as f:
+        json.dump({"env": {"ELASTIC_TPU_DRAIN": "maintenance:smoke"}}, f)
+    refused = []
+    for fn in (eng.admit, eng.enqueue):
+        try:
+            fn(prompts[5][:20])
+        except ValueError:
+            refused.append(fn.__name__)
+    summary = L.drain_serving(eng, watcher)
+    ack = L.read_checkpoint_ack(alloc, h) or {}
+    finished = [eng.finish_reason.get(r) for r in live]
+    print(f"drain: admission refused by {refused}; drain_serving {summary}; "
+          f"finish reasons {finished}; ack kind {ack.get('kind')}")
+    if refused != ["admit", "enqueue"]:
+        fail(f"drain: refused {refused}")
+    if summary["live_requests"] or None in finished or ack.get(
+            "kind") != "drained":
+        fail(f"drain: summary {summary}, finished {finished}, ack {ack}")
+    return dict(admit_records=admits, step_records=steps,
+                steps=len(step_times), refused=refused,
+                drain_steps=summary["steps"],
+                drained_tokens=summary["drained_tokens"],
+                ack_kind=ack.get("kind"))
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -1009,7 +1527,12 @@ def main() -> int:
     from elastic_tpu_agent_torch import kernels
     from elastic_tpu_agent_torch import workloads as W
     from elastic_tpu_agent_torch.workloads import attention as A
+    from elastic_tpu_agent_torch.workloads import lifecycle as L
+    from elastic_tpu_agent_torch.workloads import moe as M
     from elastic_tpu_agent_torch.workloads import paged_attention as PA
+    from elastic_tpu_agent_torch.workloads import quantize as Q
+    from elastic_tpu_agent_torch.workloads import runner as R
+    from elastic_tpu_agent_torch.workloads import telemetry as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1019,6 +1542,7 @@ def main() -> int:
          "--format=csv,noheader", "--id=0"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
+    print(f"card {card}")
 
     t0 = time.perf_counter()
     kernels.build_all()
@@ -1038,6 +1562,10 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
         runtime = run_runtime(torch, A, dev, tmp)
+        drain = run_drain(torch, W, L, T, cfg, params, dev, tmp)
+    int8 = run_int8(torch, W, PA, Q, R, cfg, tree, params, dev)
+    moe_cfg = dataclasses.replace(cfg, moe_experts=MOE_EXPERTS)
+    moe = run_moe(torch, W, A, PA, M, W.random_tree(moe_cfg, SEED), dev)
     dkdv["launches"] = launches["flash_bwd_dkdv"]
     dq["launches"] = launches["flash_bwd_dq"]
     kernel_recs = [flash, paged, dkdv, dq]
@@ -1054,8 +1582,8 @@ def main() -> int:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     report = {"card": card, "forward": fwd, "serving": srv, "train": train,
-              "runtime": runtime, "kernels": kernel_recs,
-              "flash_bwd_whole": bwd_whole}
+              "runtime": runtime, "drain": drain, "int8": int8, "moe": moe,
+              "kernels": kernel_recs, "flash_bwd_whole": bwd_whole}
     if args.profile:
         rng = np.random.default_rng(SEED + 8)
         tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 257)),
@@ -1072,7 +1600,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"paths": {"forward": fwd, "serving": srv,
-                                "train": train, "runtime": runtime}}))
+                                "train": train, "runtime": runtime,
+                                "drain": drain, "int8": int8, "moe": moe}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

@@ -11,8 +11,8 @@ sit between the sound readings and the faulty ones. Needs the card, as
     python3 -m elastic_tpu_agent_torch.planted_faults --out DIR [--only F...]
 
 ``DIR`` gets one ``<fault>.log`` per run and ``faults.json``: for each
-run its exit code, the readings of the kernel, forward, serving, training
-and runtime checks, and the checks that failed. ``--only`` runs the named
+run its exit code, the readings of the kernel, forward, serving, training,
+runtime, drain, int8 and MoE checks, and the checks that failed. ``--only`` runs the named
 runs alone.
 
 The backward faults F6-F8 and F12 sit in the bf16 (wgmma/TMA) instances
@@ -25,6 +25,11 @@ The restore faults F13-F15 sit in the runner's resume from a full
 checkpoint, which chip_smoke's resume check reads: the optimizer state
 left at its init, the step count (which drives the schedule and the bias
 correction) reset, the second moment reset.
+
+The MoE faults F16-F17 sit in ``workloads/moe.py``, which chip_smoke's
+MoE layer check holds against the JAX layer's one-hot einsum form: the
+combine drops the gate (y is the expert output), and slot positions are
+read one late, so that each expert admits C + 1 tokens.
 
 Two roundings cannot be planted away: P in the bf16 flash forward and dS
 in the bf16 backward (F5, "ds not cast before dK", retired) are register
@@ -48,6 +53,7 @@ FWD = "elastic_tpu_agent_torch/csrc/flash_fwd.cu"
 PAGED = "elastic_tpu_agent_torch/csrc/paged_decode.cu"
 RUNNER = "elastic_tpu_agent_torch/workloads/runner.py"
 RESTORE = "params, opt_state, start_step = ckpt.restore(params, opt_state)"
+MOE = "elastic_tpu_agent_torch/workloads/moe.py"
 
 # name -> (file, exact text, replacement); each text occurs exactly once
 FAULTS = {
@@ -92,10 +98,18 @@ FAULTS = {
         RUNNER, RESTORE,
         RESTORE + '; opt_state["nu"] = optimizer.init(params)["nu"]',
     ),
+    "F16_moe_combine_drops_the_gate": (
+        MOE, "y = torch.where(kept[:, None], gate.to(dtype)[:, None] * picked,",
+        "y = torch.where(kept[:, None], picked,",
+    ),
+    "F17_moe_slot_positions_one_late": (
+        MOE, "kept = position <= cap", "kept = position - 1 <= cap",
+    ),
 }
 TIMEOUT_S = 900.0  # for each chip_smoke.py run
-KEEP = ("flash_fwd ", "paged_decode ", "flash_bwd", "forward ", "serving ",
-        "train ", "reference losses", "runtime ", "chip_smoke:")
+KEEP = ("card ", "flash_fwd ", "paged_decode ", "flash_bwd", "forward ",
+        "serving ", "train ", "reference losses", "runtime ", "moe ",
+        "int8 ", "kv_int8 ", "recorder", "drain", "chip_smoke:")
 SKIP = (".git", "_build", "__pycache__", ".pytest_cache")
 
 

@@ -4,7 +4,8 @@ ServingEngine (forward/serving and training slices), and the in-pod
 runtime the agent launches (runtime slice): the runner's train and decode
 modes (``runner.py``), the token data pipeline, checkpoint/resume and the
 delta-checkpoint migration transport, the lifecycle handshake and the
-flight recorder."""
+flight recorder; the Switch-MoE layer and int8 weight-only quantization
+(``moe.py``, ``quantize.py``)."""
 
 from .checkpointing import (
     DeltaCheckpointer,
@@ -15,6 +16,8 @@ from .checkpointing import (
 )
 from .data import TokenDataset, encode_bytes, encode_file, write_token_file
 from .generate import KVCache, generate
+from .moe import MoeRoutingStats, init_moe_params, moe_mlp
+from .quantize import dequantize_params, quantize_params
 from .lifecycle import (
     LifecycleWatcher,
     Signal,
@@ -50,6 +53,7 @@ __all__ = [
     "KVCache",
     "LifecycleWatcher",
     "ModelConfig",
+    "MoeRoutingStats",
     "ServingEngine",
     "Signal",
     "TokenDataset",
@@ -57,6 +61,7 @@ __all__ = [
     "bytes_to_tree",
     "chain_block_digests",
     "checkpoint_digest",
+    "dequantize_params",
     "device_memory_stats",
     "drain_serving",
     "ema_params",
@@ -65,12 +70,15 @@ __all__ = [
     "forward",
     "forward_with_aux",
     "generate",
+    "init_moe_params",
     "init_params",
     "loss_and_grads",
     "make_eval_fn",
     "make_train_step",
+    "moe_mlp",
     "params_from_jax",
     "params_to_jax",
+    "quantize_params",
     "random_tree",
     "read_checkpoint_ack",
     "tree_to_bytes",

@@ -8,8 +8,10 @@ writes the cache tensors in place and returns them; the decode loop is a
 Python loop (PyTorch runs eagerly, so there is no scan to compile).
 
 The cached attention is materialised-scores ``einsum`` over the cache, as
-in the JAX package (no Pallas kernel there either). Streaming ring caches
-and MoE layers come with later slices and raise; so does mesh decode.
+in the JAX package (no Pallas kernel there either). MoE layers take the
+JAX capacity policy: a prefill chunk routes with the training capacity
+factor, drops included; a decode step is drop-free. Streaming ring caches
+come with a later slice and raise; so does mesh decode.
 """
 
 from __future__ import annotations
@@ -19,11 +21,18 @@ import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from .attention import NEG_INF
+from .moe import moe_mlp
 from .quantize import embed_lookup, wdense
-from .transformer import ModelConfig, _check_device, _rmsnorm, as_device, rope
+from .transformer import (
+    ModelConfig,
+    _check_device,
+    _mlp,
+    _rmsnorm,
+    as_device,
+    rope,
+)
 
 
 @dataclasses.dataclass
@@ -114,10 +123,16 @@ def _cache_write(
 
 def _forward_chunk(
     params: Dict, tokens: torch.Tensor, cache: KVCache, cfg: ModelConfig,
+    moe_drop_free: bool = False,
     positions: Optional[torch.Tensor] = None, ring=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run a token chunk [b, t] at positions cache.length..+t; returns
     (logits [b, t, vocab] f32, the cache, written in place).
+
+    moe_drop_free selects the MoE capacity policy (a one-token chunk is
+    not necessarily a decode step: a batch of one-token prompts is still
+    prefill): False = the training capacity factor, the forward's
+    semantics, drops included; True = capacity T, no token dropped.
 
     positions: per-row [b] start offsets (continuous-batching decode,
     each slot at its own depth): writes, RoPE, learned positions and the
@@ -153,19 +168,26 @@ def _forward_chunk(
             "btnh,nhd->btd", attn, wdense(layer, "wo", cfg.dtype)
         )
         h2 = _rmsnorm(x, layer["ln2_scale"])
-        h2 = F.gelu(
-            torch.einsum("btd,df->btf", h2, wdense(layer, "w1", cfg.dtype)),
-            approximate="tanh",
-        )
-        x = x + torch.einsum(
-            "btf,fd->btd", h2, wdense(layer, "w2", cfg.dtype)
-        )
+        x = x + _chunk_mlp(h2, layer, cfg, moe_drop_free)
     x = _rmsnorm(x, params["final_norm_scale"])
     logits = torch.einsum(
         "btd,dv->btv", x, wdense(params, "lm_head", cfg.dtype)
     ).float()
     new_len = cache.length + t if positions is None else cache.length
     return logits, KVCache(k=cache.k, v=cache.v, length=new_len)
+
+
+def _chunk_mlp(
+    h: torch.Tensor, layer: Dict, cfg: ModelConfig, moe_drop_free: bool,
+) -> torch.Tensor:
+    """The layer's MLP on a normed chunk [b, t, d]: dense, or MoE with the
+    capacity policy ``moe_drop_free`` picks (factor E: capacity T)."""
+    if "moe" not in layer:
+        return _mlp(h, layer, cfg)
+    factor = (
+        float(cfg.moe_experts) if moe_drop_free else cfg.moe_capacity_factor
+    )
+    return moe_mlp(h, layer["moe"], factor)[0]
 
 
 # -- sampling ------------------------------------------------------------
@@ -284,7 +306,9 @@ def generate(
     tok = _sample(logits[:, -1], generator, temperature, top_k, top_p)
     out = [tok]
     for _ in range(max_new_tokens - 1):
-        logits, cache = _forward_chunk(params, tok[:, None], cache, cfg)
+        logits, cache = _forward_chunk(
+            params, tok[:, None], cache, cfg, moe_drop_free=True
+        )
         tok = _sample(logits[:, -1], generator, temperature, top_k, top_p)
         out.append(tok)
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)

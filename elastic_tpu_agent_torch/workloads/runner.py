@@ -23,7 +23,7 @@ differs:
 - One card. ``--dp``/``--sp``/``--tp`` above 1, ``--pp`` above 1 and
   ``--zero1`` end in a usage error, and a multi-host
   ``TPU_WORKER_HOSTNAMES`` raises: they come with the multi-GPU slice.
-  ``--int8`` and ``--params-dir`` (decode) raise too.
+  ``--params-dir`` (decode) raises too.
 - Seeds. ``jax.random`` streams have no torch twin: params come from
   ``init_all(torch.Generator().manual_seed(0))``, synthetic tokens from
   ``np.random.default_rng(1)`` and eval batches from
@@ -245,7 +245,7 @@ def _parser() -> argparse.ArgumentParser:
                         help="decode mode: tokens generated per sequence")
     parser.add_argument("--int8", action="store_true",
                         help="decode mode: int8 weight-only quantization "
-                             "(a later slice)")
+                             "(workloads/quantize.py)")
     parser.add_argument("--params-dir", default="",
                         help="decode mode: serve an exported artifact "
                              "(a later slice)")
@@ -698,15 +698,19 @@ def _train(args, cfg, applied, device) -> int:
     return 0
 
 
+def decode_prompt(cfg, batch: int, prompt_len: int) -> np.ndarray:
+    """Decode mode's synthetic prompts [batch, prompt_len] (numpy seed 1;
+    the JAX runner draws its own from ``jax.random.key(1)``)."""
+    return np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(batch, prompt_len))
+
+
 def run_decode(args, cfg, applied, device) -> int:
     """Decode-mode body: synthetic prompts -> KV-cache generation
     throughput, from a fresh init or a --checkpoint-dir restore (params
-    only, stored in the model dtype)."""
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 quantizes the weights to int8: it comes with the int8 "
-            "quantization slice of the port"
-        )
+    only, stored in the model dtype). ``--int8`` quantizes the weights
+    after the restore, from f32 params as the JAX runner's are, so that
+    the int8 tree is the JAX runner's on the same weights."""
     if args.params_dir:
         raise NotImplementedError(
             "--params-dir serves an exported artifact: it comes with the "
@@ -727,7 +731,12 @@ def run_decode(args, cfg, applied, device) -> int:
             )
         cfg = dataclasses.replace(cfg, max_seq=max_len)
 
-    params = init_params(cfg, torch.Generator().manual_seed(0), device)
+    # int8 quantizes f32 weights (the JAX tree's dtype); the leaves it
+    # leaves float are cast to cfg.dtype at use
+    stored = torch.float32 if args.int8 else None
+    params = init_params(
+        cfg, torch.Generator().manual_seed(0), device, dtype=stored
+    )
     restored_step = None
     if args.checkpoint_dir:
         ckpt = TrainCheckpointer(args.checkpoint_dir)
@@ -741,11 +750,13 @@ def run_decode(args, cfg, applied, device) -> int:
             )
         params, restored_step = ckpt.restore_params(params)
         ckpt.close()
+    if args.int8:
+        from .quantize import quantize_params
+
+        params = quantize_params(params)
 
     prompt = torch.as_tensor(
-        np.random.default_rng(1).integers(
-            0, cfg.vocab, size=(args.batch, args.prompt_len)),
-        device=device,
+        decode_prompt(cfg, args.batch, args.prompt_len), device=device
     )
 
     def timed(n):

@@ -23,23 +23,52 @@ Where JAX donates the pool buffers to each compiled program, the port
 updates the pool tensors in place (``index_put_``). The per-(bucket,
 greedy) compiled-program caches have no counterpart: PyTorch runs eagerly.
 
+``kv_int8`` stores the pool as ``{"q": int8, "s": f32 [..., 1]}``
+(quantized on every write, dequantized after every gather) and runs the
+gather path, as the JAX engine does. One difference: the JAX gather step
+feeds the f32 dequantized view to a ``cfg.dtype`` model, and jnp's type
+promotion then carries the rest of that step in f32; the port rounds the
+view to ``cfg.dtype``, as the JAX chunk-prefill program does. In f32 the
+two are the same computation.
+
+MoE models take the JAX engine's capacity policy: prefill and prefill
+chunks route with the training factor (a bucket's padded tail takes
+capacity slots too), decode steps are drop-free. ``recorder=`` (a
+``telemetry.FlightRecorder``) gets a ``serving_admit`` record per
+admission and a ``serving_step`` record per step; ``lifecycle=`` (a
+``lifecycle.LifecycleWatcher``) refuses admissions with ``ValueError``
+once the node signals a drain.
+
+The engine's sampling generator advances where the JAX engine splits its
+key: at each admission, at a prefill's final chunk and on every plain
+step, whether or not a live row samples, so that a request's draws do not
+depend on its neighbours' settings.
+
 Options of the JAX engine that belong to later slices raise
-``NotImplementedError``: the prefix cache, the int8 pool, tensor-parallel
-meshes, shared pools and prefill/decode roles, speculative decoding, the
-lifecycle watcher, the request observatory and the flight recorder.
+``NotImplementedError``: the prefix cache, tensor-parallel meshes, shared
+pools and prefill/decode roles, speculative decoding and the request
+observatory.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .generate import KVCache, _forward_chunk, _qkv, _sample_rowwise
+from .generate import (
+    KVCache,
+    _chunk_mlp,
+    _forward_chunk,
+    _qkv,
+    _sample_rowwise,
+)
 from .paged_attention import paged_decode_attention
-from .quantize import embed_lookup, wdense
+from .quantize import embed_lookup, quantize_kv, wdense
+from .request_obs import normalize_slo
 from .transformer import ModelConfig, _check_device, _rmsnorm, as_device, rope
 
 # physical block 0 is the JUNK block: never allocated, the write target
@@ -51,16 +80,13 @@ _JUNK = 0
 _LATER_OPTIONS = {
     "prefix_cache": (False, "the prefix cache"),
     "prefix_cache_blocks": (None, "the prefix cache"),
-    "kv_int8": (False, "the int8 KV pool"),
     "mesh": (None, "multi-GPU serving"),
     "role": ("both", "prefill/decode roles over a shared pool"),
     "pool": (None, "prefill/decode roles over a shared pool"),
     "draft_params": (None, "speculative decoding"),
     "draft_cfg": (None, "speculative decoding"),
     "gamma": (4, "speculative decoding"),
-    "lifecycle": (None, "the workload runtime (lifecycle drain)"),
     "observatory": (None, "request observability"),
-    "recorder": (None, "request observability"),
 }
 
 
@@ -72,16 +98,44 @@ def gather_bucket(needed_blocks: int, max_blocks: int) -> int:
     return min(b, max_blocks)
 
 
-def _pool_empty(shape, dtype, device) -> torch.Tensor:
-    return torch.zeros(shape, dtype=dtype, device=device)
+# -- pool representation helpers ------------------------------------
+#
+# The KV pool is a tensor [L, n_blocks, bs, g, h] or (kv_int8) the dict
+# {"q": int8 same shape, "s": f32 [..., 1] per-position scales}. Every
+# pool read and write goes through these helpers: quantize on scatter,
+# dequantize after the gather.
 
 
-def _pool_set(pool: torch.Tensor, idx, val: torch.Tensor) -> None:
-    """pool[idx] = val, in place (the JAX form returns a new array)."""
-    pool[idx] = val.to(pool.dtype)
+def _pool_empty(shape, dtype, device, kv_int8: bool = False):
+    if not kv_int8:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return {
+        "q": torch.zeros(shape, dtype=torch.int8, device=device),
+        "s": torch.zeros(
+            shape[:-1] + (1,), dtype=torch.float32, device=device),
+    }
 
 
-def _pool_get(pool: torch.Tensor, idx) -> torch.Tensor:
+def _pool_shape(pool):
+    return tuple((pool["q"] if isinstance(pool, dict) else pool).shape)
+
+
+def _pool_set(pool, idx, val: torch.Tensor) -> None:
+    """pool[idx] = val, in place (the JAX form returns a new array); an
+    int8 pool quantizes per position on the way down."""
+    if isinstance(pool, dict):
+        qv = quantize_kv(val)
+        pool["q"][idx] = qv["q"]
+        pool["s"][idx] = qv["s"]
+    else:
+        pool[idx] = val.to(pool.dtype)
+
+
+def _pool_get(pool, idx) -> torch.Tensor:
+    """pool[idx]; an int8 pool gathers int8 entries and scales and
+    dequantizes after the gather (f32)."""
+    if isinstance(pool, dict):
+        return pool["q"][idx].float() * pool["s"][idx]
     return pool[idx]
 
 
@@ -152,6 +206,9 @@ class ServingEngine:
         block_size: Optional[int] = None,
         pool_blocks: Optional[int] = None,
         paged_kernel: Optional[bool] = None,
+        kv_int8: bool = False,
+        recorder=None,
+        lifecycle=None,
         device="cuda",
         **later,
     ):
@@ -200,11 +257,16 @@ class ServingEngine:
         self.prefilled_tokens_total = 0
         self.admitted_tokens_total = 0
         self.decode_steps_total = 0
+        # optional MoeRoutingStats (moe.py): stats() reports it
+        self.moe_stats = None
+        self._recorder = recorder
+        self._lifecycle = lifecycle
+        self.kv_int8 = kv_int8
         pool_shape = (
             cfg.n_layers, pool_blocks, block_size, cfg.kv_heads, cfg.head_dim,
         )
-        self._pool_k = _pool_empty(pool_shape, cfg.dtype, self.device)
-        self._pool_v = _pool_empty(pool_shape, cfg.dtype, self.device)
+        self._pool_k = _pool_empty(pool_shape, cfg.dtype, self.device, kv_int8)
+        self._pool_v = _pool_empty(pool_shape, cfg.dtype, self.device, kv_int8)
         # logical->physical block map per slot; 0 = unmapped (junk)
         self._table = np.zeros((slots, self.max_blocks), np.int32)
         self._lengths = torch.zeros(
@@ -231,7 +293,13 @@ class ServingEngine:
         # "stop_token" | "pool_exhausted"
         self.finish_reason: Dict[int, str] = {}
         if paged_kernel is None:
-            paged_kernel = self.device.type == "cuda"
+            paged_kernel = self.device.type == "cuda" and not kv_int8
+        if paged_kernel and kv_int8:
+            raise ValueError(
+                "kv_int8 and paged_kernel are mutually exclusive: the paged "
+                "kernel streams raw pool blocks; int8 pools dequantize on "
+                "the gather path"
+            )
         self.paged_kernel = bool(paged_kernel)
 
     # -- paging helpers ----------------------------------------------
@@ -261,8 +329,9 @@ class ServingEngine:
         return self._alloc.used
 
     def stats(self) -> Dict:
-        """Block-pool occupancy and prefill/decode accounting."""
-        return {
+        """Block-pool occupancy, prefill/decode accounting and, with
+        ``moe_stats`` attached, the MoE routing ledger."""
+        out = {
             "slots": self.slots,
             "live_requests": len(self._slot_of),
             "pending_prefills": len(self._pending),
@@ -276,7 +345,11 @@ class ServingEngine:
             "admitted_tokens_total": self.admitted_tokens_total,
             "decode_steps_total": self.decode_steps_total,
             "paged_kernel": self.paged_kernel,
+            "kv_int8": self.kv_int8,
         }
+        if self.moe_stats is not None:
+            out["moe"] = self.moe_stats.stats()
+        return out
 
     def _tensor(self, array, dtype=None) -> torch.Tensor:
         return torch.as_tensor(
@@ -287,18 +360,26 @@ class ServingEngine:
 
     def _gathered_view(self, table_b: torch.Tensor):
         """[slots, Bb] table -> dense [L, slots, Bb*bs, g, h] views of the
-        pool (transient copies; bucket-bounded)."""
-        L, _, bs, g, h = self._pool_k.shape
+        pool in cfg.dtype (transient copies; bucket-bounded)."""
+        L, _, bs, g, h = _pool_shape(self._pool_k)
         slots, Bb = table_b.shape
         flat = (slice(None), table_b.reshape(-1).long())
         kg = _pool_get(self._pool_k, flat).reshape(L, slots, Bb * bs, g, h)
         vg = _pool_get(self._pool_v, flat).reshape(L, slots, Bb * bs, g, h)
-        return kg, vg
+        return kg.to(self.cfg.dtype), vg.to(self.cfg.dtype)
 
     def _pick(self, logits, greedy, temp, tk, tp):
+        """The step's tokens. The uniforms are drawn on every step, as the
+        JAX engine splits its key on every step; greedy rows ignore
+        them."""
+        uniforms = torch.rand(
+            logits.shape, generator=self._gen, device=logits.device
+        )
         if greedy:
             return torch.argmax(logits, dim=-1)
-        return _sample_rowwise(logits, self._gen, temp, tk, tp)
+        return _sample_rowwise(
+            logits, None, temp, tk, tp, uniforms=uniforms
+        )
 
     def _step_gather(self, table_b, active, greedy, temp, tk, tp, wblk, woff):
         """Gather-path decode step: every slot, active or not, in lockstep;
@@ -307,7 +388,7 @@ class ServingEngine:
         lengths, toks = self._lengths, self._last
         logits, cache = _forward_chunk(
             self.params, toks[:, None], KVCache(k=kg, v=vg), self.cfg,
-            positions=lengths,
+            moe_drop_free=True, positions=lengths,
         )
         nxt = self._pick(logits[:, 0], greedy, temp, tk, tp)
         # the ONE written position per slot goes back to its pool block;
@@ -348,15 +429,7 @@ class ServingEngine:
                 "snh,nhd->sd", attn, wdense(layer, "wo", cfg.dtype)
             )[:, None]
             h2 = _rmsnorm(x, layer["ln2_scale"])
-            h2 = torch.nn.functional.gelu(
-                torch.einsum(
-                    "std,df->stf", h2, wdense(layer, "w1", cfg.dtype)
-                ),
-                approximate="tanh",
-            )
-            x = x + torch.einsum(
-                "stf,fd->std", h2, wdense(layer, "w2", cfg.dtype)
-            )
+            x = x + _chunk_mlp(h2, layer, cfg, moe_drop_free=True)
         x = _rmsnorm(x, params["final_norm_scale"])
         logits = torch.einsum(
             "std,dv->stv", x, wdense(params, "lm_head", cfg.dtype)
@@ -377,7 +450,7 @@ class ServingEngine:
         nb = bucket // bs
         mini = KVCache.empty(cfg, 1, bucket, device=self.device)
         logits, mini = _forward_chunk(self.params, padded[None], mini, cfg)
-        L, _, _, g, h = self._pool_k.shape
+        L, _, _, g, h = _pool_shape(self._pool_k)
         at = (slice(None), phys)
         _pool_set(self._pool_k, at, mini.k.reshape(L, nb, bs, g, h))
         _pool_set(self._pool_v, at, mini.v.reshape(L, nb, bs, g, h))
@@ -397,13 +470,14 @@ class ServingEngine:
         [start, start+block), write the one block back. Returns the
         chunk's logits [block, vocab]."""
         cfg, bs = self.cfg, self.block_size
-        L, _, _, g, h = self._pool_k.shape
+        L, _, _, g, h = _pool_shape(self._pool_k)
         ridx = (slice(None), row_blocks)
         kg = _pool_get(self._pool_k, ridx).reshape(L, 1, n_b * bs, g, h)
         vg = _pool_get(self._pool_v, ridx).reshape(L, 1, n_b * bs, g, h)
-        logits, cache = _forward_chunk(
-            self.params, toks[None], KVCache(k=kg, v=vg, length=start), cfg
+        cache = KVCache(
+            k=kg.to(cfg.dtype), v=vg.to(cfg.dtype), length=start
         )
+        logits, cache = _forward_chunk(self.params, toks[None], cache, cfg)
         at = (slice(None), wphys)
         _pool_set(self._pool_k, at, cache.k[:, 0, start:start + bs])
         _pool_set(self._pool_v, at, cache.v[:, 0, start:start + bs])
@@ -452,7 +526,18 @@ class ServingEngine:
     def _claim_admission(self, prompt, temperature, top_k, top_p,
                          need_bucket: bool):
         """Validate, claim a slot, resolve per-request sampling and map
-        blocks, rolling back on failure."""
+        blocks, rolling back on failure. A draining lifecycle watcher
+        refuses every admission."""
+        if self._lifecycle is not None:
+            self._lifecycle.poll()
+            if getattr(self._lifecycle, "draining", False):
+                # ValueError: the engine's admission-control type, so a
+                # serving loop treats a drain refusal like a full engine
+                raise ValueError(
+                    "engine draining: the node signalled "
+                    "ELASTIC_TPU_DRAIN — no new admissions; finish "
+                    "in-flight streams (lifecycle.drain_serving) and ack"
+                )
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         p = len(prompt)
         if p == 0:
@@ -498,12 +583,17 @@ class ServingEngine:
         top_k: Optional[int] = None,
         top_p: Optional[float] = None,
         stop_tokens: Sequence[int] = (),
+        slo: Optional[str] = None,
     ) -> int:
         """Prefill a prompt (1-D int sequence) into a free slot; returns
         the request id. The first generated token is already in
         stream(rid). temperature/top_k/top_p override the engine-wide
         defaults for this request; emitting any of ``stop_tokens``
-        auto-finishes it (the stop token is part of the stream)."""
+        auto-finishes it (the stop token is part of the stream). ``slo``
+        ("ttft" | "tpot" | "batch", default batch) is an accounting
+        annotation the flight record carries; it never changes
+        scheduling."""
+        t0 = time.perf_counter() if self._recorder is not None else 0.0
         prompt, p, bucket, slot, tkp = self._claim_admission(
             prompt, temperature, top_k, top_p, need_bucket=True
         )
@@ -525,6 +615,13 @@ class ServingEngine:
         self._activate(rid, slot, p, first)
         if first in self._stop[rid]:
             self._finish(rid, "stop_token")
+        if self._recorder is not None:
+            self._recorder.record(
+                "serving_admit", rid=rid, prompt_len=p, prefix_len=0,
+                bucket=bucket,
+                duration_ms=round((time.perf_counter() - t0) * 1000, 3),
+                used_blocks=self.used_blocks, slo=normalize_slo(slo),
+            )
         return rid
 
     def enqueue(
@@ -534,6 +631,7 @@ class ServingEngine:
         top_k: Optional[int] = None,
         top_p: Optional[float] = None,
         stop_tokens: Sequence[int] = (),
+        slo: Optional[str] = None,
     ) -> int:
         """CHUNKED admission: claim a slot and blocks now, run the prefill
         one block-sized chunk per step(). The request's first token
@@ -558,14 +656,26 @@ class ServingEngine:
         sits this decode out and reports its first token instead. Rows
         that fill to max_len, emit a stop token or starve for pool blocks
         auto-finish (``finish_reason`` says which)."""
+        t0 = time.perf_counter() if self._recorder is not None else 0.0
         activated = self._pump_prefill() if self._pending else {}
         self._settling = {
             self._slot_of[r] for r in activated if r in self._slot_of
         }
         try:
-            return {**activated, **self._step_plain()}
+            out = {**activated, **self._step_plain()}
         finally:
             self._settling = set()
+        if self._recorder is not None:
+            self._recorder.record(
+                "serving_step",
+                duration_ms=round((time.perf_counter() - t0) * 1000, 3),
+                emitted_tokens=len(out),
+                live_requests=len(self._slot_of),
+                pending_prefills=len(self._pending),
+                used_blocks=self.used_blocks,
+                pool_blocks=self.pool_blocks,
+            )
+        return out
 
     def _step_plain(self) -> Dict[int, int]:
         if not self._slot_of:

@@ -14,8 +14,9 @@ cross entropy, autograd for ``jax.value_and_grad``, optax's ``adamw`` as
 ``AdamW``, gradient accumulation, the parameter EMA and f32 master
 weights. ``make_eval_fn`` is the eval loss.
 
-Dense models on one device only: MoE layers, ring attention and zero1
-come with later slices and raise here.
+One device: every ``moe_every``-th layer of a model with ``moe_experts``
+> 0 is a Switch MoE layer (``moe.py``), whose aux loss the forward sums.
+Ring attention and zero1 come with the multi-GPU slice and raise here.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from .attention import (
     reference_attention,
     supports_flash,
 )
-from .quantize import embed_lookup, wdense
+from .moe import moe_mlp
+from .quantize import embed_lookup, is_quantized, wdense
 from .weights import _tree_map, jax_layout_shapes
 
 
@@ -63,16 +65,14 @@ class ModelConfig:
     # jax.checkpoint): more FLOPs for fewer saved activations. Only acts
     # where autograd records the forward.
     remat: bool = False
+    # Mixture-of-Experts: with moe_experts > 0, every ``moe_every``-th
+    # layer replaces its dense MLP with a Switch MoE layer (moe.py).
     moe_experts: int = 0
     moe_every: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_coef: float = 0.01
 
     def __post_init__(self):
-        if self.moe_experts > 0:
-            raise NotImplementedError(
-                "MoE layers come with a later slice of the port (dense only)"
-            )
         if self.attn == "ring":
             raise NotImplementedError(
                 "ring attention comes with the multi-GPU slice of the port"
@@ -200,7 +200,8 @@ def _mlp(x: torch.Tensor, layer: Dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _check_device(params: Dict, device: torch.device) -> None:
-    where = params["embed"].device
+    embed = params["embed"]
+    where = (embed["q"] if is_quantized(embed) else embed).device
     if where != device:
         raise ValueError(
             f"params live on {where}, the call asked for {device}; load "
@@ -219,8 +220,8 @@ def as_device(device) -> torch.device:
 def forward_with_aux(
     params: Dict, tokens, cfg: ModelConfig, device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(token logits [b, s, vocab] in cfg.dtype, aux loss = 0.0: dense
-    models have no MoE aux term). Runs on ``device``, where ``params``
+    """(token logits [b, s, vocab] in cfg.dtype, the MoE layers' summed
+    aux loss: 0.0 for dense models). Runs on ``device``, where ``params``
     must already live. Differentiable: autograd records a graph only when
     a parameter requires grad, so bridged serving params run without
     one."""
@@ -232,20 +233,29 @@ def forward_with_aux(
     if cfg.pos == "learned":
         x = x + params["pos_embed"].to(cfg.dtype)[:s][None]
 
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+
     def layer_fn(x, layer):
         x = x + _attention(_rmsnorm(x, layer["ln1_scale"]), layer, cfg)
-        return x + _mlp(_rmsnorm(x, layer["ln2_scale"]), layer, cfg)
+        h = _rmsnorm(x, layer["ln2_scale"])
+        if "moe" in layer:
+            y, aux = moe_mlp(h, layer["moe"], cfg.moe_capacity_factor)
+        else:
+            y, aux = _mlp(h, layer, cfg), zero
+        return x + y, aux
 
+    aux_total = zero
     for layer in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(layer_fn, x, layer, use_reentrant=False)
+            x, aux = checkpoint(layer_fn, x, layer, use_reentrant=False)
         else:
-            x = layer_fn(x, layer)
+            x, aux = layer_fn(x, layer)
+        aux_total = aux_total + aux
     x = _rmsnorm(x, params["final_norm_scale"])
     logits = torch.einsum(
         "bsd,dv->bsv", x, wdense(params, "lm_head", cfg.dtype)
     )
-    return logits, torch.zeros((), dtype=torch.float32, device=device)
+    return logits, aux_total
 
 
 def forward(
@@ -407,7 +417,9 @@ def make_train_step(
     gradients of the micro-batches are summed, their mean is cast back to
     each param's dtype (not under master_weights, whose f32 optimizer
     takes the f32 mean) and one optimizer update applies it; the loss is
-    the micro-batches' mean. The step UPDATES ``params`` and ``opt_state``
+    the micro-batches' mean. MoE layers route and cap each micro-batch on
+    its own, so aux losses and capacity drops are micro-batch local, as in
+    the JAX step. The step UPDATES ``params`` and ``opt_state``
     IN PLACE (the JAX step donates both) and returns the same objects;
     the loss is a 0-dim f32 tensor on the device.
 

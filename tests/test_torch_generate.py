@@ -1,5 +1,6 @@
 """KV-cache decode of the PyTorch port (elastic_tpu_agent_torch/workloads/
-generate.py) against the JAX package: greedy generate is token-exact;
+generate.py) against the JAX package: greedy generate is token-exact,
+MoE models and int8 weights included;
 sampling is checked through the injected-uniforms seam and by
 distribution (jax.random and torch.Generator streams differ)."""
 
@@ -13,7 +14,9 @@ import importlib  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from elastic_tpu_agent.workloads import quantize as jq  # noqa: E402
 from elastic_tpu_agent.workloads import transformer as jt  # noqa: E402
+from elastic_tpu_agent_torch.workloads import quantize as tq  # noqa: E402
 from elastic_tpu_agent_torch.workloads import transformer as tt  # noqa: E402
 from elastic_tpu_agent_torch.workloads.weights import (  # noqa: E402
     params_from_jax,
@@ -35,8 +38,9 @@ def _models(**kw):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(), dict(n_kv_heads=2, pos="rope"), dict(pos="rope", window=6)],
-    ids=["mha-learned", "gqa-rope", "rope-window"],
+    [dict(), dict(n_kv_heads=2, pos="rope"), dict(pos="rope", window=6),
+     dict(moe_experts=4), dict(moe_experts=2, moe_every=1, pos="rope")],
+    ids=["mha-learned", "gqa-rope", "rope-window", "moe4", "moe2-all-rope"],
 )
 def test_greedy_generate_token_exact(kw):
     jcfg, tcfg, tree, params = _models(**kw)
@@ -63,6 +67,43 @@ def test_chunk_forward_matches_full_forward():
         )
         np.testing.assert_allclose(step[:, 0], full[:, t], atol=1e-5)
     assert cache.length == 5  # per-row mode leaves the length to the caller
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(), dict(moe_experts=4, n_kv_heads=2, pos="rope")],
+    ids=["mha-learned", "moe4-gqa-rope"],
+)
+def test_greedy_generate_int8_token_exact(kw):
+    """int8 weights (JAX quantize_params, bridged as int8 leaves, and the
+    port's own quantize_params of the float tree): greedy streams equal
+    JAX's int8 stream, and the f32-side dequantized weights are JAX's."""
+    jcfg, tcfg, tree, params = _models(**kw)
+    qtree = jq.quantize_params(tree)
+    prompt = np.random.default_rng(3).integers(0, 97, size=(2, 6))
+    want = jg.generate(qtree, jnp.asarray(prompt, jnp.int32), jcfg, 10)
+    for qparams in (params_from_jax(jax.device_get(qtree), tcfg,
+                                    device="cpu"),
+                    tq.quantize_params(params)):
+        got = tg.generate(qparams, prompt, tcfg, 10, device="cpu")
+        assert got.tolist() == np.asarray(want).tolist()
+
+
+def test_moe_chunk_capacity_policy():
+    """A MoE prefill chunk routes with the training factor (its logits
+    are the forward's, drops included); moe_drop_free routes with factor
+    E, capacity T: the forward of a config with that factor."""
+    _, tcfg, _, params = _models(moe_experts=4, moe_capacity_factor=1.0)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 97, (2, 9)))
+    for drop_free, factor in ((False, 1.0), (True, 4.0)):
+        cache = tg.KVCache.empty(tcfg, 2, 16, device="cpu")
+        logits, _ = tg._forward_chunk(params, toks, cache, tcfg,
+                                      moe_drop_free=drop_free)
+        cfg = tt.ModelConfig(**BASE, dtype=torch.float32, moe_experts=4,
+                             moe_capacity_factor=factor)
+        full = tt.forward(params, toks, cfg, device="cpu")
+        np.testing.assert_allclose(logits, full, atol=1e-5)
+    capped = tt.forward(params, toks, tcfg, device="cpu")
+    assert (capped - full).abs().max() > 1e-3    # this batch drops tokens
 
 
 def _gumbel_argmax_np(masked, u):

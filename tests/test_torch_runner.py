@@ -227,8 +227,32 @@ def test_decode_mode_restores_the_checkpoint(tmp_path):
         _port(f"--mode decode {ARGS} --checkpoint-dir {tmp_path / 'none'}")
 
 
+def test_decode_int8_matches_the_jax_runner(monkeypatch):
+    """--mode decode --int8 in both runners on the same weights (the JAX
+    runner's init_params(key(0)), bridged in f32 through a test-only patch
+    of the port's init) and the same prompts (the JAX runner's, through a
+    patch of decode_prompt): the reports carry the same keys, int8 true,
+    and the same greedy sample_tail. Both compute in bf16 from the same
+    int8 tree; the five tokens must agree exactly."""
+    argv = f"--mode decode {ARGS} --prompt-len 8 --new-tokens 6 --int8"
+    want = _run(jrunner.main, argv)
+    jcfg = jt.ModelConfig(max_seq=32, **jrunner.PRESETS["tiny"])
+    tree = jax.device_get(jt.init_params(jcfg, jax.random.key(0)))
+    prompt = np.array(jax.random.randint(
+        jax.random.key(1), (8, 8), 0, jcfg.vocab))
+    monkeypatch.setattr(
+        tt, "init_params", lambda cfg, generator, device, dtype=None:
+        params_from_jax(tree, cfg, device=device, dtype=dtype))
+    monkeypatch.setattr(trunner, "decode_prompt", lambda cfg, b, p: prompt)
+    got = _port(argv)
+    assert set(got) == set(want)
+    assert got["int8"] is want["int8"] is True
+    assert got["sample_tail"] == want["sample_tail"]
+    plain = _port(argv.replace(" --int8", ""))
+    assert plain["int8"] is False and set(plain) == set(got)
+
+
 @pytest.mark.parametrize("argv,exc,match", [
-    ("--mode decode --int8", NotImplementedError, "int8"),
     ("--mode decode --params-dir /x", NotImplementedError, "export"),
 ])
 def test_later_slices_raise(argv, exc, match):

@@ -258,6 +258,35 @@ def test_accum_steps_matches_jax():
         t[1](tp, t[3], tokens[0])
 
 
+MOE = dict(moe_experts=4, pos="rope")
+
+
+@pytest.mark.parametrize("accum", [1, 2], ids=["accum1", "accum2"])
+def test_moe_train_step_matches_jax(accum):
+    """A MoE model (4 experts in layer 1, aux coefficient 0.01): step-0
+    gradients, then 5 steps' losses and params against the JAX step. With
+    accum_steps 2 each micro-batch routes and caps on its own, on both
+    sides."""
+    j, t = _setup(BASE, MOE, "reference", accum_steps=accum)
+    lead = (accum, 2) if accum > 1 else (2,)
+    tokens = _tokens(BASE["vocab"], 20, *lead)
+    if accum == 1:
+        want = jax.grad(_jax_loss(j[0]))(j[2], jnp.asarray(tokens))
+        loss, got = tt.loss_and_grads(t[2], tokens, t[0], device="cpu")
+        for g, w in zip(_leaves(params_to_jax(got)), _leaves(want)):
+            np.testing.assert_allclose(g, w, atol=1e-5 * np.abs(w).max(),
+                                       rtol=0)
+        logits, aux = tt.forward_with_aux(t[2], tokens[:, :-1], t[0], "cpu")
+        assert float(aux) > 0.0
+        nll = tt._nll(logits, torch.from_numpy(tokens[:, 1:]).long())
+        assert float(loss) == pytest.approx(
+            float(nll) + 0.01 * float(aux), rel=1e-6)
+    (jp, _, jl), (tp, _, tl) = _run(j, t, tokens, steps=5)
+    assert tl[-1] < tl[0]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    _assert_params_close(params_to_jax(tp), jax.device_get(jp), steps=5)
+
+
 def test_ema_matches_jax():
     j, t = _setup(BASE, {}, "reference", ema_decay=0.9)
     tokens = _tokens(BASE["vocab"], 20, 2)

@@ -34,8 +34,8 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(), dict(n_kv_heads=2), dict(pos="rope")],
-    ids=["mha", "gqa", "rope"],
+    "kw", [dict(), dict(n_kv_heads=2), dict(pos="rope"), dict(moe_experts=4)],
+    ids=["mha", "gqa", "rope", "moe"],
 )
 def test_round_trip_f32_bit_equal(kw):
     jcfg, tcfg = _cfgs(jnp.float32, torch.float32, **kw)
@@ -66,11 +66,23 @@ def test_round_trip_bf16_is_the_jax_cast():
         np.testing.assert_array_equal(a, want, err_msg=str(path))
 
 
-def test_int8_leaf_rejected():
-    jcfg, tcfg = _cfgs(jnp.float32, torch.float32)
-    qtree = jq.quantize_params(jt.init_params(jcfg, jax.random.key(0)))
-    with pytest.raises(NotImplementedError, match="int8"):
-        params_from_jax(qtree, tcfg, device="cpu")
+def test_moe_router_and_int8_leaves_keep_their_dtypes():
+    """At a bf16 config the MoE router stays f32 (the JAX router reads
+    it in f32) while the expert stacks take bf16; an int8 tree keeps its
+    int8 values and f32 scales whatever the config's dtype."""
+    jcfg, tcfg = _cfgs(jnp.bfloat16, torch.bfloat16, moe_experts=4)
+    tree = jax.device_get(jt.init_params(jcfg, jax.random.key(2)))
+    moe = params_from_jax(tree, tcfg, device="cpu")["layers"][1]["moe"]
+    assert moe["wg"].dtype == torch.float32
+    assert moe["w1"].dtype == moe["w2"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(moe["wg"].numpy(),
+                                  tree["layers"][1]["moe"]["wg"])
+    qtree = jax.device_get(jq.quantize_params(tree))
+    qmoe = params_from_jax(qtree, tcfg, device="cpu")["layers"][1]["moe"]
+    assert qmoe["w1"]["q"].dtype == torch.int8
+    assert qmoe["w1"]["s"].dtype == torch.float32
+    np.testing.assert_array_equal(qmoe["w1"]["q"].numpy(),
+                                  qtree["layers"][1]["moe"]["w1"]["q"])
 
 
 def test_layout_mismatch_rejected():
@@ -84,7 +96,8 @@ def test_layout_mismatch_rejected():
         params_from_jax(random_tree(tcfg, 0), gqa, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(n_kv_heads=2, pos="rope")])
+@pytest.mark.parametrize("kw", [dict(), dict(n_kv_heads=2, pos="rope"),
+                                dict(moe_experts=4, moe_every=1)])
 def test_random_tree_and_init_params_follow_jax_layout(kw):
     jcfg, tcfg = _cfgs(jnp.float32, torch.float32, **kw)
     jtree = jt.init_params(jcfg, jax.random.key(0))
