@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and runtime slices on
-one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, runtime and
+shared-prefix serving slices on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -12,7 +12,9 @@ shows; it then exits 1 before the summary lines. Phases:
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (and at a few edges: q/k/v as strided views of one
    fused projection, a paged row of length 0, the largest query group at
-   head_dim 128 and block 64, the backward at 1024 positions, one kv head,
+   head_dim 128 and block 64, paged tables whose rows name the same first
+   8 blocks as a prefix-cache hit maps them (timed too), the backward at
+   1024 positions, one kv head,
    windows 1 and 64, 17 positions and batch 1, a misaligned bf16 dO view
    that must raise), and time the kernel, the plain version and one
    PyTorch library call that computes the same function (for the flash
@@ -67,7 +69,22 @@ shows; it then exits 1 before the summary lines. Phases:
    ``serving_step`` per step; then a drain stamped into the alloc spec
    refuses admission, ``drain_serving`` finishes the streams and writes
    the ack;
-10. summary: the device time of the whole bf16 backward (delta, dK/dV
+10. shared prefixes at the dense preset: 16 requests sharing a 128-token
+   system prompt (tails of 8-64 tokens; admit and enqueue, greedy and
+   sampled) on the kernel-path engine without and with ``prefix_cache``
+   (prefilled tokens, hits, TTFT p50 from the admission call to the first
+   token, tokens/s, paged launches = layers x decode steps, the pool
+   holding only the cache's blocks after every release and none after
+   ``clear()``); ``register_prefix`` and 8 ``admit(prefix=)`` on the same
+   engine; a prefill-role and a decode-role engine over one
+   ``SharedKVPool`` sharing one ``RequestObservatory`` (16 adoptions, at
+   most a block of decode-side prefill each, conservation within 1 ms,
+   one id per request, TTFT/TPOT per SLO class); 8 streams decoded 10
+   steps, then ``drain_serving(handoff=True)`` acked through a watcher
+   and a peer engine adopting and finishing them; a float32 two-layer
+   copy whose greedy streams must be the same over the uncached, cached,
+   explicit-prefix, disaggregated and handed-off runs and ``generate()``;
+11. summary: the device time of the whole bf16 backward (delta, dK/dV
    and dQ) against SDPA's whole backward, a ``paths`` JSON line, a
    ``kernels`` JSON line, the card's name and power limit as nvidia-smi
    reports them, and the result line.
@@ -464,13 +481,18 @@ def check_flash_bwd(torch, A, dev):
     return (*out_recs, whole_rec)
 
 
-def _paged_inputs(torch, rng, dev, dtype, g, r, full, h=64, bs=16, nb=32):
+def _paged_inputs(torch, rng, dev, dtype, g, r, full, h=64, bs=16, nb=32,
+                  shared=0):
+    """q, pools, table and lengths for 8 slots. Every row's table is its
+    own blocks, except that with ``shared`` the first ``shared`` entries
+    of every row name row 0's blocks, as a prefix-cache hit maps them."""
     slots = 8                    # serving phase: max_len 512 / bs 16
     n_blocks = slots * nb + 1
     q = randn(torch, rng, (slots, g * r, h), dtype, dev)
     pk, pv = (randn(torch, rng, (n_blocks, bs, g, h), dtype, dev)
               for _ in range(2))
     table = rng.permutation(np.arange(1, n_blocks)).reshape(slots, nb)
+    table[1:, :shared] = table[0, :shared]
     lengths = (np.full(slots, nb * bs) if full
                else rng.integers(1, nb * bs + 1, slots))
     if not full:
@@ -484,13 +506,17 @@ def check_paged(torch, PA, dev):
     """Paged decode vs its plain version; returns the kernel's record."""
     rng = np.random.default_rng(SEED + 1)
     err_max = 0.0
+    # the last two cases: the prefix cell's tables, whose rows name the
+    # same 8 physical blocks (the 128-token system prompt) first
     for dtype in (torch.bfloat16, torch.float32):
-        for g, r, window, h, bs, nb in ((8, 1, 0, 64, 16, 32),
-                                        (2, 4, 0, 64, 16, 32),
-                                        (2, 4, 100, 64, 16, 32),
-                                        (1, 16, 0, 128, 64, 8)):
+        for g, r, window, h, bs, nb, shared in ((8, 1, 0, 64, 16, 32, 0),
+                                                (2, 4, 0, 64, 16, 32, 0),
+                                                (2, 4, 100, 64, 16, 32, 0),
+                                                (1, 16, 0, 128, 64, 8, 0),
+                                                (8, 1, 0, 64, 16, 32, 8),
+                                                (2, 4, 100, 64, 16, 32, 8)):
             q, pk, pv, table, lengths = _paged_inputs(
-                torch, rng, dev, dtype, g, r, False, h, bs, nb
+                torch, rng, dev, dtype, g, r, False, h, bs, nb, shared
             )
             got = PA.paged_decode_attention(
                 q, pk, pv, table, lengths, g, window=window)
@@ -500,7 +526,8 @@ def check_paged(torch, PA, dev):
             err = (got.float() - want.float()).abs().max().item()
             name = str(dtype).split(".")[-1]
             label = (f"paged_decode {name} g{g} r{r} h{h} bs{bs} window "
-                     f"{window} splits {PA.paged_splits(8, g, nb)}")
+                     f"{window} shared {shared} splits "
+                     f"{PA.paged_splits(8, g, nb)}")
             print(f"{label}: max err {err:.3g}")
             if not err <= PAGED_TOL[name]:
                 fail(f"{label}: {err}")
@@ -518,6 +545,15 @@ def check_paged(torch, PA, dev):
     # the bound counts what the function must move: K/V rows, q, out and
     # the table once; the partials (tr["partial_bytes"]) are the kernel's
     t, by = bound(tr["bytes"], tr["flops"], "bfloat16")
+    # the same shape with every row's first 8 entries naming row 0's
+    # blocks (a prefix-cache hit on the 128-token system prompt)
+    q, pk, pv, table, lengths = _paged_inputs(
+        torch, rng, dev, torch.bfloat16, 8, 1, full=True, shared=8
+    )
+    shared_ms = device_ms(torch, lambda: PA.paged_decode_attention(
+        q, pk, pv, table, lengths, 8))[0]
+    print(f"paged_decode shared table (8 rows x 8 shared blocks): device ms "
+          f"{shared_ms:.4g}")
     return dict(
         name="paged_decode", route="cuda",
         source="elastic_tpu_agent_torch/csrc/paged_decode.cu",
@@ -525,7 +561,7 @@ def check_paged(torch, PA, dev):
         launches=None, max_abs_err=err_max, bound_ms=t, bound_by=by,
         shape=f"8 slots x 512 positions, g 8, r 1, h 64, bs 16, bf16; grid "
         f"{tr['grid']}, kernel bytes {tr['kernel_bytes']}",
-        **times,
+        shared_table_ms=shared_ms, **times,
     )
 
 
@@ -588,12 +624,13 @@ def forward_f32_check(torch, W, cfg32, params32, dev):
     return err
 
 
-def serve(W, eng, prompts, kinds, new_tokens, step_times=None):
-    """Run ``prompts`` through ``eng`` (kinds[i] = (admit?, sampling
+def serve(W, eng, prompts, kinds, new_tokens, step_times=None, ttft=None):
+    """Run ``prompts`` through ``eng`` (kinds[i] = (admit?, request
     kwargs)), releasing each request at ``new_tokens`` tokens; returns
-    the streams in request order."""
+    the streams in request order. ``ttft`` (a dict) gets each request's
+    host seconds from its admission call to its first token."""
     queue = list(range(len(prompts)))
-    rid_of, streams = {}, {}
+    rid_of, streams, t_admit = {}, {}, {}
     while queue or rid_of:
         st = eng.stats()
         free = st["slots"] - st["live_requests"] - st["pending_prefills"]
@@ -601,12 +638,21 @@ def serve(W, eng, prompts, kinds, new_tokens, step_times=None):
             i = queue.pop(0)
             use_admit, kw = kinds[i]
             fn = eng.admit if use_admit else eng.enqueue
-            rid_of[fn(prompts[i], **kw)] = i
+            t_admit[i] = time.perf_counter()
+            rid = fn(prompts[i], **kw)
+            rid_of[rid] = i
+            if ttft is not None and eng.stream(rid):
+                ttft[i] = time.perf_counter() - t_admit[i]
             free -= 1
         t0 = time.perf_counter()
-        eng.step()
+        out = eng.step()
         if step_times is not None:
             step_times.append(time.perf_counter() - t0)
+        if ttft is not None:
+            for rid in out:
+                if rid_of.get(rid) is not None and rid_of[rid] not in ttft:
+                    ttft[rid_of[rid]] = time.perf_counter() - t_admit[
+                        rid_of[rid]]
         for rid, i in list(rid_of.items()):
             if rid in eng.finish_reason or len(eng.stream(rid)) >= new_tokens:
                 streams[i] = eng.release(rid)
@@ -641,7 +687,7 @@ def run_serving(torch, W, PA, cfg, params, tree, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = PA.PAGED_DECODE.launches
-    steps = eng.stats()["decode_steps_total"]
+    steps = eng.decode_steps_total
     if launches != cfg.n_layers * steps or steps == 0:
         fail(f"paged_decode launched {launches}x over {steps} decode steps")
     for i, s in enumerate(streams):
@@ -1211,7 +1257,7 @@ def run_moe(torch, W, A, PA, M, tree, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     paged = PA.PAGED_DECODE.launches
-    steps = eng.stats()["decode_steps_total"]
+    steps = eng.decode_steps_total
     if paged == 0 or paged != cfg.n_layers * steps:
         fail(f"moe serving: paged_decode launched {paged}x over {steps} "
              "decode steps")
@@ -1434,6 +1480,311 @@ def run_drain(torch, W, L, T, cfg, params, dev, tmp):
                 ack_kind=ack.get("kind"))
 
 
+SYSTEM_TOKENS = 128          # the prefix cell's shared system prompt
+
+
+def _prefix_requests(cfg, seed, n=16):
+    """The prefix cell's requests: one 128-token system prompt (8 full
+    blocks at block 16) followed by user tails of 8-64 tokens, drawn with
+    numpy from ``seed``; half admitted and half enqueued, half greedy and
+    half sampled, the SLO classes in turn. Returns (system, prompts,
+    kinds, slos)."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab, size=SYSTEM_TOKENS).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab, size=int(t)).tolist()
+               for t in rng.integers(8, 65, size=n)]
+    kinds = [(i % 4 < 2, {} if i % 2 == 0 else dict(temperature=0.8,
+                                                     top_k=50))
+             for i in range(n)]
+    slos = [("ttft", "tpot", "batch")[i % 3] for i in range(n)]
+    return system, prompts, kinds, slos
+
+
+def _index_of(prompts, tokens) -> int:
+    """The request whose prompt the handoff record's tokens start with."""
+    tokens = [int(t) for t in tokens]
+    return next(i for i, p in enumerate(prompts) if tokens[:len(p)] == p)
+
+
+def serve_disaggregated(pre, dec, prompts, kinds, slos, new_tokens):
+    """The prompts through a prefill-role engine, each handed to the
+    decode-role engine by its cache hit as soon as its prefill lands;
+    decode runs every tick. One publication is pending at a time: a
+    cache-hit admission of either role adopts whichever record was
+    published last under its covered chain's last digest, so with two
+    pending, requests that share the system prompt would pair wrongly
+    (the JAX engine's rule, pinned by tests/test_torch_disagg.py).
+    Returns the streams and each decode admission's prefilled tokens."""
+    queue = list(range(len(prompts)))
+    at_pre, at_dec, streams, tail = {}, {}, {}, {}
+
+    def hand_over():
+        for rid, i in list(at_pre.items()):
+            if pre.finish_reason.get(rid) == "prefilled":
+                pre.release(rid)
+                del at_pre[rid]
+                before = dec.prefilled_tokens_total
+                at_dec[dec.admit(prompts[i], **kinds[i][1])] = i
+                tail[i] = dec.prefilled_tokens_total - before
+
+    while queue or at_pre or at_dec:
+        while (queue and len(at_pre) < pre.slots
+               and len(at_pre) + len(at_dec) < dec.slots):
+            i = queue.pop(0)
+            fn = pre.admit if kinds[i][0] else pre.enqueue
+            at_pre[fn(prompts[i], slo=slos[i])] = i
+            hand_over()
+        pre.step()
+        hand_over()
+        dec.step()
+        for rid, i in list(at_dec.items()):
+            if rid in dec.finish_reason or len(dec.stream(rid)) >= new_tokens:
+                streams[i] = dec.release(rid)
+                del at_dec[rid]
+    return [streams[i] for i in range(len(prompts))], tail
+
+
+def serve_handed_off(L, src, peer, prompts, kinds, new_tokens, steps,
+                     watcher=None):
+    """Open the prompts on ``src`` (admit or enqueue), decode ``steps``
+    steps, then ``drain_serving(handoff=True)``: every open stream is
+    published through the shared pool; ``peer`` adopts each record and
+    decodes it to ``new_tokens``. Returns the streams and the drain's
+    summary."""
+    for i, p in enumerate(prompts):
+        (src.admit if kinds[i][0] else src.enqueue)(p, **kinds[i][1])
+    for _ in range(steps):
+        src.step()
+    summary = L.drain_serving(src, watcher, handoff=True)
+    pool, rid_of = src.shared_pool, {}
+    while True:
+        rec = pool.claim_stream()
+        if rec is None:
+            break
+        rid_of[peer.adopt_stream(rec)] = _index_of(prompts, rec["tokens"])
+    streams = {}
+    while rid_of:
+        peer.step()
+        for rid, i in list(rid_of.items()):
+            if (rid in peer.finish_reason
+                    or len(peer.stream(rid)) >= new_tokens):
+                streams[i] = peer.release(rid)
+                del rid_of[rid]
+    return [streams.get(i) for i in range(len(prompts))], summary
+
+
+def _leak_check(label, used, cached, cache):
+    """After every release a pool holds only its prefix cache's blocks,
+    and nothing after the cache is cleared."""
+    cache.clear()
+    print(f"{label}: used_blocks {used} == cached blocks {cached}; after "
+          f"clear() {cache._alloc.used}")
+    if used != cached or cache._alloc.used != 0:
+        fail(f"{label}: used {used}, cached {cached}, after clear "
+             f"{cache._alloc.used}")
+
+
+def run_prefix(torch, W, PA, L, RO, cfg, params, tree, dev, tmp):
+    """The prefix cache, the shared pool with prefill/decode roles, the
+    mid-stream handoff drain and the request observatory at the small
+    preset (bf16), then token-exact checks on a float32 two-layer copy."""
+    new_tokens = 64
+    system, prompts, kinds, slos = _prefix_requests(cfg, SEED + 15)
+    eng_kw = dict(slots=8, max_len=512, prompt_buckets=(16, 64, 256),
+                  device=dev)
+    out = {}
+    # prefix cell: the same 16 requests without and with the cache, on
+    # the kernel path
+    for cached in (False, True):
+        eng = W.ServingEngine(params, cfg, prefix_cache=cached, **eng_kw)
+        if not eng.paged_kernel:
+            fail("prefix cell: paged_kernel auto did not resolve ON")
+        ttft = {}
+        PA.PAGED_DECODE.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = serve(W, eng, prompts, kinds, new_tokens, ttft=ttft)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = PA.PAGED_DECODE.launches
+        steps = eng.decode_steps_total
+        if launches != cfg.n_layers * steps or steps == 0:
+            fail(f"prefix cell: paged_decode launched {launches}x over "
+                 f"{steps} decode steps")
+        if any(len(x) != new_tokens for x in streams):
+            fail("prefix cell: a stream is short")
+        st = eng.stats()
+        pc = st.get("prefix_cache", {})
+        rec = dict(prefilled_tokens_total=st["prefilled_tokens_total"],
+                   admitted_tokens_total=st["admitted_tokens_total"],
+                   hits=pc.get("hits"), misses=pc.get("misses"),
+                   hit_tokens=pc.get("hit_tokens"), decode_steps=steps,
+                   paged_launches=launches, wall_s=wall,
+                   tokens_per_s=16 * new_tokens / wall,
+                   ttft_p50_ms=float(np.median(list(ttft.values()))) * 1e3,
+                   ttft_p90_ms=float(np.percentile(list(ttft.values()), 90))
+                   * 1e3)
+        print(f"prefix cell cache={cached}: prefilled "
+              f"{rec['prefilled_tokens_total']} of "
+              f"{rec['admitted_tokens_total']} tokens, hits {rec['hits']},"
+              f" misses {rec['misses']}, TTFT p50 {rec['ttft_p50_ms']:.2f} ms"
+              f" (p90 {rec['ttft_p90_ms']:.2f}), {rec['tokens_per_s']:.1f} "
+              f"tokens/s, {steps} decode steps, paged_decode launches "
+              f"{launches}")
+        out["cached" if cached else "uncached"] = rec
+    if not (out["cached"]["prefilled_tokens_total"]
+            < out["uncached"]["prefilled_tokens_total"]):
+        fail("prefix cell: the cache did not cut prefilled tokens")
+    cache = eng._prefix_cache
+    used, cached_blocks = eng.used_blocks, cache.cached_blocks
+    # explicit prefix on the same engine: register the system prompt and
+    # admit 8 tails with prefix=
+    pid = eng.register_prefix(system)
+    tails = [p[SYSTEM_TOKENS:] for p in prompts[:8]]
+    PA.PAGED_DECODE.launches = 0
+    steps0 = eng.decode_steps_total
+    explicit = serve(W, eng, tails,
+                     [(True, dict(kw, prefix=pid)) for _, kw in kinds[:8]],
+                     new_tokens)
+    launches = PA.PAGED_DECODE.launches
+    if launches != cfg.n_layers * (eng.decode_steps_total - steps0):
+        fail(f"explicit prefix: {launches} paged_decode launches")
+    if any(len(x) != new_tokens for x in explicit):
+        fail("explicit prefix: a stream is short")
+    eng.release_prefix(pid)
+    print(f"explicit prefix: 8 admissions on the registered system prompt, "
+          f"paged_decode launches {launches}")
+    out["explicit"] = dict(requests=8, paged_launches=launches)
+    if eng.used_blocks != cache.cached_blocks:
+        fail(f"explicit prefix: {eng.used_blocks} blocks held, cache "
+             f"{cache.cached_blocks}")
+    _leak_check("prefix cell", used, cached_blocks, cache)
+    del eng, cache
+
+    # disaggregated pair over one SharedKVPool (the gather path), with one
+    # observatory shared by both roles
+    def pair(cfg_, params_, obs=None, handoff=False):
+        """Two engines over one pool: prefill (4 slots) and decode (8),
+        or for a handoff two decode-role engines of 8 slots."""
+        pool = W.SharedKVPool(cfg_, block_size=16,
+                              pool_blocks=1 + (8 + 8 + 2) * 32, device=dev)
+        kw = dict(eng_kw, pool=pool, observatory=obs)
+        first = (dict(kw, role="decode") if handoff
+                 else dict(kw, role="prefill", slots=4))
+        return (pool, W.ServingEngine(params_, cfg_, **first),
+                W.ServingEngine(params_, cfg_, role="decode", **kw))
+
+    obs = RO.RequestObservatory()
+    pool, pre, dec = pair(cfg, params, obs)
+    t0 = time.perf_counter()
+    streams, tail = serve_disaggregated(pre, dec, prompts, kinds, slos,
+                                        new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ds = W.disaggregated_status(pre, dec)
+    adoptions = dec.stats()["adoptions_total"]
+    print(f"disaggregated: {len(prompts)} requests, decode adoptions "
+          f"{adoptions}, decode-role prefill per request max "
+          f"{max(tail.values())} tokens (block 16), prefill role prefilled "
+          f"{ds['roles']['prefill']['prefilled_tokens_total']}, "
+          f"{16 * new_tokens / wall:.1f} tokens/s")
+    if adoptions != 16 or max(tail.values()) > 16 or min(tail.values()) < 1:
+        fail(f"disaggregated: adoptions {adoptions}, tails {tail}")
+    if any(len(x) != new_tokens for x in streams):
+        fail("disaggregated: a stream is short")
+    st = obs.status()
+    recs = st["requests"]
+    worst = max(abs(sum(r["phases_ms"].values()) + r["residual_ms"]
+                    - r["wall_ms"]) for r in recs)
+    ids = [r["id"] for r in recs]
+    print(f"observatory: {st['finished']} finished, {st['stitched']} "
+          f"stitched, {len(set(ids))} ids, worst |sum(phases) + residual - "
+          f"wall| {worst:.4f} ms, worst residual "
+          f"{st['conservation']['worst_residual_ms']} ms")
+    for c, v in st["classes"].items():
+        print(f"observatory {c}: TTFT p50 {v['ttft_p50_ms']} p99 "
+              f"{v['ttft_p99_ms']} ms, TPOT p50 {v['tpot_p50_ms']} p99 "
+              f"{v['tpot_p99_ms']} ms, attainment {v['attainment']}")
+    if (st["finished"] != 16 or st["stitched"] != 16 or len(ids) != 16
+            or len(set(ids)) != 16 or worst > 1.0
+            or abs(st["conservation"]["worst_residual_ms"]) > 1.0
+            or st["live"] or st["pending_handoff"]):
+        fail(f"observatory: {st['finished']} finished, {st['stitched']} "
+             f"stitched, ids {ids}, worst {worst}")
+    out["disaggregated"] = dict(
+        adoptions=adoptions, decode_prefill_max=max(tail.values()),
+        prefill_role_prefilled=ds["roles"]["prefill"][
+            "prefilled_tokens_total"],
+        tokens_per_s=16 * new_tokens / wall,
+        observatory={c: {k: v[k] for k in ("ttft_p50_ms", "ttft_p99_ms",
+                                           "tpot_p50_ms", "tpot_p99_ms")}
+                     for c, v in st["classes"].items()},
+        worst_conservation_ms=worst)
+    _leak_check("disaggregated", pool.used_blocks,
+                pool.prefix_cache.cached_blocks, pool.prefix_cache)
+    del pool, pre, dec
+
+    # mid-stream handoff: 8 live streams, 10 steps, a handoff drain acked
+    # through a watcher, a peer finishing them
+    alloc, h = os.path.join(tmp, "alloc_handoff"), "chipsmokehandoff"
+    os.makedirs(alloc)
+    with open(os.path.join(alloc, f"{h}.json"), "w") as f:
+        json.dump({"env": {"ELASTIC_TPU_DRAIN": "maintenance:smoke"}}, f)
+    watcher = L.LifecycleWatcher(alloc, h, poll_interval_s=0.0)
+    pool, src, peer = pair(cfg, params, handoff=True)
+    streams, summary = serve_handed_off(
+        L, src, peer, prompts[:8], [(i % 4 != 3, kw) for i, (_, kw)
+                                    in enumerate(kinds[:8])],
+        new_tokens, 10, watcher)
+    ack = L.read_checkpoint_ack(alloc, h) or {}
+    ps = pool.stats()
+    print(f"handoff drain: {summary}; ack kind {ack.get('kind')} "
+          f"handoff_streams {ack.get('handoff_streams')}; published "
+          f"{ps['published_streams']}, adopted {ps['adopted_streams']}, "
+          f"expired {ps['expired_streams']}")
+    if (ack.get("kind") != "drained" or ack.get("handoff_streams") != 8
+            or summary["handoff_streams"] != 8
+            or ps["published_streams"] != ps["adopted_streams"]
+            or ps["expired_streams"] or ps["pending_streams"]
+            or any(s is None or len(s) != new_tokens for s in streams)):
+        fail(f"handoff drain: summary {summary}, ack {ack}, pool {ps}")
+    out["handoff"] = dict(summary, ack_kind=ack.get("kind"),
+                          published=ps["published_streams"],
+                          adopted=ps["adopted_streams"])
+    _leak_check("handoff", pool.used_blocks, pool.prefix_cache.cached_blocks,
+                pool.prefix_cache)
+    del pool, src, peer
+
+    # float32 two-layer copy, greedy: every route gives the same streams
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params32 = W.params_from_jax(dict(tree, layers=tree["layers"][:2]),
+                                 cfg32, device=dev)
+    few, n32 = prompts[:8], 32
+    greedy = [(i % 2 == 0, {}) for i in range(8)]
+    runs = {}
+    for cached in (False, True):
+        e = W.ServingEngine(params32, cfg32, prefix_cache=cached, **eng_kw)
+        runs["cached" if cached else "uncached"] = serve(W, e, few, greedy,
+                                                         n32)
+    pid = e.register_prefix(system)
+    runs["explicit"] = serve(W, e, [p[SYSTEM_TOKENS:] for p in few],
+                             [(True, dict(prefix=pid))] * 8, n32)
+    _, pre, dec = pair(cfg32, params32)
+    runs["disaggregated"] = serve_disaggregated(
+        pre, dec, few, greedy, ["batch"] * 8, n32)[0]
+    _, src, peer = pair(cfg32, params32, handoff=True)
+    runs["handed_off"] = serve_handed_off(L, src, peer, few, greedy, n32,
+                                          10)[0]
+    runs["generate"] = [W.generate(params32, [p], cfg32, n32, device=dev)[
+        0, len(p):].tolist() for p in few]
+    same = {k: v == runs["generate"] for k, v in runs.items()}
+    print(f"prefix f32 2-layer, greedy streams equal to generate(): {same}")
+    if not all(same.values()):
+        fail(f"prefix f32 streams differ: {same}")
+    out["f32_streams_equal"] = all(same.values())
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -1531,6 +1882,7 @@ def main() -> int:
     from elastic_tpu_agent_torch.workloads import moe as M
     from elastic_tpu_agent_torch.workloads import paged_attention as PA
     from elastic_tpu_agent_torch.workloads import quantize as Q
+    from elastic_tpu_agent_torch.workloads import request_obs as RO
     from elastic_tpu_agent_torch.workloads import runner as R
     from elastic_tpu_agent_torch.workloads import telemetry as T
 
@@ -1563,6 +1915,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
         runtime = run_runtime(torch, A, dev, tmp)
         drain = run_drain(torch, W, L, T, cfg, params, dev, tmp)
+        prefix = run_prefix(torch, W, PA, L, RO, cfg, params, tree, dev, tmp)
     int8 = run_int8(torch, W, PA, Q, R, cfg, tree, params, dev)
     moe_cfg = dataclasses.replace(cfg, moe_experts=MOE_EXPERTS)
     moe = run_moe(torch, W, A, PA, M, W.random_tree(moe_cfg, SEED), dev)
@@ -1583,7 +1936,8 @@ def main() -> int:
         return 1
     report = {"card": card, "forward": fwd, "serving": srv, "train": train,
               "runtime": runtime, "drain": drain, "int8": int8, "moe": moe,
-              "kernels": kernel_recs, "flash_bwd_whole": bwd_whole}
+              "prefix": prefix, "kernels": kernel_recs,
+              "flash_bwd_whole": bwd_whole}
     if args.profile:
         rng = np.random.default_rng(SEED + 8)
         tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 257)),
@@ -1601,7 +1955,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"paths": {"forward": fwd, "serving": srv,
                                 "train": train, "runtime": runtime,
-                                "drain": drain, "int8": int8, "moe": moe}}))
+                                "drain": drain, "int8": int8, "moe": moe,
+                                "prefix": prefix}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

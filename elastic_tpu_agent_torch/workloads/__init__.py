@@ -5,7 +5,9 @@ runtime the agent launches (runtime slice): the runner's train and decode
 modes (``runner.py``), the token data pipeline, checkpoint/resume and the
 delta-checkpoint migration transport, the lifecycle handshake and the
 flight recorder; the Switch-MoE layer and int8 weight-only quantization
-(``moe.py``, ``quantize.py``)."""
+(``moe.py``, ``quantize.py``); the engine's prefix cache
+(``prefix_cache.py``), the shared KV pool with prefill/decode roles and
+mid-stream handoff, and the request observatory (``request_obs.py``)."""
 
 from .checkpointing import (
     DeltaCheckpointer,
@@ -26,7 +28,9 @@ from .lifecycle import (
     read_checkpoint_ack,
     write_checkpoint_ack,
 )
-from .serving import ServingEngine
+from .prefix_cache import PrefixCache, chain_hashes
+from .request_obs import RequestObservatory
+from .serving import ServingEngine, SharedKVPool, disaggregated_status
 from .telemetry import (
     FlightRecorder,
     device_memory_stats,
@@ -54,15 +58,20 @@ __all__ = [
     "LifecycleWatcher",
     "ModelConfig",
     "MoeRoutingStats",
+    "PrefixCache",
+    "RequestObservatory",
     "ServingEngine",
+    "SharedKVPool",
     "Signal",
     "TokenDataset",
     "TrainCheckpointer",
     "bytes_to_tree",
     "chain_block_digests",
+    "chain_hashes",
     "checkpoint_digest",
     "dequantize_params",
     "device_memory_stats",
+    "disaggregated_status",
     "drain_serving",
     "ema_params",
     "encode_bytes",

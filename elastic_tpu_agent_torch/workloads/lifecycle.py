@@ -473,17 +473,29 @@ def drain_serving(
 
     Runs ``engine.step()`` until no live or pending requests remain, then
     writes a ``kind="drained"`` ack through ``watcher``. Returns a
-    summary. ``handoff=True`` publishes the open streams to a shared pool
-    for another engine to adopt; the port has no shared pool yet.
+    summary.
+
+    ``handoff=True`` (shared-pool engines) is the live-migration drain:
+    pending prefills are pumped to activation, then every open stream is
+    published through the pool's stream registry
+    (``engine.publish_stream``) for a peer engine to adopt and continue,
+    instead of being decoded to completion in the drain window. The ack's
+    ``extra`` carries ``handoff_streams`` so that the coordinator can
+    reconcile published == adopted.
     """
-    if handoff:
-        raise NotImplementedError(
-            "drain_serving(handoff=True) publishes streams through a "
-            "SharedKVPool: it comes with the shared-pool slice of the port "
-            "(prefill/decode roles)"
-        )
     drained_tokens = 0
     steps = 0
+    published = 0
+    if handoff and getattr(engine, "shared_pool", None) is not None:
+        while steps < max_steps and engine.stats()["pending_prefills"]:
+            out = engine.step()
+            drained_tokens += sum(
+                len(v) if isinstance(v, list) else 1 for v in out.values()
+            )
+            steps += 1
+        for rid in list(engine._slot_of):
+            engine.publish_stream(rid)
+            published += 1
     while steps < max_steps:
         stats = engine.stats()
         if not stats["live_requests"] and not stats["pending_prefills"]:
@@ -497,11 +509,12 @@ def drain_serving(
         "steps": steps,
         "drained_tokens": drained_tokens,
         "live_requests": engine.stats()["live_requests"],
-        "handoff_streams": 0,
+        "handoff_streams": published,
     }
     if watcher is not None and watcher.enabled:
         watcher.ack(
             None, kind="drained",
             signal=signal.value if signal is not None else "",
+            extra={"handoff_streams": published} if published else None,
         )
     return summary

@@ -230,6 +230,50 @@ class FlightRecorder:
                 out["mean_tokens_per_s"] = round(
                     sum(rates) / len(rates), 3
                 )
+        out.update(self._serving_summary())
+        return out
+
+    def _serving_summary(self) -> dict:
+        """The serving engine's records, summarised as the JAX recorder
+        does: the prefix cache's economics over ``serving_admit`` records
+        and, over the observatory's ``request_finish`` records, TTFT and
+        TPOT p50/p99 per SLO class."""
+        with self._lock:
+            admits = [r for r in self.records
+                      if r.get("kind") == "serving_admit"]
+            finishes = [r for r in self.records
+                        if r.get("kind") == "request_finish"]
+        out = {}
+        if admits:
+            out["serving_admits"] = len(admits)
+            flagged = [r for r in admits if "prefix_cache_hit" in r]
+            if flagged:
+                hits = sum(1 for r in flagged if r["prefix_cache_hit"])
+                out["prefix_cache_hit_rate"] = round(hits / len(flagged), 3)
+                out["prefix_cache_tokens_saved"] = sum(
+                    r.get("cached_tokens", 0) for r in flagged
+                )
+        if finishes:
+            def q(vals, frac):
+                vs = sorted(vals)
+                return round(vs[min(len(vs) - 1,
+                                    int(round(frac * (len(vs) - 1))))], 3)
+
+            classes = {}
+            for r in finishes:
+                classes.setdefault(r.get("slo", "batch"), []).append(r)
+            rollup = {}
+            for slo, recs in sorted(classes.items()):
+                entry = {"finished": len(recs)}
+                for key in ("ttft", "tpot"):
+                    vals = [r[f"{key}_ms"] for r in recs
+                            if r.get(f"{key}_ms") is not None]
+                    if vals:
+                        entry[f"{key}_p50_ms"] = q(vals, 0.5)
+                        entry[f"{key}_p99_ms"] = q(vals, 0.99)
+                rollup[slo] = entry
+            out["request_finishes"] = len(finishes)
+            out["request_slo"] = rollup
         return out
 
     def close(self) -> None:

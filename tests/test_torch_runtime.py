@@ -712,8 +712,29 @@ def test_drain_serving_matches_jax(tmp_path):
         assert ack["kind"] == "drained" and ack["signal"] == "op"
     assert summaries[0] == summaries[1]
     assert summaries[1]["live_requests"] == 0 and summaries[1]["steps"] > 0
-    with pytest.raises(NotImplementedError, match="shared-pool"):
-        tlc.drain_serving(engines[1], handoff=True)
+    # handoff=True over a SharedKVPool: the pending prefill is pumped,
+    # both open streams are published, and the ack carries their count
+    summaries, acks = [], []
+    for mod, lc, params, cfg, dev, h in (
+        (jserving, jlc, tree, jcfg, {}, "jh"),
+        (tserving, tlc, params_from_jax(tree, tcfg, device="cpu"), tcfg,
+         dict(device="cpu"), "th"),
+    ):
+        pool = mod.SharedKVPool(cfg, block_size=4, pool_blocks=32, **dev)
+        eng = mod.ServingEngine(params, cfg, **kw, pool=pool, **dev)
+        eng.admit([5, 17, 42, 9])
+        eng.enqueue([61, 3, 88, 24, 7, 7, 13, 2, 90, 41, 5])
+        eng.step()
+        w = lc.LifecycleWatcher(str(tmp_path), h)
+        summaries.append(lc.drain_serving(eng, w, lc.Signal("drain", "op"),
+                                          handoff=True))
+        ack = jlc.read_checkpoint_ack(str(tmp_path), h)
+        acks.append({k: v for k, v in ack.items() if k != "ts"})
+        assert pool.pending_streams == 2 and eng.used_blocks > 0
+    assert summaries[0] == summaries[1]
+    assert summaries[1]["handoff_streams"] == 2
+    assert acks[0] == acks[1] and acks[1]["handoff_streams"] == 2
+    assert acks[1]["kind"] == "drained"
 
 
 # -- telemetry ----------------------------------------------------------------

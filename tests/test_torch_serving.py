@@ -176,17 +176,39 @@ def test_admission_guards_and_stats():
 
 
 @pytest.mark.parametrize(
-    "opt",
-    [
-        dict(prefix_cache=True), dict(mesh=object()),
-        dict(role="prefill"), dict(draft_params={}),
-        dict(observatory=object()),
-    ],
+    "opt", [dict(mesh=object()), dict(draft_params={})],
 )
 def test_later_slice_options_raise(opt):
     _, tcfg, _, params = _models()
     with pytest.raises(NotImplementedError, match="later slice"):
         ts.ServingEngine(params, tcfg, **ENGINE, device="cpu", **opt)
+
+
+@pytest.mark.parametrize("method", ["admit", "enqueue"])
+def test_admission_signature_matches_jax(method):
+    """admit/enqueue take the JAX engine's parameters in its order, so a
+    second positional argument is a prefix id on both sides (it once
+    set the port's temperature)."""
+    import inspect
+
+    jcfg, tcfg, tree, params = _models(pos="rope")
+    names = [list(inspect.signature(getattr(cls, method)).parameters)
+             for cls in (js.ServingEngine, ts.ServingEngine)]
+    assert names[0] == names[1]
+    assert names[1][:3] == ["self", "prompt", "prefix"]
+
+    def run(eng):
+        pid = eng.register_prefix([7, 7, 30, 2, 51, 11])
+        rid = getattr(eng, method)([5, 17, 42], pid)
+        while len(eng.stream(rid)) < 5:
+            eng.step()
+        with pytest.raises(ValueError, match="unknown or released prefix"):
+            getattr(eng, method)([5], pid + 7)
+        return eng.release(rid), eng.stats()["admitted_tokens_total"]
+
+    want = run(js.ServingEngine(tree, jcfg, **ENGINE))
+    assert run(ts.ServingEngine(params, tcfg, **ENGINE, device="cpu")) == want
+    assert want[1] == 9
 
 
 def test_unknown_option_and_device_mismatch():
