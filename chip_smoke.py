@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, runtime and
-shared-prefix serving slices on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, runtime,
+shared-prefix serving and decode-variant slices on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -84,9 +84,37 @@ shows; it then exits 1 before the summary lines. Phases:
    and a peer engine adopting and finishing them; a float32 two-layer
    copy whose greedy streams must be the same over the uncached, cached,
    explicit-prefix, disaggregated and handed-off runs and ``generate()``;
-11. summary: the device time of the whole bf16 backward (delta, dK/dV
-   and dQ) against SDPA's whole backward, a ``paths`` JSON line, a
-   ``kernels`` JSON line, the card's name and power limit as nvidia-smi
+11. speculative decoding at the dense preset with a draft of the runner's
+   ``tiny`` widths at the same vocabulary, gamma 4: solo (a 32-token
+   prompt, 128 new tokens) beside ``generate()``, and the serving cell's
+   16 requests (sampled ones at temperature 0.8 without top-k, which spec
+   mode refuses) on a speculative engine beside the plain engine, both at
+   a ``max_len`` of 256 that the longest requests reach (tokens/s,
+   acceptance rate; the speculative engine's fallback steps launch the
+   paged kernel layers x steps times); float32 two-layer copies whose
+   solo and engine greedy streams must equal ``generate()``'s, a
+   self-draft that must commit every round in full, and a run near
+   ``max_len`` whose fallback steps launch the paged kernel layers x
+   steps times, with streams equal to the same engine's on the gather
+   path;
+12. beam search at the dense preset: beam 4, a 32-token prompt, 64 new
+   tokens, without and with eos; beam 1 on a float32 copy equal to
+   ``generate()``;
+13. streaming ring-cache decode at the dense preset's widths with rope and
+   a 256-token window (no preset sets one): 8 rows, a 64-token prompt, 768
+   new tokens; the ring's bytes and the peak allocation must not grow with
+   the length; a float32 copy streams as ``generate()``'s full cache does;
+14. LoRA on the frozen bf16 dense preset: rank 8 on ``wqkv`` and ``wo``
+   (196,608 adapter params), 20 steps at batch 8, seq 256, lr 1e-3 through
+   the flash forward and both backward kernels (8 launches each a step)
+   against reference attention (each loss within ``LORA_TRAIN_BF16_TOL``);
+   the base bit-unchanged and the merged forward equal to the adapted one;
+15. summary: the device time of the whole bf16 backward (delta, dK/dV
+   and dQ) against SDPA's whole backward, each phase's host seconds, a
+   ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
+   summed over the paths it lies on: forward and LoRA for flash_fwd,
+   train and LoRA for the backward pair, serving and the speculative
+   fallback for paged_decode), the card's name and power limit as nvidia-smi
    reports them, and the result line.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
@@ -201,6 +229,8 @@ MOE_GRAD_F32_TOL = 1e-4
 
 
 FAILURES: list = []
+# seconds each phase took (host clock), printed with the summary
+PHASE_SECONDS: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -208,6 +238,14 @@ def fail(msg: str) -> None:
     printed, and exits non-zero at the end."""
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     FAILURES.append(msg)
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), its host seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 2)
+    return out
 
 
 def cuda_ms(fn, warmup: int = 5, iters: int = 50) -> float:
@@ -1785,6 +1823,395 @@ def run_prefix(torch, W, PA, L, RO, cfg, params, tree, dev, tmp):
     return out
 
 
+# -- the decode variants (phases 11-14) ----------------------------------
+#
+# The speculative cell's draft: the runner's ``tiny`` preset widths
+# (elastic_tpu_agent/workloads/runner.py PRESETS["tiny"]) at the small
+# preset's vocabulary, since draft and target must share one.
+DRAFT = dict(vocab=32768, d_model=256, n_heads=4, n_layers=2, d_ff=1024)
+GAMMA = 4
+# the speculative cell's engines: the serving cell's requests reach it
+SPEC_MAX_LEN = 256
+# the streaming cell: no preset sets a window; the cell takes 256 with
+# rope (transformer.py's window and pos fields)
+STREAM_WINDOW = 256
+LORA_RANK = 8
+LORA_STEPS = 20
+# LoRA losses over 20 steps, flash kernels vs reference attention. The
+# adapters move the loss only ~0.9 in the run, so the train cell's 0.2
+# would pass a wrong backward: sound kernels gave 0.001845 (four runs);
+# delta dropped in dQ 0.0355, the q-tile lower bound one tile late 0.131,
+# lse/delta read by row 0.755 (the GQA fault F7 is a no-op at the preset's
+# 8 kv heads and fails the GQA kernel checks; PERF.md, Findings).
+LORA_TRAIN_BF16_TOL = 0.01
+
+
+def _f32_copy(torch, W, cfg, tree, dev, n_layers=2):
+    cfg32 = dataclasses.replace(cfg, n_layers=n_layers, dtype=torch.float32)
+    tree32 = dict(tree, layers=tree["layers"][:n_layers])
+    return cfg32, W.params_from_jax(tree32, cfg32, device=dev)
+
+
+def _oracle(W, params, cfg, prompt, n, dev, **kw):
+    return W.generate(params, [prompt], cfg, n, device=dev, **kw)[
+        0, len(prompt):].tolist()
+
+
+def run_speculative(torch, W, PA, cfg, params, tree, dev):
+    """Speculative decoding at the small preset (bf16) with the tiny-width
+    draft: solo (a 32-token prompt, 128 new tokens) beside generate(), and
+    the serving cell's 16 requests (temperature 0.8 where the serving cell
+    samples; spec mode refuses top-k) through a speculative engine beside
+    the plain one, at a max_len the longest requests reach: its fallback
+    steps launch the paged kernel layers x steps times, counted from 0
+    just before the speculative run. Then float32 two-layer copies: solo
+    and engine greedy streams against generate(), a self-draft that must
+    commit every round in full, and a fallback run near max_len whose
+    paged-kernel launches are layers x fallback steps, with streams equal
+    to the same engine's on the gather path."""
+    dcfg = W.ModelConfig(**DRAFT, max_seq=cfg.max_seq, dtype=cfg.dtype)
+    dtree = W.random_tree(dcfg, SEED + 20)
+    dparams = W.params_from_jax(dtree, dcfg, device=dev)
+    rng = np.random.default_rng(SEED + 21)
+    prompt = rng.integers(0, cfg.vocab, size=(1, 32)).tolist()
+    n = 128
+    W.speculative_generate(params, dparams, cfg, dcfg, prompt, 8,
+                           gamma=GAMMA, device=dev)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, stats = W.speculative_generate(params, dparams, cfg, dcfg, prompt,
+                                        n, gamma=GAMMA, device=dev)
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = W.generate(params, prompt, cfg, n, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if tuple(out.shape) != (1, 32 + n) or not (
+            0 <= int(out.min()) and int(out.max()) < cfg.vocab):
+        fail(f"speculative solo: output {tuple(out.shape)}")
+    agree = float((out[0, 32:] == ref[0, 32:]).float().mean())
+    solo = dict(new_tokens=n, gamma=GAMMA, tokens_per_s=n / solo_s,
+                generate_tokens_per_s=n / gen_s, stats=stats.stats(),
+                greedy_agreement_with_generate=agree)
+    print(f"speculative solo small preset bf16, tiny draft, gamma {GAMMA}: "
+          f"{n / solo_s:.1f} tokens/s (generate {n / gen_s:.1f}), "
+          f"{stats.rounds} rounds, acceptance "
+          f"{stats.stats()['acceptance_rate']}, greedy agreement with "
+          f"generate {agree:.4f}")
+
+    prompts, kinds = _serving_requests(cfg, SEED + 4)
+    kinds = [(a, {k: v for k, v in kw.items() if k != "top_k"})
+             for a, kw in kinds]
+    # max_len SPEC_MAX_LEN: the longest prompts reach it within their 64
+    # tokens, so the speculative engine falls back to plain steps through
+    # the paged kernel on this run (rows within gamma of the row end)
+    eng_kw = dict(slots=8, max_len=SPEC_MAX_LEN,
+                  prompt_buckets=(16, 64, 256), device=dev)
+    engine, launches = {}, 0
+    for spec in (False, True):
+        draft = dict(draft_params=dparams, draft_cfg=dcfg,
+                     gamma=GAMMA) if spec else {}
+        eng = W.ServingEngine(params, cfg, **eng_kw, **draft)
+        if not eng.paged_kernel:
+            fail(f"speculative engine={spec}: paged_kernel auto did not "
+                 "resolve ON")
+        torch.cuda.synchronize()
+        PA.PAGED_DECODE.launches = 0
+        t0 = time.perf_counter()
+        streams = serve(W, eng, prompts, kinds, 64)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = sum(len(s) for s in streams)
+        # a stream ends at 64 tokens or at the row end (prompt + stream
+        # fill max_len)
+        if any(not (len(s) >= 64 or len(p) + len(s) >= SPEC_MAX_LEN)
+               or not all(0 <= t < cfg.vocab for t in s)
+               for p, s in zip(prompts, streams)) or eng.used_blocks:
+            fail(f"speculative engine={spec}: short or bad streams or "
+                 f"{eng.used_blocks} leaked blocks")
+        steps = eng.decode_steps_total
+        engine["spec" if spec else "plain"] = dict(
+            tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+            decode_steps=steps, paged_launches=PA.PAGED_DECODE.launches,
+            speculative=eng.stats().get("speculative"))
+        if spec:
+            launches = PA.PAGED_DECODE.launches
+            if steps == 0 or launches != cfg.n_layers * steps:
+                fail(f"speculative engine: paged_decode launched "
+                     f"{launches}x over {steps} fallback steps")
+    print(f"speculative engine small preset: 16 requests, max_len "
+          f"{SPEC_MAX_LEN}, {engine['spec']['tokens_per_s']:.1f} tokens/s "
+          f"(plain engine {engine['plain']['tokens_per_s']:.1f}), "
+          f"{engine['spec']['decode_steps']} fallback steps, paged_decode "
+          f"launches {launches}, {engine['spec']['speculative']}")
+
+    # float32 two-layer copies
+    cfg32, params32 = _f32_copy(torch, W, cfg, tree, dev)
+    dcfg32 = dataclasses.replace(dcfg, dtype=torch.float32)
+    dparams32 = W.params_from_jax(dtree, dcfg32, device=dev)
+    few = [p[:40] for p in prompts[:4]]
+    same = True
+    for p in few[:2]:
+        got, _ = W.speculative_generate(params32, dparams32, cfg32, dcfg32,
+                                        [p], 48, gamma=GAMMA, device=dev)
+        same &= got[0, len(p):].tolist() == _oracle(
+            W, params32, cfg32, p, 48, dev, max_len=len(p) + 48 + GAMMA + 1)
+    # 1 + 9 (gamma + 1) new tokens: nine full rounds, none cut by the end
+    n_self = 1 + 9 * (GAMMA + 1)
+    _, self_st = W.speculative_generate(params32, params32, cfg32, cfg32,
+                                        [few[0]], n_self, gamma=GAMMA,
+                                        device=dev)
+    full_rounds = (self_st.accepted == self_st.drafted
+                   and self_st.rounds == 9)
+    f32_kw = dict(slots=4, max_len=512, prompt_buckets=(16, 64, 256),
+                  device=dev)
+    eng = W.ServingEngine(params32, cfg32, draft_params=dparams32,
+                          draft_cfg=dcfg32, gamma=GAMMA, **f32_kw)
+    streams = serve(W, eng, few, [(i % 2 == 0, {}) for i in range(4)], 32)
+    same &= all(s == _oracle(W, params32, cfg32, p, len(s), dev)
+                for p, s in zip(few, streams))
+    eng = W.ServingEngine(params32, cfg32, draft_params=params32,
+                          draft_cfg=cfg32, gamma=GAMMA, **f32_kw)
+    serve(W, eng, few, [(True, {})] * 4, 32)
+    self_eng = eng.stats()["speculative"]
+    full_rounds &= self_eng["accepted_tokens"] == self_eng["drafted_tokens"]
+    print(f"speculative f32 2-layer: solo and engine streams == generate(): "
+          f"{same}; self-draft acceptance solo "
+          f"{self_st.stats()['acceptance_rate']}, engine "
+          f"{self_eng['acceptance_rate']}, every round full: {full_rounds}")
+    if not same:
+        fail("speculative f32 streams differ from generate()")
+    if not full_rounds:
+        fail(f"speculative self-draft did not commit full rounds: "
+             f"{self_st.stats()}, {self_eng}")
+    # near max_len: fallback steps through the paged kernel, against the
+    # same engine on the gather path (the kernel's plain version)
+    fb_kw = dict(slots=2, max_len=64, prompt_buckets=(16, 64),
+                 draft_params=dparams32, draft_cfg=dcfg32, gamma=GAMMA,
+                 device=dev)
+    fb = {}
+    for paged in (True, False):
+        eng = W.ServingEngine(params32, cfg32, paged_kernel=paged, **fb_kw)
+        PA.PAGED_DECODE.launches = 0
+        streams = serve(W, eng, few[:2], [(True, {})] * 2, 64)
+        torch.cuda.synchronize()
+        fb[paged] = (streams, eng.decode_steps_total,
+                     PA.PAGED_DECODE.launches)
+    (kernel_streams, steps, fb_launches), gather = fb[True], fb[False]
+    fb_same = kernel_streams == gather[0] and steps == gather[1]
+    print(f"speculative f32 fallback near max_len: {steps} fallback steps, "
+          f"paged_decode launches {fb_launches} (gather path "
+          f"{gather[2]}), streams == the gather path's: {fb_same}")
+    if steps == 0 or fb_launches != cfg32.n_layers * steps or gather[2]:
+        fail(f"speculative fallback: paged_decode launched {fb_launches}x "
+             f"over {steps} fallback steps (gather path {gather[2]}x)")
+    if not fb_same:
+        fail("speculative fallback streams differ from the gather path's")
+    return launches, dict(
+        solo=solo, engine=engine, f32_streams_equal=bool(same),
+        self_draft_full_rounds=bool(full_rounds),
+        self_draft_acceptance=self_st.stats()["acceptance_rate"],
+        f32_fallback_steps=steps, f32_fallback_paged_launches=fb_launches,
+    )
+
+
+def run_beam(torch, W, cfg, params, tree, dev):
+    """Beam search at the small preset (bf16): beam 4, a 32-token prompt,
+    64 new tokens, without and with eos; beam 1 on a float32 two-layer
+    copy against generate()."""
+    rng = np.random.default_rng(SEED + 22)
+    prompt = rng.integers(0, cfg.vocab, size=(1, 32)).tolist()
+    n, k = 64, 4
+    eos = int(W.generate(params, prompt, cfg, n, device=dev)[0, 32 + 2])
+    out = {}
+    for label, eos_id in (("no_eos", None), ("eos", eos)):
+        W.beam_search(params, prompt, cfg, 4, beam_size=k, eos_id=eos_id,
+                      device=dev)                             # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seqs, scores = W.beam_search(params, prompt, cfg, n, beam_size=k,
+                                     eos_id=eos_id, device=dev)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        sc = scores.float().cpu().numpy()
+        ok = (tuple(seqs.shape) == (k, 32 + n) and np.isfinite(sc).all()
+              and (sc[:-1] >= sc[1:]).all())
+        if eos_id is not None:
+            for row in seqs[:, 32:].tolist():
+                if eos_id in row and set(row[row.index(eos_id):]) != {eos_id}:
+                    ok = False
+        if not ok:
+            fail(f"beam {label}: shape {tuple(seqs.shape)}, scores {sc}")
+        out[label] = dict(seconds=s, tokens_per_s=k * n / s,
+                          best_score=float(sc[0]))
+        print(f"beam small preset bf16 {label}: beam {k}, {n} new tokens in "
+              f"{s * 1e3:.1f} ms ({k * n / s:.1f} beam tokens/s), scores "
+              f"{np.round(sc, 3).tolist()}")
+    cfg32, params32 = _f32_copy(torch, W, cfg, tree, dev)
+    same = True
+    for p in (prompt[0][:20], prompt[0][5:37]):
+        seqs, _ = W.beam_search(params32, [p], cfg32, 32, beam_size=1,
+                                device=dev)
+        same &= seqs[0, len(p):].tolist() == _oracle(W, params32, cfg32, p,
+                                                     32, dev)
+    print(f"beam f32 2-layer: beam 1 == generate(): {same}")
+    if not same:
+        fail("beam 1 differs from generate() in float32")
+    out["f32_beam1_equals_generate"] = bool(same)
+    return out
+
+
+def run_streaming(torch, W, S, cfg, dev):
+    """Streaming decode at the small preset's widths with rope and a
+    256-token window: 8 rows, a 64-token prompt, 768 new tokens (three
+    times the ring). The ring's bytes are those of a window-slot cache
+    whatever the length, and the device's peak memory does not grow with
+    it; a float32 two-layer copy streams exactly as generate()'s full
+    cache does."""
+    scfg = dataclasses.replace(cfg, pos="rope", window=STREAM_WINDOW)
+    stree = W.random_tree(scfg, SEED + 23)
+    sparams = W.params_from_jax(stree, scfg, device=dev)
+    rng = np.random.default_rng(SEED + 24)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 64)),
+                          device=dev)
+    caches = []
+    real = S.KVCache.empty.__func__
+
+    def empty(cls, *a, **kw):
+        cache = real(cls, *a, **kw)
+        caches.append(cache.k.numel() * cache.k.element_size() * 2)
+        return cache
+
+    S.KVCache.empty = classmethod(empty)
+    try:
+        peaks = {}
+        for n in (2, 32, 768):      # 2: the warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = S.streaming_generate(sparams, prompt, scfg, n, device=dev)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            peaks[n] = torch.cuda.max_memory_allocated() - base
+    finally:
+        S.KVCache.empty = classmethod(real)
+    # generate() over the same rows, its cache growing with the length
+    t0 = time.perf_counter()
+    W.generate(sparams, prompt, scfg, 64, device=dev)
+    torch.cuda.synchronize()
+    gen_tps = 8 * 64 / (time.perf_counter() - t0)
+    ring_bytes = caches[-1]
+    want_bytes = (2 * scfg.n_layers * 8 * STREAM_WINDOW * scfg.kv_heads
+                  * scfg.head_dim * 2)
+    # what may grow: the emitted tokens (8 x 768 int64 tensors of one
+    # allocator block each, under 0.4 MiB), not the cache
+    grew = peaks[768] - peaks[32]
+    print(f"streaming small preset rope window {STREAM_WINDOW} bf16: 8 rows, "
+          f"768 new tokens in {s:.2f} s ({8 * 768 / s:.1f} tokens/s; "
+          f"generate() over the same rows {gen_tps:.1f}), ring bytes "
+          f"{ring_bytes} at every length ({sorted(set(caches))}), peak "
+          f"allocation {peaks[32]} B at 32 tokens, {peaks[768]} B at 768")
+    if set(caches) != {want_bytes}:
+        fail(f"streaming ring bytes {sorted(set(caches))}, want {want_bytes}")
+    if grew > 1 << 20:
+        fail(f"streaming peak memory grew {grew} B from 32 to 768 tokens")
+    if tuple(out.shape) != (8, 64 + 768) or not (
+            0 <= int(out.min()) and int(out.max()) < cfg.vocab):
+        fail(f"streaming output {tuple(out.shape)}")
+    cfg32 = dataclasses.replace(scfg, n_layers=2, dtype=torch.float32,
+                                window=64)
+    p32 = W.params_from_jax(dict(stree, layers=stree["layers"][:2]), cfg32,
+                            device=dev)
+    short = prompt[:2, :40]
+    got = S.streaming_generate(p32, short, cfg32, 160, device=dev)
+    same = got.tolist() == W.generate(p32, short, cfg32, 160,
+                                      device=dev).tolist()
+    print(f"streaming f32 2-layer window 64: 200 positions (3 ring wraps) "
+          f"== generate(): {same}")
+    if not same:
+        fail("streaming f32 stream differs from generate()")
+    return dict(rows=8, new_tokens=768, seconds=s, tokens_per_s=8 * 768 / s,
+                generate_tokens_per_s=gen_tps, ring_bytes=ring_bytes,
+                peak_bytes={str(n): peaks[n] for n in (32, 768)},
+                f32_equals_generate=bool(same))
+
+
+def _lora_run(torch, W, cfg, params, dev, tokens, steps):
+    step, init = W.make_lora_train_step(cfg, rank=LORA_RANK,
+                                        learning_rate=1e-3, device=dev)
+    lora, opt = init(params, torch.Generator().manual_seed(SEED))
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lora, opt, loss = step(params, lora, opt, tokens)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    return lora, losses, times
+
+
+def run_lora(torch, W, A, LR, cfg, params, dev):
+    """LoRA on the frozen bf16 small preset: rank 8 on the default targets
+    (wqkv, wo), lr 1e-3, batch 8, seq 256, 20 steps on one fixed batch
+    through the flash forward and both backward kernels, against the same
+    run on reference attention; the base bit-unchanged, and the merged
+    forward equal to the adapted one."""
+    rng = np.random.default_rng(SEED + 25)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 257)),
+                          device=dev)
+    before = [t.clone() for t in _flat(params)]
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    for kern in kerns:
+        kern.launches = 0
+    lora, losses, times = _lora_run(torch, W, cfg, params, dev, tokens,
+                                    LORA_STEPS)
+    torch.cuda.synchronize()
+    launches = {kern.symbol: kern.launches for kern in kerns}
+    n_params = LR.lora_param_count(lora)
+    _, ref_losses, ref_times = _lora_run(
+        torch, W, dataclasses.replace(cfg, attn="reference"), params, dev,
+        tokens, LORA_STEPS)
+    gap = float(np.max(np.abs(np.asarray(losses) - np.asarray(ref_losses))))
+    unchanged = all(torch.equal(a, b) for a, b in zip(_flat(params), before))
+    toks = tokens[:2, :64]
+    merged = W.forward(W.merge_lora(params, lora), toks, cfg, device=dev)
+    with torch.no_grad():
+        adapted = W.forward(LR.apply_lora(params, lora), toks, cfg,
+                            device=dev)
+    merged_equal = torch.equal(merged, adapted)
+    p50 = float(np.median(times) * 1e3)
+    print(f"lora small preset bf16 base, rank {LORA_RANK}, {n_params} adapter"
+          f" params, [8,256], {LORA_STEPS} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, launches {launches}, step p50 {p50:.2f} ms; "
+          f"reference attention step p50 {np.median(ref_times) * 1e3:.2f} ms,"
+          f" max|loss - reference| {gap:.4g}; base unchanged {unchanged}, "
+          f"merged forward == adapted {merged_equal}")
+    print("lora losses " + " ".join(f"{x:.4f}" for x in losses))
+    print("lora reference losses " + " ".join(f"{x:.4f}" for x in ref_losses))
+    want = cfg.n_layers * LORA_STEPS
+    if any(n != want for n in launches.values()):
+        fail(f"lora launches {launches}, want {want} each")
+    if n_params != 196_608:
+        fail(f"lora adapter params {n_params}, want 196608")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"lora losses {losses[0]} -> {losses[-1]}")
+    if not gap <= LORA_TRAIN_BF16_TOL:
+        fail(f"lora losses vs reference attention: {gap}")
+    if not unchanged:
+        fail("lora training changed the frozen base")
+    if not merged_equal:
+        fail("lora merged forward differs from the adapted forward")
+    return launches, dict(
+        rank=LORA_RANK, adapter_params=n_params, batch=8, seq=256,
+        steps=LORA_STEPS, loss_first=losses[0], loss_last=losses[-1],
+        step_ms_p50=p50,
+        reference_step_ms_p50=float(np.median(ref_times) * 1e3),
+        max_abs_loss_gap_vs_reference=gap, base_unchanged=unchanged,
+        merged_equals_adapted=merged_equal, launches=launches,
+    )
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -1879,11 +2306,13 @@ def main() -> int:
     from elastic_tpu_agent_torch import workloads as W
     from elastic_tpu_agent_torch.workloads import attention as A
     from elastic_tpu_agent_torch.workloads import lifecycle as L
+    from elastic_tpu_agent_torch.workloads import lora as LR
     from elastic_tpu_agent_torch.workloads import moe as M
     from elastic_tpu_agent_torch.workloads import paged_attention as PA
     from elastic_tpu_agent_torch.workloads import quantize as Q
     from elastic_tpu_agent_torch.workloads import request_obs as RO
     from elastic_tpu_agent_torch.workloads import runner as R
+    from elastic_tpu_agent_torch.workloads import streaming as S
     from elastic_tpu_agent_torch.workloads import telemetry as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1900,27 +2329,46 @@ def main() -> int:
     kernels.build_all()
     print(f"build_seconds {time.perf_counter() - t0:.2f}")
 
-    flash = check_flash(torch, A, dev)
-    paged = check_paged(torch, PA, dev)
-    dkdv, dq, bwd_whole = check_flash_bwd(torch, A, dev)
+    flash = timed("check_flash", check_flash, torch, A, dev)
+    paged = timed("check_paged", check_paged, torch, PA, dev)
+    dkdv, dq, bwd_whole = timed("check_flash_bwd", check_flash_bwd, torch,
+                                A, dev)
 
     cfg = W.ModelConfig(**SMALL, max_seq=1024, dtype=torch.bfloat16)
     tree = W.random_tree(cfg, SEED)
     params = W.params_from_jax(tree, cfg, device=dev)
-    flash["launches"], fwd = run_forward(torch, W, A, cfg, params, dev)
-    paged["launches"], srv = run_serving(torch, W, PA, cfg, params, tree, dev)
-    launches, train = run_train(torch, W, A, cfg, tree, dev)
+    flash["launches"], fwd = timed("forward", run_forward, torch, W, A, cfg,
+                                   params, dev)
+    paged["launches"], srv = timed("serving", run_serving, torch, W, PA, cfg,
+                                   params, tree, dev)
+    launches, train = timed("train", run_train, torch, W, A, cfg, tree, dev)
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
-        runtime = run_runtime(torch, A, dev, tmp)
-        drain = run_drain(torch, W, L, T, cfg, params, dev, tmp)
-        prefix = run_prefix(torch, W, PA, L, RO, cfg, params, tree, dev, tmp)
-    int8 = run_int8(torch, W, PA, Q, R, cfg, tree, params, dev)
+        runtime = timed("runtime", run_runtime, torch, A, dev, tmp)
+        drain = timed("drain", run_drain, torch, W, L, T, cfg, params, dev,
+                      tmp)
+        prefix = timed("prefix", run_prefix, torch, W, PA, L, RO, cfg,
+                       params, tree, dev, tmp)
+    int8 = timed("int8", run_int8, torch, W, PA, Q, R, cfg, tree, params,
+                 dev)
     moe_cfg = dataclasses.replace(cfg, moe_experts=MOE_EXPERTS)
-    moe = run_moe(torch, W, A, PA, M, W.random_tree(moe_cfg, SEED), dev)
-    dkdv["launches"] = launches["flash_bwd_dkdv"]
-    dq["launches"] = launches["flash_bwd_dq"]
+    moe = timed("moe", run_moe, torch, W, A, PA, M,
+                W.random_tree(moe_cfg, SEED), dev)
+    spec_launches, spec = timed("speculative", run_speculative, torch, W, PA,
+                                cfg, params, tree, dev)
+    beam = timed("beam", run_beam, torch, W, cfg, params, tree, dev)
+    stream = timed("streaming", run_streaming, torch, W, S, cfg, dev)
+    lora_launches, lora = timed("lora", run_lora, torch, W, A, LR, cfg,
+                                params, dev)
+    # each kernel's launches over the main paths it lies on, each path
+    # counted from 0 just before it: forward + LoRA, serving + the spec
+    # engine's fallback steps, train + LoRA
+    flash["launches"] += lora_launches["flash_fwd"]
+    paged["launches"] += spec_launches
+    dkdv["launches"] = (launches["flash_bwd_dkdv"]
+                        + lora_launches["flash_bwd_dkdv"])
+    dq["launches"] = launches["flash_bwd_dq"] + lora_launches["flash_bwd_dq"]
     kernel_recs = [flash, paged, dkdv, dq]
     for x in kernel_recs:
         print(f"{x['name']} timing: device ms {x['ms']:.4g} (host-paced "
@@ -1931,12 +2379,15 @@ def main() -> int:
           f"{bwd_whole['delta_ms']:.4g}), SDPA's whole backward "
           f"{bwd_whole['sdpa_backward_ms']:.4g}")
 
+    print(f"phase seconds {json.dumps(PHASE_SECONDS)}")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     report = {"card": card, "forward": fwd, "serving": srv, "train": train,
               "runtime": runtime, "drain": drain, "int8": int8, "moe": moe,
-              "prefix": prefix, "kernels": kernel_recs,
+              "prefix": prefix, "speculative": spec, "beam": beam,
+              "streaming": stream, "lora": lora, "kernels": kernel_recs,
+              "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
         rng = np.random.default_rng(SEED + 8)
@@ -1956,7 +2407,9 @@ def main() -> int:
     print(json.dumps({"paths": {"forward": fwd, "serving": srv,
                                 "train": train, "runtime": runtime,
                                 "drain": drain, "int8": int8, "moe": moe,
-                                "prefix": prefix}}))
+                                "prefix": prefix, "speculative": spec,
+                                "beam": beam, "streaming": stream,
+                                "lora": lora}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

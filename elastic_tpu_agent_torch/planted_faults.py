@@ -12,12 +12,13 @@ sit between the sound readings and the faulty ones. Needs the card, as
 
 ``DIR`` gets one ``<fault>.log`` per run and ``faults.json``: for each
 run its exit code, the readings of the kernel, forward, serving, training,
-runtime, drain, int8 and MoE checks, and the checks that failed. ``--only`` runs the named
+runtime, drain, int8, MoE, speculative and LoRA checks, and the checks
+that failed. ``--only`` runs the named
 runs alone.
 
 The backward faults F6-F8 and F12 sit in the bf16 (wgmma/TMA) instances
 of ``csrc/flash_bwd.cu``, the ones the bf16 checks and the train step run:
-F6 in dQ, F7, F8 and F12 in dK/dV. F12 reads lse and delta by the
+F6 in dQ, F7, F8 and F12 in dK/dV; the LoRA cell's steps run them too. F12 reads lse and delta by the
 accumulator fragment's row instead of its column, the slip that the
 transposed scores of dK/dV invite.
 
@@ -109,7 +110,8 @@ FAULTS = {
 TIMEOUT_S = 900.0  # for each chip_smoke.py run
 KEEP = ("card ", "flash_fwd ", "paged_decode ", "flash_bwd", "forward ",
         "serving ", "train ", "reference losses", "runtime ", "moe ",
-        "int8 ", "kv_int8 ", "recorder", "drain", "chip_smoke:")
+        "int8 ", "kv_int8 ", "recorder", "drain", "speculative ", "lora ",
+        "chip_smoke:")
 SKIP = (".git", "_build", "__pycache__", ".pytest_cache")
 
 

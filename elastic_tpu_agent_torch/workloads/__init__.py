@@ -7,8 +7,12 @@ delta-checkpoint migration transport, the lifecycle handshake and the
 flight recorder; the Switch-MoE layer and int8 weight-only quantization
 (``moe.py``, ``quantize.py``); the engine's prefix cache
 (``prefix_cache.py``), the shared KV pool with prefill/decode roles and
-mid-stream handoff, and the request observatory (``request_obs.py``)."""
+mid-stream handoff, and the request observatory (``request_obs.py``); the
+decode variants: speculative decoding, solo (``speculative.py``) and in
+the serving engine, beam search (``beam.py``), streaming ring-cache decode
+(``streaming.py``) and LoRA adapters (``lora.py``)."""
 
+from .beam import beam_search
 from .checkpointing import (
     DeltaCheckpointer,
     TrainCheckpointer,
@@ -18,6 +22,7 @@ from .checkpointing import (
 )
 from .data import TokenDataset, encode_bytes, encode_file, write_token_file
 from .generate import KVCache, generate
+from .lora import init_lora_params, make_lora_train_step, merge_lora
 from .moe import MoeRoutingStats, init_moe_params, moe_mlp
 from .quantize import dequantize_params, quantize_params
 from .lifecycle import (
@@ -31,6 +36,8 @@ from .lifecycle import (
 from .prefix_cache import PrefixCache, chain_hashes
 from .request_obs import RequestObservatory
 from .serving import ServingEngine, SharedKVPool, disaggregated_status
+from .speculative import SpecStats, speculative_generate
+from .streaming import streaming_generate
 from .telemetry import (
     FlightRecorder,
     device_memory_stats,
@@ -48,7 +55,12 @@ from .transformer import (
     make_eval_fn,
     make_train_step,
 )
-from .weights import params_from_jax, params_to_jax, random_tree
+from .weights import (
+    lora_from_jax,
+    params_from_jax,
+    params_to_jax,
+    random_tree,
+)
 
 __all__ = [
     "AdamW",
@@ -63,8 +75,10 @@ __all__ = [
     "ServingEngine",
     "SharedKVPool",
     "Signal",
+    "SpecStats",
     "TokenDataset",
     "TrainCheckpointer",
+    "beam_search",
     "bytes_to_tree",
     "chain_block_digests",
     "chain_hashes",
@@ -79,17 +93,23 @@ __all__ = [
     "forward",
     "forward_with_aux",
     "generate",
+    "init_lora_params",
     "init_moe_params",
     "init_params",
+    "lora_from_jax",
     "loss_and_grads",
     "make_eval_fn",
+    "make_lora_train_step",
     "make_train_step",
+    "merge_lora",
     "moe_mlp",
     "params_from_jax",
     "params_to_jax",
     "quantize_params",
     "random_tree",
     "read_checkpoint_ack",
+    "speculative_generate",
+    "streaming_generate",
     "tree_to_bytes",
     "write_checkpoint_ack",
     "write_flight_summary",

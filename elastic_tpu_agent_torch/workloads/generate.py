@@ -10,8 +10,9 @@ Python loop (PyTorch runs eagerly, so there is no scan to compile).
 The cached attention is materialised-scores ``einsum`` over the cache, as
 in the JAX package (no Pallas kernel there either). MoE layers take the
 JAX capacity policy: a prefill chunk routes with the training capacity
-factor, drops included; a decode step is drop-free. Streaming ring caches
-come with a later slice and raise; so does mesh decode.
+factor, drops included; a decode step is drop-free. The chunk forward's
+``ring=`` mode writes one token into a ring-buffer cache for streaming
+decode (``streaming.py``). Mesh decode comes with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -77,9 +78,15 @@ def _cached_attention(
     cache_v: torch.Tensor,
     q_pos: Union[int, torch.Tensor],  # position of q[:, 0]: int, or [b]
     cfg: ModelConfig,
+    key_positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Causal attention of the chunk against the masked full cache, at
-    kv_heads width: q is viewed as [b, t, g, r, h] (contiguous groups)."""
+    kv_heads width: q is viewed as [b, t, g, r, h] (contiguous groups).
+
+    key_positions ([cache_len]) gives each cache slot's ABSOLUTE position
+    where slots are not position-ordered (the streaming ring buffer);
+    unwritten slots carry a sentinel past any query, which the causal
+    compare masks out. None: slot j holds position j."""
     b, t, n, h = q.shape
     g = cfg.kv_heads
     r = n // g
@@ -89,7 +96,10 @@ def _cached_attention(
     max_len = cache_k.shape[1]
     q_pos = torch.as_tensor(q_pos, device=q.device)
     rows = q_pos[..., None, None] + torch.arange(t, device=q.device)[:, None]
-    cols = torch.arange(max_len, device=q.device)
+    cols = (
+        torch.arange(max_len, device=q.device) if key_positions is None
+        else key_positions
+    )
     keep = cols <= rows                   # [t, s] or [b, t, s]
     if cfg.window > 0:
         keep &= rows - cols < cfg.window
@@ -121,10 +131,19 @@ def _cache_write(
     cache_layer[rows, cols] = kv
 
 
+def _learned_positions(params: Dict, posmat: torch.Tensor, dtype):
+    """Learned position rows at ``posmat``, clamped to the table as JAX's
+    gather clamps: a freed serving slot keeps a stale length that can pass
+    the table's end (its row is computed in lockstep and discarded)."""
+    table = params["pos_embed"]
+    return table.to(dtype)[posmat.clamp(max=table.shape[0] - 1)]
+
+
 def _forward_chunk(
     params: Dict, tokens: torch.Tensor, cache: KVCache, cfg: ModelConfig,
     moe_drop_free: bool = False,
-    positions: Optional[torch.Tensor] = None, ring=None,
+    positions: Optional[torch.Tensor] = None,
+    ring: Optional[Tuple[int, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run a token chunk [b, t] at positions cache.length..+t; returns
     (logits [b, t, vocab] f32, the cache, written in place).
@@ -137,12 +156,21 @@ def _forward_chunk(
     positions: per-row [b] start offsets (continuous-batching decode,
     each slot at its own depth): writes, RoPE, learned positions and the
     mask go row-wise, and the returned length is UNCHANGED (the caller
-    owns per-row lengths)."""
-    if ring is not None:
-        raise NotImplementedError(
-            "ring-buffer (streaming) decode comes with a later slice"
-        )
+    owns per-row lengths).
+
+    ring: (slot, key_positions) for streaming decode over a rolling-window
+    cache: the one token's K/V land in ring slot ``slot`` (an int, the
+    absolute position modulo the cache length: a write start is clamped,
+    so a position past the ring would overwrite a live slot), and
+    key_positions [cache_len] maps every slot to its absolute position for
+    the mask. RoPE still rotates by the absolute position cache.length.
+    Exclusive with positions; the returned length is unchanged (the caller
+    tracks the stream position)."""
     b, t = tokens.shape
+    if ring is not None and (positions is not None or t != 1):
+        raise ValueError(
+            "ring mode decodes one token per call, without positions="
+        )
     dev = tokens.device
     pos = cache.length if positions is None else positions
     x = embed_lookup(params, tokens, cfg.dtype)
@@ -151,7 +179,7 @@ def _forward_chunk(
     else:
         posmat = pos.long()[:, None] + torch.arange(t, device=dev)[None]
     if cfg.pos == "learned":
-        pe = params["pos_embed"].to(cfg.dtype)[posmat]
+        pe = _learned_positions(params, posmat, cfg.dtype)
         x = x + (pe[None] if posmat.dim() == 1 else pe)
 
     for i, layer in enumerate(params["layers"]):
@@ -161,9 +189,13 @@ def _forward_chunk(
             # rotated keys go INTO the cache (absolute rotations)
             q = rope(q, posmat, cfg.rope_theta)
             k_c = rope(k_c, posmat, cfg.rope_theta)
-        _cache_write(cache.k[i], k_c.to(cache.k.dtype), pos)
-        _cache_write(cache.v[i], v_c.to(cache.v.dtype), pos)
-        attn = _cached_attention(q, cache.k[i], cache.v[i], pos, cfg)
+        write_at = pos if ring is None else ring[0]
+        _cache_write(cache.k[i], k_c.to(cache.k.dtype), write_at)
+        _cache_write(cache.v[i], v_c.to(cache.v.dtype), write_at)
+        attn = _cached_attention(
+            q, cache.k[i], cache.v[i], pos, cfg,
+            key_positions=None if ring is None else ring[1],
+        )
         x = x + torch.einsum(
             "btnh,nhd->btd", attn, wdense(layer, "wo", cfg.dtype)
         )
@@ -173,7 +205,10 @@ def _forward_chunk(
     logits = torch.einsum(
         "btd,dv->btv", x, wdense(params, "lm_head", cfg.dtype)
     ).float()
-    new_len = cache.length + t if positions is None else cache.length
+    new_len = (
+        cache.length + t if positions is None and ring is None
+        else cache.length
+    )
     return logits, KVCache(k=cache.k, v=cache.v, length=new_len)
 
 

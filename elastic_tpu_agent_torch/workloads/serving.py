@@ -67,8 +67,25 @@ key: at each admission, at a prefill's final chunk and on every plain
 step, whether or not a live row samples, so that a request's draws do not
 depend on its neighbours' settings.
 
-Options of the JAX engine that belong to later slices raise
-``NotImplementedError``: tensor-parallel meshes and speculative decoding.
+Speculative mode (``draft_params``/``draft_cfg``/``gamma``), as in the JAX
+engine: every step drafts ``gamma`` tokens per live slot with the draft
+model over its own dense cache [L_d, slots, max_len, g_d, h_d], verifies
+all slots' ``gamma + 1`` positions in ONE target chunk at per-row
+positions over the gathered view (never the paged kernel), scatters all
+of them back to the pool, and commits each row's accepted prefix and
+correction (``speculative.accept_resample``). ``step()`` then returns a
+list per request. Rows hold their cached length at every committed token
+but the trailing ``last``, so a rejected tail is stale but masked and
+later overwritten, both caches rolling back by length alone. A row within
+``gamma`` of ``max_len`` makes the whole step fall back: a draft catch-up,
+then a plain step (with ``paged_kernel`` on, the only spec-mode steps that
+launch the paged kernel). The step draws its draft, accept and correction
+uniforms for every slot on every spec step, whatever the rows'
+temperatures. Greedy streams equal target-only greedy decoding; sampled
+rows are per-request temperature only (top-k/top-p admissions raise).
+
+The JAX engine's tensor-parallel ``mesh`` comes with the multi-GPU slice
+and raises ``NotImplementedError`` (before any other check).
 """
 
 from __future__ import annotations
@@ -85,6 +102,7 @@ from .generate import (
     KVCache,
     _chunk_mlp,
     _forward_chunk,
+    _learned_positions,
     _qkv,
     _sample_rowwise,
 )
@@ -92,6 +110,12 @@ from .paged_attention import paged_decode_attention
 from .prefix_cache import PrefixCache, chain_hashes
 from .quantize import embed_lookup, quantize_kv, wdense
 from .request_obs import normalize_slo
+from .speculative import (
+    SpecStats,
+    accept_resample,
+    probs_rowwise,
+    sample_from_probs,
+)
 from .transformer import ModelConfig, _check_device, _rmsnorm, as_device, rope
 
 # physical block 0 is the JUNK block: never allocated, the write target
@@ -102,9 +126,6 @@ _JUNK = 0
 # JAX-engine options that come with later slices, with their defaults
 _LATER_OPTIONS = {
     "mesh": (None, "multi-GPU serving"),
-    "draft_params": (None, "speculative decoding"),
-    "draft_cfg": (None, "speculative decoding"),
-    "gamma": (4, "speculative decoding"),
 }
 
 
@@ -421,8 +442,10 @@ class ServingEngine:
     row to max_len or emits one of its stop tokens is auto-finished; its
     stream stays retrievable via release()/stream().
 
-    ``prefix_cache``/``prefix_cache_blocks``, ``role``/``pool`` and
-    ``observatory`` are the JAX engine's (module docstring). Runs on
+    ``prefix_cache``/``prefix_cache_blocks``, ``role``/``pool``,
+    ``observatory`` and the speculative ``draft_params``/``draft_cfg``/
+    ``gamma`` are the JAX engine's (module docstring); a speculative
+    engine's step() returns {rid: [tokens...]}. Runs on
     ``device`` ("cuda" unless the caller asks for "cpu"), where ``params``
     (and a shared ``pool``) must live.
     """
@@ -440,6 +463,9 @@ class ServingEngine:
         seed: int = 0,
         block_size: Optional[int] = None,
         pool_blocks: Optional[int] = None,
+        draft_params: Optional[Dict] = None,
+        draft_cfg: Optional[ModelConfig] = None,
+        gamma: int = 4,
         paged_kernel: Optional[bool] = None,
         kv_int8: bool = False,
         recorder=None,
@@ -491,9 +517,18 @@ class ServingEngine:
 
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role must be both|prefill|decode, got {role!r}")
+        if role != "both" and draft_params is not None:
+            raise ValueError(
+                "speculative serving does not support disaggregated "
+                "prefill/decode roles"
+            )
         self.role = role
         self.shared_pool = pool
         if pool is not None:
+            if draft_params is not None:
+                raise ValueError(
+                    "speculative serving does not support a shared pool"
+                )
             if paged_kernel:
                 raise ValueError(
                     "paged_kernel=True does not compose with a shared pool "
@@ -584,6 +619,13 @@ class ServingEngine:
         self.decode_steps_total = 0
         # optional MoeRoutingStats (moe.py): stats() reports it
         self.moe_stats = None
+        # speculative-mode accounting (_step_speculative)
+        self.spec_stats = SpecStats(rounds=0, drafted=0, accepted=0)
+        if kv_int8 and draft_params is not None:
+            raise ValueError(
+                "speculative serving does not support kv_int8 (the "
+                "accept/resample algebra is pinned to the float pool)"
+            )
         self.kv_int8 = kv_int8
         # logical->physical block map per slot; 0 = unmapped (junk)
         self._table = np.zeros((slots, self.max_blocks), np.int32)
@@ -626,6 +668,37 @@ class ServingEngine:
                 "the gather path"
             )
         self.paged_kernel = bool(paged_kernel)
+
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.gamma = gamma
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs its draft_cfg")
+            if cfg.vocab != draft_cfg.vocab:
+                raise ValueError("draft/target vocabularies must match")
+            if cfg.moe_experts or draft_cfg.moe_experts:
+                raise ValueError("speculative serving supports dense models")
+            if gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            if top_k or top_p:
+                raise ValueError(
+                    "speculative serving supports greedy/temperature "
+                    "sampling only (no engine-wide top-k/top-p)"
+                )
+            if draft_cfg.pos == "learned" and draft_cfg.max_seq < max_len:
+                raise ValueError(
+                    f"draft_cfg.max_seq {draft_cfg.max_seq} < max_len "
+                    f"{max_len}"
+                )
+            _check_device(draft_params, self.device)
+            # the draft's dense cache: narrow by design, so paging it would
+            # complicate the rollback by length for no real memory gain
+            dshape = (draft_cfg.n_layers, slots, max_len,
+                      draft_cfg.kv_heads, draft_cfg.head_dim)
+            self._draft_k = torch.zeros(
+                dshape, dtype=draft_cfg.dtype, device=self.device)
+            self._draft_v = torch.zeros_like(self._draft_k)
 
     # -- paging helpers ----------------------------------------------
 
@@ -716,6 +789,10 @@ class ServingEngine:
                     "adopted_streams", "expired_streams", "pending_streams",
                 )
             }
+        if self.draft_params is not None:
+            spec = self.spec_stats.stats()
+            out["speculative"] = {
+                "rounds": spec.pop("rounds"), "gamma": self.gamma, **spec}
         if self.moe_stats is not None:
             out["moe"] = self.moe_stats.stats()
         return out
@@ -782,7 +859,7 @@ class ServingEngine:
         x = embed_lookup(params, toks[:, None], cfg.dtype)  # [s, 1, d]
         posmat = lengths.long()[:, None]                      # [s, 1]
         if cfg.pos == "learned":
-            x = x + params["pos_embed"].to(cfg.dtype)[posmat]
+            x = x + _learned_positions(params, posmat, cfg.dtype)
         n_valid = (lengths + 1).to(torch.int32)  # incl. this step's write
         for i, layer in enumerate(params["layers"]):
             h = _rmsnorm(x, layer["ln1_scale"])
@@ -920,7 +997,7 @@ class ServingEngine:
         self.admitted_tokens_total += total
         if self._prefix_cache is not None:
             self._prefix_cache.insert(seq[:total], self._table[slot])
-        self._activate(rid, slot, total, first)
+        self._activate(rid, slot, seq, total, first)
         if self.shared_pool is not None:
             self._seq_tokens[rid] = np.asarray(seq[:total], np.int32).copy()
         if obs is not None and ouid is not None:
@@ -943,7 +1020,12 @@ class ServingEngine:
         if self.role != "prefill":
             self._observatory.first_token(ouid)
 
-    def _activate(self, rid: int, slot: int, total: int, first: int) -> None:
+    def _activate(self, rid: int, slot: int, seq, total: int, first: int,
+                  draft_width: Optional[int] = None) -> None:
+        """Seat an admitted request in its slot; a speculative engine first
+        prefills the draft's row on ``seq[:total]``."""
+        if self.draft_params is not None:
+            self._draft_prefill_row(slot, seq, total, draft_width)
         self._lengths[slot] = total
         self._host_len[slot] = total
         self._last[slot] = first
@@ -1068,6 +1150,12 @@ class ServingEngine:
         temp = d_temp if temperature is None else float(temperature)
         tk = d_topk if top_k is None else int(top_k)
         tp = d_topp if top_p is None else float(top_p)
+        if self.draft_params is not None and (tk or tp):
+            self._free.insert(0, slot)
+            raise ValueError(
+                "speculative serving supports greedy/temperature sampling "
+                "only (no top-k/top-p)"
+            )
         self._row_temp[slot] = temp
         self._row_topk[slot] = tk
         self._row_topp[slot] = tp
@@ -1185,7 +1273,13 @@ class ServingEngine:
         rid = self._next_rid
         self._next_rid += 1
         self._stop[rid] = frozenset(int(t) for t in stop_tokens)
-        self._activate(rid, slot, total, first)
+        # the draft row's width: an explicit prefix takes the target's
+        # (padded prefix + bucket) scratch width, a cache hit the default
+        # power-of-two rounding
+        self._activate(
+            rid, slot, seq, total, first,
+            draft_width=None if c["auto_hit"] else c["pref_padded"] + bucket,
+        )
         if self.shared_pool is not None:
             self._seq_tokens[rid] = seq
         if obs is not None and ouid is not None:
@@ -1246,12 +1340,14 @@ class ServingEngine:
         return rid
 
     @torch.no_grad()
-    def step(self) -> Dict[int, int]:
-        """Advance every live request by one token; returns {rid: token}.
-        One pending chunked prefill advances first; a row it activates
-        sits this decode out and reports its first token instead. Rows
-        that fill to max_len, emit a stop token or starve for pool blocks
-        auto-finish (``finish_reason`` says which)."""
+    def step(self) -> Dict[int, object]:
+        """Advance every live request; returns {rid: token}, or with a
+        draft model {rid: [tokens...]} (each row's accepted drafts and
+        correction: one or more tokens). One pending chunked prefill
+        advances first; a row it activates sits this decode out and
+        reports its first token instead. Rows that fill to max_len, emit a
+        stop token or starve for pool blocks auto-finish
+        (``finish_reason`` says which)."""
         t0 = time.perf_counter() if self._recorder is not None else 0.0
         obs = self._observatory
         ot0 = obs.clock.monotonic() if obs is not None else 0.0
@@ -1262,22 +1358,28 @@ class ServingEngine:
             self._slot_of[r] for r in activated if r in self._slot_of
         }
         try:
-            out = {**activated, **self._step_plain()}
+            if self.draft_params is not None:
+                out = {**{r: [t] for r, t in activated.items()},
+                       **self._step_speculative()}
+            else:
+                out = {**activated, **self._step_plain()}
         finally:
             self._settling = set()
+        emitted = sum(
+            len(v) if isinstance(v, list) else 1 for v in out.values())
         if obs is not None:
             obs.step(
                 id(self), live=len(self._slot_of), slots=self.slots,
                 pending=len(self._pending), activated=len(activated),
                 evicted=self._evictions_total - ev0,
-                emitted_tokens=len(out), prefill_s=ot1 - ot0,
+                emitted_tokens=emitted, prefill_s=ot1 - ot0,
                 decode_s=obs.clock.monotonic() - ot1,
             )
         if self._recorder is not None:
             self._recorder.record(
                 "serving_step",
                 duration_ms=round((time.perf_counter() - t0) * 1000, 3),
-                emitted_tokens=len(out),
+                emitted_tokens=emitted,
                 live_requests=len(self._slot_of),
                 pending_prefills=len(self._pending),
                 used_blocks=self.used_blocks,
@@ -1285,31 +1387,44 @@ class ServingEngine:
             )
         return out
 
-    def _step_plain(self) -> Dict[int, int]:
-        if not self._slot_of:
-            return {}
+    def _back_live_rows(self, width: int):
+        """Back the next ``width`` write positions of every live row (not
+        one settling this step) with pool blocks; a row that cannot get
+        them finishes as pool_exhausted (freeing its blocks may unblock
+        later rows). Returns (live slots, write blocks and offsets [slots,
+        width], junk for frozen rows, and the gather width in blocks), or
+        None when no row is left."""
         rid_of_slot = {
             s: r for r, s in self._slot_of.items() if s not in self._settling
         }
         for s in sorted(rid_of_slot):
             try:
-                self._ensure_blocks(s, int(self._host_len[s]) + 1)
+                self._ensure_blocks(s, int(self._host_len[s]) + width)
             except RuntimeError:
                 self._finish(rid_of_slot[s], "pool_exhausted")
         live_slots = set(self._slot_of.values()) - self._settling
         if not live_slots:
-            return {}
-        live = sorted(live_slots)
+            return None
         bs = self.block_size
-        wblk = np.full((self.slots,), _JUNK, np.int64)
-        woff = np.zeros((self.slots,), np.int64)
-        for s in live:
-            w = int(self._host_len[s])
+        wblk = np.full((self.slots, width), _JUNK, np.int64)
+        woff = np.zeros((self.slots, width), np.int64)
+        for s in live_slots:
+            w = int(self._host_len[s]) + np.arange(width)
             wblk[s] = self._table[s, w // bs]
             woff[s] = w % bs
-        n_b = self._gather_bucket(
-            max(self._blocks_for(int(self._host_len[s]) + 1) for s in live)
-        )
+        n_b = self._gather_bucket(max(
+            self._blocks_for(int(self._host_len[s]) + width)
+            for s in live_slots))
+        return live_slots, wblk, woff, n_b
+
+    def _step_plain(self) -> Dict[int, int]:
+        if not self._slot_of:
+            return {}
+        backed = self._back_live_rows(1)
+        if backed is None:
+            return {}
+        live_slots, wblk, woff, n_b = backed
+        live = sorted(live_slots)
         table_b = self._tensor(self._table[:, :n_b], torch.int32)
         active = self._tensor([s in live_slots for s in range(self.slots)])
         greedy = not (self._row_temp[live] > 0.0).any()
@@ -1317,7 +1432,7 @@ class ServingEngine:
         nxt = step(
             table_b, active, greedy, self._tensor(self._row_temp),
             self._tensor(self._row_topk), self._tensor(self._row_topp),
-            self._tensor(wblk), self._tensor(woff),
+            self._tensor(wblk[:, 0]), self._tensor(woff[:, 0]),
         )
         # frozen slots keep their token and length
         self._last = torch.where(active, nxt, self._last)
@@ -1340,6 +1455,154 @@ class ServingEngine:
                 self._finish(rid, "max_len")
             elif tok in self._stop[rid]:
                 self._finish(rid, "stop_token")
+        return out
+
+    # -- speculative mode --------------------------------------------
+
+    def _draft_prefill_row(self, slot: int, seq, total: int,
+                           width: Optional[int] = None) -> None:
+        """Prefill the draft's dense row for positions [0, total) of
+        ``seq``: a full recompute in one chunk of ``width`` (the draft is
+        cheap by design). The default width rounds through the
+        power-of-two block buckets, as the JAX engine's compiled widths."""
+        if width is None:
+            width = (self._gather_bucket(self._blocks_for(total))
+                     * self.block_size)
+        run = np.zeros((width,), np.int64)
+        run[:total] = seq[:total]
+        mini = KVCache.empty(self.draft_cfg, 1, width, device=self.device)
+        _, mini = _forward_chunk(
+            self.draft_params, self._tensor(run)[None], mini, self.draft_cfg)
+        self._draft_k[:, slot, :width] = mini.k[:, 0]
+        self._draft_v[:, slot, :width] = mini.v[:, 0]
+
+    def _draft_catchup(self) -> None:
+        """Feed ``last`` through the draft at every row's length: before a
+        plain fallback step, so that the draft's cache keeps holding every
+        committed token but ``last``, as the target's does."""
+        _forward_chunk(
+            self.draft_params, self._last[:, None],
+            KVCache(k=self._draft_k, v=self._draft_v), self.draft_cfg,
+            moe_drop_free=True, positions=self._lengths,
+        )
+
+    def _spec_forward(self, table_b, active, temp, wblk, woff):
+        """The speculative step over ALL slots in lockstep: the draft
+        proposes gamma tokens per row, ONE target verify chunk of width
+        gamma + 1 runs at per-row positions over the gathered view, all
+        gamma + 1 written positions scatter back to the pool (rejected
+        tails stay stale but masked), then per-row accept/resample.
+        Frozen rows keep their token and length. Returns (committed
+        [slots, gamma + 1], n_emit [slots]) on the host."""
+        cfg, dcfg, gamma = self.cfg, self.draft_cfg, self.gamma
+        vocab, dev, slots = cfg.vocab, self.device, self.slots
+        lengths, toks = self._lengths, self._last
+        # every slot's uniforms on every spec step, whatever the rows'
+        # temperatures: a request's draws never depend on its neighbours
+        u_draft = torch.rand((gamma, slots, vocab), generator=self._gen,
+                             device=dev)
+        u_accept = torch.rand((slots, gamma), generator=self._gen,
+                              device=dev)
+        u_correction = torch.rand((slots, vocab), generator=self._gen,
+                                  device=dev)
+        # -- the draft proposes gamma tokens per row -------------------
+        dcache = KVCache(k=self._draft_k, v=self._draft_v)
+        tok, draft_toks, draft_q = toks, [], []
+        for i in range(gamma):
+            logits, _ = _forward_chunk(
+                self.draft_params, tok[:, None], dcache, dcfg,
+                moe_drop_free=True, positions=lengths + i,
+            )
+            q = probs_rowwise(logits[:, 0], temp, vocab)
+            tok = sample_from_probs(q, uniforms=u_draft[i])
+            draft_toks.append(tok)
+            draft_q.append(q)
+        # cache d_gamma too: a fully accepted round needs its entry next
+        # round (stale but masked on a partial accept)
+        _forward_chunk(
+            self.draft_params, tok[:, None], dcache, dcfg,
+            moe_drop_free=True, positions=lengths + gamma,
+        )
+        draft_toks = torch.stack(draft_toks, dim=1)     # [slots, gamma]
+        draft_q = torch.stack(draft_q, dim=1)           # [slots, gamma, V]
+        # -- the target verifies every row's gamma + 1 positions at once
+        kg, vg = self._gathered_view(table_b)
+        chunk = torch.cat([toks[:, None], draft_toks], dim=1)
+        tlogits, tcache = _forward_chunk(
+            self.params, chunk, KVCache(k=kg, v=vg), cfg,
+            moe_drop_free=True, positions=lengths,
+        )
+        target_p = probs_rowwise(tlogits, temp[:, None], vocab)
+        # scatter ALL gamma + 1 written positions back to the pool; clip:
+        # a frozen slot's stale length can exceed the gathered width
+        idx = (lengths.long()[:, None]
+               + torch.arange(gamma + 1, device=dev)).clamp(
+                   max=kg.shape[2] - 1)
+        rows = torch.arange(slots, device=dev)[:, None]
+        at = (slice(None), wblk, woff)
+        _pool_set(self._pool_k, at, tcache.k[:, rows, idx])
+        _pool_set(self._pool_v, at, tcache.v[:, rows, idx])
+        # -- per-row accept / resample, then commit ----------------------
+        n_acc, correction = accept_resample(
+            target_p, draft_q, draft_toks, u_accept, u_correction)
+        # committed: draft_toks[:n_acc] then the correction; positions at
+        # and past n_acc carry the correction (the host slices by n_emit)
+        committed = torch.where(
+            torch.arange(gamma + 1, device=dev)[None] < n_acc[:, None],
+            torch.cat([draft_toks, correction[:, None]], dim=1),
+            correction[:, None],
+        )
+        n_emit = torch.where(active, n_acc + 1, 0)
+        self._lengths = (lengths + n_emit).to(torch.int32)
+        self._last = torch.where(active, correction, toks)
+        return committed.cpu().numpy(), n_emit.cpu().numpy()
+
+    def _step_speculative(self) -> Dict[int, List[int]]:
+        if not self._slot_of:
+            return {}
+        g = self.gamma
+        # a row within gamma of max_len cannot take a full verify chunk:
+        # catch the draft up and take a plain step (the row finishes at
+        # max_len within a few of these)
+        if any(int(self._host_len[s]) + g >= self.max_len
+               for s in self._slot_of.values() if s not in self._settling):
+            self._draft_catchup()
+            return {rid: [tok] for rid, tok in self._step_plain().items()}
+        # back the whole verify chunk (positions len..len+gamma) per slot
+        backed = self._back_live_rows(g + 1)
+        if backed is None:
+            return {}
+        live_slots, wblk, woff, n_b = backed
+        committed, n_emit = self._spec_forward(
+            self._tensor(self._table[:, :n_b], torch.int32),
+            self._tensor([s in live_slots for s in range(self.slots)]),
+            self._tensor(self._row_temp), self._tensor(wblk),
+            self._tensor(woff),
+        )
+        # per-row economics: gamma proposed, n_emit - 1 survived
+        rows = [s for s in self._slot_of.values() if s not in self._settling]
+        rounds, drafted, accepted = self.spec_stats
+        self.spec_stats = SpecStats(
+            rounds=rounds + 1, drafted=drafted + g * len(rows),
+            accepted=accepted + sum(int(n_emit[s]) - 1 for s in rows))
+        out: Dict[int, List[int]] = {}
+        for rid, slot in list(self._slot_of.items()):
+            if slot in self._settling:
+                continue
+            toks = committed[slot][: int(n_emit[slot])].tolist()
+            self._host_len[slot] += int(n_emit[slot])
+            # the stream ends AT its first stop token; later tokens of the
+            # same round are dropped
+            cut = next(
+                (i for i, t in enumerate(toks) if t in self._stop[rid]), None)
+            if cut is not None:
+                toks = toks[: cut + 1]
+            self._streams[rid].extend(toks)
+            out[rid] = toks
+            if cut is not None:
+                self._finish(rid, "stop_token")
+            elif int(self._host_len[slot]) >= self.max_len - 1:
+                self._finish(rid, "max_len")
         return out
 
     def _finish(self, rid: int, reason: str = "released") -> None:

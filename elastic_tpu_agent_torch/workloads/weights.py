@@ -9,6 +9,9 @@ an MoE layer's ``moe.{wg [d,E], w1 [E,d,ff], w2 [E,ff,d]}``) as torch
 tensors. ``params_to_jax`` goes back to numpy. An int8 tree
 (``quantize.quantize_params``, either package's) crosses both ways with
 each ``{"q", "s"}`` leaf kept as it is: int8 values and f32 scales.
+``lora_from_jax`` loads a LoRA adapter tree (``lora.init_lora_params``,
+``{"layers": [{name: {"a": [in, r], "b": [r, out]}}]}``) in f32;
+``params_to_jax`` takes it back.
 
 Leaves are stored in the dtype the caller asks for, ``cfg.dtype`` by
 default. The JAX code casts each leaf to ``cfg.dtype`` at every use
@@ -135,10 +138,50 @@ def _lookup(tree, path):
     return tree
 
 
+def lora_from_jax(tree: Dict, cfg, device="cuda") -> Dict:
+    """A JAX LoRA adapter tree -> the port's adapters: f32 tensors on
+    ``device``, the same structure. Raises where a layer's entry names a
+    weight that ``cfg``'s layer lacks or that LoRA does not adapt, or where
+    a factor's shape is not that weight's [in, r] / [r, out] split."""
+    from .lora import _IN_AXES, _in_out
+
+    layers = jax_layout_shapes(cfg)["layers"]
+    if set(tree) != {"layers"} or len(tree["layers"]) != len(layers):
+        raise ValueError(
+            f"adapter tree wants {{'layers': [{len(layers)} entries]}}"
+        )
+    out = []
+    for i, (entry, shapes) in enumerate(zip(tree["layers"], layers)):
+        conv = {}
+        for name in entry:
+            if name not in _IN_AXES or name not in shapes:
+                raise ValueError(f"layers/{i}/{name}: not an adapted weight")
+        # init_lora_params' order (_IN_AXES), which the optimizer's state
+        # pairs leaves by
+        for name in (n for n in _IN_AXES if n in entry):
+            ab = entry[name]
+            d_in, d_out = _in_out(shapes[name], _IN_AXES[name])
+            if set(ab) != {"a", "b"}:
+                raise ValueError(f"layers/{i}/{name}: keys {sorted(ab)}")
+            a, b = np.asarray(ab["a"]), np.asarray(ab["b"])
+            if (a.ndim != 2 or a.shape[0] != d_in
+                    or b.shape != (a.shape[1], d_out)):
+                raise ValueError(
+                    f"layers/{i}/{name}: a {a.shape}, b {b.shape}; the "
+                    f"weight splits [{d_in}, r] @ [r, {d_out}]"
+                )
+            conv[name] = {
+                k: torch.from_numpy(np.array(v, np.float32)).to(device)
+                for k, v in (("a", a), ("b", b))
+            }
+        out.append(conv)
+    return {"layers": out}
+
+
 def params_to_jax(params: Dict) -> Dict:
-    """The port's params -> a JAX-layout tree of numpy arrays (float32
-    for bfloat16 leaves, which numpy cannot hold; the widening is exact;
-    an int8 leaf stays ``{"q": int8, "s": f32}``)."""
+    """The port's params (or LoRA adapters) -> a JAX-layout tree of numpy
+    arrays (float32 for bfloat16 leaves, which numpy cannot hold; the
+    widening is exact; an int8 leaf stays ``{"q": int8, "s": f32}``)."""
     def leaf(path, t):
         if is_quantized(t):
             return {k: v.detach().cpu().numpy() for k, v in t.items()}

@@ -176,7 +176,8 @@ def test_admission_guards_and_stats():
 
 
 @pytest.mark.parametrize(
-    "opt", [dict(mesh=object()), dict(draft_params={})],
+    # a mesh raises before any other check, a draft model's included
+    "opt", [dict(mesh=object()), dict(mesh=object(), draft_params={})],
 )
 def test_later_slice_options_raise(opt):
     _, tcfg, _, params = _models()
