@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, runtime,
-shared-prefix serving and decode-variant slices on one NVIDIA GPU.
+shared-prefix serving, decode-variant, serving-artifact and sharded
+training slices on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -109,13 +110,35 @@ shows; it then exits 1 before the summary lines. Phases:
    the flash forward and both backward kernels (8 launches each a step)
    against reference attention (each loss within ``LORA_TRAIN_BF16_TOL``);
    the base bit-unchanged and the merged forward equal to the adapted one;
-15. summary: the device time of the whole bf16 backward (delta, dK/dV
+15. serving artifacts: phase 5's trained f32 params saved as a port
+   train checkpoint and exported by the export CLI (f32 and ``--int8``)
+   and by ``save_artifact`` (bf16); each artifact's bytes, save ms and
+   load ms, reloaded bit for bit; ``runner --mode decode --params-dir`` on
+   the bf16 and int8 artifacts, whose greedy tokens must equal
+   ``generate()``'s on the in-memory params;
+16. the sharded train step over a one-rank NCCL world (``make_mesh(1)``,
+   a file store in a temp directory): 20 steps at phase 5's weights and
+   tokens, then 20 with zero1 and master weights, each run's losses equal
+   to phase 5's (MESH_TOL), 8 launches a step of each flash kernel, and
+   the device time of the gradient all-reduce; NCCL puts one rank on a
+   card, so cross-card runs need more cards;
+17. ring attention: the three flash kernels against their plain versions
+   at the ring's call patterns (non-causal blocks, causal blocks with an
+   lse cotangent, 1024 positions a chunk at head_dim 128 f32 and 64
+   bf16); the stacked ring (``ring_attention_stacked``, sp 4) at 4096
+   positions: ``[1,4096,1,128]`` f32 against plain full attention
+   (RING_F32_TOL, the dryrun's), ``[2,4096,8,64]`` bf16 against the same
+   ring run on the kernels' plain versions on the CPU, 4 launches of each
+   kernel a ring, and the ring's forward and forward + backward device
+   times beside one flash call over the whole 4096 and SDPA;
+18. summary: the device time of the whole bf16 backward (delta, dK/dV
    and dQ) against SDPA's whole backward, each phase's host seconds, a
    ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
-   summed over the paths it lies on: forward and LoRA for flash_fwd,
-   train and LoRA for the backward pair, serving and the speculative
-   fallback for paged_decode), the card's name and power limit as nvidia-smi
-   reports them, and the result line.
+   summed over the paths it lies on: forward, LoRA, the sharded step and
+   the ring for flash_fwd, train, LoRA, the sharded step and the ring for
+   the backward pair, serving and the speculative fallback for
+   paged_decode), the card's name and power limit as nvidia-smi reports
+   them, and the result line.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -389,6 +412,27 @@ def _bwd_inputs(torch, A, rng, dev, shape, dtype, fc, dlse):
     return q, k, v, do, lse, A.flash_bwd_delta(o, do, dl)
 
 
+def _bwd_check(torch, label, got, want, name) -> list:
+    """Gradients (one tensor or a tuple) against their plain version:
+    prints max |err|, relative max and relative mean, fails past BWD_TOL
+    or BWD_MEAN_TOL for dtype ``name``; returns the max |err|s."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    errs, rels, means = [], [], []
+    for x, y in zip(got, want):
+        d, y = (x.float() - y.float().to(x.device)).abs(), y.float().abs()
+        errs.append(d.max().item())
+        rels.append(errs[-1] / y.max().item())
+        means.append((d.mean() / y.mean().to(d.device)).item())
+    print(f"{label}: max|err| " + ", ".join(f"{e:.3g}" for e in errs)
+          + "; relative max " + ", ".join(f"{r:.3g}" for r in rels)
+          + "; relative mean " + ", ".join(f"{r:.3g}" for r in means))
+    if not (max(rels) <= BWD_TOL[name] and max(means) <= BWD_MEAN_TOL[name]):
+        fail(f"{label}: relative max {rels}, mean {means}")
+    return errs
+
+
 def check_flash_bwd(torch, A, dev):
     """The backward kernels vs their plain versions; returns their
     records (dK/dV, dQ)."""
@@ -426,25 +470,10 @@ def check_flash_bwd(torch, A, dev):
     abs_max = dict.fromkeys(kerns, 0.0)
     for label, dtype, shape, cfg, dlse in cases:
         args = _bwd_inputs(torch, A, rng, dev, shape, dtype, cfg, dlse)
-        name = str(dtype).split(".")[-1]
         for kname, kern in kerns.items():
-            got, want = kern(*args, cfg), plains[kname](*args, cfg)
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            torch.cuda.synchronize()
-            errs, rels, means = [], [], []
-            for x, y in zip(got, want):
-                d, y = (x.float() - y.float()).abs(), y.float().abs()
-                errs.append(d.max().item())
-                rels.append(errs[-1] / y.max().item())
-                means.append((d.mean() / y.mean()).item())
-            print(f"{kname} {label} {list(shape)}: max|err| "
-                  + ", ".join(f"{e:.3g}" for e in errs) + "; relative max "
-                  + ", ".join(f"{r:.3g}" for r in rels) + "; relative mean "
-                  + ", ".join(f"{r:.3g}" for r in means))
-            if not (max(rels) <= BWD_TOL[name]
-                    and max(means) <= BWD_MEAN_TOL[name]):
-                fail(f"{kname} {label}: relative max {rels}, mean {means}")
+            errs = _bwd_check(torch, f"{kname} {label} {list(shape)}",
+                              kern(*args, cfg), plains[kname](*args, cfg),
+                              str(dtype).split(".")[-1])
             abs_max[kname] = max(abs_max[kname], *errs)
     # a bf16 dO view whose head stride (68 elements) is no 16-byte
     # multiple: TMA cannot read it, so both wrappers raise before a launch
@@ -779,7 +808,8 @@ def _flat(tree):
 def _train(torch, W, cfg, tree, dev, tokens, steps):
     """``steps`` train steps from the bridged f32 params; returns the
     losses, the host-clock step times (each ends in the loss's copy to
-    the host) and a closure that runs one more step."""
+    the host), a closure that runs one more step and the params it
+    trains."""
     params = W.params_from_jax(tree, cfg, device=dev, dtype=torch.float32)
     step, _, opt = W.make_train_step(cfg, learning_rate=1e-3, device=dev)
     state = opt.init(params)
@@ -794,7 +824,7 @@ def _train(torch, W, cfg, tree, dev, tokens, steps):
         t0 = time.perf_counter()
         one()
         times.append(time.perf_counter() - t0)
-    return losses, times, one
+    return losses, times, one, params
 
 
 def run_train(torch, W, A, cfg, tree, dev):
@@ -808,7 +838,10 @@ def run_train(torch, W, A, cfg, tree, dev):
     kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
     for kern in kerns:
         kern.launches = 0
-    losses, times, one = _train(torch, W, cfg, tree, dev, tokens, TRAIN_STEPS)
+    losses, times, one, params = _train(torch, W, cfg, tree, dev, tokens,
+                                        TRAIN_STEPS)
+    trained = dict(tokens=tokens, losses=losses[:TRAIN_STEPS],
+                   params=params)
     torch.cuda.synchronize()
     launches = {kern.symbol: kern.launches for kern in kerns}
     want = cfg.n_layers * TRAIN_STEPS
@@ -821,7 +854,7 @@ def run_train(torch, W, A, cfg, tree, dev):
     step_ms = np.asarray(times) * 1e3
     p50 = float(np.median(step_ms))
     busy = _profiled(torch, one, 3)[1] or None   # None: no device time seen
-    ref_losses, ref_times, _ = _train(
+    ref_losses, ref_times, _, _ = _train(
         torch, W, dataclasses.replace(cfg, attn="reference"), tree, dev,
         tokens, TRAIN_STEPS)
     gap = float(np.max(np.abs(np.asarray(losses[:TRAIN_STEPS])
@@ -863,7 +896,7 @@ def run_train(torch, W, A, cfg, tree, dev):
         reference_step_ms_p50=float(np.median(ref_times) * 1e3),
         max_abs_loss_gap_vs_reference=gap, f32_grad_rel_err=grad_err,
         launches=launches,
-    )
+    ), trained
 
 
 def _zipf_tokens(rng, vocab: int, n: int, a: float = 1.1):
@@ -1241,7 +1274,8 @@ def run_moe(torch, W, A, PA, M, tree, dev):
                          device=dev)
     for kern in kerns:
         kern.launches = 0
-    losses, times, _ = _train(torch, W, cfg, tree, dev, batch, TRAIN_STEPS)
+    losses, times, _, _ = _train(torch, W, cfg, tree, dev, batch,
+                                 TRAIN_STEPS)
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in kerns}
     want = cfg.n_layers * TRAIN_STEPS
@@ -1249,7 +1283,7 @@ def run_moe(torch, W, A, PA, M, tree, dev):
         fail(f"moe train launches {launches}, want {want} each")
     if not all(np.isfinite(losses)) or not losses[-1] < 0.9 * losses[0]:
         fail(f"moe train losses {losses[0]} -> {losses[-1]}")
-    ref_losses, ref_times, _ = _train(torch, W, ref_cfg, tree, dev, batch,
+    ref_losses, ref_times, _, _ = _train(torch, W, ref_cfg, tree, dev, batch,
                                       TRAIN_STEPS)
     gaps = np.abs(np.asarray(losses) - np.asarray(ref_losses))
     gap = float(gaps.max())
@@ -2212,6 +2246,373 @@ def run_lora(torch, W, A, LR, cfg, params, dev):
     )
 
 
+# phase 17: ring attention, stacked over RING_SP chunks of RING_SEQ
+# positions (the dryrun's leg: sp 4 at seq 4096)
+RING_SP = 4
+RING_SEQ = 4096
+# the ring against plain full attention in f32: JAX's dryrun asserts 1e-4
+# on the output; the gradients differ by summation order only, relative to
+# each one's largest element, as TRAIN_GRAD_F32_TOL
+RING_F32_TOL = 1e-4
+RING_GRAD_F32_TOL = 1e-4
+# phase 16: the sharded step at world 1 against phase 5's losses: none at
+# all. It runs the same kernels and products on the same shapes; its
+# collectives, over groups of one rank, return their input; the loss at
+# tp 1 is the cross entropy's sum over the token count, which the mean
+# computes; and zero1 at dp 1 is a no-op. With master weights the masters
+# start from the same f32 weights, and the live bf16 leaves hold the values
+# phase 5's casts make at each use.
+MESH_TOL = 0.0
+EXPORT_NEW_TOKENS = 64
+
+
+def run_export(torch, W, E, R, cfg, trained, dev, tmp) -> dict:
+    """Phase 15: phase 5's trained f32 params through a port train
+    checkpoint and the export CLI into an f32 and an ``--int8`` artifact,
+    and through ``save_artifact`` as bf16; each reloaded bit for bit; the
+    runner's decode mode on the bf16 and int8 artifacts (``--params-dir``)
+    must give ``generate()``'s greedy tokens on the in-memory params."""
+    import contextlib
+    import io
+    import shutil
+
+    from elastic_tpu_agent_torch.workloads import checkpointing as C
+    from elastic_tpu_agent_torch.workloads import quantize as Q
+
+    params = trained["params"]
+    bf16 = Q._tree_map(lambda path, t: t.to(cfg.dtype), params)
+    want = {"f32": params, "int8": Q.quantize_params(params), "bf16": bf16}
+    ck = os.path.join(tmp, "export_ck")
+    c = C.TrainCheckpointer(ck)
+    c.save(len(trained["losses"]), params,
+           {"count": torch.zeros((), dtype=torch.int32)})
+    c.close()
+    saved = {k: os.environ.pop(k, None) for k in RUNTIME_ENV}
+    os.environ["ELASTIC_TPU_ENV_FILE"] = os.path.join(tmp, "no-env-file")
+    out, dirs = {}, {}
+    try:
+        for label in ("f32", "int8", "bf16"):
+            d = dirs[label] = os.path.join(tmp, f"artifact_{label}")
+            t0 = time.perf_counter()
+            if label == "bf16":
+                E.save_artifact(d, bf16, cfg)
+            else:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = E.main(["--checkpoint-dir", ck, "--out", d,
+                                 "--preset", "small", "--seq",
+                                 str(cfg.max_seq)]
+                                + (["--int8"] if label == "int8" else []),
+                                device=dev)
+                summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+                if rc != 0 or summary["int8"] != (label == "int8"):
+                    fail(f"export CLI {label}: rc {rc}, {summary}")
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            loaded, lcfg = E.load_artifact(d, device=dev)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            a, b = (dict(C._flatten(t)) for t in (loaded, want[label]))
+            exact = a.keys() == b.keys() and all(
+                a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                for k in b)
+            nbytes = E.tree_bytes(loaded)
+            print(f"export {label}: {nbytes} bytes, save {save_ms:.1f} ms "
+                  f"(the CLI's includes the checkpoint restore), load "
+                  f"{load_ms:.1f} ms, reloaded bit for bit {exact}, config "
+                  f"{'equal' if lcfg == cfg else 'DIFFERENT'}")
+            if not exact or lcfg != cfg:
+                fail(f"export {label}: reload exact {exact}, cfg {lcfg}")
+            out[label] = dict(bytes=nbytes, save_ms=save_ms, load_ms=load_ms)
+        prompt = torch.as_tensor(R.decode_prompt(cfg, 8, 32), device=dev)
+        for label in ("bf16", "int8"):
+            rep = _runner(R, f"--mode decode --params-dir {dirs[label]} "
+                          f"--batch 8 --prompt-len 32 --new-tokens "
+                          f"{EXPORT_NEW_TOKENS}", dev)
+            ref = want[label]
+            if label == "int8":     # the runner's cast of the float leaves
+                ref = Q._tree_map(
+                    lambda path, t: t if Q.is_quantized(t) else t.to(
+                        cfg.dtype), ref)
+            toks = W.generate(ref, prompt, cfg,
+                              max_new_tokens=EXPORT_NEW_TOKENS,
+                              max_len=32 + EXPORT_NEW_TOKENS, device=dev)
+            tail = [int(t) for t in toks[0, -5:]]
+            print(f"export runner --params-dir {label}: sample_tail "
+                  f"{rep['sample_tail']}, generate() {tail}, decode "
+                  f"{rep['decode_tokens_per_s']} tokens/s")
+            if rep["sample_tail"] != tail or rep["restored_step"] != "artifact":
+                fail(f"runner on the {label} artifact: {rep['sample_tail']} "
+                     f"vs generate() {tail}, restored {rep['restored_step']}")
+            out[label].update(decode_tokens_per_s=rep["decode_tokens_per_s"],
+                              sample_tail=rep["sample_tail"])
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        for d in (ck, *dirs.values()):
+            shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def run_mesh(torch, W, A, P, cfg, tree, trained, dev, tmp):
+    """Phase 16: the sharded train step over a one-rank NCCL world
+    (``make_mesh(1)``): 20 steps at phase 5's weights and tokens, then 20
+    with zero1 and master weights (masters from the same f32 weights); the
+    losses must equal phase 5's. Launches of the three flash kernels over
+    each run; the device time of the step's gradient all-reduce."""
+    import torch.distributed as dist
+
+    from elastic_tpu_agent_torch.workloads import quantize as Q
+    from elastic_tpu_agent_torch.workloads import transformer as T
+
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'mesh_store')}",
+        rank=0, world_size=1)
+    out = {"launches": dict.fromkeys((k.symbol for k in kerns), 0)}
+    try:
+        mesh = P.make_mesh(1)
+        out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        for label, opts in (("plain", {}), ("zero1+master_weights",
+                                            dict(zero1=True,
+                                                 master_weights=True))):
+            step, _, opt = W.make_train_step(cfg, learning_rate=1e-3,
+                                             device=dev, mesh=mesh, **opts)
+            params = P.shard_params(W.params_from_jax(
+                tree, cfg, device=dev, dtype=torch.float32), mesh, cfg)
+            state = opt.init(params)
+            if opts:                # live leaves in cfg.dtype
+                params = Q._tree_map(lambda path, t: t.to(cfg.dtype), params)
+            for kern in kerns:
+                kern.launches = 0
+            losses, times = [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                losses.append(step(params, state, trained["tokens"])[2]
+                              .item())
+                times.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            launches = {k.symbol: k.launches for k in kerns}
+            for k, n in launches.items():
+                out["launches"][k] += n
+            gap = float(np.max(np.abs(np.asarray(losses)
+                                      - np.asarray(trained["losses"]))))
+            p50 = float(np.median(times) * 1e3)
+            print(f"mesh world 1 {label}, small preset [8,256] bf16, "
+                  f"{TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}, max|loss - phase 5| {gap:.4g}, step "
+                  f"p50 {p50:.2f} ms, launches {launches}")
+            if not gap <= MESH_TOL:
+                fail(f"mesh {label} losses vs phase 5: {gap}")
+            want = cfg.n_layers * TRAIN_STEPS
+            if any(n != want for n in launches.values()):
+                fail(f"mesh {label} launches {launches}, want {want} each")
+            out[label] = dict(loss_first=losses[0], loss_last=losses[-1],
+                              max_abs_loss_gap_vs_phase5=gap,
+                              step_ms_p50=p50, launches=launches)
+        view = P.local_view(mesh)
+        grads = [torch.zeros(x.shape, dtype=torch.float32, device=dev)
+                 for x in T._leaves(params)]
+        out["grad_all_reduce_ms"] = device_ms(
+            torch, lambda: P.all_reduce_(grads, (view.dp, view.sp)))[0]
+        print(f"mesh gradient all-reduce over dp and sp (world 1, "
+              f"{sum(g.numel() for g in grads)} elements): device ms "
+              f"{out['grad_all_reduce_ms']:.4g}")
+        # where the sharded step's time goes: host ms (synchronized) of
+        # the loss and gradients, single-device and sharded, of the
+        # gradient all-reduce, on the last run's params, and of one
+        # activation all-reduce
+        tokens = trained["tokens"]
+        parts = {
+            "loss_and_grads": lambda: W.loss_and_grads(params, tokens, cfg,
+                                                       dev),
+            "sharded_loss_and_grads": lambda: T._local_loss_and_grads(
+                params, tokens, cfg, dev, view),
+            "grad_all_reduce": lambda: P.all_reduce_(grads,
+                                                     (view.dp, view.sp)),
+        }
+        # one tp all-reduce of a layer's activations (reduce_from's call)
+        act = torch.zeros((8, 256, cfg.d_model), dtype=cfg.dtype, device=dev)
+        parts["activation_all_reduce"] = lambda: dist.all_reduce(
+            act, group=view.tp)
+        out["host_ms"] = {}
+        for name, fn in parts.items():
+            ts = []
+            for i in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            out["host_ms"][name] = float(np.median(ts[2:]))
+        print("mesh step parts, host ms (median of 5) "
+              + json.dumps(out["host_ms"]))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def run_ring(torch, A, RA, dev) -> dict:
+    """Phase 17: the three flash kernels against their plain versions at
+    the ring's call patterns (a non-causal block, a causal block with an
+    lse cotangent; s_loc 1024 at h 128 f32 and h 64 bf16), then the
+    stacked ring (sp 4) at seq 4096: [1,4096,1,128] f32 against plain
+    full attention, [2,4096,8,64] bf16 against the same ring on the CPU
+    (its kernels' plain versions), launches counted over those two
+    forward and backward passes, and at both shapes device times beside
+    one flash call over the whole sequence and SDPA."""
+    rng = np.random.default_rng(SEED + 30)
+    s_loc = RING_SEQ // RING_SP
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    errs = dict.fromkeys((k.symbol for k in kerns), 0.0)
+    for label, dtype, shape, causal in (
+            ("f32 non-causal", torch.float32, (1, s_loc, 1, 1, 128), False),
+            ("f32 causal dlse", torch.float32, (1, s_loc, 1, 1, 128), True),
+            ("bf16 non-causal", torch.bfloat16, (2, s_loc, 8, 8, 64), False),
+            ("bf16 causal dlse", torch.bfloat16, (2, s_loc, 8, 8, 64), True)):
+        name = str(dtype).split(".")[-1]
+        fc = A.FlashConfig(causal=causal)
+        b, s, n, g, h = shape
+        q = randn(torch, rng, (b, s, n, h), dtype, dev)
+        k, v = (randn(torch, rng, (b, s, g, h), dtype, dev) for _ in range(2))
+        o, lse = A.flash_attention_with_lse(q, k, v, fc)
+        o_ref, lse_ref = A.flash_attention_plain(q, k, v, fc)
+        torch.cuda.synchronize()
+        e_o = (o.float() - o_ref.float()).abs().max().item()
+        e_l = (lse - lse_ref).abs().max().item()
+        print(f"ring block flash_fwd {label} {list(shape)}: max|o| err "
+              f"{e_o:.3g}, max|lse| err {e_l:.3g}")
+        if not (e_o <= FLASH_TOL[name] and e_l <= LSE_TOL):
+            fail(f"ring block flash_fwd {label}: o {e_o}, lse {e_l}")
+        errs["flash_fwd"] = max(errs["flash_fwd"], e_o, e_l)
+        args = _bwd_inputs(torch, A, rng, dev, shape, dtype, fc, causal)
+        for kname, kern, plain in (
+                ("flash_bwd_dkdv", A.flash_bwd_dkdv, A.flash_bwd_dkdv_plain),
+                ("flash_bwd_dq", A.flash_bwd_dq, A.flash_bwd_dq_plain)):
+            e = _bwd_check(torch, f"ring block {kname} {label} {list(shape)}",
+                           kern(*args, fc), plain(*args, fc), name)
+            errs[kname] = max(errs[kname], *e)
+
+    def ring_grads(q, k, v, do):
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        o = RA.ring_attention_stacked(q, k, v, RING_SP)
+        return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+    for kern in kerns:
+        kern.launches = 0
+    out = {}
+    # the dryrun's shape, f32, against plain full attention
+    f32 = q, k, v, do = [randn(torch, rng, (1, RING_SEQ, 1, 128),
+                               torch.float32, dev) for _ in range(4)]
+    got = ring_grads(q, k, v, do)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    o_ref = A.reference_attention(qr, kr, vr)
+    ref = (o_ref.detach(), *torch.autograd.grad(o_ref, (qr, kr, vr), do))
+    e_o = (got[0] - ref[0]).abs().max().item()
+    e_g = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(got[1:], ref[1:])]
+    print(f"ring sp {RING_SP} [1,{RING_SEQ},1,128] f32 vs plain full "
+          f"attention: max|o| err {e_o:.3g}; gradient errors relative to "
+          f"the largest " + ", ".join(f"{x:.3g}" for x in e_g))
+    if not (e_o < RING_F32_TOL and max(e_g) <= RING_GRAD_F32_TOL):
+        fail(f"ring f32: o {e_o}, grads {e_g}")
+    out["f32"] = dict(max_abs_err=e_o, grad_rel_err=e_g)
+    # the small preset's heads, bf16: the ring's forward and backward
+    # kernels against their plain versions (the same ring on the CPU) on
+    # the same inputs: the backward from the card's forward output and lse
+    shape = (2, RING_SEQ, 8, 64)
+    b, s, n, h = shape
+    q, k, v, do = (randn(torch, rng, shape, torch.bfloat16, dev)
+                   for _ in range(4))
+    ring = RA.StackedRing(RING_SP)
+    cut = [x.reshape(b, RING_SP, s_loc, n, h).transpose(0, 1).contiguous()
+           for x in (q, k, v, do)]
+    fc, use_flash = RA.resolve(q)
+    o, lse = RA.ring_forward(*cut[:3], ring, True, fc, use_flash)
+    grads = RA.ring_backward(*cut[:3], o, lse, cut[3], ring, True, fc,
+                             use_flash)
+    torch.cuda.synchronize()
+    launches = {kern.symbol: kern.launches for kern in kerns}
+    host = [x.cpu() for x in (*cut[:3], o, lse, cut[3])]
+    o_p, lse_p = RA.ring_forward(*host[:3], ring, True, fc, use_flash)
+    plain = RA.ring_backward(*host, ring, True, fc, use_flash)
+    e_o = (o.float().cpu() - o_p.float()).abs().max().item()
+    e_l = (lse.cpu() - lse_p).abs().max().item()
+    print(f"ring sp {RING_SP} {list(shape)} bf16 forward vs its plain "
+          f"blocks: max|o| err {e_o:.3g}, max|lse| err {e_l:.3g}")
+    if not (e_o <= FLASH_TOL["bfloat16"] and e_l <= LSE_TOL):
+        fail(f"ring bf16 forward vs plain: o {e_o}, lse {e_l}")
+    e_g = _bwd_check(torch, f"ring sp {RING_SP} {list(shape)} bf16 dq, dk, "
+                     "dv vs its plain blocks", tuple(grads), tuple(plain),
+                     "bfloat16")
+    # each side from its own forward: delta = rowsum(dO * O) then takes
+    # the forwards' one-ulp differences of O into dS (reported, not held
+    # to the kernel bounds)
+    own = RA.ring_backward(*host[:3], o_p, lse_p, host[5], ring, True, fc,
+                           use_flash)
+    own_mean = [((a.float().cpu() - c.float()).abs().mean()
+                 / c.float().abs().mean()).item()
+                for a, c in zip(grads, own)]
+    print("ring bf16 gradients against the plain ring's from its own "
+          "forward: relative mean " + ", ".join(f"{x:.3g}" for x in own_mean))
+    out["bf16"] = dict(max_abs_err=e_o, grad_max_abs_err=e_g,
+                       own_forward_grad_rel_mean=own_mean)
+    want = 2 * RING_SP            # two rings, sp blocks of each kernel
+    print(f"ring launches over the two rings' forward and backward: "
+          f"{launches} (want {want} each)")
+    if any(n != want for n in launches.values()):
+        fail(f"ring launches {launches}, want {want} each")
+    out["launches"] = launches
+    out["kernel_errs"] = errs
+
+    out["times"] = [ring_times(torch, A, RA, *x) for x in (
+        f32, (q, k, v, do))]
+    return out
+
+
+def ring_times(torch, A, RA, q, k, v, do) -> dict:
+    """Device ms of the stacked ring (sp 4) over q/k/v [b, s, n, h],
+    forward and forward + backward, beside one flash call over the whole
+    sequence and SDPA, with the forward's bound."""
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    fc = A.FlashConfig()
+    with torch.no_grad():
+        ring_fwd = device_ms(torch, lambda: RA.ring_attention_stacked(
+            q, k, v, RING_SP))[0]
+        flash_fwd = device_ms(torch, lambda: A.flash_attention_with_lse(
+            q, k, v, fc))[0]
+        sdpa_fwd = device_ms(torch, lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 qt, kt, vt, is_causal=True))[0]
+
+    def fwd_bwd(fn, *xs):
+        def call():
+            ys = [x.detach().requires_grad_() for x in xs[:3]]
+            return torch.autograd.grad(fn(*ys), ys, xs[3])
+        return device_ms(torch, call)[0]
+
+    ring_fb = fwd_bwd(lambda a, b, c: RA.ring_attention_stacked(
+        a, b, c, RING_SP), q, k, v, do)
+    flash_fb = fwd_bwd(lambda a, b, c: A.flash_attention(a, b, c, fc),
+                       q, k, v, do)
+    sdpa_fb = fwd_bwd(lambda a, b, c: torch.nn.functional
+                      .scaled_dot_product_attention(a, b, c, is_causal=True),
+                      qt, kt, vt, dot)
+    b, s, n, h = q.shape
+    name = str(q.dtype).split(".")[-1]
+    t, by = bound(4 * b * s * n * h * q.element_size() + b * n * s * 4,
+                  4 * b * n * h * (s * (s + 1) // 2), name)
+    rec = dict(
+        shape=f"[{b},{s},{n},{h}] {name} causal, sp {RING_SP}",
+        ring_fwd_ms=ring_fwd, flash_fwd_ms=flash_fwd, sdpa_fwd_ms=sdpa_fwd,
+        ring_fwd_bwd_ms=ring_fb, flash_fwd_bwd_ms=flash_fb,
+        sdpa_fwd_bwd_ms=sdpa_fb, fwd_bound_ms=t, fwd_bound_by=by)
+    print("ring times (device ms) " + json.dumps(rec))
+    return rec
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -2305,12 +2706,15 @@ def main() -> int:
     from elastic_tpu_agent_torch import kernels
     from elastic_tpu_agent_torch import workloads as W
     from elastic_tpu_agent_torch.workloads import attention as A
+    from elastic_tpu_agent_torch.workloads import export as E
     from elastic_tpu_agent_torch.workloads import lifecycle as L
     from elastic_tpu_agent_torch.workloads import lora as LR
     from elastic_tpu_agent_torch.workloads import moe as M
     from elastic_tpu_agent_torch.workloads import paged_attention as PA
+    from elastic_tpu_agent_torch.workloads import parallel as P
     from elastic_tpu_agent_torch.workloads import quantize as Q
     from elastic_tpu_agent_torch.workloads import request_obs as RO
+    from elastic_tpu_agent_torch.workloads import ring_attention as RA
     from elastic_tpu_agent_torch.workloads import runner as R
     from elastic_tpu_agent_torch.workloads import streaming as S
     from elastic_tpu_agent_torch.workloads import telemetry as T
@@ -2341,7 +2745,8 @@ def main() -> int:
                                    params, dev)
     paged["launches"], srv = timed("serving", run_serving, torch, W, PA, cfg,
                                    params, tree, dev)
-    launches, train = timed("train", run_train, torch, W, A, cfg, tree, dev)
+    launches, train, trained = timed("train", run_train, torch, W, A, cfg,
+                                     tree, dev)
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
@@ -2361,14 +2766,29 @@ def main() -> int:
     stream = timed("streaming", run_streaming, torch, W, S, cfg, dev)
     lora_launches, lora = timed("lora", run_lora, torch, W, A, LR, cfg,
                                 params, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        export = timed("export", run_export, torch, W, E, R, cfg, trained,
+                       dev, tmp)
+        mesh = timed("mesh", run_mesh, torch, W, A, P, cfg, tree, trained,
+                     dev, tmp)
+    ring = timed("ring", run_ring, torch, A, RA, dev)
     # each kernel's launches over the main paths it lies on, each path
-    # counted from 0 just before it: forward + LoRA, serving + the spec
-    # engine's fallback steps, train + LoRA
-    flash["launches"] += lora_launches["flash_fwd"]
+    # counted from 0 just before it: forward + LoRA + the sharded step +
+    # the ring, serving + the spec engine's fallback steps, train + LoRA +
+    # the sharded step + the ring
+    flash["launches"] += (lora_launches["flash_fwd"]
+                          + mesh["launches"]["flash_fwd"]
+                          + ring["launches"]["flash_fwd"])
     paged["launches"] += spec_launches
-    dkdv["launches"] = (launches["flash_bwd_dkdv"]
-                        + lora_launches["flash_bwd_dkdv"])
-    dq["launches"] = launches["flash_bwd_dq"] + lora_launches["flash_bwd_dq"]
+    for rec in (dkdv, dq):
+        k = rec["name"]
+        rec["launches"] = (launches[k] + lora_launches[k]
+                           + mesh["launches"][k] + ring["launches"][k])
+    for rec in (flash, dkdv, dq):   # the ring's call patterns too
+        rec["ring"] = dict(launches=ring["launches"][rec["name"]],
+                           max_abs_err=ring["kernel_errs"][rec["name"]])
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 ring["kernel_errs"][rec["name"]])
     kernel_recs = [flash, paged, dkdv, dq]
     for x in kernel_recs:
         print(f"{x['name']} timing: device ms {x['ms']:.4g} (host-paced "
@@ -2386,7 +2806,8 @@ def main() -> int:
     report = {"card": card, "forward": fwd, "serving": srv, "train": train,
               "runtime": runtime, "drain": drain, "int8": int8, "moe": moe,
               "prefix": prefix, "speculative": spec, "beam": beam,
-              "streaming": stream, "lora": lora, "kernels": kernel_recs,
+              "streaming": stream, "lora": lora, "export": export,
+              "mesh": mesh, "ring": ring, "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -2409,7 +2830,8 @@ def main() -> int:
                                 "drain": drain, "int8": int8, "moe": moe,
                                 "prefix": prefix, "speculative": spec,
                                 "beam": beam, "streaming": stream,
-                                "lora": lora}}))
+                                "lora": lora, "export": export,
+                                "mesh": mesh, "ring": ring}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

@@ -10,7 +10,10 @@ flight recorder; the Switch-MoE layer and int8 weight-only quantization
 mid-stream handoff, and the request observatory (``request_obs.py``); the
 decode variants: speculative decoding, solo (``speculative.py``) and in
 the serving engine, beam search (``beam.py``), streaming ring-cache decode
-(``streaming.py``) and LoRA adapters (``lora.py``)."""
+(``streaming.py``) and LoRA adapters (``lora.py``); serving artifacts
+(``export.py``), the dp/sp/tp mesh with its split specs, collectives and
+ZeRO-1 (``parallel.py``; ``make_train_step``/``make_eval_fn(mesh=)``)
+and ring attention over sp (``ring_attention.py``)."""
 
 from .beam import beam_search
 from .checkpointing import (
@@ -21,6 +24,7 @@ from .checkpointing import (
     tree_to_bytes,
 )
 from .data import TokenDataset, encode_bytes, encode_file, write_token_file
+from .export import export_checkpoint, load_artifact, save_artifact
 from .generate import KVCache, generate
 from .lora import init_lora_params, make_lora_train_step, merge_lora
 from .moe import MoeRoutingStats, init_moe_params, moe_mlp
@@ -33,7 +37,10 @@ from .lifecycle import (
     read_checkpoint_ack,
     write_checkpoint_ack,
 )
+from .parallel import gather_params, make_mesh, param_shardings, shard_params
 from .prefix_cache import PrefixCache, chain_hashes
+# not the ``ring_attention`` function: it would shadow the module
+from .ring_attention import ring_attention_sharded, ring_attention_stacked
 from .request_obs import RequestObservatory
 from .serving import ServingEngine, SharedKVPool, disaggregated_status
 from .speculative import SpecStats, speculative_generate
@@ -90,24 +97,33 @@ __all__ = [
     "ema_params",
     "encode_bytes",
     "encode_file",
+    "export_checkpoint",
     "forward",
     "forward_with_aux",
+    "gather_params",
     "generate",
     "init_lora_params",
     "init_moe_params",
     "init_params",
+    "load_artifact",
     "lora_from_jax",
     "loss_and_grads",
     "make_eval_fn",
     "make_lora_train_step",
+    "make_mesh",
     "make_train_step",
     "merge_lora",
     "moe_mlp",
+    "param_shardings",
     "params_from_jax",
     "params_to_jax",
     "quantize_params",
     "random_tree",
     "read_checkpoint_ack",
+    "ring_attention_sharded",
+    "ring_attention_stacked",
+    "save_artifact",
+    "shard_params",
     "speculative_generate",
     "streaming_generate",
     "tree_to_bytes",

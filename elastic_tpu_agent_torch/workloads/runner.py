@@ -22,8 +22,11 @@ differs:
 
 - One card. ``--dp``/``--sp``/``--tp`` above 1, ``--pp`` above 1 and
   ``--zero1`` end in a usage error, and a multi-host
-  ``TPU_WORKER_HOSTNAMES`` raises: they come with the multi-GPU slice.
-  ``--params-dir`` (decode) raises too.
+  ``TPU_WORKER_HOSTNAMES`` raises: the runner must first join a process
+  group from its launch env (ROADMAP Queue 1 item 4f; the sharded step
+  itself is ``make_train_step(..., mesh=)``).
+- ``--params-dir`` (decode) serves the port's serving artifact
+  (``export.py``), not JAX's orbax one.
 - Seeds. ``jax.random`` streams have no torch twin: params come from
   ``init_all(torch.Generator().manual_seed(0))``, synthetic tokens from
   ``np.random.default_rng(1)`` and eval batches from
@@ -74,7 +77,8 @@ PRESETS = {
                    d_ff=4096),
 }
 
-_MULTI_GPU = "it comes with the multi-GPU slice of the port"
+_MULTI_GPU = ("it comes with the multi-GPU slice of the port (ROADMAP "
+              "Queue 1 item 4f: the runner's multi-host join)")
 
 
 def load_alloc_env(path: str = "") -> dict:
@@ -247,8 +251,9 @@ def _parser() -> argparse.ArgumentParser:
                         help="decode mode: int8 weight-only quantization "
                              "(workloads/quantize.py)")
     parser.add_argument("--params-dir", default="",
-                        help="decode mode: serve an exported artifact "
-                             "(a later slice)")
+                        help="decode mode: serve a serving artifact "
+                             "(workloads/export.py); its config overrides "
+                             "--preset")
     parser.add_argument("--temperature", type=float, default=0.0)
     parser.add_argument("--top-k", type=int, default=0)
     parser.add_argument("--top-p", type=float, default=0.0)
@@ -707,22 +712,30 @@ def decode_prompt(cfg, batch: int, prompt_len: int) -> np.ndarray:
 
 def run_decode(args, cfg, applied, device) -> int:
     """Decode-mode body: synthetic prompts -> KV-cache generation
-    throughput, from a fresh init or a --checkpoint-dir restore (params
-    only, stored in the model dtype). ``--int8`` quantizes the weights
-    after the restore, from f32 params as the JAX runner's are, so that
-    the int8 tree is the JAX runner's on the same weights."""
-    if args.params_dir:
-        raise NotImplementedError(
-            "--params-dir serves an exported artifact: it comes with the "
-            "export-artifacts slice of the port"
-        )
+    throughput. Weights come from --params-dir (a serving artifact,
+    ``export.py``: its config overrides --preset), from --checkpoint-dir
+    (params only, stored in the model dtype) or a fresh init. ``--int8``
+    quantizes the weights on the way in, from f32 params as the JAX
+    runner's are, so that the int8 tree is the JAX runner's on the same
+    weights."""
     from .checkpointing import TrainCheckpointer
     from .generate import generate
     from .transformer import init_params
 
+    artifact_params = None
+    if args.params_dir:
+        if args.checkpoint_dir:
+            raise SystemExit(
+                "--params-dir and --checkpoint-dir are exclusive "
+                "(an artifact already IS the exported checkpoint)"
+            )
+        from .export import load_artifact
+
+        artifact_params, cfg = load_artifact(args.params_dir, device=device)
+
     max_len = args.prompt_len + args.new_tokens
     if cfg.pos == "learned" and cfg.max_seq < max_len:
-        if args.checkpoint_dir:
+        if args.checkpoint_dir or args.params_dir:
             # a trained position table has the trained length
             raise SystemExit(
                 f"decode length {max_len} exceeds the trained max_seq "
@@ -731,13 +744,22 @@ def run_decode(args, cfg, applied, device) -> int:
             )
         cfg = dataclasses.replace(cfg, max_seq=max_len)
 
-    # int8 quantizes f32 weights (the JAX tree's dtype); the leaves it
-    # leaves float are cast to cfg.dtype at use
-    stored = torch.float32 if args.int8 else None
-    params = init_params(
-        cfg, torch.Generator().manual_seed(0), device, dtype=stored
-    )
     restored_step = None
+    if artifact_params is not None:
+        params, restored_step = artifact_params, "artifact"
+        if not args.int8:   # float leaves in the model dtype, as below
+            from .quantize import _tree_map, is_quantized
+
+            params = _tree_map(
+                lambda path, t: t if is_quantized(t) or path[-1] == "wg"
+                else t.to(cfg.dtype), params)
+    else:
+        # int8 quantizes f32 weights (the JAX tree's dtype); the leaves it
+        # leaves float are cast to cfg.dtype at use
+        stored = torch.float32 if args.int8 else None
+        params = init_params(
+            cfg, torch.Generator().manual_seed(0), device, dtype=stored
+        )
     if args.checkpoint_dir:
         ckpt = TrainCheckpointer(args.checkpoint_dir)
         if ckpt.latest_step is None:

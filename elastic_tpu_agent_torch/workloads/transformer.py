@@ -9,14 +9,23 @@ The attention core is the Hopper flash kernel (forward and backward)
 wherever its gate admits the shape (head_dim 64 or 128); the projections
 and MLP stay ``torch.einsum``, as the JAX package leaves them to XLA.
 
-``make_train_step`` is the JAX train step on one device: the shifted
+``make_train_step`` is the JAX train step: the shifted
 cross entropy, autograd for ``jax.value_and_grad``, optax's ``adamw`` as
 ``AdamW``, gradient accumulation, the parameter EMA and f32 master
 weights. ``make_eval_fn`` is the eval loss.
 
-One device: every ``moe_every``-th layer of a model with ``moe_experts``
-> 0 is a Switch MoE layer (``moe.py``), whose aux loss the forward sums.
-Ring attention and zero1 come with the multi-GPU slice and raise here.
+Every ``moe_every``-th layer of a model with ``moe_experts`` > 0 is a
+Switch MoE layer (``moe.py``), whose aux loss the forward sums; on one
+device only (expert parallelism is ROADMAP item 4c).
+
+``make_train_step(..., mesh=)`` and ``make_eval_fn(..., mesh=)`` are the
+JAX step over a dp/sp/tp mesh (``parallel.make_mesh``), run SPMD: one rank
+per device, each holding local shards of the params, gradients and
+optimizer state (``parallel.py`` says why and how). Tensor parallelism
+splits heads, the FF hidden axis and the vocabulary with explicit
+autograd-aware collectives on the tp group; sequence parallelism runs the
+ring (``ring_attention.py``) over the sp group; ``zero1`` cuts the
+optimizer state over dp. ``mesh=None`` is the single-device path.
 """
 
 from __future__ import annotations
@@ -36,7 +45,20 @@ from .attention import (
     supports_flash,
 )
 from .moe import moe_mlp
+from .parallel import (  # noqa: F401 - make_mesh: JAX keeps it here
+    LocalView,
+    Zero1,
+    all_reduce_,
+    copy_to,
+    full_param_shardings,
+    local_view,
+    make_mesh,
+    reduce_from,
+    shard_params,
+    vocab_parallel_nll_sum,
+)
 from .quantize import embed_lookup, is_quantized, wdense
+from .ring_attention import ring_attention
 from .weights import _tree_map, jax_layout_shapes
 
 
@@ -57,9 +79,10 @@ class ModelConfig:
     # Sliding-window attention: each token attends only the last
     # ``window`` positions (0 = full causal).
     window: int = 0
-    # Attention core: "auto" picks the flash kernel when its gate admits
-    # the shape, the materialised-scores einsum otherwise; "flash" and
-    # "reference" force one ("ring" comes with the multi-GPU slice).
+    # Attention core: "auto" picks the ring when the mesh shards the
+    # sequence (sp > 1), the flash kernel when its gate admits the shape,
+    # the materialised-scores einsum otherwise; "flash", "ring" and
+    # "reference" force one.
     attn: str = "auto"
     # Recompute each layer in the backward (torch.utils.checkpoint, as
     # jax.checkpoint): more FLOPs for fewer saved activations. Only acts
@@ -73,11 +96,7 @@ class ModelConfig:
     moe_aux_coef: float = 0.01
 
     def __post_init__(self):
-        if self.attn == "ring":
-            raise NotImplementedError(
-                "ring attention comes with the multi-GPU slice of the port"
-            )
-        if self.attn not in ("auto", "flash", "reference"):
+        if self.attn not in ("auto", "flash", "ring", "reference"):
             raise ValueError(f"unknown attn {self.attn!r}")
         if self.pos not in ("learned", "rope"):
             raise ValueError(f"unknown pos {self.pos!r}")
@@ -156,24 +175,56 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def _attention_core(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+    view: Optional[LocalView] = None,
 ) -> torch.Tensor:
     """Dispatch the attention core: q [b,s,n,h], k/v [b,s,g,h] ->
-    [b,s,n,h]. The flash kernel reads grouped kv heads in place; the
-    reference path repeats them, as the JAX layer body does."""
+    [b,s,n,h] (local shards under a mesh). The flash kernel reads grouped
+    kv heads in place; the reference path repeats them, as the JAX layer
+    body does. A sequence sharded over sp > 1 runs the ring: under "auto",
+    as in JAX, and under "reference" too, with the ring's einsum blocks
+    (JAX's partitioner gathers the sequence instead; the function is the
+    same)."""
     s, h = q.shape[1], q.shape[3]
+    sp = view.sp_size if view is not None else 1
     impl = cfg.attn
     if impl == "auto":
         impl = (
-            "flash" if supports_flash(s, h)
+            "ring" if sp > 1
+            else "flash" if supports_flash(s, h)
             else "reference"
         )
+    if impl == "ring" or (impl == "reference" and sp > 1):
+        if cfg.window > 0:
+            raise ValueError(
+                "sliding-window attention is not supported with ring/sp "
+                "sharding; use sp=1 (flash handles long windows with "
+                "O(window) compute per query)"
+            )
+        if view is None:
+            raise ValueError("ring attention needs a mesh (sp axis)")
+        return ring_attention(
+            q, k, v, view.ring, flash=False if impl == "reference" else None)
     if impl == "flash":
+        if sp > 1:
+            raise ValueError(
+                "flash attention cannot span a sharded sequence axis; "
+                "use ring (attn='ring'/'auto') when sp > 1"
+            )
         fc = dataclasses.replace(auto_flash_config(s), window=cfg.window)
         return flash_attention(q, k, v, fc)
     return reference_attention(q, k, v, causal=True, window=cfg.window)
 
 
-def _attention(x: torch.Tensor, layer: Dict, cfg: ModelConfig) -> torch.Tensor:
+def _attention(
+    x: torch.Tensor, layer: Dict, cfg: ModelConfig,
+    view: Optional[LocalView] = None, offset: int = 0,
+) -> torch.Tensor:
+    """Self-attention of x [b, s, d]. Under a mesh the projections hold
+    this rank's heads (column split, ``copy_to`` in front) and ``wo``'s
+    partial sums are all-reduced over tp (``reduce_from``); ``offset`` is
+    the global position of x's first token (its sp chunk's start)."""
+    if view is not None:
+        x = copy_to(x, view.tp)
     if "wq" in layer:  # GQA: separate q and shared-kv projections
         q = torch.einsum("bsd,dnh->bsnh", x, wdense(layer, "wq", cfg.dtype))
         kv = torch.einsum(
@@ -186,17 +237,24 @@ def _attention(x: torch.Tensor, layer: Dict, cfg: ModelConfig) -> torch.Tensor:
         )
         q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # [b, s, n, h]
     if cfg.pos == "rope":
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = torch.arange(offset, offset + x.shape[1], device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)  # at kv width, cheaper
-    out = _attention_core(q, k, v, cfg)
-    return torch.einsum("bsnh,nhd->bsd", out, wdense(layer, "wo", cfg.dtype))
+    out = _attention_core(q, k, v, cfg, view)
+    out = torch.einsum("bsnh,nhd->bsd", out, wdense(layer, "wo", cfg.dtype))
+    return out if view is None else reduce_from(out, view.tp)
 
 
-def _mlp(x: torch.Tensor, layer: Dict, cfg: ModelConfig) -> torch.Tensor:
+def _mlp(
+    x: torch.Tensor, layer: Dict, cfg: ModelConfig,
+    view: Optional[LocalView] = None,
+) -> torch.Tensor:
+    if view is not None:
+        x = copy_to(x, view.tp)
     h = torch.einsum("bsd,df->bsf", x, wdense(layer, "w1", cfg.dtype))
     h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    return torch.einsum("bsf,fd->bsd", h, wdense(layer, "w2", cfg.dtype))
+    out = torch.einsum("bsf,fd->bsd", h, wdense(layer, "w2", cfg.dtype))
+    return out if view is None else reduce_from(out, view.tp)
 
 
 def _check_device(params: Dict, device: torch.device) -> None:
@@ -228,20 +286,31 @@ def forward_with_aux(
     device = as_device(device)
     _check_device(params, device)
     tokens = torch.as_tensor(tokens, device=device).long()
+    return _forward(params, tokens, cfg, device)
+
+
+def _forward(
+    params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+    device: torch.device, view: Optional[LocalView] = None, offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """forward_with_aux's body. Under a mesh (``view``) tokens are this
+    rank's chunk, starting at global position ``offset``, and the logits
+    are its vocabulary slice of ``lm_head``'s tp split."""
     _, s = tokens.shape
     x = embed_lookup(params, tokens, cfg.dtype)
     if cfg.pos == "learned":
-        x = x + params["pos_embed"].to(cfg.dtype)[:s][None]
+        x = x + params["pos_embed"].to(cfg.dtype)[offset:offset + s][None]
 
     zero = torch.zeros((), dtype=torch.float32, device=device)
 
     def layer_fn(x, layer):
-        x = x + _attention(_rmsnorm(x, layer["ln1_scale"]), layer, cfg)
+        x = x + _attention(
+            _rmsnorm(x, layer["ln1_scale"]), layer, cfg, view, offset)
         h = _rmsnorm(x, layer["ln2_scale"])
         if "moe" in layer:
             y, aux = moe_mlp(h, layer["moe"], cfg.moe_capacity_factor)
         else:
-            y, aux = _mlp(h, layer, cfg), zero
+            y, aux = _mlp(h, layer, cfg, view), zero
         return x + y, aux
 
     aux_total = zero
@@ -252,6 +321,8 @@ def forward_with_aux(
             x, aux = layer_fn(x, layer)
         aux_total = aux_total + aux
     x = _rmsnorm(x, params["final_norm_scale"])
+    if view is not None:
+        x = copy_to(x, view.tp)
     logits = torch.einsum(
         "bsd,dv->bsv", x, wdense(params, "lm_head", cfg.dtype)
     )
@@ -307,6 +378,53 @@ def loss_and_grads(
     return loss.detach(), _like(params, grads)
 
 
+def _local_chunk(tokens: torch.Tensor, view: LocalView):
+    """(inputs, targets, offset, count): this rank's dp rows and sp
+    positions of tokens [B, seq+1] (the inputs tokens[:, :-1] and the
+    targets tokens[:, 1:] cut alike), its chunk's global start and the
+    global count B * seq that the loss's mean divides by."""
+    rows, seq = tokens.shape[0], tokens.shape[1] - 1
+    if rows % view.dp_size or seq % view.sp_size:
+        raise ValueError(
+            f"tokens {tuple(tokens.shape)}: the batch must split over "
+            f"dp={view.dp_size} and seq over sp={view.sp_size}"
+        )
+    b, s = rows // view.dp_size, seq // view.sp_size
+    mine = tokens[view.dp_rank * b:(view.dp_rank + 1) * b]
+    off = view.sp_rank * s
+    return mine[:, off:off + s], mine[:, off + 1:off + s + 1], off, rows * seq
+
+
+def _local_loss_and_grads(
+    params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+    device: torch.device, view: LocalView,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """This rank's term of the global loss (its tokens' cross entropy
+    summed over the global token count, plus moe_aux_coef * aux) and its
+    gradient leaves, before the sum over dp and sp."""
+    inputs, targets, off, count = _local_chunk(tokens, view)
+    live = _tree_map(lambda path, p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        logits, aux = _forward(live, inputs, cfg, device, view, off)
+        loss = (vocab_parallel_nll_sum(logits, targets, view) / count
+                + cfg.moe_aux_coef * aux)
+        grads = torch.autograd.grad(loss, _leaves(live))
+    return loss.detach(), list(grads)
+
+
+def _mesh_view(mesh, cfg: ModelConfig, device: torch.device) -> LocalView:
+    if mesh.device_type != device.type:
+        raise ValueError(
+            f"a {mesh.device_type} mesh cannot run on {device}")
+    if cfg.moe_experts and mesh.size() > 1:
+        raise NotImplementedError(
+            "MoE over a mesh of more than one device needs expert "
+            "parallelism (ep), ROADMAP Queue 1 item 4c"
+        )
+    full_param_shardings(mesh, cfg)    # JAX's GQA check
+    return local_view(mesh)
+
+
 def _f32(x: float) -> float:
     return float(np.float32(x))
 
@@ -323,7 +441,13 @@ class AdamW:
     (int32, kept on the host so the bias correction and a schedule read
     it without waiting on the device), ``mu`` and ``nu`` (trees like the
     params), then ``ema`` (the EmaState's tree) and ``masters`` (f32)
-    where enabled. ``update_`` applies one step in place."""
+    where enabled. ``update_`` applies one step in place.
+
+    ``zero1`` (a ``parallel.Zero1``) cuts ``mu``, ``nu``, ``ema`` and
+    ``masters`` over the data-parallel ranks, each leaf along its
+    ``zero1_axis`` (leaves without one stay whole): a rank updates its
+    slice of each target, then the fresh slices are all-gathered over dp
+    into the full params."""
 
     # optax.adamw's defaults; weight decay is 1e-4 there, not torch's 1e-2
     b1, b2, eps, weight_decay = 0.9, 0.999, 1e-8, 1e-4
@@ -331,6 +455,7 @@ class AdamW:
     def __init__(
         self, learning_rate: Union[float, Callable[[int], float]] = 1e-3,
         ema_decay: float = 0.0, master_weights: bool = False,
+        zero1: Optional[Zero1] = None,
     ):
         if not 0.0 <= ema_decay < 1.0:
             # decay 1.0 would freeze the EMA at its init forever
@@ -338,6 +463,15 @@ class AdamW:
         self.learning_rate = learning_rate
         self.ema_decay = ema_decay
         self.master_weights = master_weights
+        self.zero1 = zero1
+
+    def _parts(self, tree, axes) -> List[torch.Tensor]:
+        """``tree``'s leaves, each narrowed to this dp rank's slice where
+        ZeRO-1 cuts it (views)."""
+        leaves = _leaves(tree)
+        if self.zero1 is None:
+            return leaves
+        return [self.zero1.part(a, x) for a, x in zip(axes, leaves)]
 
     def init(self, params: Dict) -> Dict:
         """Optimizer state for ``params`` as stored (``cfg.dtype`` live
@@ -345,6 +479,9 @@ class AdamW:
         base = params
         if self.master_weights:
             base = _tree_map(lambda path, p: p.detach().float(), params)
+        if self.zero1 is not None:
+            axes = self.zero1.axes(params)
+            base = _like(base, [x.clone() for x in self._parts(base, axes)])
         state = {
             "count": torch.zeros((), dtype=torch.int32),
             "mu": _tree_map(lambda path, p: torch.zeros_like(p), base),
@@ -370,8 +507,10 @@ class AdamW:
         # f32 bias corrections from the incremented count, as optax
         bc1 = _f32(1.0 - np.float32(self.b1) ** np.float32(count + 1))
         bc2 = _f32(1.0 - np.float32(self.b2) ** np.float32(count + 1))
-        targets = _leaves(state["masters"] if self.master_weights else params)
-        gs = _leaves(grads)
+        axes = self.zero1.axes(params) if self.zero1 is not None else None
+        targets = (_leaves(state["masters"]) if self.master_weights
+                   else self._parts(params, axes))
+        gs = self._parts(grads, axes)
         if self.master_weights:
             gs = [g.float() for g in gs]
         mus, nus = _leaves(state["mu"]), _leaves(state["nu"])
@@ -391,8 +530,15 @@ class AdamW:
             ema = _leaves(state["ema"])
             torch._foreach_mul_(ema, self.ema_decay)
             torch._foreach_add_(ema, targets, alpha=1.0 - self.ema_decay)
+        live = _leaves(params)
+        if self.zero1 is not None:
+            self.zero1.gather_(live, targets, axes)
         if self.master_weights:
-            torch._foreach_copy_(_leaves(params), targets)
+            whole = [i for i in range(len(live)) if axes is None or
+                     axes[i] is None]
+            if whole:
+                torch._foreach_copy_([live[i] for i in whole],
+                                     [targets[i] for i in whole])
         state["count"] += 1
 
 
@@ -407,9 +553,10 @@ def make_train_step(
     learning_rate: Union[float, Callable[[int], float]] = 1e-3,
     accum_steps: int = 1, ema_decay: float = 0.0,
     master_weights: bool = False, zero1: bool = False, device="cuda",
+    mesh=None,
 ):
-    """(train_step, init_all, optimizer) for one device, as the JAX
-    ``make_train_step`` returns them.
+    """(train_step, init_all, optimizer), as the JAX ``make_train_step``
+    returns them.
 
     ``train_step(params, opt_state, tokens) -> (params, opt_state, loss)``
     takes tokens [batch, seq+1] (targets are the shift by one), or
@@ -428,41 +575,64 @@ def make_train_step(
     ``master_weights``. ``optimizer`` is the ``AdamW``; its ``init(params)``
     starts the state for params loaded another way (the weight bridge with
     ``dtype=torch.float32``). ``learning_rate``, ``ema_decay`` and
-    ``master_weights`` are those of the JAX step. ``zero1`` shards the
-    optimizer state over data-parallel ranks and raises here."""
-    if zero1:
-        raise NotImplementedError(
-            "zero1 shards the optimizer state over data-parallel ranks: it "
-            "comes with the multi-GPU slice of the port"
-        )
+    ``master_weights`` are those of the JAX step.
+
+    ``mesh`` (``parallel.make_mesh``; its device type must be
+    ``device``'s) runs the step SPMD in every rank of the mesh. Each rank
+    passes the same global tokens and takes its dp rows and its sp chunk of
+    the positions; params (``parallel.shard_params`` of a full tree, or
+    ``init_all``'s, drawn whole from the same generator on every rank and
+    cut) and the optimizer state are this rank's shards. The gradients
+    are summed over dp and sp, so that they are those of the global mean,
+    and the loss is the global mean on every rank. ``zero1`` cuts the
+    optimizer state over dp (``AdamW``); at dp 1 and without a mesh it is
+    a no-op, as in JAX. ``mesh=None`` is the single-device step."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     device = as_device(device)
+    view = None if mesh is None else _mesh_view(mesh, cfg, device)
+    plan = None
+    if view is not None and zero1 and view.dp_size > 1:
+        plan = Zero1(full_param_shardings(mesh, cfg), view.dp,
+                     view.dp_rank, view.dp_size)
     optimizer = AdamW(
-        learning_rate, ema_decay=ema_decay, master_weights=master_weights
+        learning_rate, ema_decay=ema_decay, master_weights=master_weights,
+        zero1=plan,
     )
+
+    def one(params, tokens):
+        if view is None:
+            loss, grads = loss_and_grads(params, tokens, cfg, device)
+            return loss, _leaves(grads)
+        return _local_loss_and_grads(params, tokens, cfg, device, view)
 
     def grads_of(params, tokens):
         if accum_steps == 1:
-            return loss_and_grads(params, tokens, cfg, device)
-        if tokens.dim() != 3 or tokens.shape[0] != accum_steps:
-            raise ValueError(
-                f"tokens {tuple(tokens.shape)}: want [{accum_steps}, batch, "
-                "seq+1] with accum_steps > 1"
-            )
-        gsum, lsum = None, None
-        for micro in tokens:
-            loss, grads = loss_and_grads(params, micro, cfg, device)
-            g32 = [g.float() for g in _leaves(grads)]
-            if gsum is None:
-                gsum, lsum = g32, loss
-            else:
-                torch._foreach_add_(gsum, g32)
-                lsum = lsum + loss
-        torch._foreach_div_(gsum, accum_steps)
-        if not master_weights:
-            gsum = [g.to(p.dtype) for g, p in zip(gsum, _leaves(params))]
-        return lsum / accum_steps, _like(params, gsum)
+            loss, grads = one(params, tokens)
+        else:
+            if tokens.dim() != 3 or tokens.shape[0] != accum_steps:
+                raise ValueError(
+                    f"tokens {tuple(tokens.shape)}: want [{accum_steps}, "
+                    "batch, seq+1] with accum_steps > 1"
+                )
+            gsum, lsum = None, None
+            for micro in tokens:
+                loss, grads = one(params, micro)
+                g32 = [g.float() for g in grads]
+                if gsum is None:
+                    gsum, lsum = g32, loss
+                else:
+                    torch._foreach_add_(gsum, g32)
+                    lsum = lsum + loss
+            torch._foreach_div_(gsum, accum_steps)
+            loss, grads = lsum / accum_steps, gsum
+        if view is not None:   # the global mean's loss and gradients
+            loss = loss.reshape(1)
+            all_reduce_([loss, *grads], (view.dp, view.sp))
+            loss = loss[0]
+        if accum_steps > 1 and not master_weights:
+            grads = [g.to(p.dtype) for g, p in zip(grads, _leaves(params))]
+        return loss, _like(params, grads)
 
     def train_step(params, opt_state, tokens):
         tokens = torch.as_tensor(tokens, device=device).long()
@@ -473,20 +643,32 @@ def make_train_step(
     def init_all(generator: torch.Generator):
         stored = cfg.dtype if master_weights else torch.float32
         params = init_params(cfg, generator, device, dtype=stored)
+        if mesh is not None:
+            params = shard_params(params, mesh, cfg)
         return params, optimizer.init(params)
 
     return train_step, init_all, optimizer
 
 
-def make_eval_fn(cfg: ModelConfig, device="cuda"):
+def make_eval_fn(cfg: ModelConfig, device="cuda", mesh=None):
     """(params, tokens [b, seq+1]) -> mean next-token NLL (f32 0-dim
-    tensor), with no MoE aux term and no graph."""
+    tensor), with no MoE aux term and no graph. With ``mesh``, as the
+    train step: every rank passes the global tokens and its param shards
+    and gets the global mean (the vocab-parallel NLL)."""
     device = as_device(device)
+    view = None if mesh is None else _mesh_view(mesh, cfg, device)
 
     @torch.no_grad()
     def eval_loss(params, tokens):
         tokens = torch.as_tensor(tokens, device=device).long()
-        logits, _ = forward_with_aux(params, tokens[:, :-1], cfg, device)
-        return _nll(logits, tokens[:, 1:])
+        if view is None:
+            logits, _ = forward_with_aux(params, tokens[:, :-1], cfg, device)
+            return _nll(logits, tokens[:, 1:])
+        inputs, targets, off, count = _local_chunk(tokens, view)
+        logits, _ = _forward(params, inputs, cfg, device, view, off)
+        loss = (vocab_parallel_nll_sum(logits, targets, view) / count)
+        loss = loss.reshape(1)
+        all_reduce_([loss], (view.dp, view.sp))
+        return loss[0]
 
     return eval_loss

@@ -252,12 +252,16 @@ def test_decode_int8_matches_the_jax_runner(monkeypatch):
     assert plain["int8"] is False and set(plain) == set(got)
 
 
-@pytest.mark.parametrize("argv,exc,match", [
-    ("--mode decode --params-dir /x", NotImplementedError, "export"),
+@pytest.mark.parametrize("hosts,exc,match", [
+    ("a,b", NotImplementedError, "item 4f"),
 ])
-def test_later_slices_raise(argv, exc, match):
+def test_later_slices_raise(hosts, exc, match, monkeypatch):
+    """What still waits for a later slice: the runner's multi-host join
+    (``--params-dir``, which raised here before the export slice, now
+    serves artifacts: tests/test_torch_export.py)."""
+    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", hosts)
     with pytest.raises(exc, match=match):
-        _port(f"{ARGS} {argv}")
+        _port(f"{ARGS} --steps 1")
 
 
 @pytest.mark.parametrize("argv", ["--dp 2", "--tp 2", "--sp 2", "--pp 2",

@@ -365,8 +365,15 @@ def test_init_all_and_schedule():
     live, mstate = init_m(torch.Generator().manual_seed(1))
     assert all(x.dtype == torch.bfloat16 for x in tt._leaves(live))
     assert set(mstate) == {"count", "mu", "nu", "masters"}
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tt.make_train_step(cfg, zero1=True, device="cpu")
+    # zero1 without a mesh is a no-op, as in JAX: the plain step's numbers
+    runs = []
+    for z in (False, True):
+        zstep, zinit, _ = tt.make_train_step(cfg, zero1=z, device="cpu")
+        zparams, zstate = zinit(torch.Generator().manual_seed(1))
+        runs.append(([float(zstep(zparams, zstate, tokens)[2])
+                      for _ in range(2)], tt._leaves(zparams)))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 def test_workloads_package_exports_the_training_slice():

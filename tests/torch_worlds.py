@@ -1,0 +1,219 @@
+"""Spawned torch.distributed worlds for the port's multi-device tests.
+
+The JAX side of a multi-device parity test runs in the test process on
+the 8 host devices ``conftest.py`` gives; the port runs SPMD, one process
+per rank, so its side runs here: ``run_world`` spawns ``world`` ranks
+joined in a gloo process group on a free local port, runs one ``legs``
+function (defined in this module, so that a spawned child imports it
+without JAX) in every rank, and returns each rank's result. Every child
+is joined against one deadline and killed after it: a hung world fails
+the test instead of waiting.
+
+Each leg function takes (rank, world, spec) and returns plain data
+(numpy arrays, floats, lists, dicts).
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+
+import numpy as np
+
+WORLD_TIMEOUT_S = 240.0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _child(fn, rank, world, port, out_dir, spec):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    path = os.path.join(out_dir, f"{rank}.pt")
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world, timeout=timedelta(seconds=WORLD_TIMEOUT_S),
+        )
+        try:
+            result = fn(rank, world, spec)
+        finally:
+            dist.destroy_process_group()
+        torch.save({"ok": result}, path)
+    except BaseException:  # noqa: BLE001 - reported to the test process
+        torch.save({"error": traceback.format_exc()}, path)
+        raise
+
+
+def run_world(fn, world: int, spec, timeout: float = WORLD_TIMEOUT_S):
+    """[fn(rank, world, spec) for every rank], each run in its own spawned
+    process of a gloo world. Raises with the child's traceback if a rank
+    failed, and kills every child still alive at the deadline."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="torch_world_") as out:
+        procs = [ctx.Process(target=_child,
+                             args=(fn, r, world, port, out, spec))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results, errors = [], []
+        for r in range(world):
+            path = os.path.join(out, f"{r}.pt")
+            got = torch.load(path, weights_only=False) if os.path.exists(
+                path) else {"error": f"rank {r} exited "
+                            f"{procs[r].exitcode} without a result"}
+            if "error" in got:
+                errors.append(f"rank {r}: {got['error']}")
+            results.append(got.get("ok"))
+    if hung:
+        raise TimeoutError(f"ranks {hung} still running after {timeout} s")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return results
+
+
+# -- legs ---------------------------------------------------------------------
+
+
+def _numpy_tree(tree):
+    from elastic_tpu_agent_torch.workloads.weights import params_to_jax
+
+    return params_to_jax(tree)
+
+
+def train_legs(rank, world, spec):
+    """Sharded train steps: for each leg, ``steps`` steps of the port's
+    mesh step from the bridged JAX tree; every rank returns its losses
+    and the gathered params (and EMA), so that the test sees that the
+    ranks agree."""
+    import torch
+
+    from elastic_tpu_agent_torch.workloads import parallel
+    from elastic_tpu_agent_torch.workloads import transformer as tt
+    from elastic_tpu_agent_torch.workloads.weights import params_from_jax
+
+    out = {}
+    for leg in spec["legs"]:
+        if leg.get("checks"):
+            out[leg["name"]] = mesh_checks(world)
+            continue
+        mesh = parallel.make_mesh(world, dp=leg["mesh"][0], sp=leg["mesh"][1],
+                                  tp=leg["mesh"][2], device_type="cpu")
+        cfg = tt.ModelConfig(**leg["cfg"], dtype=torch.float32)
+        full = params_from_jax(leg["tree"], cfg, device="cpu",
+                               dtype=torch.float32)
+        params = parallel.shard_params(full, mesh, cfg)
+        if leg.get("eval"):
+            ev = tt.make_eval_fn(cfg, device="cpu", mesh=mesh)
+            out[leg["name"]] = {"eval": float(ev(params, leg["tokens"]))}
+            continue
+        step, _, opt = tt.make_train_step(
+            cfg, learning_rate=spec["lr"], device="cpu", mesh=mesh,
+            **leg.get("opts", {}))
+        state = opt.init(params)
+        shapes = {k: {} for k in state if k != "count"}
+        for k in shapes:
+            tt._tree_map(lambda path, x, k=k: shapes[k].__setitem__(
+                "/".join(map(str, path)), tuple(x.shape)), state[k])
+        losses = [float(step(params, state, leg["tokens"])[2])
+                  for _ in range(spec["steps"])]
+        res = {"losses": losses, "state_shapes": shapes,
+               "params": _numpy_tree(parallel.gather_params(params, mesh,
+                                                            cfg))}
+        if "ema" in state:
+            res["ema"] = _numpy_tree(parallel.gather_params(
+                zero1_gather(state["ema"], params, opt), mesh, cfg))
+        out[leg["name"]] = res
+    return out
+
+
+def mesh_checks(world):
+    """make_mesh's names and default shape, and the messages of its
+    refusals."""
+    from elastic_tpu_agent_torch.workloads import parallel
+
+    mesh = parallel.make_mesh(device_type="cpu")
+    out = {"dims": list(mesh.mesh_dim_names), "shape": list(mesh.shape)}
+    for key, kw in (("cuda_on_gloo", {}), ("wrong_n", {"n_devices": 2})):
+        try:
+            parallel.make_mesh(device_type="cuda" if not kw else "cpu", **kw)
+            out[key] = "no error"
+        except ValueError as e:
+            out[key] = str(e)
+    return out
+
+
+def zero1_gather(tree, params, opt):
+    """A ZeRO-1 state tree (sliced over dp) put back whole, like the
+    params it follows."""
+    from elastic_tpu_agent_torch.workloads import transformer as tt
+
+    if opt.zero1 is None:
+        return tree
+    axes = opt.zero1.axes(params)
+    fulls = [p.detach().clone().float() for p in tt._leaves(params)]
+    opt.zero1.gather_(fulls, tt._leaves(tree), axes)
+    return tt._like(params, fulls)
+
+
+def ring_legs(rank, world, spec):
+    """Ring attention over the sp group of a (1, world, 1) mesh: each rank
+    runs its chunk of every leg's q/k/v and returns its output chunk and
+    its chunks' gradients of sum(o * w); and the dispatch of
+    ``_attention_core`` under "auto"."""
+    import torch
+
+    from elastic_tpu_agent_torch.workloads import parallel
+    from elastic_tpu_agent_torch.workloads import ring_attention as ra
+    from elastic_tpu_agent_torch.workloads import transformer as tt
+
+    mesh = parallel.make_mesh(world, dp=1, sp=world, tp=1, device_type="cpu")
+
+    def chunk(a):
+        s = a.shape[1] // world
+        return torch.from_numpy(np.ascontiguousarray(
+            a[:, rank * s:(rank + 1) * s]))
+
+    out = {}
+    for leg in spec["legs"]:
+        q, k, v, w = (chunk(leg[x]).requires_grad_(x != "w")
+                      for x in ("q", "k", "v", "w"))
+        o = ra.ring_attention_sharded(q, k, v, mesh, causal=leg["causal"])
+        grads = torch.autograd.grad((o * w).sum(), (q, k, v))
+        out[leg["name"]] = [o.detach().numpy()] + [g.numpy() for g in grads]
+    # "auto" under sp > 1 runs the ring
+    calls = []
+    ring = tt.ring_attention
+    tt.ring_attention = lambda *a, **kw: calls.append(1) or ring(*a, **kw)
+    try:
+        leg = spec["legs"][0]
+        cfg = tt.ModelConfig(vocab=8, d_model=16, n_heads=1, n_layers=1,
+                             d_ff=8, dtype=torch.float32)
+        q, k, v = (chunk(leg[x]) for x in ("q", "k", "v"))
+        auto = tt._attention_core(q, k, v, cfg, parallel.local_view(mesh))
+    finally:
+        tt.ring_attention = ring
+    out["auto"] = {"calls": len(calls), "o": auto.numpy()}
+    return out
