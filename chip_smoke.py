@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, runtime,
-shared-prefix serving, decode-variant, serving-artifact and sharded
-training slices on one NVIDIA GPU.
+shared-prefix serving, decode-variant, serving-artifact, sharded
+training, expert-parallel, pipeline and sharded-decode slices on one
+NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -131,14 +132,36 @@ shows; it then exits 1 before the summary lines. Phases:
    ring run on the kernels' plain versions on the CPU, 4 launches of each
    kernel a ring, and the ring's forward and forward + backward device
    times beside one flash call over the whole 4096 and SDPA;
-18. summary: the device time of the whole bf16 backward (delta, dK/dV
-   and dQ) against SDPA's whole backward, each phase's host seconds, a
+18. the summary, printed after phases 19-21: the device time of the
+   whole bf16 backward (delta, dK/dV and dQ) against SDPA's whole
+   backward, each phase's host seconds, a
    ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
-   summed over the paths it lies on: forward, LoRA, the sharded step and
-   the ring for flash_fwd, train, LoRA, the sharded step and the ring for
-   the backward pair, serving and the speculative fallback for
-   paged_decode), the card's name and power limit as nvidia-smi reports
-   them, and the result line.
+   summed over the paths it lies on: forward, LoRA, the sharded step, the
+   ring, the MoE mesh step and both pipeline schedules for flash_fwd;
+   train, LoRA, the sharded step, the ring, the MoE mesh step and both
+   pipeline schedules for the backward pair; serving and the speculative
+   fallback for paged_decode), the card's name and power limit as
+   nvidia-smi reports them, and the result line;
+19. MoE over a one-rank NCCL mesh: phase 7's MoE preset, weights and
+   tokens through ``make_train_step(mesh=make_mesh(1))`` for 20 steps;
+   the losses, the step-0 aux loss and drop rate equal phase 7's
+   (MOE_MESH_TOL), 8 launches a step of each flash kernel, step p50
+   beside phase 7's (cross-card ep needs more cards);
+20. the pipelined flagship: the small preset on a ``StackedPipe`` at pp
+   4, 4 microbatches of 2 (phase 5's tokens), bf16 compute on f32 params
+   restacked from phase 5's weights; GPipe and 1F1B, 20 steps each: the
+   step-0 losses equal phase 5's (PIPE_STEP0_TOL) and 1F1B's losses
+   GPipe's (PIPE_SCHEDULE_TOL), launches over exactly each run (GPipe 640
+   of each kernel; 1F1B 1120 flash_fwd: the recompute, and a graph-free
+   forward on every stage but the last, and 640 of each backward kernel),
+   step p50 and peak allocation (1F1B's no larger than GPipe's); a
+   float32 two-layer copy at pp 2 whose 1F1B gradients, through
+   ``pipeline_loss_and_grads``, equal the unpipelined reference-attention
+   gradients (TRAIN_GRAD_F32_TOL);
+21. sharded decode over a one-rank NCCL mesh: the small preset with rope
+   and 2 kv heads, ``generate(..., mesh=make_mesh(1))``, batch 8, a
+   32-token prompt, 128 new tokens; greedy streams equal ``generate()``'s
+   in bf16, on a float32 copy and on int8 weights; tokens/s of both.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -153,6 +176,7 @@ the JAX package is imported.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -359,16 +383,18 @@ def check_flash(torch, A, dev):
         ("bf16 causal", torch.bfloat16, A.FlashConfig()),
         ("bf16 window 96", torch.bfloat16, A.FlashConfig(window=96)),
         ("bf16 fused-view", torch.bfloat16, A.FlashConfig()),
+        ("bf16 causal batch 2", torch.bfloat16, A.FlashConfig()),
         ("f32 causal", torch.float32, A.FlashConfig()),
         ("f32 non-causal", torch.float32, A.FlashConfig(causal=False)),
     ]
     err_max = 0.0
     for label, dtype, fc in cases:
+        bc = 2 if "batch 2" in label else b   # a pipeline microbatch
         if "fused" in label:   # views of one [b, s, 3, n, h] projection
-            qkv = randn(torch, rng, (b, s, 3, n, h), dtype, dev)
+            qkv = randn(torch, rng, (bc, s, 3, n, h), dtype, dev)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
-            q, k, v = (randn(torch, rng, (b, s, n, h), dtype, dev)
+            q, k, v = (randn(torch, rng, (bc, s, n, h), dtype, dev)
                        for _ in range(3))
         o, lse = A.flash_attention_with_lse(q, k, v, fc)
         o_ref, lse_ref = A.flash_attention_plain(q, k, v, fc)
@@ -376,7 +402,7 @@ def check_flash(torch, A, dev):
         e_o = (o.float() - o_ref.float()).abs().max().item()
         e_l = (lse - lse_ref).abs().max().item()
         name = str(dtype).split(".")[-1]
-        print(f"flash_fwd {label} [{b},{s},{n},{h}]: max|o| err {e_o:.3g}, "
+        print(f"flash_fwd {label} [{bc},{s},{n},{h}]: max|o| err {e_o:.3g}, "
               f"max|lse| err {e_l:.3g}")
         if not (e_o <= FLASH_TOL[name] and e_l <= LSE_TOL):
             fail(f"flash_fwd {label}: o err {e_o}, lse err {e_l}")
@@ -459,6 +485,8 @@ def check_flash_bwd(torch, A, dev):
          A.FlashConfig(window=64), True),
         ("bf16 s17", torch.bfloat16, (b, 17, n, n, h), fc, False),
         ("bf16 batch 1", torch.bfloat16, (1, s, n, n, h), fc, False),
+        # a pipeline stage's microbatch (phase 20)
+        ("bf16 batch 2", torch.bfloat16, (2, s, n, n, h), fc, False),
         ("f32 causal", torch.float32, (b, s, n, n, h), fc, False),
         ("f32 non-causal GQA h128 s200", torch.float32, (2, 200, n, 2, 128),
          A.FlashConfig(causal=False), True),
@@ -1184,8 +1212,8 @@ class RouteLog:
     def __enter__(self):
         self.real = real = self.M.route
 
-        def logged(xt, wg, factor):
-            res = real(xt, wg, factor)
+        def logged(xt, wg, factor, **mesh):
+            res = real(xt, wg, factor, **mesh)
             self.calls.append(dict(xt=xt.detach(), wg=wg.detach(),
                                    factor=factor, expert=res[1], kept=res[3]))
             return res
@@ -1209,6 +1237,13 @@ def routing_stats(M, log: "RouteLog", aux=None) -> dict:
     out = st.stats()
     out["aux_loss"] = aux
     return out
+
+
+def _moe_batch(torch, cfg, dev):
+    """(the generator after the draw, phase 7's train tokens [8, 257])."""
+    rng = np.random.default_rng(SEED + 12)
+    return rng, torch.tensor(rng.integers(0, cfg.vocab, size=(8, 257)),
+                             device=dev)
 
 
 def run_moe(torch, W, A, PA, M, tree, dev):
@@ -1269,9 +1304,7 @@ def run_moe(torch, W, A, PA, M, tree, dev):
                           routes_differing=flips)
 
     # 20 train steps at [8, 256]
-    rng = np.random.default_rng(SEED + 12)
-    batch = torch.tensor(rng.integers(0, cfg.vocab, size=(8, 257)),
-                         device=dev)
+    rng, batch = _moe_batch(torch, cfg, dev)
     for kern in kerns:
         kern.launches = 0
     losses, times, _, _ = _train(torch, W, cfg, tree, dev, batch,
@@ -1305,7 +1338,8 @@ def run_moe(torch, W, A, PA, M, tree, dev):
     print("moe reference losses " + " ".join(f"{x:.4f}" for x in ref_losses))
     if not gap <= MOE_TRAIN_BF16_TOL:
         fail(f"moe bf16 train losses vs reference attention: {gap}")
-    out["train"] = dict(steps=TRAIN_STEPS, loss_first=losses[0],
+    out["train"] = dict(steps=TRAIN_STEPS, losses=losses,
+                        loss_first=losses[0],
                         loss_last=losses[-1], step_ms_p50=p50,
                         tokens_per_s=8 * 256 / p50 * 1e3,
                         reference_step_ms_p50=float(
@@ -2613,6 +2647,296 @@ def ring_times(torch, A, RA, q, k, v, do) -> dict:
     return rec
 
 
+# phase 19: the MoE step over a one-rank mesh against phase 7's: none at
+# all, as phase 16's dense step (MESH_TOL). Routing is one code path with
+# or without a mesh; at one rank its id gathers return their input without
+# a collective, and the aux loss's and experts' reduces run over groups of
+# one rank and return their input, so the step computes phase 7's
+# products on its shapes.
+MOE_MESH_TOL = 0.0
+PIPE_PP = 4
+PIPE_MICRO = 4                  # microbatches of 2: phase 5's batch of 8
+# phase 20: each schedule's step-0 loss against phase 5's: none at all.
+# The stages run phase 5's kernels and products on its weights and tokens,
+# a microbatch's rows at a time, and both read 0 on the H100. At random
+# init every variant's loss sits near ln(vocab), so a skipped stage or a
+# head on the wrong microbatch could stay inside phase 5's
+# kernel-vs-reference bound.
+PIPE_STEP0_TOL = 0.0
+# 1F1B's 20 losses against GPipe's: the same products, in another order
+# for the embedding's scatter-add and the gradients' sums; read 4.77e-7
+# at most on the H100
+PIPE_SCHEDULE_TOL = 1e-4
+DECODE_PROMPT = 32
+DECODE_NEW = 128
+DECODE_BATCH = 8
+
+
+@contextlib.contextmanager
+def one_rank_world(tmp, name):
+    """A one-rank NCCL process group (a file store in ``tmp``), destroyed
+    on the way out."""
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, name)}", rank=0,
+        world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def run_moe_mesh(torch, W, A, M, P, TR, tree, moe, dev, tmp) -> dict:
+    """Phase 19: the MoE train step over a one-rank NCCL mesh
+    (``make_mesh(1)``) at phase 7's weights and tokens for 20 steps: the
+    losses, the step-0 aux loss and drop rate must equal phase 7's; 8
+    launches a step of each flash kernel."""
+    cfg = W.ModelConfig(**SMALL, max_seq=1024, dtype=torch.bfloat16,
+                        moe_experts=MOE_EXPERTS)
+    _, batch = _moe_batch(torch, cfg, dev)
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    with one_rank_world(tmp, "moe_mesh_store"):
+        mesh = P.make_mesh(1)
+        step, _, opt = W.make_train_step(cfg, learning_rate=1e-3,
+                                         device=dev, mesh=mesh)
+        params = P.shard_params(W.params_from_jax(
+            tree, cfg, device=dev, dtype=torch.float32), mesh, cfg)
+        view = P.local_view(mesh)
+        with torch.no_grad(), RouteLog(M) as log0:
+            aux0 = TR._forward(params, batch[:, :-1], cfg, dev, view,
+                               0)[1].item()
+        stats0 = routing_stats(M, log0, aux0)
+        state = opt.init(params)
+        for kern in kerns:
+            kern.launches = 0
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(params, state, batch)[2].item())
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        launches = {k.symbol: k.launches for k in kerns}
+        mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    want = moe["train"]
+    gap = float(np.max(np.abs(np.asarray(losses)
+                              - np.asarray(want["losses"]))))
+    aux_gap = abs(aux0 - want["routing_step0"]["aux_loss"])
+    drops = (stats0["drop_rate"], want["routing_step0"]["drop_rate"])
+    p50 = float(np.median(times) * 1e3)
+    print(f"moe mesh world 1 {mesh_shape}, small preset E{MOE_EXPERTS} "
+          f"[8,256] bf16, {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, max|loss - phase 7| {gap:.4g}, step-0 aux "
+          f"{aux0:.6f} (phase 7 {want['routing_step0']['aux_loss']:.6f}), "
+          f"drop rate {drops[0]} (phase 7 {drops[1]}), step p50 {p50:.2f} ms "
+          f"(phase 7 {want['step_ms_p50']:.2f}), launches {launches}; NCCL "
+          "puts one rank on a card, so experts split over ep across cards "
+          "wait for more cards")
+    if not (gap <= MOE_MESH_TOL and aux_gap <= MOE_MESH_TOL
+            and drops[0] == drops[1]):
+        fail(f"moe mesh vs phase 7: losses {gap}, aux {aux_gap}, drop "
+             f"rates {drops}")
+    want_n = cfg.n_layers * TRAIN_STEPS
+    if any(n != want_n for n in launches.values()):
+        fail(f"moe mesh launches {launches}, want {want_n} each")
+    return dict(mesh=mesh_shape, losses=losses, loss_first=losses[0],
+                loss_last=losses[-1], max_abs_loss_gap_vs_phase7=gap,
+                aux_step0=aux0, routing_step0=stats0, step_ms_p50=p50,
+                phase7_step_ms_p50=want["step_ms_p50"], launches=launches)
+
+
+def run_pipeline(torch, W, A, PL, TP, WT, cfg, tree, trained, train,
+                 dev) -> dict:
+    """Phase 20: the pipelined flagship on a ``StackedPipe`` at pp 4, 4
+    microbatches of 2 (phase 5's tokens), bf16 compute on f32 params
+    restacked from phase 5's weights: GPipe and 1F1B, 20 steps each, with
+    each run's launches, step times and peak allocation; then a float32
+    two-layer copy at pp 2 whose 1F1B gradients must equal the unpipelined
+    reference-attention gradients."""
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    pipe = PL.StackedPipe(PIPE_PP)
+    stacked = WT.restack_for_pipeline(tree, cfg, PIPE_PP)
+    tokens = trained["tokens"].view(PIPE_MICRO, -1, trained[
+        "tokens"].shape[-1])
+    out = {"pp": PIPE_PP, "micro": PIPE_MICRO, "mb": tokens.shape[1]}
+    per_mb = cfg.n_layers * PIPE_MICRO * TRAIN_STEPS
+    want_launches = {
+        "gpipe": dict.fromkeys((k.symbol for k in kerns), per_mb),
+        "1f1b": {kerns[0].symbol: 2 * per_mb - per_mb // PIPE_PP,
+                 kerns[1].symbol: per_mb, kerns[2].symbol: per_mb},
+    }
+    for schedule in ("gpipe", "1f1b"):
+        params = WT.pipeline_params_from_jax(stacked, cfg, PIPE_PP,
+                                             device=dev)
+        step, _ = TP.make_pipeline_transformer_step(
+            cfg, pipe, n_micro=PIPE_MICRO, schedule=schedule, device=dev)
+        state = W.AdamW(1e-3).init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kerns:
+            kern.launches = 0
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(params, state, tokens)[2].item())
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        launches = {k.symbol: k.launches for k in kerns}
+        peak = torch.cuda.max_memory_allocated()
+        del params, state
+        # the schedule's own live set: one loss-and-gradients pass from
+        # fresh params, its peak above them (no optimizer state)
+        params = WT.pipeline_params_from_jax(stacked, cfg, PIPE_PP,
+                                             device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        TP.pipeline_loss_and_grads(pipe, cfg, params, tokens, schedule)
+        torch.cuda.synchronize()
+        pass_peak = torch.cuda.max_memory_allocated() - base
+        del params
+        p50 = float(np.median(times) * 1e3)
+        gap0 = abs(losses[0] - trained["losses"][0])
+        print(f"pipeline {schedule} pp {PIPE_PP}, {PIPE_MICRO} x "
+              f"[{tokens.shape[1]},256] bf16, {TRAIN_STEPS} steps: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, |step-0 loss - phase 5| "
+              f"{gap0:.4g}, step p50 {p50:.2f} ms (phase 5 "
+              f"{train['step_ms_p50']:.2f}), peak allocation "
+              f"{peak / 2**20:.1f} MiB (one loss-and-gradients pass: "
+              f"{pass_peak / 2**20:.1f} MiB above the params), launches "
+              f"{launches}")
+        print(f"pipeline {schedule} losses "
+              + " ".join(f"{x:.4f}" for x in losses))
+        if launches != want_launches[schedule]:
+            fail(f"pipeline {schedule} launches {launches}, want "
+                 f"{want_launches[schedule]}")
+        if not gap0 <= PIPE_STEP0_TOL:
+            fail(f"pipeline {schedule} step-0 loss vs phase 5: {gap0}")
+        if not all(np.isfinite(losses)) or not losses[-1] < 0.9 * losses[0]:
+            fail(f"pipeline {schedule} losses {losses[0]} -> {losses[-1]}")
+        out[schedule] = dict(losses=losses, loss_first=losses[0],
+                             loss_last=losses[-1],
+                             step0_gap_vs_phase5=gap0, step_ms_p50=p50,
+                             peak_allocated_bytes=peak,
+                             grad_pass_peak_above_params_bytes=pass_peak,
+                             launches=launches)
+    gap = float(np.max(np.abs(np.asarray(out["1f1b"]["losses"])
+                              - np.asarray(out["gpipe"]["losses"]))))
+    peaks = (out["1f1b"]["peak_allocated_bytes"],
+             out["gpipe"]["peak_allocated_bytes"])
+    print(f"pipeline 1f1b vs gpipe: max|loss gap| {gap:.4g}, peak "
+          f"allocation {peaks[0] / 2**20:.1f} vs {peaks[1] / 2**20:.1f} MiB")
+    if not gap <= PIPE_SCHEDULE_TOL:
+        fail(f"pipeline 1f1b losses vs gpipe: {gap}")
+    if not peaks[0] <= peaks[1]:
+        fail(f"pipeline 1f1b peak allocation {peaks[0]} > gpipe's "
+             f"{peaks[1]}")
+    out["max_abs_loss_gap_1f1b_vs_gpipe"] = gap
+
+    # float32 two-layer copy at pp 2: 1F1B's gradients against the
+    # unpipelined reference-attention ones
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    tree32 = dict(tree, layers=tree["layers"][:2])
+    rng = np.random.default_rng(SEED + 20)
+    tok32 = torch.tensor(rng.integers(0, cfg.vocab, size=(4, 201)),
+                         device=dev)
+    flat = W.params_from_jax(tree32, cfg32, device=dev, dtype=torch.float32)
+    ref_loss, g_ref = W.loss_and_grads(
+        flat, tok32, dataclasses.replace(cfg32, attn="reference"), dev)
+    g_ref = WT.restack_for_pipeline(g_ref, cfg32, 2)
+    p2 = WT.pipeline_params_from_jax(WT.restack_for_pipeline(tree32, cfg32,
+                                                             2),
+                                     cfg32, 2, device=dev)
+    loss, got = TP.pipeline_loss_and_grads(
+        PL.StackedPipe(2), cfg32, p2, tok32.view(2, 2, -1), "1f1b")
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(_flat({k: got[k] for k in g_ref}),
+                                   _flat(g_ref)))
+    loss_gap = abs(loss.item() - ref_loss.item())
+    print(f"pipeline f32 2-layer pp 2, 2 x [2,200], 1f1b: |loss - "
+          f"reference| {loss_gap:.3g}, max leaf gradient error vs the "
+          f"unpipelined reference path {grad_err:.3g} (relative to the "
+          "leaf's largest)")
+    if not (grad_err <= TRAIN_GRAD_F32_TOL
+            and loss_gap <= TRAIN_GRAD_F32_TOL * ref_loss.item()):
+        fail(f"pipeline f32 1f1b vs reference: gradients {grad_err}, loss "
+             f"{loss_gap}")
+    out["f32"] = dict(grad_rel_err=grad_err, loss_gap=loss_gap)
+    out["launches"] = {k.symbol: out["gpipe"]["launches"][k.symbol]
+                       + out["1f1b"]["launches"][k.symbol] for k in kerns}
+    return out
+
+
+def run_sharded_decode(torch, W, P, Q, G, cfg, dev, tmp) -> dict:
+    """Phase 21: ``generate(..., mesh=make_mesh(1))`` at the small preset
+    with rope and GQA (2 kv heads): batch 8, a 32-token prompt, 128 new
+    tokens; greedy streams equal ``generate()``'s on the same params, in
+    bf16, on a float32 copy and on int8 weights; tokens/s of both."""
+    c16 = dataclasses.replace(cfg, pos="rope", n_kv_heads=2)
+    tree = W.random_tree(c16, SEED)
+    c32 = dataclasses.replace(c16, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 21)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, size=(
+        DECODE_BATCH, DECODE_PROMPT)), device=dev)
+    runs = (
+        ("bf16", c16, lambda: W.params_from_jax(tree, c16, device=dev)),
+        ("f32", c32, lambda: W.params_from_jax(tree, c32, device=dev)),
+        ("int8", c16, lambda: Q.quantize_params(W.params_from_jax(
+            tree, c16, device=dev, dtype=torch.float32))),
+    )
+    out = {}
+
+    def rate(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = fn()
+        torch.cuda.synchronize()
+        return toks, DECODE_BATCH * DECODE_NEW / (time.perf_counter() - t0)
+
+    with one_rank_world(tmp, "decode_store"):
+        mesh = P.make_mesh(1)
+        for label, c, load in runs:
+            params = load()
+            local = P.shard_params(params, mesh, c,
+                                   G.decode_shardings(mesh, c, params)[0])
+            want, plain = rate(lambda: W.generate(params, prompt, c,
+                                                  DECODE_NEW, device=dev))
+            got, sharded = rate(lambda: W.generate(
+                local, prompt, c, DECODE_NEW, device=dev, mesh=mesh))
+            same = bool(torch.equal(got, want))
+            print(f"sharded decode {label} world 1, small preset rope GQA "
+                  f"g2 [{DECODE_BATCH}, {DECODE_PROMPT} + {DECODE_NEW}] "
+                  f"greedy: equal to generate(): {same}; {sharded:.1f} "
+                  f"tokens/s (generate() {plain:.1f})")
+            if not same or tuple(got.shape) != (
+                    DECODE_BATCH, DECODE_PROMPT + DECODE_NEW):
+                fail(f"sharded decode {label}: stream differs from "
+                     "generate()'s")
+            out[label] = dict(streams_equal=same, tokens_per_s=sharded,
+                              generate_tokens_per_s=plain)
+            del params, local
+        # what a decode step adds: 2 reduce_from a layer (after wo and w2),
+        # each a one-rank all-reduce of the rows' activations
+        view = P.local_view(mesh)
+        x = torch.zeros((DECODE_BATCH, 1, cfg.d_model), dtype=cfg.dtype,
+                        device=dev)
+        ts = []
+        for _ in range(25):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            P.reduce_from(x, view.tp)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out["reduce_from_host_ms"] = float(np.median(ts[5:]))
+        out["reduce_from_a_step"] = 2 * cfg.n_layers
+    print(f"sharded decode: one reduce_from of [{DECODE_BATCH},1,"
+          f"{cfg.d_model}] {out['reduce_from_host_ms']:.4g} ms of host time "
+          f"(synchronized, median of 20), {out['reduce_from_a_step']} a "
+          "decode step")
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -2718,6 +3042,13 @@ def main() -> int:
     from elastic_tpu_agent_torch.workloads import runner as R
     from elastic_tpu_agent_torch.workloads import streaming as S
     from elastic_tpu_agent_torch.workloads import telemetry as T
+    from elastic_tpu_agent_torch.workloads import transformer as TR
+    from elastic_tpu_agent_torch.workloads import pipeline as PL
+    from elastic_tpu_agent_torch.workloads import transformer_pipeline as TP
+    from elastic_tpu_agent_torch.workloads import weights as WT
+    import importlib     # the package's generate() shadows the module
+
+    G = importlib.import_module("elastic_tpu_agent_torch.workloads.generate")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2772,18 +3103,26 @@ def main() -> int:
         mesh = timed("mesh", run_mesh, torch, W, A, P, cfg, tree, trained,
                      dev, tmp)
     ring = timed("ring", run_ring, torch, A, RA, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_mesh_") as tmp:
+        moe_mesh = timed("moe_mesh", run_moe_mesh, torch, W, A, M, P, TR,
+                         W.random_tree(moe_cfg, SEED), moe, dev, tmp)
+    pipeline = timed("pipeline", run_pipeline, torch, W, A, PL, TP, WT, cfg,
+                     tree, trained, train, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decode_") as tmp:
+        decode = timed("sharded_decode", run_sharded_decode, torch, W, P, Q,
+                       G, cfg, dev, tmp)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
-    # the ring, serving + the spec engine's fallback steps, train + LoRA +
-    # the sharded step + the ring
-    flash["launches"] += (lora_launches["flash_fwd"]
-                          + mesh["launches"]["flash_fwd"]
-                          + ring["launches"]["flash_fwd"])
+    # the ring + the MoE mesh step + both pipeline schedules, serving + the
+    # spec engine's fallback steps, train + LoRA + the sharded step + the
+    # ring + the MoE mesh step + both pipeline schedules
+    extra = (lora_launches, mesh["launches"], ring["launches"],
+             moe_mesh["launches"], pipeline["launches"])
+    flash["launches"] += sum(x["flash_fwd"] for x in extra)
     paged["launches"] += spec_launches
     for rec in (dkdv, dq):
         k = rec["name"]
-        rec["launches"] = (launches[k] + lora_launches[k]
-                           + mesh["launches"][k] + ring["launches"][k])
+        rec["launches"] = launches[k] + sum(x[k] for x in extra)
     for rec in (flash, dkdv, dq):   # the ring's call patterns too
         rec["ring"] = dict(launches=ring["launches"][rec["name"]],
                            max_abs_err=ring["kernel_errs"][rec["name"]])
@@ -2807,7 +3146,9 @@ def main() -> int:
               "runtime": runtime, "drain": drain, "int8": int8, "moe": moe,
               "prefix": prefix, "speculative": spec, "beam": beam,
               "streaming": stream, "lora": lora, "export": export,
-              "mesh": mesh, "ring": ring, "kernels": kernel_recs,
+              "mesh": mesh, "ring": ring, "moe_mesh": moe_mesh,
+              "pipeline": pipeline, "sharded_decode": decode,
+              "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -2831,7 +3172,9 @@ def main() -> int:
                                 "prefix": prefix, "speculative": spec,
                                 "beam": beam, "streaming": stream,
                                 "lora": lora, "export": export,
-                                "mesh": mesh, "ring": ring}}))
+                                "mesh": mesh, "ring": ring,
+                                "moe_mesh": moe_mesh, "pipeline": pipeline,
+                                "sharded_decode": decode}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

@@ -11,9 +11,13 @@ mid-stream handoff, and the request observatory (``request_obs.py``); the
 decode variants: speculative decoding, solo (``speculative.py``) and in
 the serving engine, beam search (``beam.py``), streaming ring-cache decode
 (``streaming.py``) and LoRA adapters (``lora.py``); serving artifacts
-(``export.py``), the dp/sp/tp mesh with its split specs, collectives and
-ZeRO-1 (``parallel.py``; ``make_train_step``/``make_eval_fn(mesh=)``)
-and ring attention over sp (``ring_attention.py``)."""
+(``export.py``), the dp/sp/tp/ep mesh with its split specs, collectives
+and ZeRO-1 (``parallel.py``; ``make_train_step``/``make_eval_fn(mesh=)``,
+MoE experts over ep with global routing in ``moe.py``), ring attention
+over sp (``ring_attention.py``), the GPipe pipeline over pp
+(``pipeline.py``), the pipelined flagship with GPipe and 1F1B
+(``transformer_pipeline.py``) and sharded decode
+(``generate(mesh=)``, ``decode_shardings``)."""
 
 from .beam import beam_search
 from .checkpointing import (
@@ -25,7 +29,7 @@ from .checkpointing import (
 )
 from .data import TokenDataset, encode_bytes, encode_file, write_token_file
 from .export import export_checkpoint, load_artifact, save_artifact
-from .generate import KVCache, generate
+from .generate import KVCache, decode_shardings, generate
 from .lora import init_lora_params, make_lora_train_step, merge_lora
 from .moe import MoeRoutingStats, init_moe_params, moe_mlp
 from .quantize import dequantize_params, quantize_params
@@ -38,6 +42,13 @@ from .lifecycle import (
     write_checkpoint_ack,
 )
 from .parallel import gather_params, make_mesh, param_shardings, shard_params
+from .pipeline import (
+    ProcessGroupPipe,
+    StackedPipe,
+    make_pipeline_mesh,
+    make_pipeline_train_step,
+    pipeline_apply,
+)
 from .prefix_cache import PrefixCache, chain_hashes
 # not the ``ring_attention`` function: it would shadow the module
 from .ring_attention import ring_attention_sharded, ring_attention_stacked
@@ -62,11 +73,20 @@ from .transformer import (
     make_eval_fn,
     make_train_step,
 )
+from .transformer_pipeline import (
+    init_pipeline_params,
+    make_pipeline_transformer_step,
+    pipeline_1f1b_grads,
+)
 from .weights import (
     lora_from_jax,
     params_from_jax,
     params_to_jax,
+    pipeline_params_from_jax,
     random_tree,
+    restack_for_pipeline,
+    stage_params_from_jax,
+    unstack_pipeline,
 )
 
 __all__ = [
@@ -78,11 +98,13 @@ __all__ = [
     "ModelConfig",
     "MoeRoutingStats",
     "PrefixCache",
+    "ProcessGroupPipe",
     "RequestObservatory",
     "ServingEngine",
     "SharedKVPool",
     "Signal",
     "SpecStats",
+    "StackedPipe",
     "TokenDataset",
     "TrainCheckpointer",
     "beam_search",
@@ -90,6 +112,7 @@ __all__ = [
     "chain_block_digests",
     "chain_hashes",
     "checkpoint_digest",
+    "decode_shardings",
     "dequantize_params",
     "device_memory_stats",
     "disaggregated_status",
@@ -105,28 +128,38 @@ __all__ = [
     "init_lora_params",
     "init_moe_params",
     "init_params",
+    "init_pipeline_params",
     "load_artifact",
     "lora_from_jax",
     "loss_and_grads",
     "make_eval_fn",
     "make_lora_train_step",
     "make_mesh",
+    "make_pipeline_mesh",
+    "make_pipeline_train_step",
+    "make_pipeline_transformer_step",
     "make_train_step",
     "merge_lora",
     "moe_mlp",
     "param_shardings",
     "params_from_jax",
     "params_to_jax",
+    "pipeline_1f1b_grads",
+    "pipeline_apply",
+    "pipeline_params_from_jax",
     "quantize_params",
     "random_tree",
     "read_checkpoint_ack",
+    "restack_for_pipeline",
     "ring_attention_sharded",
     "ring_attention_stacked",
     "save_artifact",
     "shard_params",
     "speculative_generate",
+    "stage_params_from_jax",
     "streaming_generate",
     "tree_to_bytes",
+    "unstack_pipeline",
     "write_checkpoint_ack",
     "write_flight_summary",
     "write_token_file",

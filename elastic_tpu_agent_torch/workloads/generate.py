@@ -12,7 +12,19 @@ in the JAX package (no Pallas kernel there either). MoE layers take the
 JAX capacity policy: a prefill chunk routes with the training capacity
 factor, drops included; a decode step is drop-free. The chunk forward's
 ``ring=`` mode writes one token into a ring-buffer cache for streaming
-decode (``streaming.py``). Mesh decode comes with the multi-GPU slice.
+decode (``streaming.py``).
+
+``generate(..., mesh=)`` is JAX's sharded decode, run SPMD
+(``parallel.py``'s process model): with ``decode_shardings``' split specs
+each rank holds its tp heads (and FF hidden, vocabulary) of the params and
+decodes its dp rows of the batch into a cache of its kv heads
+``[L, b/dp, max_len, g/tp, h]``. ``copy_to``/``reduce_from`` sit around
+the projections as in the train step's forward; the vocab-split logits
+are all-gathered over tp before sampling (greedy ties break on the global
+first index), and the dp rows are all-gathered at the end, so every rank
+returns the whole ``[b, p + new]``. A sampled decode draws the uniforms of
+the whole batch from the one generator and takes its rows, so its stream
+is the single-device one.
 """
 
 from __future__ import annotations
@@ -25,7 +37,18 @@ import torch
 
 from .attention import NEG_INF
 from .moe import moe_mlp
-from .quantize import embed_lookup, wdense
+from .parallel import (
+    LocalView,
+    _gather_axis,
+    _spec_at,
+    axis_size,
+    copy_to,
+    full_param_shardings,
+    local_view,
+    reduce_from,
+    scale_spec,
+)
+from .quantize import _tree_map, embed_lookup, is_quantized, wdense
 from .transformer import (
     ModelConfig,
     _check_device,
@@ -88,7 +111,7 @@ def _cached_attention(
     unwritten slots carry a sentinel past any query, which the causal
     compare masks out. None: slot j holds position j."""
     b, t, n, h = q.shape
-    g = cfg.kv_heads
+    g = cache_k.shape[2]          # kv heads (this rank's under a mesh)
     r = n // g
     q5 = q.reshape(b, t, g, r, h)
     scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -144,9 +167,14 @@ def _forward_chunk(
     moe_drop_free: bool = False,
     positions: Optional[torch.Tensor] = None,
     ring: Optional[Tuple[int, torch.Tensor]] = None,
+    view: Optional[LocalView] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run a token chunk [b, t] at positions cache.length..+t; returns
     (logits [b, t, vocab] f32, the cache, written in place).
+
+    view: this rank's place in a decode mesh (``generate(mesh=)``): the
+    chunk is its dp rows, params and cache its tp shards, and the logits
+    are gathered over tp to the whole vocabulary.
 
     moe_drop_free selects the MoE capacity policy (a one-token chunk is
     not necessarily a decode step: a batch of one-token prompts is still
@@ -184,6 +212,8 @@ def _forward_chunk(
 
     for i, layer in enumerate(params["layers"]):
         h = _rmsnorm(x, layer["ln1_scale"])
+        if view is not None:
+            h = copy_to(h, view.tp)
         q, k_c, v_c = _qkv(h, layer, cfg)
         if cfg.pos == "rope":
             # rotated keys go INTO the cache (absolute rotations)
@@ -196,15 +226,20 @@ def _forward_chunk(
             q, cache.k[i], cache.v[i], pos, cfg,
             key_positions=None if ring is None else ring[1],
         )
-        x = x + torch.einsum(
+        out = torch.einsum(
             "btnh,nhd->btd", attn, wdense(layer, "wo", cfg.dtype)
         )
+        x = x + (out if view is None else reduce_from(out, view.tp))
         h2 = _rmsnorm(x, layer["ln2_scale"])
-        x = x + _chunk_mlp(h2, layer, cfg, moe_drop_free)
+        x = x + _chunk_mlp(h2, layer, cfg, moe_drop_free, view)
     x = _rmsnorm(x, params["final_norm_scale"])
+    if view is not None:
+        x = copy_to(x, view.tp)
     logits = torch.einsum(
         "btd,dv->btv", x, wdense(params, "lm_head", cfg.dtype)
     ).float()
+    if view is not None:
+        logits = _gather_axis(logits, 2, view.tp)
     new_len = (
         cache.length + t if positions is None and ring is None
         else cache.length
@@ -214,15 +249,16 @@ def _forward_chunk(
 
 def _chunk_mlp(
     h: torch.Tensor, layer: Dict, cfg: ModelConfig, moe_drop_free: bool,
+    view: Optional[LocalView] = None,
 ) -> torch.Tensor:
     """The layer's MLP on a normed chunk [b, t, d]: dense, or MoE with the
     capacity policy ``moe_drop_free`` picks (factor E: capacity T)."""
     if "moe" not in layer:
-        return _mlp(h, layer, cfg)
+        return _mlp(h, layer, cfg, view)
     factor = (
         float(cfg.moe_experts) if moe_drop_free else cfg.moe_capacity_factor
     )
-    return moe_mlp(h, layer["moe"], factor)[0]
+    return moe_mlp(h, layer["moe"], factor, view)[0]
 
 
 # -- sampling ------------------------------------------------------------
@@ -313,12 +349,18 @@ def generate(
     generator: Optional[torch.Generator] = None,
     max_len: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ) -> torch.Tensor:
     """Generate continuations. prompt [b, p] -> [b, p + max_new_tokens]
     (int64). Greedy when temperature == 0, else temperature sampling with
     optional top-k and/or nucleus top-p. Prefill runs the prompt in one
-    chunk; decode appends one position per step. Single device: mesh
-    decode comes with the multi-GPU slice."""
+    chunk; decode appends one position per step.
+
+    ``mesh`` (``parallel.make_mesh``): sharded decode, run in every rank
+    of the mesh (module docstring). Each rank passes the whole prompt and
+    its shards of the params (``parallel.shard_params(full, mesh, cfg,
+    decode_shardings(mesh, cfg, full)[0])``), and gets the whole output;
+    the batch must split over dp."""
     device = as_device(device)
     _check_device(params, device)
     prompt = torch.as_tensor(prompt, device=device).long()
@@ -336,14 +378,77 @@ def generate(
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
-    cache = KVCache.empty(cfg, b, max_len, device=device)
-    logits, cache = _forward_chunk(params, prompt, cache, cfg)
-    tok = _sample(logits[:, -1], generator, temperature, top_k, top_p)
+    view, rows, g = None, prompt, cfg.kv_heads
+    if mesh is not None:
+        view = _decode_view(mesh, cfg, device, b)
+        n, g = b // view.dp_size, cfg.kv_heads // view.tp_size
+        rows = prompt[view.dp_rank * n:(view.dp_rank + 1) * n]
+    # this rank's kv heads (all of them on one device)
+    shape = (cfg.n_layers, rows.shape[0], max_len, g, cfg.head_dim)
+    cache = KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+                    v=torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+    def sample(logits):
+        if view is None or temperature == 0.0:
+            return _sample(logits, generator, temperature, top_k, top_p)
+        u = torch.rand((b, logits.shape[-1]), generator=generator,
+                       device=logits.device)
+        n = logits.shape[0]
+        return _sample(logits, generator, temperature, top_k, top_p,
+                       uniforms=u[view.dp_rank * n:(view.dp_rank + 1) * n])
+
+    logits, cache = _forward_chunk(params, rows, cache, cfg, view=view)
+    tok = sample(logits[:, -1])
     out = [tok]
     for _ in range(max_new_tokens - 1):
         logits, cache = _forward_chunk(
-            params, tok[:, None], cache, cfg, moe_drop_free=True
+            params, tok[:, None], cache, cfg, moe_drop_free=True, view=view
         )
-        tok = _sample(logits[:, -1], generator, temperature, top_k, top_p)
+        tok = sample(logits[:, -1])
         out.append(tok)
-    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+    done = torch.cat([rows, torch.stack(out, dim=1)], dim=1)
+    return done if view is None else _gather_axis(done, 0, view.dp)
+
+
+def _decode_view(mesh, cfg: ModelConfig, device: torch.device,
+                 batch: int) -> LocalView:
+    """The rank's view for sharded decode: the sequence is whole on every
+    rank (sp ranks decode the same rows), the batch split over dp."""
+    if mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot run on {device}")
+    decode_shardings(mesh, cfg)
+    view = dataclasses.replace(local_view(mesh), sp_rank=0, sp_size=1)
+    if batch % view.dp_size:
+        raise ValueError(
+            f"batch {batch} does not split over dp={view.dp_size}: size the "
+            "batch as a multiple of dp"
+        )
+    return view
+
+
+_CACHE_SPEC = (None, "dp", None, "tp", None)
+
+
+def decode_shardings(mesh, cfg: ModelConfig, params: Optional[Dict] = None
+                     ) -> Tuple[Dict, KVCache]:
+    """(param split specs, KVCache split specs) for sharded decode (JAX
+    ``decode_shardings``): batch over "dp", kv heads over "tp" (cache
+    ``[L, b, s, g, h]``). For an int8 tree pass the params: each quantized
+    leaf's spec becomes ``{"q": the weight's, "s": the weight's with its
+    size-1 (keepdims) axes unsplit}``."""
+    tp = axis_size(mesh, "tp")
+    if cfg.kv_heads % tp:
+        raise AssertionError(
+            f"kv_heads {cfg.kv_heads} must divide over tp={tp} "
+            "(the cache shards its kv-head axis)"
+        )
+    specs = full_param_shardings(mesh, cfg)
+    if params is not None:
+        def leaf(path, x):
+            spec = _spec_at(specs, path)
+            if is_quantized(x):
+                return {"q": spec, "s": scale_spec(spec, x["s"].shape)}
+            return spec
+
+        specs = _tree_map(leaf, params)
+    return specs, KVCache(k=_CACHE_SPEC, v=_CACHE_SPEC, length=())

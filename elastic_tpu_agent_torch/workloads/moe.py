@@ -1,4 +1,4 @@
-"""Switch-style Mixture-of-Experts layer, PyTorch port, one device.
+"""Switch-style Mixture-of-Experts layer, PyTorch port.
 
 Counterpart of ``elastic_tpu_agent/workloads/moe.py``: top-1 routing with
 an f32 router, a fixed per-expert capacity ``C = ceil(T * factor / E)``
@@ -12,8 +12,25 @@ back. Every slot holds at most one token, so the einsums' sums have one
 nonzero term and the two forms give the same numbers; the gate is rounded
 to the model dtype before it multiplies the expert output, as the JAX
 combine is. The expert matmuls are batched ``torch.bmm`` over experts.
-Expert-parallel sharding (``moe_param_shardings``, ``mesh=``) comes with
-the multi-GPU slice.
+
+**Under a mesh** (``view``, a ``parallel.LocalView``) the layer keeps
+the JAX semantics, which GSPMD makes global: the routing, the capacity
+and the aux loss are those of all ``T = B * S`` tokens of the global
+batch. A rank holds its dp rows and its sp chunk of them; it routes its
+own tokens, all-gathers the int32 expert ids over sp and dp (a few KB),
+lays them out ``[B, S]`` and takes the slot cumsum in that global order,
+and keeps its own slice. The aux loss's router-probability mean is
+all-reduced over dp and sp (identity backward), so that its value and its
+gradient are JAX's. Experts are local: ep rank r holds experts
+``[r * E/ep, (r+1) * E/ep)``, their hidden axis split over tp
+(``moe_param_shardings``), and computes them for all of its tokens. Each
+token has one expert, so its output is a sum with one nonzero term over
+ep (and tp partial sums); it is all-reduced over tp and ep before the gate
+multiplies it (``reduce_from``; ``copy_to`` in front of the dispatch), so
+that the router's gradient is whole on every rank, as JAX's is. No
+all-to-all is needed: the batch is split over dp only, so every ep rank
+of a (dp, sp) coordinate already holds the same tokens; the reduce over ep
+is where JAX's ``with_sharding_constraint(P("ep", ...))`` lands.
 """
 
 from __future__ import annotations
@@ -25,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .parallel import _gather_axis, copy_to, reduce_from
 from .quantize import wdense
 
 
@@ -124,54 +142,90 @@ def _host_f32(x) -> np.ndarray:
 
 def route(
     xt: torch.Tensor, wg: torch.Tensor, capacity_factor: float,
+    view=None, rows: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """Top-1 routing of tokens xt [T, d] in f32: (probs [T, E], expert
     [T], slot [T] (0-indexed), kept [T] bool, aux loss). Slots count the
     tokens routed to an expert in token order, in integers; a token
     whose position exceeds the capacity is dropped (kept False, slot 0,
-    as the JAX one-hot bookkeeping leaves it)."""
+    as the JAX one-hot bookkeeping leaves it).
+
+    Under a mesh (``view``; xt holds this rank's ``rows`` dp rows of its
+    sp chunk, b-major) the order, the capacity and the aux loss are the
+    global batch's (see the module docstring)."""
     n_experts = wg.shape[1]
-    cap = expert_capacity(xt.shape[0], n_experts, capacity_factor)
     logits = xt.float() @ wg.float()
     probs = torch.softmax(logits, dim=-1)                      # [T, E]
     expert = torch.argmax(probs, dim=-1)                       # [T]
-    onehot = F.one_hot(expert, n_experts)                      # int64
+    ids = expert.to(torch.int32).view(rows or xt.shape[0], -1)  # [b, s]
+    prob_sum = probs.sum(dim=0)
+    if view is not None:
+        s_loc = ids.shape[1]
+        ids = _gather_axis(_gather_axis(ids, 1, view.sp), 0, view.dp)
+        for group in (view.dp, view.sp):
+            prob_sum = reduce_from(prob_sum, group)
+    n_tokens = ids.numel()                                     # B * S
+    cap = expert_capacity(n_tokens, n_experts, capacity_factor)
+    onehot = F.one_hot(ids.flatten().long(), n_experts)        # int64
     # Switch aux loss from the mask taken BEFORE capacity drops
     density = onehot.float().mean(dim=0)
-    aux = n_experts * torch.sum(density * probs.mean(dim=0))
-    position = torch.cumsum(onehot, dim=0).gather(1, expert[:, None])[:, 0]
+    aux = n_experts * torch.sum(density * (prob_sum / n_tokens))
+    position = torch.cumsum(onehot, dim=0).gather(
+        1, ids.flatten().long()[:, None])[:, 0].view(ids.shape)
+    if view is not None:
+        position = position[view.dp_rank * rows:(view.dp_rank + 1) * rows,
+                            view.sp_rank * s_loc:(view.sp_rank + 1) * s_loc]
+    position = position.reshape(-1)
     kept = position <= cap
     slot = torch.where(kept, position - 1, 0)
     return probs, expert, slot, kept, aux
 
 
 def moe_mlp(
-    x: torch.Tensor, params: Dict, capacity_factor: float,
+    x: torch.Tensor, params: Dict, capacity_factor: float, view=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[b, s, d] -> ([b, s, d], aux loss f32 0-dim).
 
     The aux loss is the Switch load-balancing term E * sum_e(f_e * p_e)
     (fraction routed times mean router probability), 1.0 at perfect
-    balance; the train step adds it with ``moe_aux_coef``."""
+    balance; the train step adds it with ``moe_aux_coef``. ``view`` runs
+    the layer on this rank's shards of a mesh (module docstring): x is its
+    local [b, s_loc, d], params its ``moe_param_shardings`` slices."""
     b, s, d = x.shape
     dtype = x.dtype
     xt = x.reshape(b * s, d)
     n_experts = params["wg"].shape[1]
-    cap = expert_capacity(b * s, n_experts, capacity_factor)
-    probs, expert, slot, kept, aux = route(xt, params["wg"], capacity_factor)
+    probs, expert, slot, kept, aux = route(
+        xt, params["wg"], capacity_factor, view=view, rows=b)
+    n_tokens = b * s * (1 if view is None else view.dp_size * view.sp_size)
+    cap = expert_capacity(n_tokens, n_experts, capacity_factor)
     gate = torch.where(kept, probs.gather(1, expert[:, None])[:, 0], 0.0)
 
-    # dispatch: slot (e, c) takes its one token's row; a dropped token
-    # writes the spare last row, which no expert reads
-    flat = torch.where(kept, expert * cap + slot, n_experts * cap)
-    xin = xt.new_zeros((n_experts * cap + 1, d)).index_put(
-        (flat,), xt
-    )[:-1].reshape(n_experts, cap, d)
-    h = torch.bmm(xin, wdense(params, "w1", dtype))
-    h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    out = torch.bmm(h, wdense(params, "w2", dtype)).reshape(-1, d)
+    # this rank's experts: all of them on one device, E/ep under a mesh
+    w1, w2 = wdense(params, "w1", dtype), wdense(params, "w2", dtype)
+    n_local = w1.shape[0]
+    first = 0 if view is None else view.ep_rank * n_local
+    mine = kept & (expert >= first) & (expert < first + n_local)
+    if view is not None:       # partial input gradients summed over tp, ep
+        xt = copy_to(copy_to(xt, view.tp), view.ep)
 
-    # combine: the gate rounded to the model dtype, as the JAX combine is
-    picked = out[flat.clamp(max=n_experts * cap - 1)]
+    # dispatch: slot (e, c) takes its one token's row; a token dropped or
+    # routed to another rank's expert writes the spare last row, which no
+    # expert reads
+    flat = torch.where(mine, (expert - first) * cap + slot, n_local * cap)
+    xin = xt.new_zeros((n_local * cap + 1, d)).index_put(
+        (flat,), xt
+    )[:-1].reshape(n_local, cap, d)
+    h = torch.bmm(xin, w1)
+    h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    out = torch.bmm(h, w2).reshape(-1, d)
+
+    # combine: each token's one expert output (summed over the tp partial
+    # sums and the ep ranks under a mesh), times the gate rounded to the
+    # model dtype, as the JAX combine is
+    picked = out[flat.clamp(max=n_local * cap - 1)]
+    picked = torch.where(mine[:, None], picked, 0.0)
+    if view is not None:
+        picked = reduce_from(reduce_from(picked, view.tp), view.ep)
     y = torch.where(kept[:, None], gate.to(dtype)[:, None] * picked, 0.0)
     return y.reshape(b, s, d), aux.float()

@@ -24,7 +24,10 @@ axis named ``"tp"`` is split over the tensor-parallel ranks, an empty
 tuple is replicated. ``shard_params`` cuts a rank's slice from a full
 tree (the weight bridge converts the JAX tree whole, so the same JAX
 weights feed both packages on any mesh); ``gather_params`` rebuilds the
-full tree on every rank.
+full tree on every rank. An MoE layer's experts split over "ep" and their
+hidden axis over "tp" (JAX ``moe_param_shardings``); an int8 ``{"q",
+"s"}`` leaf cuts its scale with the weight's spec, size-1 axes unsplit
+(``scale_spec``, as JAX ``decode_shardings``).
 
 **Collectives of the sharded step** (Megatron's conjugate pair):
 ``copy_to`` is the identity forward with an all-reduce backward, in front
@@ -44,7 +47,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from .quantize import _tree_map
+from .quantize import _tree_map, is_quantized
 from .ring_attention import ProcessGroupRing
 
 MESH_AXES = ("dp", "sp", "tp", "ep")
@@ -77,9 +80,19 @@ def make_mesh(
     the axis sizes default as JAX ``make_mesh``'s do."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    n = check_world(n_devices, device_type, "make_mesh")
+    return init_device_mesh(
+        device_type, mesh_shape(n, dp, sp, tp, ep), mesh_dim_names=MESH_AXES
+    )
+
+
+def check_world(n_devices: Optional[int], device_type: str, who: str) -> int:
+    """The device count of a mesh over the default process group (its
+    world size): raises unless the group is up, ``n_devices`` (if given)
+    equals its size and its backend suits ``device_type``."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
-            "make_mesh runs one rank per device: call "
+            f"{who} runs one rank per device: call "
             "torch.distributed.init_process_group (nccl for cuda, gloo for "
             "cpu) in every rank first"
         )
@@ -99,9 +112,7 @@ def make_mesh(
             f"a {device_type} mesh needs the {want} backend; the process "
             f"group runs {backend}"
         )
-    return init_device_mesh(
-        device_type, mesh_shape(n, dp, sp, tp, ep), mesh_dim_names=MESH_AXES
-    )
+    return n
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -176,14 +187,40 @@ def _split(spec, ndim) -> List[Tuple[int, str]]:
     return [(i, a) for i, a in enumerate(tuple(spec)[:ndim]) if a is not None]
 
 
-def shard_params(full_tree: Dict, mesh, cfg) -> Dict:
-    """This rank's slice of a full params tree: each split axis cut into
-    equal contiguous pieces, the rank's by its mesh coordinate; replicated
-    leaves copied whole."""
-    specs = full_param_shardings(mesh, cfg)
+def scale_spec(spec, s_shape) -> Tuple:
+    """The spec of an int8 leaf's scale ``s`` (JAX ``decode_shardings``):
+    the weight's spec with every size-1 (keepdims) axis left unsplit."""
+    spec = tuple(spec) + (None,) * (len(s_shape) - len(spec))
+    return tuple(None if dim == 1 else ax for dim, ax in zip(s_shape, spec))
+
+
+def _map_split(fn, tree: Dict, specs: Dict) -> Dict:
+    """fn(path, tensor, spec) over every tensor of ``tree``; an int8
+    ``{"q", "s"}`` leaf maps its two tensors, the scale with
+    ``scale_spec``."""
 
     def leaf(path, x):
-        for axis, name in _split(_spec_at(specs, path), x.dim()):
+        spec = _spec_at(specs, path)
+        if is_quantized(x):
+            if is_quantized(spec):      # decode_shardings(params=...)'s
+                return {k: fn(path, x[k], spec[k]) for k in ("q", "s")}
+            return {"q": fn(path, x["q"], spec),
+                    "s": fn(path, x["s"], scale_spec(spec, x["s"].shape))}
+        return fn(path, x, spec)
+
+    return _tree_map(leaf, tree)
+
+
+def shard_params(full_tree: Dict, mesh, cfg, specs: Optional[Dict] = None
+                 ) -> Dict:
+    """This rank's slice of a full params tree: each split axis cut into
+    equal contiguous pieces, the rank's by its mesh coordinate; replicated
+    leaves copied whole. ``specs`` defaults to ``full_param_shardings``
+    (``generate.decode_shardings`` gives the decode ones)."""
+    specs = specs or full_param_shardings(mesh, cfg)
+
+    def cut(path, x, spec):
+        for axis, name in _split(spec, x.dim()):
             parts = axis_size(mesh, name)
             if x.shape[axis] % parts:
                 raise ValueError(
@@ -194,26 +231,29 @@ def shard_params(full_tree: Dict, mesh, cfg) -> Dict:
             x = x.narrow(axis, mesh.get_local_rank(name) * size, size)
         return x.detach().clone()
 
-    return _tree_map(leaf, full_tree)
+    return _map_split(cut, full_tree, specs)
 
 
-def gather_params(local_tree: Dict, mesh, cfg) -> Dict:
+def gather_params(local_tree: Dict, mesh, cfg, specs: Optional[Dict] = None
+                  ) -> Dict:
     """The full tree on every rank from each rank's ``shard_params``
     slice (an all-gather over each split axis's group)."""
-    specs = full_param_shardings(mesh, cfg)
+    specs = specs or full_param_shardings(mesh, cfg)
 
-    def leaf(path, x):
-        for axis, name in _split(_spec_at(specs, path), x.dim()):
+    def whole(path, x, spec):
+        for axis, name in _split(spec, x.dim()):
             x = _gather_axis(x, axis, mesh.get_group(name))
         return x.detach().clone()
 
-    return _tree_map(leaf, local_tree)
+    return _map_split(whole, local_tree, specs)
 
 
 def _gather_axis(x: torch.Tensor, axis: int, group) -> torch.Tensor:
     """The group's pieces of ``x`` concatenated along ``axis``, in group
     rank order."""
     x = x.detach().contiguous()
+    if dist.get_world_size(group) == 1:
+        return x
     pieces = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(pieces, x, group=group)
     return torch.cat(pieces, dim=axis)
@@ -278,6 +318,9 @@ class LocalView:
     tp_rank: int
     tp_size: int
     ring: Any
+    ep: Any = None
+    ep_rank: int = 0
+    ep_size: int = 1
 
 
 def local_view(mesh) -> LocalView:
@@ -285,10 +328,10 @@ def local_view(mesh) -> LocalView:
         return (mesh.get_group(name), mesh.get_local_rank(name),
                 axis_size(mesh, name))
 
-    (dp, dpr, dps), (sp, spr, sps), (tp, tpr, tps) = map(
-        axis, ("dp", "sp", "tp"))
+    (dp, dpr, dps), (sp, spr, sps), (tp, tpr, tps), (ep, epr, eps) = map(
+        axis, ("dp", "sp", "tp", "ep"))
     return LocalView(dp, sp, tp, dpr, dps, spr, sps, tpr, tps,
-                     ProcessGroupRing(sp))
+                     ProcessGroupRing(sp), ep, epr, eps)
 
 
 def vocab_parallel_nll_sum(

@@ -15,8 +15,9 @@ cross entropy, autograd for ``jax.value_and_grad``, optax's ``adamw`` as
 weights. ``make_eval_fn`` is the eval loss.
 
 Every ``moe_every``-th layer of a model with ``moe_experts`` > 0 is a
-Switch MoE layer (``moe.py``), whose aux loss the forward sums; on one
-device only (expert parallelism is ROADMAP item 4c).
+Switch MoE layer (``moe.py``), whose aux loss the forward sums; under a
+mesh its experts are split over "ep" (and their hidden axis over "tp"),
+with the routing of the global batch (``moe.py`` says how).
 
 ``make_train_step(..., mesh=)`` and ``make_eval_fn(..., mesh=)`` are the
 JAX step over a dp/sp/tp mesh (``parallel.make_mesh``), run SPMD: one rank
@@ -24,8 +25,9 @@ per device, each holding local shards of the params, gradients and
 optimizer state (``parallel.py`` says why and how). Tensor parallelism
 splits heads, the FF hidden axis and the vocabulary with explicit
 autograd-aware collectives on the tp group; sequence parallelism runs the
-ring (``ring_attention.py``) over the sp group; ``zero1`` cuts the
-optimizer state over dp. ``mesh=None`` is the single-device path.
+ring (``ring_attention.py``) over the sp group; expert parallelism
+splits MoE experts over the ep group; ``zero1`` cuts the optimizer state
+over dp. ``mesh=None`` is the single-device path.
 """
 
 from __future__ import annotations
@@ -308,7 +310,7 @@ def _forward(
             _rmsnorm(x, layer["ln1_scale"]), layer, cfg, view, offset)
         h = _rmsnorm(x, layer["ln2_scale"])
         if "moe" in layer:
-            y, aux = moe_mlp(h, layer["moe"], cfg.moe_capacity_factor)
+            y, aux = moe_mlp(h, layer["moe"], cfg.moe_capacity_factor, view)
         else:
             y, aux = _mlp(h, layer, cfg, view), zero
         return x + y, aux
@@ -400,26 +402,34 @@ def _local_loss_and_grads(
     device: torch.device, view: LocalView,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """This rank's term of the global loss (its tokens' cross entropy
-    summed over the global token count, plus moe_aux_coef * aux) and its
-    gradient leaves, before the sum over dp and sp."""
+    summed over the global token count, plus its share of moe_aux_coef *
+    aux) and its gradient leaves, before the sum over dp and sp. The MoE
+    aux loss is the global batch's on every rank, and its gradient reaches
+    only the rank's own tokens' router probabilities: the gradient takes
+    the whole term, the returned value 1 / (dp * sp) of it, so that the
+    sum over dp and sp counts it once."""
     inputs, targets, off, count = _local_chunk(tokens, view)
     live = _tree_map(lambda path, p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
         logits, aux = _forward(live, inputs, cfg, device, view, off)
-        loss = (vocab_parallel_nll_sum(logits, targets, view) / count
-                + cfg.moe_aux_coef * aux)
+        nll = vocab_parallel_nll_sum(logits, targets, view) / count
+        loss = nll + cfg.moe_aux_coef * aux
         grads = torch.autograd.grad(loss, _leaves(live))
-    return loss.detach(), list(grads)
+    if not cfg.moe_experts:
+        return loss.detach(), list(grads)
+    share = cfg.moe_aux_coef * aux.detach() / (view.dp_size * view.sp_size)
+    return nll.detach() + share, list(grads)
 
 
 def _mesh_view(mesh, cfg: ModelConfig, device: torch.device) -> LocalView:
     if mesh.device_type != device.type:
         raise ValueError(
             f"a {mesh.device_type} mesh cannot run on {device}")
-    if cfg.moe_experts and mesh.size() > 1:
-        raise NotImplementedError(
-            "MoE over a mesh of more than one device needs expert "
-            "parallelism (ep), ROADMAP Queue 1 item 4c"
+    ep = mesh.shape[mesh.mesh_dim_names.index("ep")]
+    if cfg.moe_experts and cfg.moe_experts % ep:
+        raise ValueError(
+            f"moe_experts {cfg.moe_experts} must split over ep={ep} (each "
+            "ep rank holds an equal share of the experts)"
         )
     full_param_shardings(mesh, cfg)    # JAX's GQA check
     return local_view(mesh)
@@ -432,7 +442,8 @@ def _f32(x: float) -> float:
 class AdamW:
     """``optax.adamw(learning_rate)`` as the JAX train step builds it
     (b1 0.9, b2 0.999, eps 1e-8 added outside the square root, weight
-    decay 1e-4 on every leaf, bias correction from the step count,
+    decay 1e-4 on every leaf (``weight_decay=0.0`` is ``optax.adam``),
+    bias correction from the step count,
     ``learning_rate`` a float or a schedule ``count -> lr``), chained, for
     ``ema_decay`` > 0, with the parameter EMA of the JAX ``EmaState``
     stage, and holding the f32 masters under ``master_weights``.
@@ -450,16 +461,17 @@ class AdamW:
     into the full params."""
 
     # optax.adamw's defaults; weight decay is 1e-4 there, not torch's 1e-2
-    b1, b2, eps, weight_decay = 0.9, 0.999, 1e-8, 1e-4
+    b1, b2, eps = 0.9, 0.999, 1e-8
 
     def __init__(
         self, learning_rate: Union[float, Callable[[int], float]] = 1e-3,
         ema_decay: float = 0.0, master_weights: bool = False,
-        zero1: Optional[Zero1] = None,
+        zero1: Optional[Zero1] = None, weight_decay: float = 1e-4,
     ):
         if not 0.0 <= ema_decay < 1.0:
             # decay 1.0 would freeze the EMA at its init forever
             raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
+        self.weight_decay = weight_decay   # 0.0: optax.adam
         self.learning_rate = learning_rate
         self.ema_decay = ema_decay
         self.master_weights = master_weights
@@ -523,7 +535,8 @@ class AdamW:
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mus, bc1)
         torch._foreach_div_(upd, denom)
-        torch._foreach_add_(upd, targets, alpha=self.weight_decay)
+        if self.weight_decay:
+            torch._foreach_add_(upd, targets, alpha=self.weight_decay)
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(targets, upd)
         if self.ema_decay > 0.0:

@@ -13,6 +13,16 @@ each ``{"q", "s"}`` leaf kept as it is: int8 values and f32 scales.
 ``{"layers": [{name: {"a": [in, r], "b": [r, out]}}]}``) in f32;
 ``params_to_jax`` takes it back.
 
+The pipelined layout (JAX ``init_pipeline_params``) stacks the layer
+leaves ``[pp, L/pp, ...]`` under ``stages`` (``wqkv [pp, L/pp, d, 3, n,
+h]``, ``wo [pp, L/pp, n, h, d]``, ...) beside the unstacked ``embed``,
+``pos_embed``, ``final_norm_scale`` and ``lm_head``:
+``pipeline_params_from_jax`` loads it, ``stage_params_from_jax`` the toy
+block stack of JAX ``init_stage_params`` (``w1 [pp, d, ff]``, ``w2 [pp,
+ff, d]``). ``restack_for_pipeline`` and ``unstack_pipeline`` turn a flat
+``init_params`` tree into that layout and back, a change of layout only,
+so the same weights run pipelined and not.
+
 Leaves are stored in the dtype the caller asks for, ``cfg.dtype`` by
 default. The JAX code casts each leaf to ``cfg.dtype`` at every use
 (``.astype(cfg.dtype)``, ``wdense``), so for serving, casting once at load
@@ -93,13 +103,7 @@ def params_from_jax(tree: Dict, cfg, device="cuda", dtype=None) -> Dict:
     int8 and f32 tensors) on ``device``. Raises on any key or shape that
     ``cfg`` does not give."""
     shapes = jax_layout_shapes(cfg)
-    if _keys(tree) != _keys(shapes):
-        raise ValueError(
-            "params tree does not match the config's layout: "
-            f"missing {sorted(map(str, _keys(shapes) - _keys(tree)))[:4]}, "
-            f"unexpected {sorted(map(str, _keys(tree) - _keys(shapes)))[:4]}"
-        )
-
+    _check_keys(tree, shapes)
     float_dtype = dtype or cfg.dtype
 
     def leaf(path, x):
@@ -117,19 +121,33 @@ def params_from_jax(tree: Dict, cfg, device="cuda", dtype=None) -> Dict:
                 "s": torch.from_numpy(
                     np.array(s, np.float32, order="C")).to(device),
             }
-        a = np.asarray(x)
-        if a.shape != want:
-            raise ValueError(f"{name}: shape {a.shape}, config gives {want}")
-        if a.dtype.kind != "f" or a.dtype.itemsize not in (4, 8):
-            a = a.astype(np.float32)  # bf16/f16 widen exactly
         to = float_dtype
         if path[-1] == "wg":        # the router: f32 in the JAX code
             to = torch.promote_types(to, torch.float32)
-        return torch.from_numpy(np.array(a, order="C")).to(
-            device=device, dtype=to
-        )
+        return _float_leaf(name, x, want, device, to)
 
     return _tree_map(leaf, tree)
+
+
+def _check_keys(tree: Dict, shapes: Dict) -> None:
+    if _keys(tree) != _keys(shapes):
+        raise ValueError(
+            "params tree does not match the config's layout: "
+            f"missing {sorted(map(str, _keys(shapes) - _keys(tree)))[:4]}, "
+            f"unexpected {sorted(map(str, _keys(tree) - _keys(shapes)))[:4]}"
+        )
+
+
+def _float_leaf(name: str, x, want, device, dtype) -> torch.Tensor:
+    """A float array as a tensor in ``dtype`` on ``device``, after its
+    shape is checked against ``want``."""
+    a = np.asarray(x)
+    if a.shape != want:
+        raise ValueError(f"{name}: shape {a.shape}, config gives {want}")
+    if a.dtype.kind != "f" or a.dtype.itemsize not in (4, 8):
+        a = a.astype(np.float32)  # bf16/f16 widen exactly
+    return torch.from_numpy(np.array(a, order="C")).to(device=device,
+                                                       dtype=dtype)
 
 
 def _lookup(tree, path):
@@ -205,3 +223,74 @@ def random_tree(cfg, seed: int = 0) -> Dict:
         ),
         jax_layout_shapes(cfg),
     )
+
+
+# -- the pipelined layout ----------------------------------------------------
+
+_STAGE_KEYS = ("ln1_scale", "wqkv", "wo", "ln2_scale", "w1", "w2")
+
+
+def pipeline_layout_shapes(cfg, pp: int) -> Dict:
+    """The JAX ``init_pipeline_params`` tree for ``cfg`` at ``pp`` stages,
+    each leaf replaced by its shape (JAX's config checks first)."""
+    from .transformer_pipeline import check_pipeline_config
+
+    check_pipeline_config(cfg, pp)
+    flat = jax_layout_shapes(cfg)
+    layer = flat["layers"][0]
+    lpp = cfg.n_layers // pp
+    out = {k: v for k, v in flat.items() if k != "layers"}
+    out["stages"] = {k: (pp, lpp, *layer[k]) for k in _STAGE_KEYS}
+    return out
+
+
+def restack_for_pipeline(tree: Dict, cfg, pp: int) -> Dict:
+    """A flat ``init_params`` tree (numpy or torch leaves) in the pipelined
+    layout: layer i lands at ``stages[k][i // (L/pp), i % (L/pp)]``."""
+    pipeline_layout_shapes(cfg, pp)
+    lpp = cfg.n_layers // pp
+    stack = (torch.stack if torch.is_tensor(tree["embed"]) else np.stack)
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out["stages"] = {
+        k: stack([stack([tree["layers"][s * lpp + j][k] for j in range(lpp)])
+                  for s in range(pp)])
+        for k in _STAGE_KEYS
+    }
+    return out
+
+
+def unstack_pipeline(tree: Dict, cfg) -> Dict:
+    """The flat ``init_params`` layout of a pipelined tree."""
+    stages = tree["stages"]
+    pp, lpp = stages["wo"].shape[:2]
+    out = {k: v for k, v in tree.items() if k != "stages"}
+    out["layers"] = [{k: stages[k][s][j] for k in _STAGE_KEYS}
+                     for s in range(pp) for j in range(lpp)]
+    return out
+
+
+def _load_exact(tree: Dict, shapes: Dict, device, dtype) -> Dict:
+    """Each float leaf of ``tree`` as a tensor in ``dtype`` on ``device``,
+    after its keys and shapes are checked against ``shapes``."""
+    _check_keys(tree, shapes)
+    return _tree_map(lambda path, x: _float_leaf(
+        "/".join(map(str, path)), x, tuple(_lookup(shapes, path)), device,
+        dtype), tree)
+
+
+def pipeline_params_from_jax(tree: Dict, cfg, pp: int, device="cuda",
+                             dtype=None) -> Dict:
+    """A JAX ``init_pipeline_params`` tree -> the port's pipelined params
+    (the same keys and axis layout), in ``dtype`` (default f32: the
+    pipeline steps store f32 leaves and compute in cfg.dtype) on
+    ``device``."""
+    return _load_exact(tree, pipeline_layout_shapes(cfg, pp), device,
+                       dtype or torch.float32)
+
+
+def stage_params_from_jax(tree: Dict, device="cuda", dtype=None) -> Dict:
+    """A JAX ``init_stage_params`` tree (``{"w1": [pp, d, ff], "w2": [pp,
+    ff, d]}``) -> torch tensors in ``dtype`` (default f32) on ``device``."""
+    w1 = np.shape(tree["w1"])
+    shapes = {"w1": w1, "w2": (w1[0], w1[2], w1[1])}
+    return _load_exact(tree, shapes, device, dtype or torch.float32)

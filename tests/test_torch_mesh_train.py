@@ -180,8 +180,8 @@ def test_split_specs_match_jax(variant):
 
 
 def test_gqa_and_moe_mesh_checks():
-    """JAX's GQA assert (tp must divide the kv heads) and MoE over more
-    than one device, which waits for expert parallelism."""
+    """JAX's GQA assert (tp must divide the kv heads), and MoE over a mesh
+    whose ep does not split the experts evenly."""
     fake = types.SimpleNamespace(shape=(1, 1, 4, 1),
                                  mesh_dim_names=parallel.MESH_AXES,
                                  device_type="cpu", size=lambda: 4)
@@ -193,7 +193,8 @@ def test_gqa_and_moe_mesh_checks():
             jt.make_mesh(4, dp=1, sp=1, tp=4),
             jt.ModelConfig(**CFG, n_kv_heads=2, dtype=jnp.float32))
     moe = tt.ModelConfig(**CFG, moe_experts=4, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="4c"):
+    fake.shape = (1, 1, 1, 3)
+    with pytest.raises(ValueError, match="split over ep=3"):
         tt.make_train_step(moe, device="cpu", mesh=fake)
 
 

@@ -209,11 +209,14 @@ def test_forward_flash_path_matches_jax_flash(kw):
 
 
 def test_later_slices_raise():
-    """attn="ring" is accepted since the ring slice; MoE over a mesh of
-    more than one device waits for expert parallelism (ROADMAP item
-    4c)."""
+    """attn="ring" is accepted since the ring slice, and MoE over a mesh
+    since the expert-parallel slice (ROADMAP item 4c): the step no longer
+    refuses it, and checks only that ep splits the experts evenly."""
     assert tt.ModelConfig(attn="ring").attn == "ring"
-    mesh = types.SimpleNamespace(device_type="cpu", size=lambda: 4)
-    with pytest.raises(NotImplementedError, match="4c"):
-        tt.make_train_step(tt.ModelConfig(moe_experts=4), device="cpu",
+    mesh = types.SimpleNamespace(device_type="cpu", size=lambda: 4,
+                                 shape=(1, 1, 1, 4),
+                                 mesh_dim_names=("dp", "sp", "tp", "ep"))
+    with pytest.raises(ValueError, match="moe_experts 2 must split over "
+                       "ep=4"):
+        tt.make_train_step(tt.ModelConfig(moe_experts=2), device="cpu",
                            mesh=mesh)

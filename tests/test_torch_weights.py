@@ -113,3 +113,41 @@ def test_random_tree_and_init_params_follow_jax_layout(kw):
         lambda x: tuple(x.shape), params_to_jax(params)
     ) == shapes
     assert float(params["layers"][0]["ln1_scale"].min()) == 1.0
+
+
+@pytest.mark.parametrize("pp", [1, 2, 4])
+def test_pipeline_restack_round_trip_is_bit_exact(pp):
+    """A flat init_params tree restacked into the pipelined layout holds
+    JAX init_pipeline_params' keys and shapes, loads through
+    pipeline_params_from_jax, and unstacks to the same tree bit for bit
+    (numpy and torch leaves)."""
+    from elastic_tpu_agent.workloads import transformer_pipeline as jtp
+    from elastic_tpu_agent_torch.workloads.weights import (
+        pipeline_params_from_jax,
+        restack_for_pipeline,
+        unstack_pipeline,
+    )
+
+    kw = dict(BASE, n_layers=4)
+    jcfg = jt.ModelConfig(**kw, dtype=jnp.float32)
+    tcfg = tt.ModelConfig(**kw, dtype=torch.float32)
+    tree = jax.device_get(jt.init_params(jcfg, jax.random.key(3)))
+    stacked = restack_for_pipeline(tree, tcfg, pp)
+    ref = jax.eval_shape(lambda: jtp.init_pipeline_params(
+        jcfg, jax.random.key(0), pp))
+    assert jax.tree.map(np.shape, stacked) == jax.tree.map(
+        lambda a: a.shape, ref)
+    np.testing.assert_array_equal(stacked["stages"]["wqkv"][pp - 1, -1],
+                                  tree["layers"][-1]["wqkv"])
+    for got, want in zip(_leaves(unstack_pipeline(stacked, tcfg)),
+                         _leaves(tree)):
+        assert got[0] == want[0]
+        np.testing.assert_array_equal(got[1], want[1])
+    params = pipeline_params_from_jax(stacked, tcfg, pp, device="cpu")
+    back = params_to_jax(unstack_pipeline(params, tcfg))
+    for got, want in zip(_leaves(back), _leaves(tree)):
+        np.testing.assert_array_equal(got[1], want[1])
+    torch_back = restack_for_pipeline(params_from_jax(tree, tcfg,
+                                                      device="cpu"), tcfg, pp)
+    for k, v in torch_back["stages"].items():
+        assert torch.equal(v, params["stages"][k])

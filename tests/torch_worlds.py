@@ -119,12 +119,14 @@ def train_legs(rank, world, spec):
         if leg.get("checks"):
             out[leg["name"]] = mesh_checks(world)
             continue
-        mesh = parallel.make_mesh(world, dp=leg["mesh"][0], sp=leg["mesh"][1],
-                                  tp=leg["mesh"][2], device_type="cpu")
+        dp, sp, tp, *ep = leg["mesh"]
+        mesh = parallel.make_mesh(world, dp=dp, sp=sp, tp=tp,
+                                  ep=ep[0] if ep else 1, device_type="cpu")
         cfg = tt.ModelConfig(**leg["cfg"], dtype=torch.float32)
         full = params_from_jax(leg["tree"], cfg, device="cpu",
                                dtype=torch.float32)
         params = parallel.shard_params(full, mesh, cfg)
+        probe = moe_probe(mesh, cfg, params, leg) if leg.get("probe") else {}
         if leg.get("eval"):
             ev = tt.make_eval_fn(cfg, device="cpu", mesh=mesh)
             out[leg["name"]] = {"eval": float(ev(params, leg["tokens"]))}
@@ -141,12 +143,57 @@ def train_legs(rank, world, spec):
                   for _ in range(spec["steps"])]
         res = {"losses": losses, "state_shapes": shapes,
                "params": _numpy_tree(parallel.gather_params(params, mesh,
-                                                            cfg))}
+                                                            cfg)), **probe}
         if "ema" in state:
             res["ema"] = _numpy_tree(parallel.gather_params(
                 zero1_gather(state["ema"], params, opt), mesh, cfg))
         out[leg["name"]] = res
     return out
+
+
+def moe_probe(mesh, cfg, params, leg):
+    """The sharded forward at the leg's first params, on its tokens'
+    inputs: the aux loss, and for each MoE layer the global [B, S] of its
+    input rows, expert ids and kept flags (gathered over sp and dp), with
+    the kept flags that routing this rank's tokens alone would give."""
+    import torch
+
+    from elastic_tpu_agent_torch.workloads import moe as tm
+    from elastic_tpu_agent_torch.workloads import parallel
+    from elastic_tpu_agent_torch.workloads import transformer as tt
+
+    view = parallel.local_view(mesh)
+    tokens = torch.as_tensor(leg["tokens"]).long()
+    inputs, _, off, _ = tt._local_chunk(tokens, view)
+    calls, real = [], tm.route
+
+    def logged(xt, wg, factor, **kw):
+        res = real(xt, wg, factor, **kw)
+        calls.append((xt, wg, factor, res))
+        return res
+
+    tm.route = logged
+    try:
+        with torch.no_grad():
+            _, aux = tt._forward(params, inputs, cfg, torch.device("cpu"),
+                                 view, off)
+    finally:
+        tm.route = real
+
+    def whole(x):          # [b * s_loc, ...] -> the global [B, S, ...]
+        if x.dtype == torch.bool:
+            x = x.to(torch.int32)
+        x = x.reshape(inputs.shape[0], inputs.shape[1], *x.shape[1:])
+        return parallel._gather_axis(
+            parallel._gather_axis(x, 1, view.sp), 0, view.dp).numpy()
+
+    layers = []
+    with torch.no_grad():
+        for xt, wg, factor, (_, expert, _, kept, _) in calls:
+            alone = real(xt, wg, factor)[3]
+            layers.append(dict(h=whole(xt), expert=whole(expert),
+                               kept=whole(kept), kept_alone=whole(alone)))
+    return {"aux": float(aux), "routes": layers}
 
 
 def mesh_checks(world):
@@ -216,4 +263,126 @@ def ring_legs(rank, world, spec):
     finally:
         tt.ring_attention = ring
     out["auto"] = {"calls": len(calls), "o": auto.numpy()}
+    return out
+
+
+def pipeline_legs(rank, world, spec):
+    """Pipelines over a ("pp", "dp") mesh of the world, one leg at a time:
+    ``apply`` (pipeline_apply of the toy block stack and the gradients of
+    sum(out * w)), ``toy_step`` (make_pipeline_train_step), ``step`` (the
+    pipelined transformer's train step) and ``grads_1f1b``
+    (pipeline_1f1b_grads and the embedding's gradients). Every rank
+    returns what it holds, gathered over pp (stages) and dp (rows)."""
+    import torch
+
+    from elastic_tpu_agent_torch.workloads import parallel
+    from elastic_tpu_agent_torch.workloads import pipeline as pl
+    from elastic_tpu_agent_torch.workloads import transformer as tt
+    from elastic_tpu_agent_torch.workloads import transformer_pipeline as tp
+    from elastic_tpu_agent_torch.workloads.weights import (
+        pipeline_params_from_jax,
+        stage_params_from_jax,
+    )
+
+    out = {}
+    for leg in spec["legs"]:
+        pp, dp = leg["mesh"]
+        mesh = pl.make_pipeline_mesh(pp, dp, device_type="cpu")
+        pipe = pl.as_pipe(mesh)
+
+        def rows_whole(x, axis=1):
+            return parallel._gather_axis(x, axis, pipe.dp).numpy()
+
+        if leg["kind"] in ("apply", "toy_step"):
+            full = stage_params_from_jax(leg["tree"], device="cpu")
+        else:
+            cfg = tt.ModelConfig(**leg["cfg"], dtype=torch.float32)
+            full = pipeline_params_from_jax(leg["tree"], cfg, pp, device="cpu")
+        if leg["kind"] == "apply":
+            params = pl.shard_stages(full, mesh)
+            live = tt._tree_map(lambda path, a: a.requires_grad_(), params)
+            x = pl.dp_rows(torch.from_numpy(leg["x"]), pipe).clone()
+            x.requires_grad_()
+            w = pl.dp_rows(torch.from_numpy(leg["w"]), pipe)
+            with torch.enable_grad():
+                y = pl.pipeline_apply(mesh, pl.stage_block, live, x)
+                torch.autograd.backward((y * w).sum())
+            grads = [a.grad for a in tt._leaves(live)]
+            parallel.all_reduce_(grads, (pipe.dp,))
+            # only stage 0 reads x: its gradient, summed over pp
+            dx = x.grad if x.grad is not None else torch.zeros_like(x)
+            parallel.all_reduce_([dx], (pipe.group,))
+            out[leg["name"]] = dict(
+                y=rows_whole(y.detach()), dx=rows_whole(dx),
+                grads=_numpy_tree(pl.gather_stages(
+                    tt._like(params, grads), mesh)))
+        elif leg["kind"] == "toy_step":
+            step, _ = pl.make_pipeline_train_step(
+                mesh, leg["d"], leg["ff"], device="cpu")
+            params = pl.shard_stages(full, mesh)
+            state = tt.AdamW(1e-2, weight_decay=0.0).init(params)
+            out[leg["name"]] = [float(step(params, state, leg["x"],
+                                           leg["y"])[2])
+                                for _ in range(spec["toy_steps"])]
+        elif leg["kind"] == "step":
+            step, _ = tp.make_pipeline_transformer_step(
+                cfg, mesh, n_micro=leg["tokens"].shape[0],
+                schedule=leg["schedule"], device="cpu")
+            params = dict(full, stages=pl.shard_stages(full["stages"], mesh))
+            state = tt.AdamW(1e-3).init(params)
+            losses = [float(step(params, state, leg["tokens"])[2])
+                      for _ in range(spec["steps"])]
+            params["stages"] = pl.gather_stages(params["stages"], mesh)
+            out[leg["name"]] = dict(losses=losses,
+                                    params=_numpy_tree(params))
+        else:                                           # grads_1f1b
+            toks = pl.dp_rows(torch.from_numpy(leg["tokens"]).long(), pipe)
+            embed = {k: full[k].requires_grad_() for k in ("embed",
+                                                            "pos_embed")
+                     if k in full}
+            with torch.enable_grad():
+                xs = tp._embed_fn(embed, toks[:, :, :-1], cfg)
+            g_stage, g_head, dxs, loss = tp.pipeline_1f1b_grads(
+                mesh, cfg, pl.shard_stages(full["stages"], mesh),
+                tp._split_head(full), xs, toks[:, :, 1:])
+            g_embed = dict(zip(embed, torch.autograd.grad(
+                xs, list(embed.values()), dxs)))
+            parallel.all_reduce_(list(g_embed.values()), (pipe.dp,))
+            out[leg["name"]] = dict(
+                loss=float(loss), head=_numpy_tree(g_head),
+                embed=_numpy_tree(g_embed),
+                stages=_numpy_tree(pl.gather_stages(g_stage, mesh)))
+    return out
+
+
+def decode_legs(rank, world, spec):
+    """Sharded decode over a (dp, 1, tp) mesh of the world: for each leg,
+    ``generate(..., mesh=)`` on this rank's ``decode_shardings`` slice of
+    the bridged tree (float or int8); every rank returns the whole
+    output."""
+    import torch
+
+    import importlib
+
+    from elastic_tpu_agent_torch.workloads import parallel
+    from elastic_tpu_agent_torch.workloads import transformer as tt
+    from elastic_tpu_agent_torch.workloads.weights import params_from_jax
+
+    tg = importlib.import_module("elastic_tpu_agent_torch.workloads.generate")
+
+    out = {}
+    for leg in spec["legs"]:
+        dp, tp = leg["mesh"]
+        mesh = parallel.make_mesh(world, dp=dp, sp=1, tp=tp,
+                                  device_type="cpu")
+        cfg = tt.ModelConfig(**leg["cfg"], dtype=torch.float32)
+        full = params_from_jax(leg["tree"], cfg, device="cpu",
+                               dtype=torch.float32)
+        specs, _ = tg.decode_shardings(mesh, cfg, full)
+        params = parallel.shard_params(full, mesh, cfg, specs)
+        gen = torch.Generator().manual_seed(leg.get("seed", 0))
+        toks = tg.generate(params, leg["prompt"], cfg, leg["new"],
+                           generator=gen, device="cpu", mesh=mesh,
+                           **leg.get("sampling", {}))
+        out[leg["name"]] = toks.numpy()
     return out
