@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, runtime,
 shared-prefix serving, decode-variant, serving-artifact, sharded
-training, expert-parallel, pipeline and sharded-decode slices on one
-NVIDIA GPU.
+training, expert-parallel, pipeline, sharded-decode, tensor-parallel
+serving and runner-across-cards slices on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -132,15 +132,16 @@ shows; it then exits 1 before the summary lines. Phases:
    ring run on the kernels' plain versions on the CPU, 4 launches of each
    kernel a ring, and the ring's forward and forward + backward device
    times beside one flash call over the whole 4096 and SDPA;
-18. the summary, printed after phases 19-21: the device time of the
+18. the summary, printed after phases 19-23: the device time of the
    whole bf16 backward (delta, dK/dV and dQ) against SDPA's whole
    backward, each phase's host seconds, a
    ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
    summed over the paths it lies on: forward, LoRA, the sharded step, the
-   ring, the MoE mesh step and both pipeline schedules for flash_fwd;
-   train, LoRA, the sharded step, the ring, the MoE mesh step and both
-   pipeline schedules for the backward pair; serving and the speculative
-   fallback for paged_decode), the card's name and power limit as
+   ring, the MoE mesh step, both pipeline schedules and the runner's mesh
+   runs for flash_fwd; train, LoRA, the sharded step, the ring, the MoE
+   mesh step, both pipeline schedules and the runner's mesh runs for the
+   backward pair; serving and the speculative fallback for paged_decode),
+   the card's name and power limit as
    nvidia-smi reports them, and the result line;
 19. MoE over a one-rank NCCL mesh: phase 7's MoE preset, weights and
    tokens through ``make_train_step(mesh=make_mesh(1))`` for 20 steps;
@@ -161,7 +162,21 @@ shows; it then exits 1 before the summary lines. Phases:
 21. sharded decode over a one-rank NCCL mesh: the small preset with rope
    and 2 kv heads, ``generate(..., mesh=make_mesh(1))``, batch 8, a
    32-token prompt, 128 new tokens; greedy streams equal ``generate()``'s
-   in bf16, on a float32 copy and on int8 weights; tokens/s of both.
+   in bf16, on a float32 copy and on int8 weights; tokens/s of both;
+22. tensor-parallel serving over a one-rank NCCL mesh
+   (``make_serving_mesh(mp=1)``): phase 4's 16 requests on the TP engine,
+   streams equal to a plain engine's on the same gather path, in bf16 and
+   on a float32 two-layer copy, tokens/s beside it and phase 4's; the
+   paged-kernel rule's ratio and decision at phase 4's shape, through
+   which phase 4's engine must have resolved on;
+23. the runner across cards at world 1: ``runner.main`` through the join
+   path over a one-rank NCCL group on phase 6's token file, phase 6's
+   flags (losses and evals equal to phase 6's, MESH_TOL), then with
+   ``--zero1 --master-weights`` (equal to the same flags on the
+   single-device path), 200/168/168 flash launches each; decode ``--dp 1
+   --tp 1`` from the first run's checkpoint gives phase 6's tail;
+   ``devices``/``mesh`` and ``step_time_ms`` beside phase 6's; ``--pp 2``
+   is refused on one card and not measured.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -770,8 +785,18 @@ def _serving_requests(cfg, seed):
 def run_serving(torch, W, PA, cfg, params, tree, dev):
     n_req, new_tokens = 16, 64
     prompts, kinds = _serving_requests(cfg, SEED + 4)
-    eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
-                          prompt_buckets=(16, 64, 256), device=dev)
+    from elastic_tpu_agent_torch.workloads import serving as SV
+
+    # the auto default resolves through the traffic model's rule: record
+    # its calls while the engine is built
+    rule, asked = SV.recommend_paged_kernel, []
+    SV.recommend_paged_kernel = lambda *a, **kw: asked.append(
+        (kw, rule(*a, **kw))) or asked[-1][1]
+    try:
+        eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
+                              prompt_buckets=(16, 64, 256), device=dev)
+    finally:
+        SV.recommend_paged_kernel = rule
     if not eng.paged_kernel:
         fail("paged_kernel auto did not resolve ON on the card")
     step_times = []
@@ -821,7 +846,9 @@ def run_serving(torch, W, PA, cfg, params, tree, dev):
         wall_s=wall, tokens_per_s=tokens / wall,
         step_ms_mean=float(st_ms.mean()), step_ms_p50=float(np.median(st_ms)),
         paged_launches=launches, f32_forward_err=f32_err,
-        f32_streams_equal=same,
+        f32_streams_equal=same, paged_kernel=eng.paged_kernel,
+        paged_rule_calls=[dict(kw, resolved=got) for kw, got in asked],
+        block_size=eng.block_size,
     )
 
 
@@ -942,6 +969,20 @@ RUNTIME_ENV = ("TPU", "GPU", "ELASTIC_TPU_ALLOC_DIR", "TPU_WORKER_HOSTNAMES",
                "ELASTIC_TPU_TRACE_ID")
 
 
+# phase 6's train flags: 20 steps, evals at steps 9 and 19
+RUNTIME_TRAIN = (f"--steps {RUNTIME_STEPS} --warmup-steps 5 --total-steps "
+                 f"{RUNTIME_STEPS} --eval-every 10 --eval-batches "
+                 f"{EVAL_BATCHES}")
+
+
+def _runtime_data(D, path: str) -> str:
+    """Phase 6's token file at ``path`` (2^20 Zipf tokens, seed SEED + 9)
+    and the runner flags that read it."""
+    D.write_token_file(path, _zipf_tokens(
+        np.random.default_rng(SEED + 9), SMALL["vocab"], 1 << 20))
+    return f"--preset small --batch 8 --seq 256 --data {path}"
+
+
 def _runner(R, argv: str, dev) -> dict:
     """runner.main(argv) in this process; the report is its printed last
     line, which is echoed."""
@@ -977,18 +1018,14 @@ def run_runtime(torch, A, dev, tmp) -> dict:
     out = {}
     try:
         data = os.path.join(tmp, "tokens.bin")
-        D.write_token_file(data, _zipf_tokens(
-            np.random.default_rng(SEED + 9), SMALL["vocab"], 1 << 20))
-        base = f"--preset small --batch 8 --seq 256 --data {data}"
+        base = _runtime_data(D, data)
 
         # train: 20 steps, evals at steps 9 and 19, saves at 9 and 19
         a = os.path.join(tmp, "a")
         fr = os.path.join(tmp, "fr.jsonl")
         for kern in kerns:
             kern.launches = 0
-        rep = _runner(R, f"{base} --steps {RUNTIME_STEPS} --warmup-steps 5 "
-                      f"--total-steps {RUNTIME_STEPS} --eval-every 10 "
-                      f"--eval-batches {EVAL_BATCHES} --checkpoint-dir {a} "
+        rep = _runner(R, f"{base} {RUNTIME_TRAIN} --checkpoint-dir {a} "
                       f"--checkpoint-every 10 --flight-recorder {fr}", dev)
         torch.cuda.synchronize()
         launches = {k.symbol: k.launches for k in kerns}
@@ -1038,7 +1075,7 @@ def run_runtime(torch, A, dev, tmp) -> dict:
             fail("decode_tokens_per_s is null")
         out["decode"] = {k: dec[k] for k in (
             "restored_step", "prefill_ms", "decode_tokens_per_s",
-            "ms_per_token", "end_to_end_s")}
+            "ms_per_token", "end_to_end_s", "sample_tail")}
         out["decode"]["launches"] = {k.symbol: k.launches for k in kerns}
         shutil.rmtree(a)
 
@@ -2937,6 +2974,220 @@ def run_sharded_decode(torch, W, P, Q, G, cfg, dev, tmp) -> dict:
     return out
 
 
+def _streams_and_rate(torch, W, eng, prompts, kinds, new_tokens):
+    """(streams, tokens/s) of ``prompts`` served on ``eng``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = serve(W, eng, prompts, kinds, new_tokens)
+    torch.cuda.synchronize()
+    return streams, len(prompts) * new_tokens / (time.perf_counter() - t0)
+
+
+def run_tp_serving(torch, W, PT, SP, cfg, tree, srv, dev, tmp) -> dict:
+    """Phase 22: the tensor-parallel ServingEngine over a one-rank NCCL
+    mesh (``make_serving_mesh(mp=1)``): phase 4's 16 requests, whose
+    streams must equal a plain engine's on the same gather path
+    (``paged_kernel=False``), in bf16 at the small preset and on a float32
+    two-layer copy; tokens/s beside that engine's and phase 4's. Then the
+    paged-kernel rule at phase 4's shape, which phase 4's engine must have
+    resolved on through."""
+    n_req, new_tokens = 16, 64
+    prompts, kinds = _serving_requests(cfg, SEED + 4)
+    out = {}
+    with one_rank_world(tmp, "tp_serving_store"):
+        mesh = PT.make_serving_mesh(mp=1)
+        out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        for label, c, n_layers in (("bf16", cfg, cfg.n_layers),
+                                   ("f32", dataclasses.replace(
+                                       cfg, n_layers=2, dtype=torch.float32),
+                                    2)):
+            params = W.params_from_jax(
+                dict(tree, layers=tree["layers"][:n_layers]), c, device=dev)
+            rows = {}
+            for name, kw in (("tp", dict(mesh=mesh)),
+                             ("gather", dict(paged_kernel=False))):
+                eng = W.ServingEngine(params, c, slots=8, max_len=512,
+                                      prompt_buckets=(16, 64, 256),
+                                      device=dev, **kw)
+                if eng.paged_kernel:
+                    fail(f"tp serving {label} {name}: the paged kernel is on")
+                rows[name] = _streams_and_rate(torch, W, eng, prompts, kinds,
+                                               new_tokens)
+                if eng.used_blocks != 0:
+                    fail(f"tp serving {label} {name}: {eng.used_blocks} "
+                         "pool blocks leaked")
+                del eng
+            same = rows["tp"][0] == rows["gather"][0]
+            gap = sum(a != b for x, y in zip(rows["tp"][0], rows["gather"][0])
+                      for a, b in zip(x, y))
+            print(f"tp serving {label} world 1 (mp 1), small preset width, "
+                  f"{n_layers} layers, {n_req} requests x {new_tokens} "
+                  f"tokens: streams equal to the gather-path engine's: "
+                  f"{same} (tokens that differ: {gap}); {rows['tp'][1]:.1f} "
+                  f"tokens/s (gather engine {rows['gather'][1]:.1f}, phase 4 "
+                  f"paged {srv['tokens_per_s']:.1f})")
+            if not same:
+                fail(f"tp serving {label}: streams differ from the "
+                     "gather-path engine's")
+            for i, st in enumerate(rows["tp"][0]):
+                if len(st) != new_tokens or not all(
+                        0 <= t < c.vocab for t in st):
+                    fail(f"tp serving {label} request {i}: stream {st[:4]}")
+            out[label] = dict(streams_equal=same, tokens_differing=gap,
+                              tokens_per_s=rows["tp"][1],
+                              gather_tokens_per_s=rows["gather"][1],
+                              phase4_paged_tokens_per_s=srv["tokens_per_s"])
+            del params
+    est = SP.decode_step_traffic(cfg, slots=8, seq_len=512,
+                                 block_size=srv["block_size"], max_len=512)
+    rule = SP.recommend_paged_kernel(cfg, interpret=False, slots=8,
+                                     seq_len=512,
+                                     block_size=srv["block_size"])
+    calls = srv["paged_rule_calls"]
+    print(f"paged-kernel rule at phase 4's shape (8 slots, max_len 512, "
+          f"block {srv['block_size']}, bf16): modeled gather/paged KV-byte "
+          f"ratio {est['kv_bytes_ratio']} (threshold "
+          f"{SP.PAGED_DEFAULT_MIN_RATIO}): {'on' if rule else 'off'}; "
+          f"phase 4's engine asked it {len(calls)}x and resolved "
+          f"{srv['paged_kernel']}")
+    if not (rule and srv["paged_kernel"] and len(calls) == 1
+            and calls[0]["resolved"] and not calls[0]["interpret"]):
+        fail(f"phase 4's paged_kernel did not resolve on through the rule: "
+             f"{calls}")
+    out["paged_rule"] = dict(kv_bytes_ratio=est["kv_bytes_ratio"],
+                             decision=rule, phase4_calls=calls)
+    return out
+
+
+def run_runner_mesh(torch, A, R, D, runtime, dev, tmp) -> dict:
+    """Phase 23: ``runner.main`` through the join path over a one-rank
+    NCCL group, on phase 6's token file: phase 6's train flags (losses
+    and evals equal to phase 6's), the same with ``--zero1
+    --master-weights`` (equal to that run on the single-device path,
+    since master weights start from the bf16-rounded params as JAX's
+    do), and decode ``--dp 1 --tp 1`` from the first run's checkpoint
+    (phase 6's decode tail). ``--pp 2`` needs two cards: refused here,
+    and not measured."""
+    import io
+    import shutil
+
+    from elastic_tpu_agent_torch.workloads import telemetry as T
+
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    saved = {k: os.environ.pop(k, None) for k in RUNTIME_ENV}
+    os.environ["ELASTIC_TPU_ENV_FILE"] = os.path.join(tmp, "no-env-file")
+    out = {"launches": dict.fromkeys((k.symbol for k in kerns), 0)}
+    ph6 = runtime["train"]
+    n_layers = SMALL["n_layers"]
+    want = {"flash_fwd": n_layers * (1 + RUNTIME_STEPS + 2 * EVAL_BATCHES),
+            "flash_bwd_dkdv": n_layers * (1 + RUNTIME_STEPS),
+            "flash_bwd_dq": n_layers * (1 + RUNTIME_STEPS)}
+
+    def joined(argv, label):
+        for kern in kerns:
+            kern.launches = 0
+        rep = _runner(R, argv, dev)
+        torch.cuda.synchronize()
+        launches = {k.symbol: k.launches for k in kerns}
+        if launches != want:
+            fail(f"runner mesh {label} launches {launches}, want {want}")
+        for k, n in launches.items():
+            out["launches"][k] += n
+        if rep["devices"] != 1 or rep["mesh"] != {
+                "dp": 1, "sp": 1, "tp": 1, "ep": 1}:
+            fail(f"runner mesh {label}: devices {rep['devices']}, mesh "
+                 f"{rep['mesh']}")
+        return rep
+
+    def gaps(a, b):
+        ev = [abs(x - y) for x, y in zip(a["eval_losses"], b["eval_losses"])]
+        return max([abs(a["final_loss"] - b["final_loss"])] + ev)
+
+    def losses(rep):
+        return dict(final_loss=rep["final_loss"],
+                    eval_losses=[e["loss"] for e in rep.get("eval", [])],
+                    step_time_ms=rep["step_time_ms"])
+
+    try:
+        base = _runtime_data(D, os.path.join(tmp, "tokens.bin"))
+        ck = os.path.join(tmp, "ck")
+        fr = os.path.join(tmp, "fr_mesh.jsonl")
+        with one_rank_world(tmp, "runner_store"):
+            plain = joined(f"{base} {RUNTIME_TRAIN} --checkpoint-dir {ck} "
+                           f"--checkpoint-every 10 --flight-recorder {fr}",
+                           "plain")
+            mw = joined(f"{base} {RUNTIME_TRAIN} --zero1 --master-weights",
+                        "zero1+master_weights")
+            dec = _runner(R, "--mode decode --preset small --batch 8 "
+                          f"--prompt-len 32 --new-tokens 64 --checkpoint-dir "
+                          f"{ck} --dp 1 --tp 1", dev)
+            # refused for its launch shape: two stages need two cards
+            err = io.StringIO()
+            try:
+                with contextlib.redirect_stderr(err):
+                    R.main(f"{base} --steps 1 --pp 2".split(), device=dev)
+                fail("runner --pp 2 ran on one card")
+            except SystemExit as e:
+                if e.code != 2 or "one process per card" not in (
+                        err.getvalue()):
+                    fail(f"runner --pp 2 exited {e.code} without the "
+                         f"launch-shape refusal: {err.getvalue()[-300:]}")
+        # the same master-weight run on the single-device path (no group)
+        mw_one = _runner(R, f"{base} {RUNTIME_TRAIN} --zero1 "
+                         "--master-weights", dev)
+        shutil.rmtree(ck)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    # the saves gather leaf by leaf into pinned host memory (phase 6's
+    # copy the whole trees from the card at once)
+    saves = [r["duration_ms"] for r in T.load_jsonl(fr)
+             if r["kind"] == "checkpoint_save"]
+    out["plain"], out["zero1+master_weights"] = losses(plain), losses(mw)
+    out["plain"]["checkpoint_save_ms"] = saves
+    out["single_device_zero1+master_weights"] = losses(mw_one)
+    gap_plain = gaps(out["plain"], ph6)
+    gap_mw = gaps(out["zero1+master_weights"],
+                  out["single_device_zero1+master_weights"])
+    print(f"runner mesh (join path, world 1): devices {plain['devices']}, "
+          f"mesh {plain['mesh']}; phase 6's flags: final loss "
+          f"{plain['final_loss']:.6f}, evals {out['plain']['eval_losses']}, "
+          f"max gap to phase 6 {gap_plain:.3g} (limit {MESH_TOL}); "
+          f"step_time_ms {plain['step_time_ms']:.2f} (phase 6 "
+          f"{ph6['step_time_ms']:.2f}), checkpoint saves {saves} ms (phase "
+          f"6 {ph6['checkpoint_save_ms']})")
+    print(f"runner mesh --zero1 --master-weights: final loss "
+          f"{mw['final_loss']:.6f}, max gap to the single-device run "
+          f"{gap_mw:.3g} (limit {MESH_TOL}); step_time_ms "
+          f"{mw['step_time_ms']:.2f} (single-device "
+          f"{mw_one['step_time_ms']:.2f})")
+    if not gap_plain <= MESH_TOL:
+        fail(f"runner mesh losses vs phase 6: {gap_plain}")
+    if not gap_mw <= MESH_TOL:
+        fail(f"runner mesh zero1+master_weights vs single device: {gap_mw}")
+    same = dec["sample_tail"] == runtime["decode"]["sample_tail"]
+    print(f"runner mesh decode --dp 1 --tp 1: mesh {dec['mesh']}, tail "
+          f"{dec['sample_tail']} equal to phase 6's: {same}; "
+          f"{dec['decode_tokens_per_s']} tokens/s (phase 6 "
+          f"{runtime['decode']['decode_tokens_per_s']})")
+    if not same or dec["restored_step"] != RUNTIME_STEPS - 1:
+        fail(f"runner mesh decode tail {dec['sample_tail']} (step "
+             f"{dec['restored_step']}) vs phase 6's "
+             f"{runtime['decode']['sample_tail']}")
+    print("runner --pp 2: refused on one card (two stages need two cards); "
+          "its step time is not measured")
+    out.update(max_gap_vs_phase6=gap_plain, max_gap_mw=gap_mw,
+               decode=dict(mesh=dec["mesh"], sample_tail=dec["sample_tail"],
+                           tail_equal=same,
+                           tokens_per_s=dec["decode_tokens_per_s"]),
+               pp2="not measured: one card", devices=plain["devices"],
+               mesh=plain["mesh"])
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -3044,6 +3295,9 @@ def main() -> int:
     from elastic_tpu_agent_torch.workloads import telemetry as T
     from elastic_tpu_agent_torch.workloads import transformer as TR
     from elastic_tpu_agent_torch.workloads import pipeline as PL
+    from elastic_tpu_agent_torch.workloads import data as D
+    from elastic_tpu_agent_torch.workloads import partitioner as PT
+    from elastic_tpu_agent_torch.workloads import serving_proxy as SP
     from elastic_tpu_agent_torch.workloads import transformer_pipeline as TP
     from elastic_tpu_agent_torch.workloads import weights as WT
     import importlib     # the package's generate() shadows the module
@@ -3111,13 +3365,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_decode_") as tmp:
         decode = timed("sharded_decode", run_sharded_decode, torch, W, P, Q,
                        G, cfg, dev, tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_serving_") as tmp:
+        tp_serving = timed("tp_serving", run_tp_serving, torch, W, PT, SP,
+                           cfg, tree, srv, dev, tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_mesh_") as tmp:
+        runner_mesh = timed("runner_mesh", run_runner_mesh, torch, A, R, D,
+                            runtime, dev, tmp)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
-    # the ring + the MoE mesh step + both pipeline schedules, serving + the
-    # spec engine's fallback steps, train + LoRA + the sharded step + the
-    # ring + the MoE mesh step + both pipeline schedules
+    # the ring + the MoE mesh step + both pipeline schedules + the
+    # runner's mesh runs, serving + the spec engine's fallback steps,
+    # train + LoRA + the sharded step + the ring + the MoE mesh step + both
+    # pipeline schedules + the runner's mesh runs
     extra = (lora_launches, mesh["launches"], ring["launches"],
-             moe_mesh["launches"], pipeline["launches"])
+             moe_mesh["launches"], pipeline["launches"],
+             runner_mesh["launches"])
     flash["launches"] += sum(x["flash_fwd"] for x in extra)
     paged["launches"] += spec_launches
     for rec in (dkdv, dq):
@@ -3148,6 +3410,7 @@ def main() -> int:
               "streaming": stream, "lora": lora, "export": export,
               "mesh": mesh, "ring": ring, "moe_mesh": moe_mesh,
               "pipeline": pipeline, "sharded_decode": decode,
+              "tp_serving": tp_serving, "runner_mesh": runner_mesh,
               "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
@@ -3174,7 +3437,9 @@ def main() -> int:
                                 "lora": lora, "export": export,
                                 "mesh": mesh, "ring": ring,
                                 "moe_mesh": moe_mesh, "pipeline": pipeline,
-                                "sharded_decode": decode}}))
+                                "sharded_decode": decode,
+                                "tp_serving": tp_serving,
+                                "runner_mesh": runner_mesh}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

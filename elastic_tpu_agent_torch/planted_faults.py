@@ -53,7 +53,7 @@ BWD = "elastic_tpu_agent_torch/csrc/flash_bwd.cu"
 FWD = "elastic_tpu_agent_torch/csrc/flash_fwd.cu"
 PAGED = "elastic_tpu_agent_torch/csrc/paged_decode.cu"
 RUNNER = "elastic_tpu_agent_torch/workloads/runner.py"
-RESTORE = "params, opt_state, start_step = ckpt.restore(params, opt_state)"
+RESTORE = "params, opt_state, start_step = ckpt.restore(*like)"
 MOE = "elastic_tpu_agent_torch/workloads/moe.py"
 
 # name -> (file, exact text, replacement); each text occurs exactly once
@@ -90,7 +90,7 @@ FAULTS = {
     ),
     "F13_optimizer_state_reinitialised_on_resume": (
         RUNNER, RESTORE,
-        "params, _, start_step = ckpt.restore(params, opt_state)",
+        "params, _, start_step = ckpt.restore(*like)",
     ),
     "F14_step_count_reset_on_resume": (
         RUNNER, RESTORE, RESTORE + '; opt_state["count"].zero_()',

@@ -17,7 +17,10 @@ MoE experts over ep with global routing in ``moe.py``), ring attention
 over sp (``ring_attention.py``), the GPipe pipeline over pp
 (``pipeline.py``), the pipelined flagship with GPipe and 1F1B
 (``transformer_pipeline.py``) and sharded decode
-(``generate(mesh=)``, ``decode_shardings``)."""
+(``generate(mesh=)``, ``decode_shardings``); tensor-parallel serving
+(``partitioner.py``, ``ServingEngine(mesh=)``), the decode-step traffic
+model that resolves the engine's paged-kernel default
+(``serving_proxy.py``) and the runner across cards."""
 
 from .beam import beam_search
 from .checkpointing import (
@@ -42,6 +45,7 @@ from .lifecycle import (
     write_checkpoint_ack,
 )
 from .parallel import gather_params, make_mesh, param_shardings, shard_params
+from .partitioner import ServingPartitioner, make_serving_mesh
 from .pipeline import (
     ProcessGroupPipe,
     StackedPipe,
@@ -54,6 +58,7 @@ from .prefix_cache import PrefixCache, chain_hashes
 from .ring_attention import ring_attention_sharded, ring_attention_stacked
 from .request_obs import RequestObservatory
 from .serving import ServingEngine, SharedKVPool, disaggregated_status
+from .serving_proxy import decode_step_traffic, recommend_paged_kernel
 from .speculative import SpecStats, speculative_generate
 from .streaming import streaming_generate
 from .telemetry import (
@@ -101,6 +106,7 @@ __all__ = [
     "ProcessGroupPipe",
     "RequestObservatory",
     "ServingEngine",
+    "ServingPartitioner",
     "SharedKVPool",
     "Signal",
     "SpecStats",
@@ -113,6 +119,7 @@ __all__ = [
     "chain_hashes",
     "checkpoint_digest",
     "decode_shardings",
+    "decode_step_traffic",
     "dequantize_params",
     "device_memory_stats",
     "disaggregated_status",
@@ -138,6 +145,7 @@ __all__ = [
     "make_pipeline_mesh",
     "make_pipeline_train_step",
     "make_pipeline_transformer_step",
+    "make_serving_mesh",
     "make_train_step",
     "merge_lora",
     "moe_mlp",
@@ -150,6 +158,7 @@ __all__ = [
     "quantize_params",
     "random_tree",
     "read_checkpoint_ack",
+    "recommend_paged_kernel",
     "restack_for_pipeline",
     "ring_attention_sharded",
     "ring_attention_stacked",

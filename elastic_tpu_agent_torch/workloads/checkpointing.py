@@ -95,11 +95,14 @@ def tree_to_bytes(tree: Any) -> memoryview:
     """Serialize a tree of tensors (or numpy arrays) into one
     deterministic byte stream, the payload :class:`DeltaCheckpointer`
     chunks. Each leaf is copied once, straight into one host buffer
-    (pinned when a leaf lives on the card); returns a memoryview of it."""
+    (pinned when a leaf lives on the card or in pinned memory, so that the
+    caching host allocator serves it again at the next save); returns a
+    memoryview of it."""
     leaves = [_tensor(x) for _, x in _flatten(tree)]
     sizes = [_nbytes(t) for t in leaves]
     on_card = any(t.is_cuda for t in leaves)
-    buf = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=on_card)
+    pin = on_card or any(t.is_pinned() for t in leaves)
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=pin)
     off = 0
     for t, n in zip(leaves, sizes):
         if n:

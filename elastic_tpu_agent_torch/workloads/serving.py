@@ -13,9 +13,10 @@ Two decode paths, as in the JAX engine:
 - the kernel path (``paged_kernel``) writes each layer's new K/V entry
   straight into its pool block and attends through the Hopper paged-decode
   kernel (``paged_attention.py``): no gathered copy, each attended block
-  read once. ``paged_kernel=None`` turns it on for a CUDA device with the
-  engine's own float pool (the JAX package's traffic model puts the
-  kernel's KV-byte saving at about 3x whatever the shape). On CPU tensors
+  read once. ``paged_kernel=None`` resolves through JAX's rule
+  (``serving_proxy.recommend_paged_kernel``): on for a CUDA device, the
+  engine's own float pool and no mesh, where the traffic model puts the
+  kernel's KV-byte saving at about 3x whatever the shape. On CPU tensors
   ``paged_kernel=True`` runs the kernel's plain version, so tests can pin
   the two paths against each other.
 
@@ -84,8 +85,18 @@ uniforms for every slot on every spec step, whatever the rows'
 temperatures. Greedy streams equal target-only greedy decoding; sampled
 rows are per-request temperature only (top-k/top-p admissions raise).
 
-The JAX engine's tensor-parallel ``mesh`` comes with the multi-GPU slice
-and raises ``NotImplementedError`` (before any other check).
+``mesh`` (``partitioner.make_serving_mesh``) makes the engine
+tensor-parallel, as JAX's: heads, the MLP and the vocabulary split over
+the mesh's "mp" axis, and the pool its kv-head axis (``partitioner.py``).
+The port runs it SPMD: every rank of the mesh runs the same engine on the
+same requests, holding its shards of the params and its kv heads of the
+pool; ``_forward_chunk(view=)`` all-reduces after ``wo`` and ``w2`` and
+gathers the logits over "mp", so the host state (allocator, tables,
+prefix cache, sampling generator) stays the same on every rank and
+``used_blocks``, ``stats()`` and the streams equal the single-device
+engine's. A mesh engine runs the gather path, as JAX's does; a shared
+pool, ``paged_kernel=True`` and a draft model are refused with JAX's
+messages.
 """
 
 from __future__ import annotations
@@ -107,9 +118,11 @@ from .generate import (
     _sample_rowwise,
 )
 from .paged_attention import paged_decode_attention
+from .partitioner import ServingPartitioner
 from .prefix_cache import PrefixCache, chain_hashes
 from .quantize import embed_lookup, quantize_kv, wdense
 from .request_obs import normalize_slo
+from .serving_proxy import recommend_paged_kernel
 from .speculative import (
     SpecStats,
     accept_resample,
@@ -122,12 +135,6 @@ from .transformer import ModelConfig, _check_device, _rmsnorm, as_device, rope
 # for frozen slots and the gather source for empty table entries — its
 # contents are garbage by design and masked everywhere they could be read
 _JUNK = 0
-
-# JAX-engine options that come with later slices, with their defaults
-_LATER_OPTIONS = {
-    "mesh": (None, "multi-GPU serving"),
-}
-
 
 def gather_bucket(needed_blocks: int, max_blocks: int) -> int:
     """Power-of-two gather-width bucketing, capped at max_blocks."""
@@ -475,18 +482,9 @@ class ServingEngine:
         role: str = "both",
         pool: Optional[SharedKVPool] = None,
         observatory=None,
+        mesh=None,
         device="cuda",
-        **later,
     ):
-        for name, value in later.items():
-            if name not in _LATER_OPTIONS:
-                raise TypeError(f"unexpected argument {name!r}")
-            default, what = _LATER_OPTIONS[name]
-            if value is not default and value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r}: {what} comes with a later slice of "
-                    "the port"
-                )
         self.device = as_device(device)
         _check_device(params, self.device)
         self.params = params
@@ -525,6 +523,12 @@ class ServingEngine:
         self.role = role
         self.shared_pool = pool
         if pool is not None:
+            if mesh is not None:
+                raise ValueError(
+                    "a SharedKVPool does not compose with a "
+                    "tensor-parallel mesh yet (per-engine placement "
+                    "would shard one pool two ways)"
+                )
             if draft_params is not None:
                 raise ValueError(
                     "speculative serving does not support a shared pool"
@@ -562,6 +566,13 @@ class ServingEngine:
                     f"{pool.pool_blocks}"
                 )
 
+        # tensor-parallel serving: this rank's shards of the params and
+        # its kv heads of the pool; the host bookkeeping is unchanged
+        self.mesh = mesh
+        self._part = ServingPartitioner(mesh, cfg)
+        self._view = self._part.view()
+        self.params = params = self._part.shard_params(params)
+
         if block_size is None:
             # largest power of two dividing every prompt bucket and max_len
             g = math.gcd(max_len, *self.buckets)
@@ -594,8 +605,8 @@ class ServingEngine:
                 )
                 self._alloc.reclaim = self._prefix_cache.reclaim
             pool_shape = (
-                cfg.n_layers, pool_blocks, block_size, cfg.kv_heads,
-                cfg.head_dim,
+                cfg.n_layers, pool_blocks, block_size,
+                self._part.local_kv_heads(), cfg.head_dim,
             )
             self._pool_k = _pool_empty(
                 pool_shape, cfg.dtype, self.device, kv_int8)
@@ -660,12 +671,24 @@ class ServingEngine:
         # "stop_token" | "pool_exhausted" | "prefilled" | "handoff"
         self.finish_reason: Dict[int, str] = {}
         if paged_kernel is None:
-            paged_kernel = self.device.type == "cuda" and not kv_int8
+            # the traffic model's threshold (serving_proxy.py): on where
+            # the kernel runs natively, off for CPU tensors
+            paged_kernel = recommend_paged_kernel(
+                cfg, interpret=self.device.type != "cuda", kv_int8=kv_int8,
+                mesh=mesh, slots=slots, seq_len=max_len,
+                block_size=self.block_size,
+            )
         if paged_kernel and kv_int8:
             raise ValueError(
                 "kv_int8 and paged_kernel are mutually exclusive: the paged "
                 "kernel streams raw pool blocks; int8 pools dequantize on "
                 "the gather path"
+            )
+        if paged_kernel and mesh is not None:
+            raise ValueError(
+                "paged_kernel does not compose with a tensor-parallel "
+                "mesh yet; the TP engine runs the partitioned gather "
+                "path"
             )
         self.paged_kernel = bool(paged_kernel)
 
@@ -673,6 +696,12 @@ class ServingEngine:
         self.draft_cfg = draft_cfg
         self.gamma = gamma
         if draft_params is not None:
+            if mesh is not None:
+                raise ValueError(
+                    "speculative serving does not support a "
+                    "tensor-parallel mesh yet (the draft's dense cache "
+                    "is unsharded)"
+                )
             if draft_cfg is None:
                 raise ValueError("draft_params needs its draft_cfg")
             if cfg.vocab != draft_cfg.vocab:
@@ -751,7 +780,10 @@ class ServingEngine:
         per-request KV attribution."""
         pk = self._pool_k
         parts = (pk["q"], pk["s"]) if isinstance(pk, dict) else (pk,)
-        per = sum(t.numel() * t.element_size() for t in parts)
+        # the whole pool's, as the JAX engine's global arrays: a rank
+        # holds 1/mp of the kv heads
+        per = self._part.mp * sum(t.numel() * t.element_size()
+                                  for t in parts)
         return int(2 * per // max(1, self.pool_blocks))
 
     def stats(self) -> Dict:
@@ -834,7 +866,7 @@ class ServingEngine:
         lengths, toks = self._lengths, self._last
         logits, cache = _forward_chunk(
             self.params, toks[:, None], KVCache(k=kg, v=vg), self.cfg,
-            moe_drop_free=True, positions=lengths,
+            moe_drop_free=True, positions=lengths, view=self._view,
         )
         nxt = self._pick(logits[:, 0], greedy, temp, tk, tp)
         # the ONE written position per slot goes back to its pool block;
@@ -900,8 +932,12 @@ class ServingEngine:
         shared prefix blocks and past the request's need). Returns the
         chunk's logits."""
         L, _, bs, g, h = _pool_shape(self._pool_k)
-        mini = KVCache.empty(
-            self.cfg, 1, pref_padded + padded.shape[0], device=self.device)
+        width = pref_padded + padded.shape[0]
+        mini = KVCache(   # this rank's kv heads
+            k=torch.zeros((L, 1, width, g, h), dtype=self.cfg.dtype,
+                          device=self.device),
+            v=torch.zeros((L, 1, width, g, h), dtype=self.cfg.dtype,
+                          device=self.device))
         if pref_padded:
             pidx = (slice(None), self._tensor(pref_blocks, torch.long))
             for dst, pool in ((mini.k, self._pool_k),
@@ -911,6 +947,7 @@ class ServingEngine:
         logits, mini = _forward_chunk(
             self.params, padded[None],
             KVCache(k=mini.k, v=mini.v, length=plen), self.cfg,
+            view=self._view,
         )
         nb = mini.k.shape[2] // bs
         at = (slice(None), self._tensor(phys, torch.long))
@@ -939,7 +976,8 @@ class ServingEngine:
         cache = KVCache(
             k=kg.to(cfg.dtype), v=vg.to(cfg.dtype), length=start
         )
-        logits, cache = _forward_chunk(self.params, toks[None], cache, cfg)
+        logits, cache = _forward_chunk(self.params, toks[None], cache, cfg,
+                                       view=self._view)
         at = (slice(None), wphys)
         _pool_set(self._pool_k, at, cache.k[:, 0, start:start + bs])
         _pool_set(self._pool_v, at, cache.v[:, 0, start:start + bs])

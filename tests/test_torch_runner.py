@@ -1,7 +1,8 @@
 """The PyTorch port's runner (elastic_tpu_agent_torch/workloads/runner.py)
 in-process on the CPU: train-mode parity with the JAX runner on the same
 data and weights, resume, the lifecycle handshake with pre-copy migration,
-decode mode, and the options that belong to later slices.
+decode mode, and the guards of a one-process run (the runner across
+ranks: tests/test_torch_runner_mesh.py).
 
 Tolerance of the parity test: the tiny preset computes in bf16 in both
 runners, which round products at different places (XLA's fusions, the
@@ -45,6 +46,8 @@ LOSS_TOL = 2e-3
 ARGS = "--preset tiny --batch 8 --seq 32"
 ALLOC_ENV = (
     "TPU", "GPU", "ELASTIC_TPU_ALLOC_DIR", "TPU_WORKER_HOSTNAMES",
+    "TPU_WORKER_ID", "ELASTIC_TPU_COORD_PORT", "LOCAL_RANK",
+    "LOCAL_WORLD_SIZE",
     "ELASTIC_TPU_HBM_FRACTION", "TPU_MEM_FRACTION", "ELASTIC_TPU_TRACE_ID",
     "ELASTIC_TPU_FLIGHT_RECORDER", "ELASTIC_TPU_RESTORE_DIR",
     "ELASTIC_TPU_RESTORE_STEP", "ELASTIC_TPU_RESTORE_TRACE",
@@ -253,31 +256,53 @@ def test_decode_int8_matches_the_jax_runner(monkeypatch):
 
 
 @pytest.mark.parametrize("hosts,exc,match", [
-    ("a,b", NotImplementedError, "item 4f"),
+    ("a,b", SystemExit, "decode mode is single-host"),
 ])
 def test_later_slices_raise(hosts, exc, match, monkeypatch):
-    """What still waits for a later slice: the runner's multi-host join
-    (``--params-dir``, which raised here before the export slice, now
-    serves artifacts: tests/test_torch_export.py)."""
+    """What the runner refuses across hosts, as the JAX runner does:
+    decode mode on a multi-host slice (checked before any join; the
+    cross-card runs themselves: tests/test_torch_runner_mesh.py)."""
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", hosts)
     with pytest.raises(exc, match=match):
-        _port(f"{ARGS} --steps 1")
+        _port(f"--mode decode {ARGS} --prompt-len 8 --new-tokens 2")
 
 
-@pytest.mark.parametrize("argv", ["--dp 2", "--tp 2", "--sp 2", "--pp 2",
-                                  "--zero1"])
-def test_multi_gpu_flags_are_usage_errors(argv, capsys):
+@pytest.mark.parametrize("argv,match", [
+    ("--dp 2", "one process per card"),
+    ("--tp 2", "one process per card"),
+    ("--sp 2", "one process per card"),
+    ("--pp 2", "one process per card"),
+    ("--zero1 --pp 2", "compose with the dp/sp/tp step only"),
+])
+def test_multi_gpu_flags_are_usage_errors(argv, match, capsys):
+    """A mesh larger than the world (here one process, no group) is a
+    usage error naming the launch shape; JAX's refusals keep their
+    messages."""
     with pytest.raises(SystemExit):
         _port(f"{ARGS} {argv}")
-    assert "multi-GPU slice" in capsys.readouterr().err
+    assert match in capsys.readouterr().err
 
 
 def test_single_card_guards(monkeypatch):
+    """A multi-host slice env joins one process group at the first host
+    (recorded here, not joined), one host joins nothing, and asking for
+    the card without one raises."""
+    calls = []
+
+    def record(backend, **kw):
+        calls.append(dict(kw, backend=backend))
+        raise ConnectionError("recorded")
+
+    monkeypatch.setattr(trunner.dist, "init_process_group", record)
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "a,b")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    monkeypatch.setenv("TPU_WORKER_ID", "1")
+    with pytest.raises(ConnectionError, match="recorded"):
         _port(f"{ARGS} --steps 1")
+    assert calls == [dict(backend="gloo", init_method="tcp://a:8476",
+                          rank=1, world_size=2)]
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "a")
-    trunner.maybe_join_slice()
+    monkeypatch.setenv("TPU_WORKER_ID", "0")
+    assert trunner.maybe_join_slice("cpu") is False
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trunner.main(f"{ARGS} --steps 1".split())

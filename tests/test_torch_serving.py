@@ -176,12 +176,14 @@ def test_admission_guards_and_stats():
 
 
 @pytest.mark.parametrize(
-    # a mesh raises before any other check, a draft model's included
+    # a mesh without the serving axis raises before the draft model's
+    # checks, as in the JAX engine (its tensor-parallel serving:
+    # tests/test_torch_tp_serving.py)
     "opt", [dict(mesh=object()), dict(mesh=object(), draft_params={})],
 )
 def test_later_slice_options_raise(opt):
     _, tcfg, _, params = _models()
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="serving mesh needs an 'mp' axis"):
         ts.ServingEngine(params, tcfg, **ENGINE, device="cpu", **opt)
 
 

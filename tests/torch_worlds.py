@@ -16,6 +16,7 @@ Each leg function takes (rank, world, spec) and returns plain data
 from __future__ import annotations
 
 import os
+import signal
 import socket
 import tempfile
 import time
@@ -33,31 +34,39 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _child(fn, rank, world, port, out_dir, spec):
+def _child(fn, rank, world, port, out_dir, spec, init):
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     path = os.path.join(out_dir, f"{rank}.pt")
     try:
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-            world_size=world, timeout=timedelta(seconds=WORLD_TIMEOUT_S),
-        )
-        try:
+        if not init:
+            # the leg joins (and leaves) the group itself, at this port
+            os.environ["ELASTIC_TPU_COORD_PORT"] = str(port)
             result = fn(rank, world, spec)
-        finally:
-            dist.destroy_process_group()
+        else:
+            dist.init_process_group(
+                "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                world_size=world, timeout=timedelta(seconds=WORLD_TIMEOUT_S),
+            )
+            try:
+                result = fn(rank, world, spec)
+            finally:
+                dist.destroy_process_group()
         torch.save({"ok": result}, path)
     except BaseException:  # noqa: BLE001 - reported to the test process
         torch.save({"error": traceback.format_exc()}, path)
         raise
 
 
-def run_world(fn, world: int, spec, timeout: float = WORLD_TIMEOUT_S):
+def run_world(fn, world: int, spec, timeout: float = WORLD_TIMEOUT_S,
+              init: bool = True):
     """[fn(rank, world, spec) for every rank], each run in its own spawned
     process of a gloo world. Raises with the child's traceback if a rank
-    failed, and kills every child still alive at the deadline."""
+    failed, and kills every child still alive at the deadline. With
+    ``init`` False the children start without a group and the legs join
+    it themselves at ``ELASTIC_TPU_COORD_PORT`` (a free local port)."""
     import multiprocessing
 
     import torch
@@ -66,7 +75,7 @@ def run_world(fn, world: int, spec, timeout: float = WORLD_TIMEOUT_S):
     port = free_port()
     with tempfile.TemporaryDirectory(prefix="torch_world_") as out:
         procs = [ctx.Process(target=_child,
-                             args=(fn, r, world, port, out, spec))
+                             args=(fn, r, world, port, out, spec, init))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -385,4 +394,316 @@ def decode_legs(rank, world, spec):
                            generator=gen, device="cpu", mesh=mesh,
                            **leg.get("sampling", {}))
         out[leg["name"]] = toks.numpy()
+    return out
+
+
+def serve_script(eng, admissions, kw=()):
+    """The TP serving tests' script (JAX ``tests/test_tp_serving.py``'s
+    ``_run``): admit, 3 steps, a second admission, 4 steps; returns both
+    streams and the pool occupancy after the admission and every step.
+    ``kw`` gives each admission's sampling arguments."""
+    kw = list(kw) or [{}, {}]
+    occupancy = []
+    ra = eng.admit(list(admissions[0]), **kw[0])
+    occupancy.append(eng.used_blocks)
+    for _ in range(3):
+        eng.step()
+        occupancy.append(eng.used_blocks)
+    rb = eng.admit(list(admissions[1]), **kw[1])
+    for _ in range(4):
+        eng.step()
+        occupancy.append(eng.used_blocks)
+    return [eng.release(ra), eng.release(rb), occupancy]
+
+
+def churn_script(eng, prompts):
+    """One slot, requests one after another: each stream and the pool
+    empty after each release."""
+    out = []
+    for prompt in prompts:
+        rid = eng.admit(list(prompt))
+        for _ in range(4):
+            eng.step()
+        out.append([eng.release(rid), eng.used_blocks])
+    return out
+
+
+def prefix_script(eng, system, tails):
+    """The prefix cache under serving: admissions sharing ``system``
+    (automatic cache hits), ``register_prefix`` + ``admit(prefix=)``, and
+    a chunked ``enqueue``; streams, occupancy after every step, and the
+    cache's hit count."""
+    out, occupancy = [], []
+
+    def run(rid, steps=3):
+        for _ in range(steps):
+            eng.step()
+            occupancy.append(eng.used_blocks)
+        out.append(eng.release(rid))
+
+    for tail in tails:
+        run(eng.admit(list(system) + list(tail)))
+    pid = eng.register_prefix(list(system))
+    run(eng.admit(list(tails[0]), prefix=pid))
+    eng.release_prefix(pid)
+    run(eng.enqueue(list(system) + [8, 8, 8]), steps=6)
+    return [out, occupancy, eng.stats()["prefix_cache"]["hits"]]
+
+
+def _spec_lists(tree):
+    """Split specs as plain lists (picklable, comparable)."""
+    if isinstance(tree, dict):
+        return {k: _spec_lists(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_spec_lists(v) for v in tree]
+    return list(tree)
+
+
+def tp_serving_legs(rank, world, spec):
+    """The tensor-parallel ServingEngine over ("dp", "mp") meshes of the
+    world, one leg at a time, each beside the single-device engine in the
+    same rank: the scripts above, sampled streams, the partitioner's specs
+    and pool, kv_int8's first-step logits, the refusals' messages and the
+    mesh's shapes."""
+    import torch
+
+    from elastic_tpu_agent_torch.workloads import parallel
+    from elastic_tpu_agent_torch.workloads import partitioner as tpart
+    from elastic_tpu_agent_torch.workloads import quantize as tq
+    from elastic_tpu_agent_torch.workloads import serving as ts
+    from elastic_tpu_agent_torch.workloads import transformer as tt
+    from elastic_tpu_agent_torch.workloads.weights import params_from_jax
+
+    meshes = {}
+
+    def mesh_of(mp):
+        if mp not in meshes:
+            meshes[mp] = tpart.make_serving_mesh(mp=mp, device_type="cpu")
+        return meshes[mp]
+
+    def refusal(fn):
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return "no error"
+
+    out = {}
+    for leg in spec["legs"]:
+        cfg = tt.ModelConfig(**leg["cfg"], dtype=torch.float32)
+        params = params_from_jax(leg["tree"], cfg, device="cpu",
+                                 dtype=torch.float32)
+        kw = dict(leg.get("engine", {}), device="cpu")
+        kind = leg["kind"]
+
+        def engines(mp):
+            return (ts.ServingEngine(params, cfg, **kw, mesh=mesh_of(mp)),
+                    ts.ServingEngine(params, cfg, **kw))
+
+        res = {}
+        if kind in ("serve", "sampled"):
+            for mp in leg["mps"]:
+                tp_eng, one = engines(mp)
+                res[mp] = [serve_script(e, leg["admissions"],
+                                        leg.get("sampling", ()))
+                           for e in (tp_eng, one)]
+        elif kind == "churn":
+            for mp in leg["mps"]:
+                res[mp] = [churn_script(e, leg["prompts"])
+                           for e in engines(mp)]
+        elif kind == "prefix":
+            for mp in leg["mps"]:
+                res[mp] = [prefix_script(e, leg["system"], leg["tails"])
+                           for e in engines(mp)]
+        elif kind == "layout":
+            qparams = tq.quantize_params(params)
+            for mp in leg["mps"]:
+                part = tpart.ServingPartitioner(mesh_of(mp), cfg)
+                eng = ts.ServingEngine(params, cfg, **kw, mesh=mesh_of(mp))
+                full = ts._pool_empty(
+                    (cfg.n_layers, 3, 4, cfg.kv_heads, cfg.head_dim),
+                    torch.float32, "cpu", kv_int8=True)
+                full["q"].copy_(torch.arange(full["q"].numel()).reshape(
+                    full["q"].shape) % 100)
+                placed = part.place_pool(full)
+                res[mp] = dict(
+                    specs=_spec_lists(part.param_shardings(params)),
+                    int8_specs=_spec_lists(part.param_shardings(qparams)),
+                    pool_spec=list(part.pool_sharding()),
+                    pool_shape=list(eng._pool_k.shape),
+                    wo_shape=list(eng.params["layers"][0]["wo"].shape),
+                    placed_q=placed["q"].numpy(),
+                    placed_s_shape=list(placed["s"].shape),
+                )
+        elif kind == "int8":
+            for mp in leg["mps"]:
+                logits, streams, pools = [], [], []
+                for e in engines(mp):
+                    seen, pick = [], e._pick
+                    e._pick = (lambda lg, *a, seen=seen, pick=pick:
+                               seen.append(lg.clone()) or pick(lg, *a))
+                    rid = e.admit(list(leg["admissions"][0]))
+                    for _ in range(4):
+                        e.step()
+                    streams.append(e.release(rid))
+                    logits.append(seen[0].numpy())
+                    pools.append([list(e._pool_k["q"].shape),
+                                  list(e._pool_k["s"].shape),
+                                  str(e._pool_k["q"].dtype)])
+                res[mp] = dict(logits=logits, streams=streams, pools=pools)
+        elif kind == "refusals":
+            dense = dict(kw, mesh=mesh_of(leg["mps"][0]))
+            gqa = tt.ModelConfig(**dict(leg["cfg"], n_kv_heads=2),
+                                 dtype=torch.float32)
+            moe = tt.ModelConfig(**dict(leg["cfg"], moe_experts=2),
+                                 dtype=torch.float32)
+            pool = ts.SharedKVPool(cfg, block_size=4, pool_blocks=40,
+                                   device="cpu")
+            res = dict(
+                kv_heads=refusal(lambda: ts.ServingEngine(
+                    params_from_jax(leg["gqa_tree"], gqa, device="cpu",
+                                    dtype=torch.float32), gqa, **dense)),
+                paged_kernel=refusal(lambda: ts.ServingEngine(
+                    params, cfg, **dense, paged_kernel=True)),
+                draft=refusal(lambda: ts.ServingEngine(
+                    params, cfg, **dense, draft_params=params,
+                    draft_cfg=cfg)),
+                pool=refusal(lambda: ts.ServingEngine(
+                    params, cfg, **dict(kw, block_size=4), pool=pool,
+                    mesh=mesh_of(leg["mps"][0]))),
+                no_mp=refusal(lambda: tpart.ServingPartitioner(
+                    parallel.make_mesh(world, dp=world, sp=1, tp=1,
+                                       device_type="cpu"), cfg)),
+                moe=refusal(lambda: tpart.ServingPartitioner(
+                    mesh_of(leg["mps"][0]), moe)),
+            )
+        elif kind == "mesh":
+            def shape(**kw):
+                m = tpart.make_serving_mesh(device_type="cpu", **kw)
+                return [list(m.mesh_dim_names), list(m.shape)]
+
+            res = dict(mp2=shape(mp=2), default=shape(),
+                       bad_mp=refusal(lambda: shape(mp=3)),
+                       bad_n=refusal(lambda: shape(mp=2, n_devices=8)))
+        out[leg["name"]] = res
+    return out
+
+
+RUNNER_ENV = ("TPU", "GPU", "ELASTIC_TPU_ALLOC_DIR",
+              "ELASTIC_TPU_HBM_FRACTION",
+              "ELASTIC_TPU_TRACE_ID", "ELASTIC_TPU_FLIGHT_RECORDER",
+              "ELASTIC_TPU_RESTORE_DIR", "ELASTIC_TPU_RESTORE_STEP")
+
+
+def runner_legs(rank, world, spec):
+    """``runner.main(argv, device="cpu")`` through the runner's own join:
+    first as one host of ``world`` processes (the launcher's LOCAL_RANK
+    and LOCAL_WORLD_SIZE), each leg of ``spec["legs"]`` in turn; then
+    ranks 0 and 1 as a two-host slice (``TPU_WORKER_HOSTNAMES``
+    localhost,localhost, ``TPU_WORKER_ID`` the rank) for
+    ``spec["slice_legs"]``. Test-only patches: the presets compute in f32,
+    the train steps start from the JAX runner's init trees (bridged and
+    cut for the mesh), decode mode from its params and prompt. A leg is
+    (name, argv) or (name, argv, options): ``env``, set for that leg alone
+    (an alloc dir with a lifecycle stamp), and ``sigterm_rank``, a rank
+    that sends itself SIGTERM inside its first whole-tree gather (a
+    pre-copy round). Every rank returns every report with whether its rank
+    printed it."""
+    import torch
+    import torch.distributed as dist
+
+    from elastic_tpu_agent_torch.workloads import parallel
+    from elastic_tpu_agent_torch.workloads import pipeline as pl
+    from elastic_tpu_agent_torch.workloads import runner as tr
+    from elastic_tpu_agent_torch.workloads import transformer as tt
+    from elastic_tpu_agent_torch.workloads import transformer_pipeline as ttp
+    from elastic_tpu_agent_torch.workloads.weights import (
+        params_from_jax,
+        pipeline_params_from_jax,
+    )
+
+    for k in RUNNER_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(
+        ELASTIC_TPU_ENV_FILE=os.path.join(spec["dir"], "no-env-file"),
+        ELASTIC_TPU_RESTORE_WAIT_S="0", TPU_WORKER_HOSTNAMES="localhost",
+        TPU_WORKER_ID="0", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+    )
+    for name in tr.PRESETS:
+        tr.PRESETS[name] = dict(tr.PRESETS[name], dtype=torch.float32)
+
+    dense_step = tt.make_train_step
+    pipe_step = ttp.make_pipeline_transformer_step
+
+    def from_jax(cfg, **kw):
+        step, _, opt = dense_step(cfg, **kw)
+
+        def init_all(generator):
+            full = params_from_jax(spec["tree"], cfg, device="cpu",
+                                   dtype=torch.float32)
+            mesh = kw.get("mesh")
+            params = (full if mesh is None
+                      else parallel.shard_params(full, mesh, cfg))
+            return params, opt.init(params)
+
+        return step, init_all, opt
+
+    def pipe_from_jax(cfg, mesh, **kw):
+        step, _ = pipe_step(cfg, mesh, **kw)
+
+        def init_all(generator):
+            full = pipeline_params_from_jax(spec["pipe_tree"], cfg,
+                                            pl.as_pipe(mesh).size,
+                                            device="cpu")
+            params = dict(full, stages=pl.shard_stages(full["stages"], mesh))
+            return params, tt.AdamW(kw["learning_rate"]).init(params)
+
+        return step, init_all
+
+    tt.make_train_step = from_jax
+    ttp.make_pipeline_transformer_step = pipe_from_jax
+    tt.init_params = lambda cfg, generator, device, dtype=None: (
+        params_from_jax(spec["tree"], cfg, device=device, dtype=dtype))
+    tr.decode_prompt = lambda cfg, b, p: spec["prompt"]
+    reports = []
+    tr._emit = lambda report, root: reports.append(dict(report, root=root))
+
+    gather = tr._Shards.full
+
+    def run(name, argv, options=None):
+        options = options or {}
+        env = options.get("env", {})
+        os.environ.update(env)
+        if options.get("sigterm_rank") == rank:
+            def full(self, *trees):
+                tr._Shards.full = gather
+                os.kill(os.getpid(), signal.SIGTERM)
+                return gather(self, *trees)
+
+            tr._Shards.full = full
+        reports.clear()
+        try:
+            assert tr.main(argv.split(), device="cpu") == 0
+        finally:
+            tr._Shards.full = gather
+            for k in env:
+                os.environ.pop(k)
+        return reports[-1]
+
+    out = {leg[0]: run(*leg) for leg in spec["legs"]}
+    # a fresh port for the two-host slice, from rank 0
+    port = [free_port() if rank == 0 else None]
+    dist.broadcast_object_list(port, src=0)
+    dist.destroy_process_group()
+    if rank < 2:
+        os.environ.update(
+            TPU_WORKER_HOSTNAMES="localhost,localhost",
+            TPU_WORKER_ID=str(rank),
+            LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+            ELASTIC_TPU_COORD_PORT=str(port[0]),
+        )
+        try:
+            out.update({leg[0]: run(*leg) for leg in spec["slice_legs"]})
+        finally:
+            dist.destroy_process_group()
     return out
