@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving, training, runtime,
 shared-prefix serving, decode-variant, serving-artifact, sharded
 training, expert-parallel, pipeline, sharded-decode, tensor-parallel
-serving and runner-across-cards slices on one NVIDIA GPU.
+serving and runner-across-cards slices on one NVIDIA GPU, and the agent's
+device layer with four tenants sharing that GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -132,15 +133,17 @@ shows; it then exits 1 before the summary lines. Phases:
    ring run on the kernels' plain versions on the CPU, 4 launches of each
    kernel a ring, and the ring's forward and forward + backward device
    times beside one flash call over the whole 4096 and SDPA;
-18. the summary, printed after phases 19-23: the device time of the
+18. the summary, printed after phases 19-24: the device time of the
    whole bf16 backward (delta, dK/dV and dQ) against SDPA's whole
    backward, each phase's host seconds, a
    ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
    summed over the paths it lies on: forward, LoRA, the sharded step, the
-   ring, the MoE mesh step, both pipeline schedules and the runner's mesh
-   runs for flash_fwd; train, LoRA, the sharded step, the ring, the MoE
-   mesh step, both pipeline schedules and the runner's mesh runs for the
-   backward pair; serving and the speculative fallback for paged_decode),
+   ring, the MoE mesh step, both pipeline schedules, the runner's mesh
+   runs and the shared card's train tenants for flash_fwd; train, LoRA,
+   the sharded step, the ring, the MoE mesh step, both pipeline
+   schedules, the runner's mesh runs and the train tenants for the
+   backward pair; serving, the speculative fallback and the serving
+   tenants for paged_decode),
    the card's name and power limit as
    nvidia-smi reports them, and the result line;
 19. MoE over a one-rank NCCL mesh: phase 7's MoE preset, weights and
@@ -176,7 +179,29 @@ shows; it then exits 1 before the summary lines. Phases:
    single-device path), 200/168/168 flash launches each; decode ``--dp 1
    --tp 1`` from the first run's checkpoint gives phase 6's tail;
    ``devices``/``mesh`` and ``step_time_ms`` beside phase 6's; ``--pp 2``
-   is refused on one card and not measured.
+   is refused on one card and not measured;
+24. the device layer, then a functional check of the quota and of four
+   tenants co-located on the card (a mix of this script's own phases 4
+   and 6, no deployment's traffic; its utilization readings are shown,
+   not judged):
+   ``NvidiaOperator("/dev")`` in a child process that never imports
+   torch (its card's uuid, SMs and memory against torch's, health, the
+   nvidia-smi call's ms); a virtual link under a temp dev root aimed at
+   the card's ``/dev/nvidia<minor>`` that resolves back to its index and
+   is deleted; a child with a 10% grant (its env file from the port's
+   ``qos_env`` and ``visibility_env``, applied by ``runner.load_alloc_env``
+   and ``runner.apply_hbm_quota``) that allocates the quota less 512 MiB
+   and must raise ``OutOfMemoryError`` at the quota plus 256 MiB; then
+   tenants of 25 core units and a quarter of the memory units each, in
+   child processes started together at a barrier: T1 alone, then T1 and
+   T2 (``runner.main`` with phase 6's flags on phase 6's token file, each
+   in its own directories) beside T3 and T4 (phase 4's 16 requests on the
+   kernel-path engine). T1 and T2's losses and evals must equal phase 6's
+   and T3 and T4's streams phase 4's; each tenant's launches, reserved
+   memory (at most its fraction of torch's ``total_memory``) and
+   ``step_time_ms`` or tokens/s; ``nvidia-smi``'s ``utilization.gpu``
+   and used memory, polled every 0.5 s, for the idle, T1-alone and
+   all-four windows (and for the span in which their tenants worked).
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -199,6 +224,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -848,7 +874,7 @@ def run_serving(torch, W, PA, cfg, params, tree, dev):
         paged_launches=launches, f32_forward_err=f32_err,
         f32_streams_equal=same, paged_kernel=eng.paged_kernel,
         paged_rule_calls=[dict(kw, resolved=got) for kw, got in asked],
-        block_size=eng.block_size,
+        block_size=eng.block_size, streams=streams,
     )
 
 
@@ -3188,6 +3214,498 @@ def run_runner_mesh(torch, A, R, D, runtime, dev, tmp) -> dict:
     return out
 
 
+# -- phase 24: the device layer; the quota and four co-located tenants -------
+
+SHARE_TENANTS = 4               # two phase-6 train runs, two phase-4 engines
+PROBE_PERCENT = 10              # the quota probe's grant, in % of the card
+SAMPLE_PERIOD_S = 0.5           # nvidia-smi utilization polls
+IDLE_WINDOW_S = 3.0
+TENANT_TIMEOUT_S = 300.0
+# env keys a tenant must not inherit from this process: its env file
+# carries the allocation
+TENANT_ENV_STRIP = RUNTIME_ENV + ("CUDA_VISIBLE_DEVICES",
+                                  "ELASTIC_TPU_CORE_UNITS",
+                                  "ELASTIC_TPU_HBM_LIMIT_BYTES")
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                "paged_decode")
+
+
+def _uuid_key(uuid) -> str:
+    """nvidia-smi's "GPU-<uuid>" and torch's "<uuid>" compare equal."""
+    s = str(uuid).strip().lower()
+    return s[4:] if s.startswith("gpu-") else s
+
+
+def _quota() -> dict:
+    """This process's allocation, as its env file set it."""
+    env = os.environ
+    return dict(visible=env.get("CUDA_VISIBLE_DEVICES"),
+                core_units=int(env.get("ELASTIC_TPU_CORE_UNITS", "0")),
+                hbm_limit_bytes=int(env.get("ELASTIC_TPU_HBM_LIMIT_BYTES",
+                                            "0")),
+                hbm_fraction=float(env.get("ELASTIC_TPU_HBM_FRACTION",
+                                           "0")))
+
+
+def _await_go(barrier: str) -> float:
+    """Announce this tenant ready in ``barrier`` and wait for the parent's
+    ``go`` (so that the tenants of a window start their work together);
+    returns the wall time of the start. No barrier: start at once."""
+    if barrier:
+        open(os.path.join(barrier, f"{os.getpid()}.ready"), "w").close()
+        deadline = time.time() + TENANT_TIMEOUT_S
+        while not os.path.exists(os.path.join(barrier, "go")):
+            if time.time() > deadline:
+                raise TimeoutError(f"no go in {barrier}")
+            time.sleep(0.01)
+    return time.time()
+
+
+def _tenant_tail(torch, dev, launches, work_start) -> dict:
+    props = torch.cuda.get_device_properties(dev)
+    return dict(launches=launches, work_start=work_start,
+                work_end=time.time(), device_uuid=_uuid_key(props.uuid),
+                device_count=torch.cuda.device_count(),
+                total_memory=props.total_memory,
+                max_memory_reserved=torch.cuda.max_memory_reserved(dev),
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+
+
+def tenant_main(args) -> int:
+    """A child of phase 24, started by ``run_device_share``: prints one
+    JSON line. ``discover`` runs ``NvidiaOperator("/dev")`` without torch;
+    the others wait at ``--barrier`` (if given) and then apply the env file
+    named by $ELASTIC_TPU_ENV_FILE as the runner does, before CUDA starts:
+    ``probe`` allocates below and above its HBM quota, ``train`` runs
+    ``runner.main`` on ``--runner-args``, ``serve`` runs phase 4's 16
+    requests on the kernel-path engine."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.tenant == "discover":
+        from elastic_tpu_agent_torch.device import NvidiaOperator
+
+        op = NvidiaOperator("/dev", maintenance=lambda: None,
+                            preemption=lambda: None)
+        t0 = time.perf_counter()
+        chips = op.devices()
+        smi_ms = (time.perf_counter() - t0) * 1e3
+        topo = op.topology
+        torch_mod = sys.modules.get("torch")
+        print(json.dumps(dict(
+            chips=[dict(dataclasses.asdict(c), minor=op.minor_of(c.index))
+                   for c in chips],
+            healthy=sorted(op.healthy_indexes()),
+            reasons=op.health_reasons(), utilization=op.utilization(),
+            driver=op.driver_version, smi_ms=smi_ms,
+            topology=None if topo is None else dict(
+                dataclasses.asdict(topo), is_multi_host=topo.is_multi_host),
+            torch_imported=torch_mod is not None,
+            cuda_initialized=bool(torch_mod is not None
+                                  and torch_mod.cuda.is_initialized()))))
+        return 0
+
+    import io
+
+    import torch
+
+    from elastic_tpu_agent_torch import workloads as W
+    from elastic_tpu_agent_torch.workloads import attention as A
+    from elastic_tpu_agent_torch.workloads import paged_attention as PA
+    from elastic_tpu_agent_torch.workloads import runner as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ, PA.PAGED_DECODE)
+    work_start = _await_go(args.barrier)
+    if args.tenant == "train":
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = R.main(args.runner_args.split())   # device "cuda"
+        torch.cuda.synchronize()
+        rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(json.dumps(dict(rc=rc, report=rep, quota=_quota(),
+                              **_tenant_tail(torch, torch.device("cuda", 0),
+                                             {k.symbol: k.launches
+                                              for k in kerns}, work_start))))
+        return rc
+
+    R.load_alloc_env()
+    dev = torch.device("cuda", 0)
+    R.apply_hbm_quota(dev)
+    quota = _quota()
+    if args.tenant == "probe":
+        mib = 1 << 20
+        out = dict(quota=quota)
+        below = quota["hbm_limit_bytes"] - 512 * mib
+        above = quota["hbm_limit_bytes"] + 256 * mib
+        x = torch.empty(below, dtype=torch.uint8, device=dev)
+        torch.cuda.synchronize()
+        out["below_bytes"], out["below_ok"] = below, True
+        del x
+        torch.cuda.empty_cache()
+        out["above_bytes"], out["above_raised"] = above, False
+        try:
+            y = torch.empty(above, dtype=torch.uint8, device=dev)
+            torch.cuda.synchronize()
+            del y
+        except torch.cuda.OutOfMemoryError as e:
+            out["above_raised"] = True
+            out["above_error"] = str(e).splitlines()[0][:200]
+        out.update(_tenant_tail(torch, dev, {}, work_start))
+        print(json.dumps(out))
+        return 0
+
+    cfg = W.ModelConfig(**SMALL, max_seq=1024, dtype=torch.bfloat16)
+    params = W.params_from_jax(W.random_tree(cfg, SEED), cfg, device=dev)
+    prompts, kinds = _serving_requests(cfg, SEED + 4)
+    eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
+                          prompt_buckets=(16, 64, 256), device=dev)
+    for k in kerns:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = serve(W, eng, prompts, kinds, 64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(json.dumps(dict(
+        streams=streams, tokens_per_s=sum(map(len, streams)) / wall,
+        wall_s=wall, decode_steps=eng.decode_steps_total,
+        paged_kernel=eng.paged_kernel, quota=quota,
+        **_tenant_tail(torch, dev, {k.symbol: k.launches for k in kerns},
+                       work_start))))
+    return 0
+
+
+class _Tenant:
+    """One child process of phase 24, its output in files under ``tmp``."""
+
+    def __init__(self, name, kind, tmp, env_file=None, runner_args=None,
+                 barrier=None):
+        self.name = name
+        self.out = os.path.join(tmp, f"{name}.out")
+        self.err = os.path.join(tmp, f"{name}.err")
+        env = {k: v for k, v in os.environ.items()
+               if k not in TENANT_ENV_STRIP}
+        env["ELASTIC_TPU_ENV_FILE"] = env_file or os.path.join(
+            tmp, "no-env-file")
+        argv = [sys.executable, os.path.abspath(__file__), "--tenant", kind]
+        if runner_args:
+            argv += ["--runner-args", runner_args]
+        if barrier:
+            argv += ["--barrier", barrier]
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(argv, stdout=out, stderr=err,
+                                         env=env, cwd=os.path.dirname(
+                                             os.path.abspath(__file__)))
+        self.t0 = time.perf_counter()
+
+    def result(self, deadline: float) -> dict:
+        """Wait until ``deadline`` (perf_counter), kill on a timeout; the
+        child's JSON line, or {} after a failure (recorded)."""
+        try:
+            rc = self.proc.wait(timeout=max(1.0,
+                                            deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            rc = "timeout"
+        seconds = time.perf_counter() - self.t0
+        with open(self.out) as f:
+            lines = f.read().strip().splitlines()
+        if rc != 0 or not lines:
+            with open(self.err) as f:
+                tail = f.read()[-1500:]
+            fail(f"tenant {self.name} exited {rc}: {tail}")
+            return {}
+        rep = json.loads(lines[-1])
+        rep["seconds"] = seconds
+        return rep
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+class _Sampler:
+    """Polls ``op.utilization()`` about every SAMPLE_PERIOD_S in a thread,
+    each sample tagged with the window it fell in."""
+
+    def __init__(self, op, index):
+        import threading
+
+        self.op, self.index = op, index
+        self.window = "idle"
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            t0 = time.perf_counter()
+            entry = self.op.utilization().get(self.index, {})
+            self.samples.append((self.window, time.time(), entry))
+            self._stop.wait(max(0.0, SAMPLE_PERIOD_S
+                                - (time.perf_counter() - t0)))
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+    def stats(self, window, span=None) -> dict:
+        """Duty-cycle p50 and max and hbm_used max over the window's
+        samples, or over those inside ``span`` (wall-clock start, end)."""
+        got = [e for w, t, e in self.samples if w == window
+               and (span is None or span[0] <= t <= span[1])]
+        duty = [e["duty_cycle_percent"] for e in got
+                if "duty_cycle_percent" in e]
+        used = [e["hbm_used_bytes"] for e in got if "hbm_used_bytes" in e]
+        return dict(samples=len(got), errors=len(got) - len(duty),
+                    duty_p50=float(np.median(duty)) if duty else None,
+                    duty_max=max(duty) if duty else None,
+                    hbm_used_max=max(used) if used else None)
+
+
+def _write_env(path, env: dict) -> None:
+    with open(path, "w") as f:
+        f.writelines(f"{k}={v}\n" for k, v in env.items())
+
+
+def run_device_share(torch, D, srv, streams, runtime, dev) -> dict:
+    """Phase 24: the port's device layer on the card, then four tenants
+    sharing it under fractional quotas (module docstring)."""
+    import tempfile
+
+    from elastic_tpu_agent_torch.device import NvidiaOperator
+    from elastic_tpu_agent_torch.device import qos as QOS
+
+    mib = 1 << 20
+    props = torch.cuda.get_device_properties(dev)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_share_") as tmp:
+        # discovery in a process that never starts CUDA
+        disc = _Tenant("discover", "discover", tmp).result(
+            time.perf_counter() + 120)
+        chips = [c for c in disc.get("chips", [])
+                 if _uuid_key(c["uuid"]) == _uuid_key(props.uuid)]
+        if len(chips) != 1:
+            fail(f"no discovered card has torch's uuid {props.uuid}: "
+                 f"{disc.get('chips')}")
+            return out
+        chip = chips[0]
+        idx = chip["index"]
+        print(f"device discovery (nvidia-smi {disc['driver']}, one -q -x "
+              f"call {disc['smi_ms']:.1f} ms): index {idx}, minor "
+              f"{chip['minor']}, {chip['device_path']}, {chip['uuid']}, "
+              f"{chip['cores']} SMs, hbm {chip['hbm_bytes']} B (torch "
+              f"total_memory {props.total_memory}), extra "
+              f"{chip['extra_paths']}, healthy {disc['healthy']}, reasons "
+              f"{disc['reasons']}, topology {disc['topology']}; torch "
+              f"imported {disc['torch_imported']}, CUDA initialized "
+              f"{disc['cuda_initialized']}")
+        if disc["cuda_initialized"] or disc["torch_imported"]:
+            fail("the discovering process imported torch or started CUDA")
+        if chip["cores"] != props.multi_processor_count:
+            fail(f"cores {chip['cores']} vs {props.multi_processor_count}")
+        if not chip["hbm_bytes"] >= props.total_memory:
+            fail(f"hbm {chip['hbm_bytes']} < torch's {props.total_memory}")
+        if set(disc["healthy"]) != {c["index"] for c in disc["chips"]} or \
+                disc["reasons"]:
+            fail(f"health {disc['healthy']}, reasons {disc['reasons']}")
+
+        # links under a temp dev root, aimed at the card's node
+        links = os.path.join(tmp, "dev")
+        os.makedirs(links)
+        op = NvidiaOperator(links, host_dev_scan_root="/dev", smi_ttl_s=0.0,
+                            maintenance=lambda: None,
+                            preemption=lambda: None)
+        op.create(idx, "smoke-0")
+        target = os.readlink(os.path.join(links, "elastic-tpu-smoke-0"))
+        back = op.resolve("smoke-0")
+        op.delete("smoke-0")
+        gone = not op.check("smoke-0")
+        print(f"device link: elastic-tpu-smoke-0 -> {target}, resolves to "
+              f"{back}, deleted: {gone}")
+        if target != f"/dev/nvidia{chip['minor']}" or back != idx or \
+                not gone:
+            fail(f"link {target} -> {back}, deleted {gone}")
+
+        def env_file(name, percent, units):
+            grant = chip["hbm_bytes"] // mib * percent // 100
+            env = QOS.qos_env({}, hbm_limit_bytes=grant * mib,
+                              chip_hbm_bytes=chip["hbm_bytes"],
+                              core_units=units)
+            env.update(QOS.visibility_env([SimpleNamespace(uuid=chip["uuid"])]))
+            path = os.path.join(tmp, f"{name}.env")
+            _write_env(path, env)
+            return path
+
+        # the quota probe: 10% of the card
+        probe = _Tenant("probe", "probe", tmp, env_file(
+            "probe", PROBE_PERCENT, PROBE_PERCENT)).result(
+            time.perf_counter() + 120)
+        if probe:
+            q = probe["quota"]
+            cap = q["hbm_fraction"] * probe["total_memory"]
+            print(f"quota probe: {PROBE_PERCENT}% grant "
+                  f"{q['hbm_limit_bytes']} B (fraction {q['hbm_fraction']}"
+                  f", the allocator's cap {cap:.0f} B of torch's "
+                  f"{probe['total_memory']}): {probe['below_bytes']} B "
+                  f"allocated {probe['below_ok']}, {probe['above_bytes']} B "
+                  f"raised OutOfMemoryError {probe['above_raised']}; sees "
+                  f"{probe['device_count']} card, uuid matches "
+                  f"{probe['device_uuid'] == _uuid_key(chip['uuid'])}")
+            if not (probe["below_ok"] and probe["above_raised"]):
+                fail("quota probe: the allocation above the quota did not "
+                     "raise" if probe["below_ok"] else "below the quota "
+                     "failed")
+            if probe["device_uuid"] != _uuid_key(chip["uuid"]) or \
+                    probe["device_count"] != 1:
+                fail(f"probe saw {probe['device_count']} cards, "
+                     f"{probe['device_uuid']}")
+        out["probe"] = probe
+
+        # four tenants at 25 core units and a quarter of the memory each
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        parent_reserved = torch.cuda.memory_reserved(dev)
+        base = _runtime_data(D, os.path.join(tmp, "tokens.bin"))
+        envs = {n: env_file(n, 100 // SHARE_TENANTS, 100 // SHARE_TENANTS)
+                for n in ("T1", "T2", "T3", "T4")}
+
+        def train(name, run):
+            d = os.path.join(tmp, f"{name}-{run}")
+            return _Tenant(name, "train", tmp, envs[name], (
+                f"{base} {RUNTIME_TRAIN} --checkpoint-dir {d}/ckpt "
+                f"--checkpoint-every 10 --flight-recorder {d}/fr.jsonl"),
+                barrier=os.path.join(tmp, run))
+
+        def start(tenants, run):
+            """Release ``tenants`` together once each has imported."""
+            barrier = os.path.join(tmp, run)
+            deadline = time.perf_counter() + TENANT_TIMEOUT_S
+            while len([f for f in os.listdir(barrier)
+                       if f.endswith(".ready")]) < len(tenants):
+                if time.perf_counter() > deadline or any(
+                        t.proc.poll() is not None for t in tenants):
+                    break
+                time.sleep(0.01)
+            open(os.path.join(barrier, "go"), "w").close()
+
+        sampler = _Sampler(NvidiaOperator(
+            os.path.join(tmp, "dev"), host_dev_scan_root="/dev",
+            smi_ttl_s=0.0, maintenance=lambda: None,
+            preemption=lambda: None), idx)
+        alive = []
+        try:
+            for run in ("alone", "shared"):
+                os.makedirs(os.path.join(tmp, run))
+            time.sleep(IDLE_WINDOW_S)
+            sampler.window = "t1_alone"
+            alive = [train("T1", "alone")]
+            start(alive, "alone")
+            alone = alive[0].result(time.perf_counter() + TENANT_TIMEOUT_S)
+            sampler.window = "all_four"
+            alive = [train("T1", "shared"), train("T2", "shared")] + [
+                _Tenant(n, "serve", tmp, envs[n],
+                        barrier=os.path.join(tmp, "shared"))
+                for n in ("T3", "T4")]
+            start(alive, "shared")
+            deadline = time.perf_counter() + TENANT_TIMEOUT_S
+            reps = {t.name: t.result(deadline) for t in alive}
+            sampler.window = "after"
+        finally:
+            for t in alive:
+                t.kill()
+            sampler.close()
+        def span(reps):
+            """From the first tenant's start of work to the last's end."""
+            got = [r for r in reps if r]
+            return (min(r["work_start"] for r in got),
+                    max(r["work_end"] for r in got)) if got else (0, 0)
+
+        windows = {w: sampler.stats(w) for w in ("idle", "t1_alone",
+                                                 "all_four")}
+        for w, reps_w in (("t1_alone", [alone]),
+                          ("all_four", list(reps.values()))):
+            windows[w]["working"] = sampler.stats(w, span(reps_w))
+            windows[w]["working_s"] = span(reps_w)[1] - span(reps_w)[0]
+        out.update(tenants={"T1_alone": alone, **reps}, windows=windows,
+                   parent_reserved=parent_reserved)
+        ph6 = runtime["train"]
+        want6 = [ph6["final_loss"]] + ph6["eval_losses"]
+        t1_ms = alone.get("report", {}).get("step_time_ms")
+        for name, rep in out["tenants"].items():
+            if not rep:
+                continue
+            q = rep["quota"]
+            cap = q["hbm_fraction"] * rep["total_memory"]
+            launches = rep["launches"]
+            line = (f"tenant {name}: {q['core_units']} core units, quota "
+                    f"{q['hbm_limit_bytes']} B (fraction "
+                    f"{q['hbm_fraction']}), max reserved "
+                    f"{rep['max_memory_reserved']} B of a cap of {cap:.0f} "
+                    f"B, launches {launches}, {rep['seconds']:.1f} s")
+            if rep["max_memory_reserved"] > cap:
+                fail(f"tenant {name} reserved {rep['max_memory_reserved']} "
+                     f"B over its cap {cap:.0f}")
+            if rep["device_uuid"] != _uuid_key(chip["uuid"]):
+                fail(f"tenant {name} ran on {rep['device_uuid']}")
+            if "report" in rep:
+                r = rep["report"]
+                got = [r["final_loss"]] + [e["loss"] for e in r.get(
+                    "eval", [])]
+                gap = max(abs(a - b) for a, b in zip(got, want6)) \
+                    if len(got) == len(want6) else float("inf")
+                want = {"flash_fwd": SMALL["n_layers"] * (
+                    1 + RUNTIME_STEPS + 2 * EVAL_BATCHES),
+                    "flash_bwd_dkdv": SMALL["n_layers"] * (1 + RUNTIME_STEPS),
+                    "flash_bwd_dq": SMALL["n_layers"] * (1 + RUNTIME_STEPS),
+                    "paged_decode": 0}
+                print(f"{line}; step_time_ms {r['step_time_ms']:.2f} (T1 "
+                      f"alone {t1_ms:.2f}, phase 6 {ph6['step_time_ms']:.2f})"
+                      f", losses {got}, max gap to phase 6 {gap:.3g} "
+                      f"(limit {RESUME_TOL})")
+                if not gap <= RESUME_TOL:
+                    fail(f"tenant {name} losses {got} vs phase 6 {want6}")
+                if launches != want or r["platform"] != "gpu":
+                    fail(f"tenant {name} launches {launches}, want {want}")
+            else:
+                same = rep["streams"] == streams
+                print(f"{line}; {rep['tokens_per_s']:.1f} tokens/s (phase "
+                      f"4 {srv['tokens_per_s']:.1f}), streams equal phase "
+                      f"4's: {same}")
+                if not same:
+                    fail(f"tenant {name} streams differ from phase 4's")
+                if launches["paged_decode"] != SMALL["n_layers"] * rep[
+                        "decode_steps"] or rep["decode_steps"] == 0:
+                    fail(f"tenant {name} paged launches {launches}")
+        reserved = sum(rep.get("max_memory_reserved", 0)
+                       for n, rep in reps.items())
+        for w, s in windows.items():
+            work = s.get("working")
+            print(f"card window {w}: {s['samples']} samples "
+                  f"({s['errors']} errors), nvidia-smi utilization.gpu p50 "
+                  f"{s['duty_p50']} max {s['duty_max']} %, hbm_used max "
+                  f"{s['hbm_used_max']} B" + ("" if work is None else (
+                      f"; while the tenants worked ({s['working_s']:.1f} "
+                      f"s, {work['samples']} samples): p50 "
+                      f"{work['duty_p50']} max {work['duty_max']} %, "
+                      f"hbm_used max {work['hbm_used_max']} B")))
+        print(f"hbm: the four tenants' max reserved sum to {reserved} B; "
+              f"this process reserves {parent_reserved} B besides its CUDA "
+              "context; nvidia-smi's used memory also holds each process's "
+              "context")
+        if any(s["samples"] == 0 or s["duty_p50"] is None
+               for s in windows.values()):
+            fail(f"utilization windows {windows}")
+        out["launches"] = {k: sum(r.get("launches", {}).get(k, 0)
+                                  for r in out["tenants"].values())
+                           for k in KERNEL_NAMES}
+        out["tenants_reserved_sum"] = reserved
+    for rep in out.get("tenants", {}).values():
+        rep.pop("streams", None)
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -3265,14 +3783,23 @@ def profile_paths(torch, W, cfg, params, dev, out_dir, train_step):
 def main() -> int:
     import argparse
 
-    import torch
-
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler pass over forward and decode")
     ap.add_argument("--out", default=None,
                     help="directory for the full report and profiler files")
+    ap.add_argument("--tenant", choices=("discover", "probe", "train",
+                                         "serve"),
+                    help="run as one of phase 24's child processes")
+    ap.add_argument("--runner-args", default="",
+                    help="a train tenant's runner flags")
+    ap.add_argument("--barrier", default="",
+                    help="a tenant's start barrier directory")
     args = ap.parse_args()
+    if args.tenant:
+        return tenant_main(args)
+
+    import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3330,6 +3857,7 @@ def main() -> int:
                                    params, dev)
     paged["launches"], srv = timed("serving", run_serving, torch, W, PA, cfg,
                                    params, tree, dev)
+    srv_streams = srv.pop("streams")
     launches, train, trained = timed("train", run_train, torch, W, A, cfg,
                                      tree, dev)
     import tempfile
@@ -3371,20 +3899,25 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_mesh_") as tmp:
         runner_mesh = timed("runner_mesh", run_runner_mesh, torch, A, R, D,
                             runtime, dev, tmp)
+    share = timed("device_share", run_device_share, torch, D, srv,
+                  srv_streams, runtime, dev)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
-    # runner's mesh runs, serving + the spec engine's fallback steps,
-    # train + LoRA + the sharded step + the ring + the MoE mesh step + both
-    # pipeline schedules + the runner's mesh runs
+    # runner's mesh runs + the shared card's tenants, serving + the spec
+    # engine's fallback steps + the tenants, train + LoRA + the sharded
+    # step + the ring + the MoE mesh step + both pipeline schedules + the
+    # runner's mesh runs + the tenants
+    tenants = share.get("launches", dict.fromkeys(KERNEL_NAMES, 0))
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
              runner_mesh["launches"])
-    flash["launches"] += sum(x["flash_fwd"] for x in extra)
-    paged["launches"] += spec_launches
+    flash["launches"] += sum(x["flash_fwd"] for x in extra) + tenants[
+        "flash_fwd"]
+    paged["launches"] += spec_launches + tenants["paged_decode"]
     for rec in (dkdv, dq):
         k = rec["name"]
-        rec["launches"] = launches[k] + sum(x[k] for x in extra)
+        rec["launches"] = launches[k] + sum(x[k] for x in extra) + tenants[k]
     for rec in (flash, dkdv, dq):   # the ring's call patterns too
         rec["ring"] = dict(launches=ring["launches"][rec["name"]],
                            max_abs_err=ring["kernel_errs"][rec["name"]])
@@ -3411,7 +3944,7 @@ def main() -> int:
               "mesh": mesh, "ring": ring, "moe_mesh": moe_mesh,
               "pipeline": pipeline, "sharded_decode": decode,
               "tp_serving": tp_serving, "runner_mesh": runner_mesh,
-              "kernels": kernel_recs,
+              "device_share": share, "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -3439,7 +3972,8 @@ def main() -> int:
                                 "moe_mesh": moe_mesh, "pipeline": pipeline,
                                 "sharded_decode": decode,
                                 "tp_serving": tp_serving,
-                                "runner_mesh": runner_mesh}}))
+                                "runner_mesh": runner_mesh,
+                                "device_share": share}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

@@ -12,8 +12,8 @@ sit between the sound readings and the faulty ones. Needs the card, as
 
 ``DIR`` gets one ``<fault>.log`` per run and ``faults.json``: for each
 run its exit code, the readings of the kernel, forward, serving, training,
-runtime, drain, int8, MoE, speculative and LoRA checks, and the checks
-that failed. ``--only`` runs the named
+runtime, drain, int8, MoE, speculative, LoRA and device-share checks, and
+the checks that failed. ``--only`` runs the named
 runs alone.
 
 The backward faults F6-F8 and F12 sit in the bf16 (wgmma/TMA) instances
@@ -31,6 +31,10 @@ The MoE faults F16-F17 sit in ``workloads/moe.py``, which chip_smoke's
 MoE layer check holds against the JAX layer's one-hot einsum form: the
 combine drops the gate (y is the expert output), and slot positions are
 read one late, so that each expert admits C + 1 tokens.
+
+The quota fault F18 sits in the runner's ``apply_hbm_quota``: the
+fraction is read but the allocator is never capped, so that chip_smoke's
+quota probe (phase 24) allocates past the grant.
 
 Two roundings cannot be planted away: P in the bf16 flash forward and dS
 in the bf16 backward (F5, "ds not cast before dK", retired) are register
@@ -106,11 +110,17 @@ FAULTS = {
     "F17_moe_slot_positions_one_late": (
         MOE, "kept = position <= cap", "kept = position - 1 <= cap",
     ),
+    "F18_hbm_quota_not_applied": (
+        RUNNER,
+        "torch.cuda.set_per_process_memory_fraction(float(frac), device)",
+        "pass  # the quota is not applied",
+    ),
 }
 TIMEOUT_S = 900.0  # for each chip_smoke.py run
 KEEP = ("card ", "flash_fwd ", "paged_decode ", "flash_bwd", "forward ",
         "serving ", "train ", "reference losses", "runtime ", "moe ",
         "int8 ", "kv_int8 ", "recorder", "drain", "speculative ", "lora ",
+        "device ", "quota probe", "tenant ", "card window", "hbm:",
         "chip_smoke:")
 SKIP = (".git", "_build", "__pycache__", ".pytest_cache")
 

@@ -28,7 +28,8 @@ leaked = sorted(
     or m.startswith("jax") and sys.modules[m] is not None
 )
 new = {"export", "parallel", "ring_attention", "pipeline",
-       "transformer_pipeline", "partitioner", "serving_proxy"}
+       "transformer_pipeline", "partitioner", "serving_proxy",
+       "topology", "operator", "nvidia", "stub", "exclusive", "qos"}
 missing = sorted(new - {n.rsplit(".", 1)[-1] for n in names})
 print(len(names), missing, leaked)
 """
@@ -44,5 +45,6 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert res.returncode == 0, res.stderr
     count, missing, leaked = res.stdout.strip().split(" ", 2)
     assert int(count) >= 32         # workloads and every module in it
-    assert missing == "[]"          # export, mesh, ring, pipelines, serving
+    assert missing == "[]"          # export, mesh, ring, pipelines, serving,
+    #                                 the device layer
     assert leaked == "[]"
