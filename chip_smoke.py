@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port's serving, training, runtime,
 shared-prefix serving, decode-variant, serving-artifact, sharded
 training, expert-parallel, pipeline, sharded-decode, tensor-parallel
-serving and runner-across-cards slices on one NVIDIA GPU, and the agent's
-device layer with four tenants sharing that GPU.
+serving and runner-across-cards slices on one NVIDIA GPU, the agent's
+device layer with four tenants sharing that GPU, and the agent's device
+plugins and container injection with a tenant started from what they
+inject.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -201,7 +203,26 @@ shows; it then exits 1 before the summary lines. Phases:
    memory (at most its fraction of torch's ``total_memory``) and
    ``step_time_ms`` or tokens/s; ``nvidia-smi``'s ``utilization.gpu``
    and used memory, polled every 0.5 s, for the idle, T1-alone and
-   all-four windows (and for the span in which their tenants worked).
+   all-four windows (and for the span in which their tenants worked);
+25. the device-plugin path, with no kubelet or apiserver and without
+   grpc or protobuf: in-script stand-ins play the kubelet's pod-resources
+   and the apiserver (``_Kubelet``, ``_Apiserver``) and a dict the agent's
+   storage (``_Store``). ``NvidiaOperator("/dev")`` discovers the card in
+   a child without torch; the port's ``GPUSharePlugin`` proposes, allocates
+   and binds 25 gpu-core units and a quarter of the card's gpu-memory
+   units for one annotated pod (links under a temp dev root, specs under a
+   temp alloc dir); ``nri.plain_adjustment`` injects the spec: the card
+   at ``/dev/nvidia<minor>`` with the host node's major:minor, the control
+   nodes, ``CUDA_VISIBLE_DEVICES`` = the card's uuid and the quota env of
+   ``qos_env``. Tenants running phase 4's 16 requests start from the
+   container's env alone (this process's visibility and quota keys
+   stripped), at once: one plainly, one (``unshare -m``, root) in a new
+   mount namespace whose /dev holds only the injected nodes (mknod) and
+   the OCI defaults; each must see exactly the allocated card, serve phase 4's
+   streams with its paged launches and stay under the injected cap. Then
+   whole-card Allocate through ``ExclusiveOperator`` (the card's node, the
+   control nodes, its uuid), the pod's deletion and the GC sweep (no link,
+   spec, record or intent left); host ms of each plugin call.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -221,6 +242,7 @@ import dataclasses
 import json
 import math
 import os
+import stat
 import subprocess
 import sys
 import time
@@ -3265,6 +3287,8 @@ def _tenant_tail(torch, dev, launches, work_start) -> dict:
     props = torch.cuda.get_device_properties(dev)
     return dict(launches=launches, work_start=work_start,
                 work_end=time.time(), device_uuid=_uuid_key(props.uuid),
+                dev_nodes=sorted(n for n in os.listdir("/dev")
+                                 if n.startswith("nvidia")),
                 device_count=torch.cuda.device_count(),
                 total_memory=props.total_memory,
                 max_memory_reserved=torch.cuda.max_memory_reserved(dev),
@@ -3378,19 +3402,22 @@ class _Tenant:
     """One child process of phase 24, its output in files under ``tmp``."""
 
     def __init__(self, name, kind, tmp, env_file=None, runner_args=None,
-                 barrier=None):
+                 barrier=None, env=None, strip=TENANT_ENV_STRIP, wrap=None):
         self.name = name
         self.out = os.path.join(tmp, f"{name}.out")
         self.err = os.path.join(tmp, f"{name}.err")
-        env = {k: v for k, v in os.environ.items()
-               if k not in TENANT_ENV_STRIP}
-        env["ELASTIC_TPU_ENV_FILE"] = env_file or os.path.join(
+        child_env = {k: v for k, v in os.environ.items() if k not in strip}
+        child_env.update(env or {})
+        child_env["ELASTIC_TPU_ENV_FILE"] = env_file or os.path.join(
             tmp, "no-env-file")
+        env = child_env
         argv = [sys.executable, os.path.abspath(__file__), "--tenant", kind]
         if runner_args:
             argv += ["--runner-args", runner_args]
         if barrier:
             argv += ["--barrier", barrier]
+        if wrap:
+            argv = wrap(argv)
         with open(self.out, "w") as out, open(self.err, "w") as err:
             self.proc = subprocess.Popen(argv, stdout=out, stderr=err,
                                          env=env, cwd=os.path.dirname(
@@ -3706,6 +3733,329 @@ def run_device_share(torch, D, srv, streams, runtime, dev) -> dict:
     return out
 
 
+# -- phase 25: the device-plugin path; a tenant from nothing but the injection -
+
+PLUGIN_CORE_UNITS = 25          # the pod's gpu-core request
+PLUGIN_MEM_SHARE = 4            # and a quarter of the card's gpu-memory units
+# the quota keys a tenant must get from the injection alone
+PLUGIN_ENV_STRIP = TENANT_ENV_STRIP + ("ELASTIC_TPU_HBM_FRACTION",
+                                       "ELASTIC_TPU_PRIORITY")
+# the nodes every OCI container gets whatever it asked for (runc's
+# defaults), made beside the injected ones in the mount-namespace leg
+OCI_DEFAULT_NODES = (("null", 1, 3), ("zero", 1, 5), ("random", 1, 8),
+                     ("urandom", 1, 9))
+
+
+class _Apiserver:
+    """Phase 25's stand-in for the apiserver: the pods the elastic
+    scheduler annotated, read through the sitter's ``get_pod`` and
+    ``get_pod_from_api``."""
+
+    def __init__(self):
+        self.pods = {}
+
+    def get_pod(self, namespace, name):
+        return self.pods.get((namespace, name))
+
+    get_pod_from_api = get_pod
+
+
+class _Kubelet:
+    """Phase 25's stand-in for the kubelet's pod-resources API: which
+    container holds which device ids, read through the locator's
+    ``locate``."""
+
+    def __init__(self):
+        self.owners = {}
+
+    def assign(self, owner, device):
+        self.owners[device.hash] = owner
+
+    def locator(self, resource):  # noqa: ARG002 - one view for both
+        return self
+
+    def locate(self, device):
+        from elastic_tpu_agent_torch.plugins.base import LocateError
+
+        if device.hash not in self.owners:
+            raise LocateError(f"no pod owns device set {device.hash}")
+        return self.owners[device.hash]
+
+
+class _Store:
+    """Phase 25's stand-in for the agent's storage: pod records in a dict,
+    with the intent journal's calls."""
+
+    def __init__(self):
+        self.pods = {}
+        self.intents = {}
+
+    def load(self, namespace, name):
+        return self.pods.get(f"{namespace}/{name}")
+
+    def mutate(self, namespace, name, fn):
+        from elastic_tpu_agent_torch.types import PodInfo
+
+        fn(self.pods.setdefault(f"{namespace}/{name}",
+                                PodInfo(namespace, name)))
+
+    def items(self):
+        return list(self.pods.items())
+
+    def delete(self, namespace, name):
+        self.pods.pop(f"{namespace}/{name}", None)
+
+    def journal_intent(self, pod_key, container, resource, alloc_hash,
+                       payload):
+        self.intents[len(self.intents) + 1] = (pod_key, alloc_hash)
+        return len(self.intents)
+
+    def journal_commit(self, intent_id):
+        self.intents.pop(intent_id, None)
+
+    journal_remove = journal_commit
+
+    def intent_done(self, intent_id):
+        pass
+
+
+def _in_device_namespace(devices):
+    """An argv wrapper: run the command in a new mount namespace whose /dev
+    is an empty tmpfs holding only ``devices`` (the adjustment's, by
+    mknod with their major:minor) and the OCI defaults."""
+    nodes = [(d["path"], d["major"], d["minor"]) for d in devices] + [
+        (f"/dev/{n}", ma, mi) for n, ma, mi in OCI_DEFAULT_NODES]
+    script = " && ".join(
+        ["mount -t tmpfs -o mode=755 none /dev"]
+        + [f"mknod -m 660 {p} c {ma} {mi}" for p, ma, mi in nodes]
+        + ['exec "$@"'])
+    return lambda argv: ["unshare", "-m", "--propagation", "private", "sh",
+                         "-c", script, "sh"] + argv
+
+
+def run_plugin_path(torch, srv, streams, dev) -> dict:
+    """Phase 25: the port's device plugins and injection on the card, and
+    a serving tenant started from the injected env alone (module
+    docstring)."""
+    import tempfile
+
+    from elastic_tpu_agent_torch.common import (
+        AnnotationAssumed, BytesPerMemoryUnit, container_annotation)
+    from elastic_tpu_agent_torch.device import (
+        ExclusiveOperator, NvidiaOperator)
+    from elastic_tpu_agent_torch.device import qos as QOS
+    from elastic_tpu_agent_torch.device.operator import CONTROL_NODES
+    from elastic_tpu_agent_torch.nri import plugin as NRI
+    from elastic_tpu_agent_torch.plugins import gpushare as GS
+    from elastic_tpu_agent_torch.plugins.base import PluginConfig
+    from elastic_tpu_agent_torch.types import Device, PodContainer
+
+    props = torch.cuda.get_device_properties(dev)
+    out = {}
+    ms = {}
+
+    def clock(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return got
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plugin_") as tmp:
+        disc = _Tenant("discover", "discover", tmp).result(
+            time.perf_counter() + 120)
+        chips = [c for c in disc.get("chips", [])
+                 if _uuid_key(c["uuid"]) == _uuid_key(props.uuid)]
+        if len(chips) != 1 or disc["torch_imported"]:
+            fail(f"plugin discovery: {disc}")
+            return out
+        chip = chips[0]
+        idx, node = chip["index"], f"/dev/nvidia{chip['minor']}"
+        units = chip["hbm_bytes"] // BytesPerMemoryUnit
+        dev_root = os.path.join(tmp, "dev")
+        alloc_dir = os.path.join(tmp, "alloc")
+        os.makedirs(dev_root)
+        op = NvidiaOperator(dev_root, host_dev_scan_root="/dev",
+                            maintenance=lambda: None, preemption=lambda: None)
+        kubelet, api, store = _Kubelet(), _Apiserver(), _Store()
+        config = PluginConfig(operator=op, sitter=api, storage=store,
+                              locator_factory=kubelet.locator,
+                              extra={"alloc_spec_dir": alloc_dir})
+        bundle = GS.GPUSharePlugin(config)
+        core, mem = bundle.core, bundle.memory
+
+        # the kubelet's part: preferred ids, Allocate, PreStart
+        core_ids = clock("preferred_core", core.preferred_ids,
+                         [i for i, _ in core.device_list()], [],
+                         PLUGIN_CORE_UNITS)
+        mem_ids = clock("preferred_mem", mem.preferred_ids,
+                        [i for i, _ in mem.device_list()], [],
+                        units // PLUGIN_MEM_SHARE)
+        on_card = {GS.chip_of_device_id(i) for i in core_ids + mem_ids}
+        ca = clock("allocate_core", core.allocate_container, core_ids)
+        ma = clock("allocate_mem", mem.allocate_container, mem_ids)
+        control = [GS.DeviceSpec(p, p) for p in chip["extra_paths"]]
+        print(f"plugin allocation: card {idx} ({node}), {len(core_ids)} core "
+              f"ids and {len(mem_ids)} memory ids of {units} on cards "
+              f"{sorted(on_card)}; Allocate envs {ca.envs} and {ma.envs}; "
+              f"device specs {[d.host_path for d in ca.devices]} and "
+              f"{[d.host_path for d in ma.devices]}")
+        if on_card != {idx} or len(core_ids) != PLUGIN_CORE_UNITS:
+            fail(f"preferred ids on cards {on_card}")
+        if ca.envs.get("ELASTIC_TPU_CORE_UNITS") != str(PLUGIN_CORE_UNITS) \
+                or "CUDA_VISIBLE_DEVICES" in ca.envs or ca.devices != control \
+                or ma.devices or not control:
+            fail(f"shared Allocate: {ca} {ma}")
+        owner = PodContainer("default", "tenant", "main")
+        api.pods[("default", "tenant")] = {"metadata": {
+            "namespace": "default", "name": "tenant", "annotations": {
+                AnnotationAssumed: "true",
+                container_annotation("main"): str(idx)}}}
+        for plugin, ids in ((core, core_ids), (mem, mem_ids)):
+            kubelet.assign(owner, Device(ids))
+            clock(f"prestart_{'core' if plugin is core else 'mem'}",
+                  plugin.pre_start, ids)
+        hashes = [Device(core_ids).hash, Device(mem_ids).hash]
+        links = [os.readlink(os.path.join(dev_root, f"elastic-tpu-{h}-0"))
+                 for h in hashes]
+        if links != [node, node]:
+            fail(f"plugin links {links}, want {node}")
+
+        # the runtime's part: the container's env (the kubelet merges both
+        # Allocate answers), its hash, the spec, the adjustment
+        env = dict(ca.envs, **ma.envs)
+        h = NRI.hash_from_env([f"{k}={v}" for k, v in env.items()])
+        spec_path = os.path.join(alloc_dir, f"{h}.json")
+        spec = core.read_alloc_spec(h)
+        adj = clock("adjustment", NRI.plain_adjustment, spec, os.stat,
+                    "/dev", spec_path)
+        injected = dict(adj["env"])
+        st = os.stat(node)
+        want_quota = QOS.qos_env(
+            {}, hbm_limit_bytes=len(mem_ids) * BytesPerMemoryUnit,
+            chip_hbm_bytes=units * BytesPerMemoryUnit,
+            core_units=PLUGIN_CORE_UNITS)
+        quota = {k: v for k, v in injected.items()
+                 if k.startswith("ELASTIC_TPU_")}
+        devices = [(d["path"], d["major"], d["minor"]) for d in adj["devices"]]
+        print(f"plugin adjustment: hash {h} of {hashes}, devices {devices} "
+              f"({node} is {os.major(st.st_rdev)}:{os.minor(st.st_rdev)}), "
+              f"CUDA_VISIBLE_DEVICES {injected.get('CUDA_VISIBLE_DEVICES')}, "
+              f"quota {quota}, mounts {[m['destination'] for m in adj['mounts']]}")
+        if devices[:1] != [(node, os.major(st.st_rdev), os.minor(st.st_rdev))]:
+            fail(f"injected card {devices[:1]}, want {node}")
+        if [p for p, _, _ in devices[1:]] != chip["extra_paths"]:
+            fail(f"injected control nodes {devices[1:]}, want "
+                 f"{chip['extra_paths']}")
+        # every node under /dev of a control node's name, as the host
+        # holds it; the injected ones must be character devices at the
+        # host's major:minor
+        hosted = {}
+        for name in CONTROL_NODES:
+            try:
+                cst = os.stat(f"/dev/{name}")
+            except OSError:
+                continue
+            hosted[f"/dev/{name}"] = (stat.filemode(cst.st_mode),
+                                      os.major(cst.st_rdev),
+                                      os.minor(cst.st_rdev))
+        print(f"plugin control nodes on the host: {hosted}")
+        for p, major, minor in devices[1:]:
+            mode, hmaj, hmin = hosted.get(p, ("", None, None))
+            if not mode.startswith("c") or (major, minor) != (hmaj, hmin) \
+                    or major == 0:
+                fail(f"injected control node {p} {major}:{minor}, host "
+                     f"{hosted.get(p)}")
+        if _uuid_key(injected.get("CUDA_VISIBLE_DEVICES")) != \
+                _uuid_key(chip["uuid"]):
+            fail(f"injected CUDA_VISIBLE_DEVICES {injected}")
+        if quota != want_quota:
+            fail(f"injected quota {quota}, want qos_env's {want_quota}")
+
+        # tenants started from the container's env alone: plainly, and in
+        # a mount namespace whose /dev holds the injected nodes alone (the
+        # proof that CUDA finds the card by the injected names)
+        tenant_env = dict(env, **injected)
+        legs = {"tenant": None,
+                "tenant_ns": _in_device_namespace(adj["devices"])}
+        alive = [_Tenant(name, "serve", tmp, env=tenant_env,
+                         strip=PLUGIN_ENV_STRIP, wrap=wrap)
+                 for name, wrap in legs.items()]
+        try:
+            deadline = time.perf_counter() + TENANT_TIMEOUT_S
+            reps = {t.name: t.result(deadline) for t in alive}
+        finally:
+            for t in alive:
+                t.kill()
+        for name, rep in reps.items():
+            if not rep:
+                continue
+            q = rep["quota"]
+            cap = q["hbm_fraction"] * rep["total_memory"]
+            same = rep["streams"] == streams
+            print(f"plugin {name}: sees {rep['device_count']} card "
+                  f"{rep['device_uuid']}, nvidia nodes {rep['dev_nodes']}, "
+                  f"streams equal phase 4's: {same}, launches "
+                  f"{rep['launches']}, max reserved "
+                  f"{rep['max_memory_reserved']} B of a cap of {cap:.0f} B "
+                  f"(quota {q}), {rep['tokens_per_s']:.1f} tokens/s (phase 4 "
+                  f"{srv['tokens_per_s']:.1f}), {rep['seconds']:.1f} s")
+            if rep["device_count"] != 1 or \
+                    rep["device_uuid"] != _uuid_key(chip["uuid"]):
+                fail(f"plugin {name} saw {rep['device_count']} cards, "
+                     f"{rep['device_uuid']}")
+            if not same:
+                fail(f"plugin {name} streams differ from phase 4's")
+            if rep["launches"]["paged_decode"] != srv["paged_launches"] or \
+                    rep["launches"]["paged_decode"] != SMALL["n_layers"] * \
+                    rep["decode_steps"]:
+                fail(f"plugin {name} paged launches {rep['launches']}")
+            if rep["max_memory_reserved"] > cap or \
+                    q["hbm_limit_bytes"] != int(want_quota[
+                        "ELASTIC_TPU_HBM_LIMIT_BYTES"]):
+                fail(f"plugin {name} reserved {rep['max_memory_reserved']} "
+                     f"B, cap {cap:.0f}, quota {q}")
+            if name == "tenant_ns" and rep["dev_nodes"] != sorted(
+                    os.path.basename(p) for p, _, _ in devices):
+                fail(f"namespace /dev holds {rep['dev_nodes']}")
+
+        # whole-card mode: the card's own nodes at Allocate
+        whole = GS.GPUShareCorePlugin(PluginConfig(
+            operator=ExclusiveOperator(op), sitter=api, storage=store,
+            locator_factory=kubelet.locator,
+            extra={"alloc_spec_dir": alloc_dir}))
+        xa = clock("allocate_whole", whole.allocate_container,
+                   [GS.core_device_id(idx, 0)])
+        print(f"plugin whole-card: {len(whole.device_list())} id, device "
+              f"specs {[d.host_path for d in xa.devices]}, envs {xa.envs}")
+        if xa.devices != [GS.DeviceSpec(node, node)] + control or \
+                _uuid_key(xa.envs.get("CUDA_VISIBLE_DEVICES")) != \
+                _uuid_key(chip["uuid"]) or \
+                xa.envs.get("ELASTIC_TPU_CORE_UNITS") != "100":
+            fail(f"whole-card Allocate {xa}")
+
+        # release: the pod is deleted, the GC sweeps
+        del api.pods[("default", "tenant")]
+        reclaimed = clock("gc", bundle.gc_once)
+        left = (os.listdir(dev_root), sorted(
+            f for f in os.listdir(alloc_dir) if f.endswith(".json")),
+            store.items(), store.intents)
+        print(f"plugin release: {reclaimed} pod reclaimed; left: links "
+              f"{left[0]}, specs {left[1]}, records {left[2]}, intents "
+              f"{left[3]}")
+        if reclaimed != 1 or any(left):
+            fail(f"plugin release left {left}")
+        print("plugin host ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()))
+        out.update(card=idx, node=node, hashes=hashes, devices=devices,
+                   quota=quota, host_ms=ms, tenants=reps)
+    for rep in out.get("tenants", {}).values():
+        rep.pop("streams", None)
+    out["launches"] = {k: sum(r.get("launches", {}).get(k, 0)
+                              for r in out.get("tenants", {}).values())
+                       for k in KERNEL_NAMES}
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -3901,14 +4251,17 @@ def main() -> int:
                             runtime, dev, tmp)
     share = timed("device_share", run_device_share, torch, D, srv,
                   srv_streams, runtime, dev)
+    plugin = timed("plugin_path", run_plugin_path, torch, srv, srv_streams,
+                   dev)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
     # runner's mesh runs + the shared card's tenants, serving + the spec
-    # engine's fallback steps + the tenants, train + LoRA + the sharded
-    # step + the ring + the MoE mesh step + both pipeline schedules + the
-    # runner's mesh runs + the tenants
-    tenants = share.get("launches", dict.fromkeys(KERNEL_NAMES, 0))
+    # engine's fallback steps + the tenants of phases 24 and 25, train +
+    # LoRA + the sharded step + the ring + the MoE mesh step + both
+    # pipeline schedules + the runner's mesh runs + the tenants
+    tenants = {k: share.get("launches", {}).get(k, 0)
+               + plugin.get("launches", {}).get(k, 0) for k in KERNEL_NAMES}
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
              runner_mesh["launches"])
@@ -3944,7 +4297,8 @@ def main() -> int:
               "mesh": mesh, "ring": ring, "moe_mesh": moe_mesh,
               "pipeline": pipeline, "sharded_decode": decode,
               "tp_serving": tp_serving, "runner_mesh": runner_mesh,
-              "device_share": share, "kernels": kernel_recs,
+              "device_share": share, "plugin_path": plugin,
+              "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -3973,7 +4327,8 @@ def main() -> int:
                                 "sharded_decode": decode,
                                 "tp_serving": tp_serving,
                                 "runner_mesh": runner_mesh,
-                                "device_share": share}}))
+                                "device_share": share,
+                                "plugin_path": plugin}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

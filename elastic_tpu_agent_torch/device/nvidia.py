@@ -53,7 +53,12 @@ import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
-from .operator import GPUChip, LinkingOperator
+from .operator import (
+    CONTROL_NODES,
+    GPUChip,
+    LinkingOperator,
+    is_char_device,
+)
 from .topology import (
     FALLBACK_SPEC, MiB, TopologyInfo, host_topology, spec_for_product,
 )
@@ -80,8 +85,6 @@ SMI_BOOT_RETRY_DELAY_S = 1.0
 # only counters that mean "this card is broken" flip health: correctable
 # errors tick during normal operation (tpuvm.py's rule)
 _FATAL_COUNTER_SUBSTRINGS = ("uncorrectable",)
-# the nodes every CUDA container needs besides its cards' own
-_SHARED_NODES = ("nvidiactl", "nvidia-uvm", "nvidia-uvm-tools")
 _UNITS = {"B": 1, "KiB": 1024, "MiB": MiB, "GiB": 1024 * MiB}
 
 SmiSource = Callable[[], Optional[str]]
@@ -217,11 +220,13 @@ class NvidiaOperator(LinkingOperator):
         maintenance_error_backoff_s: Optional[float] = None,
         smi_ttl_s: float = SMI_TTL_S,
         sleep: Callable[[float], None] = time.sleep,
+        stat_fn: Callable = os.stat,
     ) -> None:
         # dev_root: where virtual links are made (the host /dev mount);
         # host_dev_scan_root: where the nvidia nodes are looked for
         super().__init__(dev_root)
         self._scan_root = host_dev_scan_root or dev_root
+        self._stat = stat_fn
         self._smi = smi
         self._smi_ttl_s = smi_ttl_s
         self._sleep = sleep
@@ -320,8 +325,16 @@ class NvidiaOperator(LinkingOperator):
         return found
 
     def _extra_paths(self) -> List[str]:
-        return [os.path.join(self._target_root, n) for n in _SHARED_NODES
-                if os.path.exists(os.path.join(self._scan_root, n))]
+        """The control nodes the host holds as character devices."""
+        out = []
+        for n in CONTROL_NODES:
+            try:
+                st = self._stat(os.path.join(self._scan_root, n))
+            except OSError:
+                continue
+            if is_char_device(st):
+                out.append(os.path.join(self._target_root, n))
+        return out
 
     def worker_id(self) -> int:
         try:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import logging
 import os
 import re
+import stat
 import threading
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
@@ -41,6 +42,17 @@ logger = logging.getLogger(__name__)
 # the agent's virtual node prefix (elastic_tpu_agent/common.py): the
 # plugins build host paths /dev/elastic-tpu-<hash>-<p> with it
 VirtualDevPrefix = "elastic-tpu-"
+
+# the nodes every CUDA container needs besides its cards' own, under /dev
+# (a card's ``extra_paths``)
+CONTROL_NODES = ("nvidiactl", "nvidia-uvm", "nvidia-uvm-tools")
+
+
+def is_char_device(st) -> bool:
+    """Whether a stat result names a character device a runtime can hand
+    to a container: a host may hold a placeholder under a node's name (a
+    regular file, or a node of major 0, which no driver owns)."""
+    return stat.S_ISCHR(st.st_mode) and os.major(st.st_rdev) != 0
 
 
 class OperatorError(Exception):

@@ -10,10 +10,11 @@ test catches code that takes one for the other.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional, Sequence
 
-from .operator import GPUChip, LinkingOperator
+from .operator import CONTROL_NODES, GPUChip, LinkingOperator
 from .topology import TopologyInfo, host_topology
 
 H100_SXM5 = "NVIDIA H100 80GB HBM3"
@@ -22,9 +23,9 @@ H100_SXM5_HBM_BYTES = 81559 * 1024 * 1024
 
 
 class StubOperator(LinkingOperator):
-    """``num_chips`` fake H100 SXM5 cards, with nvidia-smi's memory total
-    and the table's SMs; ``minors[i]`` is card i's node minor (default
-    i)."""
+    """``num_chips`` fake H100 SXM5 cards, with nvidia-smi's memory total,
+    the table's SMs and the host's control nodes; ``minors[i]`` is card
+    i's node minor (default i)."""
 
     def __init__(
         self,
@@ -136,6 +137,8 @@ class StubOperator(LinkingOperator):
                 device_path=self.node_path(self._minors[i]),
                 hbm_bytes=H100_SXM5_HBM_BYTES,
                 cores=spec.cores_per_chip,
+                extra_paths=[os.path.join(self._target_root, n)
+                             for n in CONTROL_NODES],
             )
             for i in range(self._num)
         ]

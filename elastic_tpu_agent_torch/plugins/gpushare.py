@@ -1,0 +1,851 @@
+"""gpushare: fractional GPU core and memory device plugins.
+
+Counterpart of ``elastic_tpu_agent/plugins/tpushare.py`` and of the
+reference's ``pkg/plugins/gpushare.go``:
+
+- ``elasticgpu.io/gpu-core``: 100 fake devices a card (1% steps);
+- ``elasticgpu.io/gpu-memory``: one fake device a MiB of the card's memory.
+
+The elastic scheduler has annotated the pod with the cards it chose.
+PreStartContainer finds the requesting pod through the locator, reads the
+annotation, makes the virtual links, records the binding and writes the
+allocation spec that the container's injection reads.
+
+Device nodes. NVIDIA's user-space driver opens ``/dev/nvidia<minor>`` by the
+minor the kernel driver reports, so a card's node keeps its host name in
+the container (the agent's dense ``/dev/accel<p>`` renumbering would never
+be found), beside the control nodes every CUDA process opens
+(``/dev/nvidiactl``, ``/dev/nvidia-uvm``, ``/dev/nvidia-uvm-tools``:
+``GPUChip.extra_paths``).
+
+- Whole-card mode (``device.ExclusiveOperator``): the ids name the cards,
+  so Allocate hands out each card's node and the control nodes, with
+  ``CUDA_VISIBLE_DEVICES`` naming the cards by uuid. A plain kubelet is
+  enough.
+- Shared mode: the card is known only at PreStart, from the scheduler's
+  annotation. Allocate gives the allocation hash, the quota env and the
+  control nodes; PreStart writes a spec naming the bound cards' nodes and
+  their ``CUDA_VISIBLE_DEVICES``, and the injection (``nri/plugin.py``)
+  adds both at container create, cgroup rules included. A shared pod run
+  without the injection gets no card.
+
+The allocation logic (ids, card choice, envs, device specs, bind, spec)
+imports neither ``grpc`` nor protobuf: it runs where neither is installed.
+The five kubelet RPCs wrap it and import the v1beta1 messages when called.
+Nothing here imports torch: the agent's process holds no CUDA context.
+
+Not ported in this slice: the agent's tracing, timeline, events, CRD
+recorder, metrics and fault points, the slice env, and the reconciler's
+and drain's entry points (``rebind``, ``restamp_spec_env_locked``).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, List, Optional, Tuple
+
+from ..common import (
+    HEALTHY,
+    UNHEALTHY,
+    AllocSidecarSubdirs,
+    AnnotationAssumed,
+    BytesPerMemoryUnit,
+    EnvAllocationHash,
+    GPUPercentEachCard,
+    ResourceGPUCore,
+    ResourceGPUMemory,
+    StripedLockSet,
+    container_annotation,
+)
+from ..device.qos import qos_env, visibility_env
+from ..slices import packing
+from ..types import AllocationRecord, Device, PodContainer
+from .base import DevicePluginServer, LocateError, PluginConfig
+
+logger = logging.getLogger(__name__)
+
+CORE_ENDPOINT = "elastic-gpushare-core.sock"
+MEM_ENDPOINT = "elastic-gpushare-mem.sock"
+
+# Where allocation specs live, as the agent sees them (host path
+# /var/lib/elastic-tpu/alloc, hostPath-mounted)
+DEFAULT_ALLOC_SPEC_DIR = "/host/var/lib/elastic-tpu/alloc"
+
+# Striped per-owner locks serializing the alloc-spec writes of the core and
+# memory plugins: the two PreStarts of one container share a pod key, hence
+# a stripe, while unrelated pods bind in parallel.
+BIND_LOCK_STRIPES = 256
+
+
+def _write_json_atomic(path: str, payload: Dict) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+    os.replace(tmp, path)
+
+
+def _merge_spec_payloads(a: Dict, b: Dict) -> Tuple[Dict, Dict]:
+    """Union two alloc-spec payloads of one container; returns both with
+    the same devices, control nodes and env (each keeps its own hash and
+    resource). On a
+    shared env key the gpu-core payload's value wins (the quota keys never
+    collide; ``CUDA_VISIBLE_DEVICES`` agrees, both plugins reading one
+    annotation)."""
+    chip_to_path: Dict[int, str] = {}
+    for p in (a, b):
+        for c, d in zip(p.get("chip_indexes", []), p.get("device_paths", [])):
+            chip_to_path[c] = d
+    chips = sorted(chip_to_path)
+    control = list(dict.fromkeys(
+        a.get("control_paths", []) + b.get("control_paths", [])))
+    env: Dict[str, str] = {}
+    # core last -> core wins ties
+    first, second = (b, a) if a.get("resource") == ResourceGPUCore else (a, b)
+    env.update(first.get("env", {}))
+    env.update(second.get("env", {}))
+    resources = sorted(
+        {a.get("resource", ""), b.get("resource", "")}
+        | set(a.get("resources", []))
+        | set(b.get("resources", []))
+    )
+    out = []
+    for p in (a, b):
+        m = dict(p)
+        m["chip_indexes"] = chips
+        m["device_paths"] = [chip_to_path[c] for c in chips]
+        m["control_paths"] = control
+        m["env"] = env
+        m["resources"] = resources
+        out.append(m)
+    return out[0], out[1]
+
+
+def core_device_id(chip: int, unit: int) -> str:
+    return f"gpu-core-{chip}-{unit}"
+
+
+def mem_device_id(chip: int, unit: int) -> str:
+    return f"gpu-mem-{chip}-{unit}"
+
+
+def chip_of_device_id(device_id: str) -> Optional[int]:
+    parts = device_id.split("-")
+    try:
+        return int(parts[2])
+    except (IndexError, ValueError):
+        return None
+
+
+def _parse_chip_annotation(value: str) -> List[int]:
+    """"0" or "0,1" -> [0, 1] (reference gpushare.go:103-112)."""
+    return [int(part) for part in (p.strip() for p in value.split(","))
+            if part]
+
+
+@dataclass(frozen=True)
+class DeviceSpec:
+    """A device node handed to the kubelet (v1beta1 ``DeviceSpec``)."""
+
+    container_path: str
+    host_path: str
+    permissions: str = "rwm"
+
+
+@dataclass
+class ContainerAllocation:
+    """One container's Allocate answer (v1beta1
+    ``ContainerAllocateResponse``): its env and device nodes."""
+
+    envs: Dict[str, str] = field(default_factory=dict)
+    devices: List[DeviceSpec] = field(default_factory=list)
+
+
+class _ListAndWatchMixin:
+    """ListAndWatch: the initial list, then a resend on each notify whose
+    (id, health) list differs from the last one sent."""
+
+    def __init__(self) -> None:
+        self._law_cond = threading.Condition()
+        self._law_version = 0
+        self._stopped = False
+
+    def notify_devices_changed(self) -> None:
+        with self._law_cond:
+            self._law_version += 1
+            self._law_cond.notify_all()
+
+    def stop_streams(self) -> None:
+        with self._law_cond:
+            self._stopped = True
+            self._law_cond.notify_all()
+
+    def device_list(self) -> List[Tuple[str, str]]:
+        """Every advertised (device id, health)."""
+        raise NotImplementedError
+
+    def ListAndWatch(self, request, context):  # noqa: N802, ARG002
+        from ..gen import deviceplugin_pb2 as dp
+
+        version = -1
+        sent = None
+        while True:
+            with self._law_cond:
+                while self._law_version == version and not self._stopped:
+                    self._law_cond.wait(timeout=5.0)
+                    if not context.is_active():
+                        return
+                if self._stopped:
+                    return
+                version = self._law_version
+            devices = self.device_list()
+            if devices == sent:
+                # an A -> B -> A flip settled before this stream caught up
+                continue
+            sent = devices
+            yield dp.ListAndWatchResponse(devices=[
+                dp.Device(ID=i, health=h) for i, h in devices])
+
+
+class _GPUSharePluginBase(_ListAndWatchMixin):
+    """The Allocate/PreStart skeleton shared by the core and memory
+    plugins, and the five kubelet RPCs (the servicer of
+    ``rpc.add_device_plugin_servicer``)."""
+
+    resource: str = ""
+
+    def __init__(self, config: PluginConfig,
+                 bind_locks: Optional[StripedLockSet] = None) -> None:
+        _ListAndWatchMixin.__init__(self)
+        self._config = config
+        self._operator = config.operator
+        self._sitter = config.sitter
+        self._storage = config.storage
+        self._locator = config.locator_factory(self.resource)
+        self._chips = {c.index: c for c in self._operator.devices()}
+        # whole-card (exclusive) mode: the operator makes no virtual nodes
+        self._whole_chip = not getattr(self._operator, "virtual_nodes", True)
+        # every card's control nodes, once each, in discovery order
+        self._control_paths = list(dict.fromkeys(
+            p for c in self._chips.values() for p in c.extra_paths))
+        self._unhealthy_chips: set = set()
+        # drain cordon: every device advertised Unhealthy, so that the
+        # kubelet stops new placements, without counting any card unhealthy
+        self._cordoned = False
+        self._alloc_dir = config.extra.get(
+            "alloc_spec_dir", DEFAULT_ALLOC_SPEC_DIR
+        )
+        self._bind_locks = bind_locks or StripedLockSet(BIND_LOCK_STRIPES)
+
+    # -- health ---------------------------------------------------------------
+
+    def unhealthy_chips(self) -> set:
+        """Card indexes advertised Unhealthy to the kubelet."""
+        return set(self._unhealthy_chips)
+
+    def _chip_health(self, chip_index: int) -> str:
+        return (
+            UNHEALTHY
+            if self._cordoned or chip_index in self._unhealthy_chips
+            else HEALTHY
+        )
+
+    @property
+    def cordoned(self) -> bool:
+        return self._cordoned
+
+    def set_cordoned(self, flag: bool) -> None:
+        """Flip the drain cordon and wake ListAndWatch; health accounting
+        is untouched. Idempotent."""
+        flag = bool(flag)
+        if flag == self._cordoned:
+            return
+        self._cordoned = flag
+        logger.warning(
+            "%s: devices %s by drain cordon", self.resource,
+            "unschedulable" if flag else "re-schedulable",
+        )
+        self.notify_devices_changed()
+
+    def apply_health(self, healthy: set) -> tuple:
+        """Apply an operator health view; on a change, flip device health
+        and wake ListAndWatch. Returns the (went_bad, recovered) sets."""
+        unhealthy = set(self._chips) - healthy
+        if unhealthy == self._unhealthy_chips:
+            return set(), set()
+        went_bad = unhealthy - self._unhealthy_chips
+        recovered = self._unhealthy_chips - unhealthy
+        self._unhealthy_chips = unhealthy
+        if went_bad:
+            logger.warning(
+                "%s: cards %s now unhealthy", self.resource, sorted(went_bad)
+            )
+        if recovered:
+            logger.info(
+                "%s: cards %s recovered", self.resource, sorted(recovered)
+            )
+        self.notify_devices_changed()
+        return went_bad, recovered
+
+    # -- Allocate -------------------------------------------------------------
+
+    def _qos_kwargs(self, device: Device) -> Dict:
+        """Per-resource inputs of qos_env (overridden by subclasses)."""
+        return {}
+
+    def _alloc_envs(self, device: Device) -> Dict[str, str]:
+        # qos_env reads _qos_kwargs, as the spec does, so the Allocate env
+        # and the injected env never disagree
+        envs = {EnvAllocationHash: device.hash}
+        envs.update(qos_env({}, **self._qos_kwargs(device)))
+        return envs
+
+    def _alloc_device_specs(self, device: Device) -> List[DeviceSpec]:
+        return []
+
+    def allocate_container(self, ids: Iterable[str]) -> ContainerAllocation:
+        """Allocate for one container's fake device ids."""
+        device = Device(ids, self.resource)
+        logger.info("Allocate %s: %d ids -> hash %s", self.resource,
+                    len(device.ids), device.hash)
+        return ContainerAllocation(envs=self._alloc_envs(device),
+                                   devices=self._alloc_device_specs(device))
+
+    def GetDevicePluginOptions(self, request, context):  # noqa: N802, ARG002
+        from ..gen import deviceplugin_pb2 as dp
+
+        return dp.DevicePluginOptions(
+            pre_start_required=True,
+            get_preferred_allocation_available=True,
+        )
+
+    def Allocate(self, request, context):  # noqa: N802, ARG002
+        from ..gen import deviceplugin_pb2 as dp
+
+        responses = []
+        for creq in request.container_requests:
+            alloc = self.allocate_container(creq.devicesIDs)
+            responses.append(dp.ContainerAllocateResponse(
+                envs=alloc.envs,
+                devices=[dp.DeviceSpec(container_path=d.container_path,
+                                       host_path=d.host_path,
+                                       permissions=d.permissions)
+                         for d in alloc.devices],
+            ))
+        # warm the locate cache while the kubelet starts the pod
+        if hasattr(self._locator, "prefetch_async"):
+            self._locator.prefetch_async()
+        return dp.AllocateResponse(container_responses=responses)
+
+    # -- GetPreferredAllocation ----------------------------------------------
+
+    def preferred_ids(self, available: Iterable[str],
+                      must_include: Iterable[str], size: int) -> List[str]:
+        """The ids to propose for a request of ``size``: the must-include
+        ids, then free ids drawn from the cards ``packing.pick_chip_set``
+        chooses, so that a fractional grant stays on one card (the
+        reference returned nothing, base.go:86-88, and the kubelet
+        scattered ids across cards)."""
+        chosen = list(must_include)
+        need = size - len(chosen)
+        if need <= 0:
+            return chosen
+        taken = set(chosen)
+        by_chip: Dict[int, List[str]] = {}
+        unparseable: List[str] = []
+        for did in available:
+            if did in taken:
+                continue
+            chip = chip_of_device_id(did)
+            if chip is None:
+                # last-resort filler only, never bucketed onto a card
+                unparseable.append(did)
+                continue
+            by_chip.setdefault(chip, []).append(did)
+        pinned = {c for c in map(chip_of_device_id, chosen) if c is not None}
+        for chip in packing.pick_chip_set(by_chip, need, pinned):
+            take = by_chip[chip][:need]
+            chosen.extend(take)
+            need -= len(take)
+            if need <= 0:
+                break
+        if need > 0:
+            chosen.extend(unparseable[:need])
+        return chosen
+
+    def GetPreferredAllocation(self, request, context):  # noqa: N802, ARG002
+        from ..gen import deviceplugin_pb2 as dp
+
+        return dp.PreferredAllocationResponse(container_responses=[
+            dp.ContainerPreferredAllocationResponse(deviceIDs=self.preferred_ids(
+                creq.available_deviceIDs, creq.must_include_deviceIDs,
+                creq.allocation_size))
+            for creq in request.container_requests
+        ])
+
+    # -- PreStartContainer ----------------------------------------------------
+
+    def pre_start(self, ids: Iterable[str]) -> None:
+        """Bind one container's fake device ids (PreStartContainer)."""
+        device = Device(ids, self.resource)
+        try:
+            self._bind(device)
+        except Exception:
+            logger.exception("PreStartContainer %s failed for %s",
+                             self.resource, device.hash)
+            raise
+
+    def PreStartContainer(self, request, context):  # noqa: N802, ARG002
+        from ..gen import deviceplugin_pb2 as dp
+
+        self.pre_start(request.devicesIDs)
+        return dp.PreStartContainerResponse()
+
+    def _lookup_pod(self, owner) -> Optional[dict]:
+        pod = self._sitter.get_pod(owner.namespace, owner.name)
+        if pod is None:
+            pod = self._sitter.get_pod_from_api(owner.namespace, owner.name)
+        return pod
+
+    def _bind(self, device: Device) -> None:
+        owner = self._locator.locate(device)
+        pod = self._lookup_pod(owner)
+        if pod is None and hasattr(self._locator, "invalidate"):
+            # the locator's cache may hold a dead owner for a reused id set
+            # (the kubelet recycles ids once the old pod is gone): list
+            # afresh and retry once
+            self._locator.invalidate()
+            owner = self._locator.locate(device)
+            pod = self._lookup_pod(owner)
+        if pod is None:
+            raise LocateError(f"pod {owner.pod_key} not found anywhere")
+        self._bind_located(device, owner, pod)
+
+    def _chips_from_ids(self, device: Device) -> List[int]:
+        """Card indexes encoded in the fake ids: the placement in
+        whole-card mode, where no annotation redirects it."""
+        return sorted({c for c in map(chip_of_device_id, device.ids)
+                       if c is not None})
+
+    def _known_chips_from_ids(self, device: Device) -> List[int]:
+        return [c for c in self._chips_from_ids(device) if c in self._chips]
+
+    def _journal_intent(self, owner, device: Device,
+                        chip_indexes: List[int], planned: List[str]) -> int:
+        """Write-ahead intent: what recovery needs to roll this bind back
+        (the link ids it will make) or replay it (the ids), durable before
+        the first side effect."""
+        return self._storage.journal_intent(
+            owner.pod_key, owner.container, self.resource, device.hash,
+            {
+                "device_ids": list(device.ids),
+                "chip_indexes": list(chip_indexes),
+                "planned_link_ids": list(planned),
+            },
+        )
+
+    def _bind_located(self, device: Device, owner, pod: dict) -> None:
+        annotations = pod.get("metadata", {}).get("annotations", {}) or {}
+        if self._whole_chip:
+            # the kubelet's device choice is the placement; no annotation
+            # is required and no link is made: Allocate handed out the
+            # cards' own nodes
+            chip_indexes = self._chips_from_ids(device)
+            self._require_known_chips(chip_indexes)
+            intent_id = self._journal_intent(owner, device, chip_indexes, [])
+            try:
+                try:
+                    self._finish_bind(device, owner, pod, annotations,
+                                      chip_indexes, created=[],
+                                      intent_id=intent_id)
+                except Exception:
+                    # rolled back: the intent must not linger
+                    self._storage.journal_remove(intent_id)
+                    raise
+            finally:
+                # on every exit this thread stops shielding the intent
+                self._storage.intent_done(intent_id)
+            return
+        if annotations.get(AnnotationAssumed) != "true":
+            raise LocateError(
+                f"pod {owner.pod_key} not assumed by the elastic scheduler"
+            )
+        ann_key = container_annotation(owner.container)
+        if ann_key not in annotations:
+            raise LocateError(
+                f"pod {owner.pod_key} missing annotation {ann_key}"
+            )
+        # every card of a shared pod comes through the injection (Allocate
+        # names none), so a scheduler that spreads the pod over more cards
+        # than Allocate's minimum loses nothing
+        chip_indexes = packing.canonical_chip_order(
+            _parse_chip_annotation(annotations[ann_key]))
+        self._require_known_chips(chip_indexes)
+        planned = [f"{device.hash}-{p}" for p in range(len(chip_indexes))]
+        intent_id = self._journal_intent(owner, device, chip_indexes, planned)
+        try:
+            created: List[str] = []
+            try:
+                for link_id, idx in zip(planned, chip_indexes):
+                    self._operator.create(idx, link_id)
+                    created.append(link_id)
+            except Exception:
+                self._rollback_created(created)
+                self._storage.journal_remove(intent_id)
+                raise
+            try:
+                self._finish_bind(device, owner, pod, annotations,
+                                  chip_indexes, created, intent_id=intent_id)
+            except Exception:
+                # _finish_bind rolled back the spec and links
+                self._storage.journal_remove(intent_id)
+                raise
+        finally:
+            self._storage.intent_done(intent_id)
+
+    def _rollback_created(self, created: List[str]) -> None:
+        for link_id in created:
+            try:
+                self._operator.delete(link_id)
+            except Exception:  # noqa: BLE001 - best effort, logged
+                logger.warning("rollback: failed deleting %s", link_id)
+
+    def _require_known_chips(self, chip_indexes: List[int]) -> None:
+        unknown = [i for i in chip_indexes if i not in self._chips]
+        if unknown:
+            raise LocateError(f"cards {unknown} not present on this host")
+
+    def _finish_bind(self, device: Device, owner, pod: dict,
+                     annotations: Dict, chip_indexes: List[int],
+                     created: List[str],
+                     intent_id: Optional[int] = None) -> None:
+        # One per-owner stripe spans the sibling lookup, the spec write and
+        # the storage save that publishes this allocation: a core/memory
+        # PreStart pair of one container racing here could otherwise both
+        # miss the sibling and write unmerged specs.
+        with self._bind_locks.lock_for(owner.pod_key):
+            own_path = os.path.join(self._alloc_dir, f"{device.hash}.json")
+            fresh_bind = not os.path.exists(own_path)
+            try:
+                self._write_alloc_spec(device, owner, chip_indexes,
+                                       annotations, pod)
+            except Exception:
+                # Siblings are merged before the own file lands, so a
+                # failure may have left them naming this allocation:
+                # restore them. Only for a fresh bind: a failed re-bind
+                # (container restart) leaves the still-valid specs alone.
+                if fresh_bind:
+                    try:
+                        os.unlink(own_path)
+                    except OSError:
+                        pass
+                    self._restore_sibling_specs(owner, device.hash)
+                self._rollback_created(created)
+                raise
+            record = AllocationRecord(
+                device=device, chip_indexes=chip_indexes,
+                created_node_ids=created,
+            )
+            self._storage.mutate(
+                owner.namespace, owner.name,
+                lambda info: info.set_allocation(owner.container, record),
+            )
+            if intent_id is not None:
+                # commit inside the stripe: the reconciler re-checks an
+                # open intent under this stripe too
+                self._storage.journal_commit(intent_id)
+        logger.info("bound %s %s -> %s cards %s", self.resource, device.hash,
+                    owner.pod_key, chip_indexes)
+
+    # -- the allocation spec for the injection -------------------------------
+
+    def _spec_payload(self, device: Device, owner, chip_indexes: List[int],
+                      annotations: Dict, pod: Optional[dict] = None) -> Dict:
+        """The spec of one allocation: the bound cards' nodes, their
+        control nodes (the operator's ``extra_paths``) and
+        ``CUDA_VISIBLE_DEVICES`` by uuid, in the set's order, and the
+        quota env."""
+        cards = [self._chips[i] for i in chip_indexes]
+        env = visibility_env(cards)
+        env.update(qos_env(annotations, pod_spec=pod,
+                           **self._qos_kwargs(device)))
+        return {
+            "hash": device.hash,
+            "resource": self.resource,
+            "namespace": owner.namespace,
+            "pod": owner.name,
+            "container": owner.container,
+            "chip_indexes": chip_indexes,
+            "device_paths": [c.device_path for c in cards],
+            "control_paths": list(dict.fromkeys(
+                p for c in cards for p in c.extra_paths)),
+            "env": env,
+        }
+
+    def _sibling_specs(self, owner) -> List[Dict]:
+        """Spec payloads already written for the same container by the
+        other resource's plugin."""
+        info = self._storage.load(owner.namespace, owner.name)
+        if info is None:
+            return []
+        out = []
+        for resource, rec in info.allocations.get(owner.container, {}).items():
+            if resource == self.resource:
+                continue
+            path = os.path.join(self._alloc_dir, f"{rec.device.hash}.json")
+            try:
+                with open(path) as f:
+                    out.append(json.load(f))
+            except (OSError, ValueError):
+                continue
+        return out
+
+    def _write_alloc_spec(self, device: Device, owner,
+                          chip_indexes: List[int], annotations: Dict,
+                          pod: Optional[dict] = None) -> None:
+        """Write the spec, merged with the sibling resource's spec of the
+        same container (the caller holds the owner's stripe).
+
+        Both Allocate answers of a container carry ``TPU=<own hash>`` and
+        the kubelet merges env in no set order, so the injection resolves
+        whichever hash won. Every spec file of the container carries the
+        union of both resources' devices and env, so the injection is the
+        same either way (the reference injected the winner's alone,
+        gpushare.go:79-82/204-207)."""
+        os.makedirs(self._alloc_dir, exist_ok=True)
+        payload = self._spec_payload(device, owner, chip_indexes,
+                                     annotations, pod)
+        # pre-merge snapshot: a later release of the sibling restores this
+        # spec to exactly its own content
+        payload["own"] = {
+            "chip_indexes": list(payload["chip_indexes"]),
+            "device_paths": list(payload["device_paths"]),
+            "control_paths": list(payload["control_paths"]),
+            "env": dict(payload["env"]),
+        }
+        for sib in self._sibling_specs(owner):
+            payload, merged_sib = _merge_spec_payloads(payload, sib)
+            _write_json_atomic(
+                os.path.join(self._alloc_dir, f"{merged_sib['hash']}.json"),
+                merged_sib,
+            )
+        _write_json_atomic(
+            os.path.join(self._alloc_dir, f"{device.hash}.json"), payload
+        )
+
+    def _restore_sibling_specs(self, owner, released_hash: str) -> None:
+        """(owner's stripe held) Rewrite the container's surviving sibling
+        specs from their ``own`` snapshots, so that the released
+        allocation's devices and env leave them."""
+        info = self._storage.load(owner.namespace, owner.name)
+        siblings = info.allocations.get(owner.container, {}) if info else {}
+        for rec in siblings.values():
+            if rec.device.hash == released_hash:
+                continue
+            path = os.path.join(self._alloc_dir, f"{rec.device.hash}.json")
+            try:
+                with open(path) as f:
+                    spec = json.load(f)
+            except (OSError, ValueError):
+                continue
+            own = spec.get("own")
+            if not own:
+                continue
+            restored = dict(spec)
+            restored.update(own)
+            restored["resources"] = [restored.get("resource", "")]
+            _write_json_atomic(path, restored)
+
+    def _remove_sidecars(self, alloc_hash: str) -> None:
+        """Remove the allocation's sidecar files (usage report, checkpoint
+        ack, flight summary) with its spec: a stale ack under a reused
+        hash would read as a fresh one."""
+        for subdir in AllocSidecarSubdirs:
+            for suffix in (".json", ".json.tmp"):
+                try:
+                    os.unlink(os.path.join(self._alloc_dir, subdir,
+                                           f"{alloc_hash}{suffix}"))
+                except OSError:
+                    pass
+
+    def remove_alloc_spec(self, alloc_hash: str, owner) -> None:
+        """Unlink an allocation's spec and sidecars, and restore the
+        container's surviving sibling specs."""
+        with self._bind_locks.lock_for(owner.pod_key):
+            try:
+                os.unlink(os.path.join(self._alloc_dir,
+                                       f"{alloc_hash}.json"))
+            except FileNotFoundError:
+                pass
+            self._remove_sidecars(alloc_hash)
+            self._restore_sibling_specs(owner, alloc_hash)
+
+    def read_alloc_spec(self, alloc_hash: str) -> Optional[Dict]:
+        """The on-disk spec of an allocation; None when absent or
+        corrupt."""
+        try:
+            with open(os.path.join(self._alloc_dir,
+                                   f"{alloc_hash}.json")) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+
+class GPUShareCorePlugin(_GPUSharePluginBase):
+    """elasticgpu.io/gpu-core: 100 fake units a card."""
+
+    resource = ResourceGPUCore
+
+    def device_list(self) -> List[Tuple[str, str]]:
+        # whole-card mode: one id a card (the reference's no-op operator's
+        # shape); 100 units would let the kubelet split one card's units
+        # across two pods, each handed the whole card
+        units = 1 if self._whole_chip else GPUPercentEachCard
+        out = []
+        for chip in self._chips.values():
+            health = self._chip_health(chip.index)
+            out.extend((core_device_id(chip.index, u), health)
+                       for u in range(units))
+        return out
+
+    def _alloc_envs(self, device: Device) -> Dict[str, str]:
+        envs = super()._alloc_envs(device)
+        if self._whole_chip:
+            # the cards the ids name, as the device specs; in shared mode
+            # the card is known at PreStart only, and the spec carries it
+            envs.update(visibility_env(
+                self._chips[c] for c in self._known_chips_from_ids(device)))
+        return envs
+
+    def _alloc_device_specs(self, device: Device) -> List[DeviceSpec]:
+        nodes = [self._chips[c].device_path
+                 for c in self._known_chips_from_ids(device)] \
+            if self._whole_chip else []
+        # each node at its host name; the control nodes in both modes
+        return [DeviceSpec(container_path=p, host_path=p)
+                for p in nodes + self._control_paths]
+
+    def _qos_kwargs(self, device: Device) -> Dict:
+        if self._whole_chip:
+            # one id is one whole card: 100 units of it, not 1
+            n = len(self._known_chips_from_ids(device)) or len(device.ids)
+            return {"core_units": GPUPercentEachCard * n}
+        return {"core_units": len(device.ids)}
+
+
+class GPUShareMemoryPlugin(_GPUSharePluginBase):
+    """elasticgpu.io/gpu-memory: one fake unit a MiB of the card's memory
+    (81,559 units an H100 SXM5 card)."""
+
+    resource = ResourceGPUMemory
+
+    def __init__(self, config: PluginConfig,
+                 bind_locks: Optional[StripedLockSet] = None) -> None:
+        super().__init__(config, bind_locks)
+        chips = list(self._chips.values())
+        self._mib_per_chip = (
+            chips[0].hbm_bytes // BytesPerMemoryUnit if chips else 0
+        )
+
+    def device_list(self) -> List[Tuple[str, str]]:
+        out = []
+        for chip in self._chips.values():
+            health = self._chip_health(chip.index)
+            out.extend((mem_device_id(chip.index, u), health)
+                       for u in range(chip.hbm_bytes // BytesPerMemoryUnit))
+        return out
+
+    def _hbm_limit_bytes(self, device: Device) -> int:
+        return len(device.ids) * BytesPerMemoryUnit
+
+    def _qos_kwargs(self, device: Device) -> Dict:
+        return {
+            "hbm_limit_bytes": self._hbm_limit_bytes(device),
+            "chip_hbm_bytes": self._mib_per_chip * BytesPerMemoryUnit,
+        }
+
+    def _spec_payload(self, device, owner, chip_indexes, annotations,
+                      pod=None):
+        payload = super()._spec_payload(device, owner, chip_indexes,
+                                        annotations, pod)
+        payload["hbm_limit_bytes"] = self._hbm_limit_bytes(device)
+        return payload
+
+
+class GPUSharePlugin:
+    """The two per-resource servers, their health poll and the GC sweep
+    (reference GPUSharePlugin, base.go:203-306). The agent's periodic
+    health and GC loops, which its manager starts, come with the port's
+    manager."""
+
+    def __init__(self, config: PluginConfig) -> None:
+        self._config = config
+        locks = StripedLockSet(BIND_LOCK_STRIPES)
+        self.core = GPUShareCorePlugin(config, locks)
+        self.memory = GPUShareMemoryPlugin(config, locks)
+        self.servers = [
+            DevicePluginServer(self.core, ResourceGPUCore, CORE_ENDPOINT,
+                               config),
+            DevicePluginServer(self.memory, ResourceGPUMemory, MEM_ENDPOINT,
+                               config),
+        ]
+
+    def run(self, stop: threading.Event) -> None:
+        for server in self.servers:
+            server.start(stop)
+
+    # -- card health ----------------------------------------------------------
+
+    def health_once(self) -> bool:
+        """One health poll: probe the operator once and apply the same view
+        to both resources. Returns True when anything changed."""
+        try:
+            healthy = set(self._config.operator.healthy_indexes())
+        except Exception:  # noqa: BLE001 - a broken probe must not wedge
+            logger.exception("health probe failed")
+            return False
+        went_bad, recovered = self.core.apply_health(healthy)
+        self.memory.apply_health(healthy)
+        return bool(went_bad or recovered)
+
+    # -- GC (reference: base.go:241-306) --------------------------------------
+
+    def _pod_is_gone(self, namespace: str, name: str) -> bool:
+        sitter = self._config.sitter
+        if sitter.get_pod(namespace, name) is not None:
+            return False
+        try:
+            return sitter.get_pod_from_api(namespace, name) is None
+        except Exception as e:  # noqa: BLE001 - apiserver down: keep state
+            logger.warning("GC: apiserver check failed for %s/%s: %s",
+                           namespace, name, e)
+            return False
+
+    def gc_once(self) -> int:
+        """Reclaim the allocations of pods that no longer exist: their
+        links, specs, sidecars and records. Returns the pods reclaimed."""
+        reclaimed = 0
+        storage = self._config.storage
+        operator = self._config.operator
+        for key, info in list(storage.items()):
+            if not self._pod_is_gone(info.namespace, info.name):
+                continue
+            for container, by_resource in info.allocations.items():
+                owner = PodContainer(info.namespace, info.name, container)
+                for record in by_resource.values():
+                    for link_id in record.created_node_ids:
+                        try:
+                            operator.delete(link_id)
+                        except Exception:  # noqa: BLE001 - logged, swept on
+                            logger.warning("GC: failed deleting node %s",
+                                           link_id)
+                    # the owner is passed, so a sibling outliving this
+                    # unlink never names the freed devices
+                    self.core.remove_alloc_spec(record.device.hash, owner)
+            storage.delete(info.namespace, info.name)
+            reclaimed += 1
+            logger.info("GC: reclaimed %s", key)
+        return reclaimed

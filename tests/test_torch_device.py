@@ -6,8 +6,10 @@ agent's on one grid of inputs; and the subpackage importing neither torch
 nor the agent."""
 
 import os
+import stat
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 
@@ -116,15 +118,19 @@ class FakeHost:
     """8 H100 SXM5 cards: a dev root with their nodes and an nvidia-smi
     whose listing each test edits (``cards[i]`` holds card i's fields;
     a card set to None is not listed; while ``fail`` is above 0, a call
-    fails and counts it down)."""
+    fails and counts it down). The nodes are regular files; :meth:`stat`
+    shows those named in ``char`` as character devices, and
+    ``nvidia-uvm-tools`` stays a regular file, as a placeholder a host may
+    hold."""
 
     def __init__(self, tmp_path, product="NVIDIA H100 80GB HBM3"):
         self.dev = str(tmp_path / "dev")
         os.makedirs(self.dev)
         for m in MINORS:
             open(os.path.join(self.dev, f"nvidia{m}"), "w").close()
-        for n in ("nvidiactl", "nvidia-uvm"):
+        for n in ("nvidiactl", "nvidia-uvm", "nvidia-uvm-tools"):
             open(os.path.join(self.dev, n), "w").close()
+        self.char = {"nvidiactl": (195, 255), "nvidia-uvm": (511, 0)}
         self.cards = [dict(i=i, bus=f"{0x18 + 0x10 * i:02X}",
                            product=product, uuid=uuid_of(i),
                            minor=MINORS[i], total="81559 MiB", used=0,
@@ -144,8 +150,17 @@ class FakeHost:
                 + "".join(SMI_GPU.format(**c) for c in listed)
                 + "</nvidia_smi_log>\n")
 
+    def stat(self, path):
+        st = os.stat(path)
+        rdev = self.char.get(os.path.basename(path))
+        if rdev is None:
+            return st
+        return SimpleNamespace(st_mode=stat.S_IFCHR | 0o666,
+                               st_rdev=os.makedev(*rdev))
+
     def operator(self, **kw):
         kw.setdefault("smi_ttl_s", 0.0)
+        kw.setdefault("stat_fn", self.stat)
         return NvidiaOperator(
             self.dev, smi=self.smi, env=kw.pop("env", {}),
             maintenance=kw.pop("maintenance", lambda: None),
@@ -174,6 +189,24 @@ def test_devices_follow_smi_order_with_permuted_minors(host):
         "NVIDIA H100 80GB HBM3", 8, 8 * 132, 8, 1, False)
     assert op.driver_version == "550.90.07"
     assert op.worker_id() == 0 and op.worker_hostnames() == []
+
+
+def test_control_nodes_are_the_character_devices_only(host):
+    """A control node counts only where the host holds it as a character
+    device of a real major: a regular file under its name (here
+    ``nvidia-uvm-tools``) or a node at 0:0 is a placeholder no runtime
+    can hand to a container."""
+    assert host.operator().devices()[0].extra_paths == [
+        "/dev/nvidiactl", "/dev/nvidia-uvm"]
+    host.char["nvidia-uvm"] = (0, 0)
+    host.char["nvidia-uvm-tools"] = (511, 1)
+    assert host.operator().devices()[0].extra_paths == [
+        "/dev/nvidiactl", "/dev/nvidia-uvm-tools"]
+    # with the real stat, the regular files count as none
+    assert host.operator(stat_fn=os.stat).devices()[0].extra_paths == []
+    os.unlink(os.path.join(host.dev, "nvidiactl"))
+    assert host.operator().devices()[0].extra_paths == [
+        "/dev/nvidia-uvm-tools"]
 
 
 def test_links_target_minors_and_resolve_to_indexes(host, tmp_path):
