@@ -3,9 +3,10 @@
 shared-prefix serving, decode-variant, serving-artifact, sharded
 training, expert-parallel, pipeline, sharded-decode, tensor-parallel
 serving and runner-across-cards slices on one NVIDIA GPU, the agent's
-device layer with four tenants sharing that GPU, and the agent's device
+device layer with four tenants sharing that GPU, the agent's device
 plugins and container injection with a tenant started from what they
-inject.
+inject, and the node agent itself across a restart, with a tenant served
+from a binding it restored.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -222,7 +223,31 @@ shows; it then exits 1 before the summary lines. Phases:
    streams with its paged launches and stay under the injected cap. Then
    whole-card Allocate through ``ExclusiveOperator`` (the card's node, the
    control nodes, its uuid), the pod's deletion and the GC sweep (no link,
-   spec, record or intent left); host ms of each plugin call.
+   spec, record or intent left); host ms of each plugin call;
+26. the node agent across a restart, with no kubelet, grpc or protobuf:
+   ``tests/fake_apiserver.py`` serves the apiserver over HTTP on
+   127.0.0.1 (a JSON kubeconfig points at it) with four pods annotated
+   for the card; a stand-in for the kubelet's pod-resources API
+   (``_PodResources``) is handed to the manager, and the script plays the
+   kubelet through the plugins' plain methods. The port's
+   ``NodeManager`` runs in child processes without torch (``python3
+   chip_smoke.py --agent A|B``) on a temp sqlite db, dev root and alloc
+   dir, with ``NvidiaOperator`` on /dev, its gRPC servers left out. Boot A
+   syncs, restores nothing and starts the supervised sitter, GC, health
+   and reconciler loops (period 3600 s); four pods of 25 gpu-core and a
+   quarter of the card's gpu-memory units are bound (links to
+   ``/dev/nvidia<minor>``, merged specs with the card's nodes, its uuid,
+   the quota and the trace id, records), pod 3's memory PreStart killed
+   at ``bind.post_create``. Then the links are wiped, as a reboot clears
+   /dev, and pod 4 is deleted. Boot B's ``restore()`` must re-create
+   pods 1-3's links, resolve pod 3's open intent as
+   ``tests/test_torch_reconciler.py`` pins it (rolled back, replayed) and
+   reclaim pod 4. A tenant started from pod 1's restored spec env alone
+   serves phase 4's 16 requests (its streams, 1352 paged launches, one
+   card, under the cap); pod 1's deletion at the apiserver must be
+   reclaimed by GC through the sitter within 10 s; the health loop must
+   have polled nvidia-smi with every id still Healthy. Host ms of each
+   bind call, sync, restore and GC, and the db's size.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -3934,8 +3959,11 @@ def run_plugin_path(torch, srv, streams, dev) -> dict:
             {}, hbm_limit_bytes=len(mem_ids) * BytesPerMemoryUnit,
             chip_hbm_bytes=units * BytesPerMemoryUnit,
             core_units=PLUGIN_CORE_UNITS)
+        # the quota keys; the bind's trace id is checked on its own
+        trace = injected.get("ELASTIC_TPU_TRACE_ID", "")
         quota = {k: v for k, v in injected.items()
-                 if k.startswith("ELASTIC_TPU_")}
+                 if k.startswith("ELASTIC_TPU_")
+                 and k != "ELASTIC_TPU_TRACE_ID"}
         devices = [(d["path"], d["major"], d["minor"]) for d in adj["devices"]]
         print(f"plugin adjustment: hash {h} of {hashes}, devices {devices} "
               f"({node} is {os.major(st.st_rdev)}:{os.minor(st.st_rdev)}), "
@@ -3970,6 +3998,9 @@ def run_plugin_path(torch, srv, streams, dev) -> dict:
             fail(f"injected CUDA_VISIBLE_DEVICES {injected}")
         if quota != want_quota:
             fail(f"injected quota {quota}, want qos_env's {want_quota}")
+        if len(trace) != 16 or any(ch not in "0123456789abcdef"
+                                   for ch in trace):
+            fail(f"injected trace id {trace!r}, want 16 hex digits")
 
         # tenants started from the container's env alone: plainly, and in
         # a mount namespace whose /dev holds the injected nodes alone (the
@@ -4052,6 +4083,491 @@ def run_plugin_path(torch, srv, streams, dev) -> dict:
         rep.pop("streams", None)
     out["launches"] = {k: sum(r.get("launches", {}).get(k, 0)
                               for r in out.get("tenants", {}).values())
+                       for k in KERNEL_NAMES}
+    return out
+
+
+# -- phase 26: the port's node agent across a restart, a tenant from it ------
+
+AGENT_PODS = 4                  # pods of PLUGIN_CORE_UNITS and a quarter of
+#                                 the card's memory units each
+AGENT_FAULT = "bind.post_create"     # pod 3's memory PreStart dies here
+# The boot pass's resolution of that crash (an open intent, links made, no
+# record, the kubelet's assignment standing): rolled back, then replayed.
+# tests/test_torch_reconciler.py pins it as CRASH_OUTCOME["bind.post_create"]
+# and holds the port's report equal to the agent's there.
+AGENT_CRASH_OUTCOME = {"intents_committed": 0, "intents_rolled_back": 1,
+                       "replayed_binds": 1}
+AGENT_GC_DEADLINE_S = 10.0
+AGENT_WAIT_S = 300.0
+
+
+def _load_fake_apiserver():
+    """tests/fake_apiserver.py (standard library only) from this
+    checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fake_apiserver.py")
+    spec = importlib.util.spec_from_file_location("fake_apiserver", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _write_json(path, obj) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def _read_json(path, wait_s=0.0):
+    """The JSON at ``path``, waiting up to ``wait_s`` for it to appear;
+    None when it does not."""
+    deadline = time.time() + wait_s
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            return None
+        time.sleep(0.02)
+    with open(path) as f:
+        return json.load(f)
+
+
+class _PodResources:
+    """Phase 26's stand-in for the kubelet's pod-resources API, handed to
+    the manager as ``pod_resources_client``: List reads the assignments
+    the kubelet recorded in ``path`` ({"ns/pod": {container: {resource:
+    ids}}}); GetAllocatableResources answers what the plugins advertise,
+    as a kubelet that consumed their ListAndWatch would."""
+
+    def __init__(self, path, advertised):
+        self.path = path
+        self.advertised = advertised
+        self.lists = 0
+
+    def list(self, timeout_s=5.0):  # noqa: ARG002 - the client's signature
+        self.lists += 1
+        pods = _read_json(self.path) or {}
+        return SimpleNamespace(pod_resources=[SimpleNamespace(
+            namespace=key.split("/")[0], name=key.split("/")[1],
+            containers=[SimpleNamespace(name=c, devices=[SimpleNamespace(
+                resource_name=r, device_ids=ids) for r, ids in by.items()])
+                for c, by in containers.items()])
+            for key, containers in pods.items()])
+
+    def get_allocatable_resources(self, timeout_s=5.0):  # noqa: ARG002
+        return SimpleNamespace(devices=[SimpleNamespace(
+            resource_name=r, device_ids=ids())
+            for r, ids in self.advertised.items()])
+
+
+def _agent_operator(dev_root):
+    """NvidiaOperator over the host's /dev, links under ``dev_root``,
+    counting its nvidia-smi calls and health polls; the metadata fetchers
+    of the drain (not on this path) answer nothing."""
+    from elastic_tpu_agent_torch.device import NvidiaOperator
+    from elastic_tpu_agent_torch.device.nvidia import run_nvidia_smi
+
+    class Counting(NvidiaOperator):
+        smi_calls = 0
+        health_polls = 0
+
+        def healthy_indexes(self):
+            Counting.health_polls += 1
+            return super().healthy_indexes()
+
+    def smi():
+        Counting.smi_calls += 1
+        return run_nvidia_smi()
+
+    return Counting(dev_root, host_dev_scan_root="/dev", smi=smi,
+                    maintenance=lambda: None, preemption=lambda: None)
+
+
+def _agent_manager(d, card):
+    """The port's NodeManager for phase 26's children on ``d``'s db, dev
+    root and alloc dir, the apiserver through ``d``'s kubeconfig; its
+    gRPC servers are left out (the only change to the manager)."""
+    from elastic_tpu_agent_torch.manager import ManagerOptions, NodeManager
+
+    op = _agent_operator(os.path.join(d, "dev"))
+    holder = {}
+
+    def advertised(kind):
+        return lambda: [i for i, _ in getattr(
+            holder["m"].plugin, kind).device_list()]
+
+    pr = _PodResources(os.path.join(d, "assign.json"), {
+        card["core_resource"]: advertised("core"),
+        card["mem_resource"]: advertised("memory")})
+    mgr = NodeManager(ManagerOptions(
+        node_name=card["node"], db_path=os.path.join(d, "meta.db"),
+        kubeconfig=os.path.join(d, "kubeconfig"),
+        dev_root=os.path.join(d, "dev"),
+        alloc_spec_dir=os.path.join(d, "alloc"), reconcile_period_s=3600.0,
+        operator=op, pod_resources_client=pr))
+    holder["m"] = mgr
+    mgr.plugin.servers = []
+    return mgr, op, pr
+
+
+def _pod_view(mgr, op, d, pod, hashes) -> dict:
+    """What the node holds for one pod: links and their targets and
+    indexes, its spec files, its record and its open intents."""
+    links = {}
+    for h in hashes:
+        for link_id in op.list_links():
+            if link_id.startswith(h):
+                links[link_id] = (os.readlink(op.link_path(link_id)),
+                                  op.resolve(link_id))
+    specs = {h: mgr.plugin.core.read_alloc_spec(h) for h in hashes}
+    info = mgr.storage.load("default", pod)
+    return dict(links=links, specs=specs,
+                record=None if info is None else json.loads(info.to_json()),
+                intents=[i for i in mgr.storage.open_intents()
+                         if i["pod_key"] == f"default/{pod}"])
+
+
+def agent_main(args) -> int:
+    """A child of phase 26 (``run_agent_restart``): the port's node agent
+    in a process without torch, on ``--agent-dir``. ``A`` boots it, plays
+    the kubelet for four pods (pod 3's memory bind killed at AGENT_FAULT)
+    and stops; ``B`` boots it again on the same db after the links were
+    wiped, reports its restore, then waits for pod 1's deletion and times
+    GC. Prints one JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from elastic_tpu_agent_torch import faults
+    from elastic_tpu_agent_torch.common import HEALTHY
+    from elastic_tpu_agent_torch.types import Device
+
+    d = args.agent_dir
+    card = _read_json(os.path.join(d, "card.json"))
+    mgr, op, pr = _agent_manager(d, card)
+    out = {}
+    t0 = time.monotonic()
+    mgr.run(block=False)
+    out["run_ms"] = (time.monotonic() - t0) * 1e3
+    # the sitter's last contact: its sync, as no pod changes during boot
+    out["synced_ms"] = (time.monotonic() - mgr.sitter.sync_age_s() - t0) * 1e3
+    report = mgr.reconciler.status()["last_report"]
+    out["restore"] = report
+    out["restore_ms"] = report["duration_s"] * 1e3
+    core, mem = mgr.plugin.core, mgr.plugin.memory
+    pods = [f"pod-{i}" for i in range(1, AGENT_PODS + 1)]
+    if args.agent == "A":
+        ms = {}
+        assigned = {}
+        used = {"core": set(), "mem": set()}
+        hashes = {}
+
+        def clock(name, fn, *a):
+            t = time.perf_counter()
+            got = fn(*a)
+            ms.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+            return got
+
+        for pod in pods:
+            key = f"default/{pod}"
+            ids = {}
+            for kind, plugin, n in (("core", core, card["core_units"]),
+                                    ("mem", mem, card["mem_units"])):
+                free = [i for i, _ in plugin.device_list()
+                        if i not in used[kind]]
+                ids[kind] = clock(f"preferred_{kind}", plugin.preferred_ids,
+                                  free, [], n)
+                used[kind].update(ids[kind])
+                clock(f"allocate_{kind}", plugin.allocate_container,
+                      ids[kind])
+                # the kubelet records the assignment after Allocate
+                assigned.setdefault(key, {}).setdefault("main", {})[
+                    plugin.resource] = ids[kind]
+                _write_json(os.path.join(d, "assign.json"), assigned)
+            hashes[pod] = [Device(ids["core"]).hash, Device(ids["mem"]).hash]
+            for kind, plugin in (("core", core), ("mem", mem)):
+                if pod == "pod-3" and kind == "mem":
+                    with faults.armed(AGENT_FAULT, "die-thread:1"):
+                        try:
+                            clock(f"prestart_{kind}", plugin.pre_start,
+                                  ids[kind])
+                            out["died"] = False
+                        except faults.DieThread:
+                            out["died"] = True
+                    continue
+                clock(f"prestart_{kind}", plugin.pre_start, ids[kind])
+        out["hashes"] = hashes
+        out["pods"] = {p: _pod_view(mgr, op, d, p, hashes[p]) for p in pods}
+        out["bind_ms"] = ms
+    else:
+        hashes = card["hashes"]
+        out["pods"] = {p: _pod_view(mgr, op, d, p, hashes[p]) for p in pods}
+        _write_json(os.path.join(d, "restored.json"), out)
+        go = _read_json(os.path.join(d, "delete-pod-1.json"), AGENT_WAIT_S)
+        if go is not None:
+            gone = [False]
+            deadline = go["at"] + AGENT_GC_DEADLINE_S
+            while time.time() < deadline:
+                view = _pod_view(mgr, op, d, "pod-1", hashes["pod-1"])
+                if view["record"] is None and not view["links"] and \
+                        not any(view["specs"].values()):
+                    gone = [True]
+                    break
+                time.sleep(0.005)
+            out["gc_reclaimed"] = gone[0]
+            out["gc_ms"] = (time.time() - go["at"]) * 1e3
+            out["pod_1_after_gc"] = _pod_view(mgr, op, d, "pod-1",
+                                              hashes["pod-1"])
+        out["health_polls"] = op.health_polls
+        out["smi_calls"] = op.smi_calls
+        out["unhealthy"] = sorted(core.unhealthy_chips())
+        out["all_healthy"] = all(h == HEALTHY for p in (core, mem)
+                                 for _, h in p.device_list())
+        out["allocatable_drift"] = mgr.check_allocatable_drift()
+        out["kubelet_lists"] = pr.lists
+    out["subsystems"] = {k: v["state"] for k, v in
+                         mgr.supervisor.status().items()}
+    mgr.stop()
+    out["db_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                          for f in os.listdir(d) if f.startswith("meta.db"))
+    out["torch_imported"] = "torch" in sys.modules
+    print(json.dumps(out))
+    return 0
+
+
+class _AgentChild(_Tenant):
+    """One agent child of phase 26 (``--agent A|B``), its output in files
+    under the phase's directory."""
+
+    def __init__(self, gen, d):
+        self.name = f"agent {gen}"
+        self.out = os.path.join(d, f"agent-{gen}.out")
+        self.err = os.path.join(d, f"agent-{gen}.err")
+        here = os.path.dirname(os.path.abspath(__file__))
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--agent", gen,
+                 "--agent-dir", d], stdout=out, stderr=err, cwd=here)
+        self.t0 = time.perf_counter()
+
+
+def run_agent_restart(torch, srv, streams, dev) -> dict:
+    """Phase 26: the port's node agent binds pods on the card, is stopped,
+    has its links wiped and restarts; a tenant serves from a restored spec
+    and GC reclaims a deleted pod (module docstring)."""
+    import shutil
+    import tempfile
+
+    from elastic_tpu_agent_torch.common import (
+        AnnotationAssumed, BytesPerMemoryUnit, ResourceGPUCore,
+        ResourceGPUMemory, container_annotation)
+    from elastic_tpu_agent_torch.device import NvidiaOperator
+    from elastic_tpu_agent_torch.nri import plugin as NRI
+
+    props = torch.cuda.get_device_properties(dev)
+    out = {}
+    d = tempfile.mkdtemp(prefix="cs26", dir="/tmp")
+    api = None
+    alive = []
+    try:
+        chips = [c for c in NvidiaOperator(
+            "/dev", maintenance=lambda: None,
+            preemption=lambda: None).devices()
+            if _uuid_key(c.uuid) == _uuid_key(props.uuid)]
+        if len(chips) != 1:
+            fail(f"agent: no single card of uuid {props.uuid}: {chips}")
+            return out
+        chip = chips[0]
+        node = chip.device_path
+        units = chip.hbm_bytes // BytesPerMemoryUnit
+        api = _load_fake_apiserver().FakeAPIServer()
+        url = api.start()
+        os.makedirs(os.path.join(d, "dev"))
+        _write_json(os.path.join(d, "kubeconfig"), {
+            "current-context": "c",
+            "contexts": [{"name": "c", "context": {"cluster": "local",
+                                                   "user": "agent"}}],
+            "clusters": [{"name": "local", "cluster": {"server": url}}],
+            "users": [{"name": "agent", "user": {"token": "phase-26"}}]})
+        card = dict(node="h100-node", core_units=PLUGIN_CORE_UNITS,
+                    mem_units=units // PLUGIN_MEM_SHARE,
+                    core_resource=ResourceGPUCore,
+                    mem_resource=ResourceGPUMemory)
+        _write_json(os.path.join(d, "card.json"), card)
+        pods = [f"pod-{i}" for i in range(1, AGENT_PODS + 1)]
+        for pod in pods:
+            api.upsert_pod({"metadata": {
+                "namespace": "default", "name": pod, "annotations": {
+                    AnnotationAssumed: "true",
+                    container_annotation("main"): str(chip.index)}},
+                "spec": {"nodeName": card["node"],
+                         "containers": [{"name": "main"}]}})
+
+        # 1. boot A binds the four pods; pod 3's memory bind dies
+        a = _AgentChild("A", d)
+        alive.append(a)
+        rep_a = a.result(time.perf_counter() + AGENT_WAIT_S)
+        if not rep_a:
+            return out
+        bound = rep_a["pods"]
+        print(f"agent boot A: run {rep_a['run_ms']:.1f} ms (synced "
+              f"{rep_a['synced_ms']:.1f} ms, restore "
+              f"{rep_a['restore_ms']:.2f} ms, "
+              f"{rep_a['restore']['repaired_total']} repairs); pod 3's "
+              f"memory PreStart died at {AGENT_FAULT}: {rep_a.get('died')}; "
+              f"links {[sorted(set(t for t, _ in v['links'].values())) for v in bound.values()]}")
+        for pod in pods:
+            v = bound[pod]
+            full = pod != "pod-3"
+            links = {t for t, _ in v["links"].values()}
+            indexes = {i for _, i in v["links"].values()}
+            allocs = (v["record"] or {}).get("allocations", {}).get(
+                "main", {})
+            spec = v["specs"][rep_a["hashes"][pod][0]] or {}
+            env = spec.get("env", {})
+            quota = {k for k in env if k.startswith("ELASTIC_TPU_")}
+            # pod 3's memory link was made before its bind died
+            if links != {node} or indexes != {chip.index} or \
+                    len(v["links"]) != 2 or len(allocs) != (2 if full else 1):
+                fail(f"agent boot A {pod}: links {v['links']}, records "
+                     f"{sorted(allocs)}")
+            if spec.get("device_paths") != [node] or \
+                    spec.get("control_paths") != chip.extra_paths or \
+                    _uuid_key(env.get("CUDA_VISIBLE_DEVICES")) != \
+                    _uuid_key(chip.uuid) or not {
+                        "ELASTIC_TPU_CORE_UNITS", "ELASTIC_TPU_TRACE_ID"} \
+                    <= quota or (full and "ELASTIC_TPU_HBM_LIMIT_BYTES"
+                                 not in quota):
+                fail(f"agent boot A {pod} spec {spec}")
+            if len(v["intents"]) != (0 if full else 1):
+                fail(f"agent boot A {pod} intents {v['intents']}")
+        if rep_a.get("died") is not True or rep_a["torch_imported"]:
+            fail(f"agent boot A: died {rep_a.get('died')}, torch "
+                 f"{rep_a['torch_imported']}")
+
+        # 2. between the runs: a reboot clears /dev; pod 4 is deleted
+        for name in os.listdir(os.path.join(d, "dev")):
+            os.unlink(os.path.join(d, "dev", name))
+        api.delete_pod("default", "pod-4")
+        assigned = _read_json(os.path.join(d, "assign.json"))
+        assigned.pop("default/pod-4")
+        _write_json(os.path.join(d, "assign.json"), assigned)
+        card["hashes"] = rep_a["hashes"]
+        _write_json(os.path.join(d, "card.json"), card)
+
+        # 3. boot B restores
+        b = _AgentChild("B", d)
+        alive.append(b)
+        restored = _read_json(os.path.join(d, "restored.json"), AGENT_WAIT_S)
+        if restored is None:
+            b.result(time.perf_counter() + 1)
+            fail("agent boot B never restored")
+            return out
+        rep = restored["restore"]
+        print(f"agent boot B restore: {json.dumps(rep)}")
+        got = {k: rep[k] for k in AGENT_CRASH_OUTCOME}
+        if got != AGENT_CRASH_OUTCOME or rep["reclaimed_pods"] != 1 or \
+                rep["restored_links"] != 5 or rep["snapshot_error"]:
+            fail(f"agent restore report {rep}, want {AGENT_CRASH_OUTCOME}, "
+                 "1 reclaimed pod, 5 restored links")
+        for pod in pods:
+            v = restored["pods"][pod]
+            if pod == "pod-4":
+                if v["links"] or any(v["specs"].values()) or v["record"] \
+                        or v["intents"]:
+                    fail(f"agent restore left pod 4: {v}")
+                continue
+            allocs = (v["record"] or {}).get("allocations", {}).get(
+                "main", {})
+            if {t for t, _ in v["links"].values()} != {node} or \
+                    {i for _, i in v["links"].values()} != {chip.index} or \
+                    len(v["links"]) != 2 or len(allocs) != 2 or \
+                    v["intents"] or not all(v["specs"].values()):
+                fail(f"agent restore {pod}: {v['links']}, records "
+                     f"{sorted(allocs)}, intents {v['intents']}")
+
+        # 4. a tenant from pod 1's restored spec env alone
+        h = rep_a["hashes"]["pod-1"][0]
+        spec_path = os.path.join(d, "alloc", f"{h}.json")
+        with open(spec_path) as f:
+            spec = json.load(f)
+        adj = NRI.plain_adjustment(spec, os.stat, "/dev", spec_path)
+        injected = dict(adj["env"])
+        tenant = _Tenant("agent_tenant", "serve", d,
+                         env=dict(injected, TPU=h), strip=PLUGIN_ENV_STRIP)
+        alive.append(tenant)
+        trep = tenant.result(time.perf_counter() + TENANT_TIMEOUT_S)
+        if trep:
+            q = trep["quota"]
+            cap = q["hbm_fraction"] * trep["total_memory"]
+            same = trep["streams"] == streams
+            print(f"agent tenant: sees {trep['device_count']} card "
+                  f"{trep['device_uuid']}, streams equal phase 4's: {same}, "
+                  f"launches {trep['launches']}, max reserved "
+                  f"{trep['max_memory_reserved']} B of a cap of {cap:.0f} B "
+                  f"(quota {q}), {trep['tokens_per_s']:.1f} tokens/s, "
+                  f"{trep['seconds']:.1f} s")
+            if trep["device_count"] != 1 or \
+                    trep["device_uuid"] != _uuid_key(chip.uuid):
+                fail(f"agent tenant saw {trep['device_count']} cards, "
+                     f"{trep['device_uuid']}")
+            if not same:
+                fail("agent tenant streams differ from phase 4's")
+            if trep["launches"]["paged_decode"] != srv["paged_launches"] or \
+                    trep["launches"]["paged_decode"] != SMALL["n_layers"] \
+                    * trep["decode_steps"]:
+                fail(f"agent tenant paged launches {trep['launches']}")
+            if trep["max_memory_reserved"] > cap or not cap:
+                fail(f"agent tenant reserved {trep['max_memory_reserved']} "
+                     f"B, cap {cap:.0f}")
+
+        # 5. pod 1 deleted at the apiserver: the sitter, GC queue and loop
+        api.delete_pod("default", "pod-1")
+        _write_json(os.path.join(d, "delete-pod-1.json"), {"at": time.time()})
+        rep_b = b.result(time.perf_counter() + AGENT_WAIT_S)
+        if rep_b:
+            print(f"agent boot B: GC reclaimed pod 1 "
+                  f"{rep_b.get('gc_reclaimed')} in {rep_b.get('gc_ms', 0):.1f}"
+                  f" ms; health polls {rep_b['health_polls']}, nvidia-smi "
+                  f"calls {rep_b['smi_calls']}, all ids Healthy "
+                  f"{rep_b['all_healthy']}; allocatable drift "
+                  f"{rep_b['allocatable_drift']}; kubelet Lists "
+                  f"{rep_b['kubelet_lists']}; subsystems "
+                  f"{rep_b['subsystems']}")
+            if not rep_b.get("gc_reclaimed") or \
+                    rep_b["gc_ms"] > AGENT_GC_DEADLINE_S * 1e3:
+                fail(f"agent GC of pod 1: {rep_b.get('pod_1_after_gc')}")
+            if rep_b["health_polls"] < 1 or rep_b["smi_calls"] < 1 or \
+                    not rep_b["all_healthy"] or rep_b["unhealthy"]:
+                fail(f"agent health: {rep_b['health_polls']} polls, "
+                     f"{rep_b['smi_calls']} nvidia-smi calls, unhealthy "
+                     f"{rep_b['unhealthy']}")
+            if rep_b["allocatable_drift"] != {} or rep_b["torch_imported"]:
+                fail(f"agent boot B: drift {rep_b['allocatable_drift']}, "
+                     f"torch {rep_b['torch_imported']}")
+
+        # 6. host readings
+        ms = {k: [round(x, 3) for x in v]
+              for k, v in rep_a["bind_ms"].items()}
+        print("agent host ms: boot A synced "
+              f"{rep_a['synced_ms']:.1f}, boot B synced "
+              f"{restored['synced_ms']:.1f}, restore "
+              f"{restored['restore_ms']:.2f}, GC "
+              f"{(rep_b or {}).get('gc_ms', 0):.1f}; binds {json.dumps(ms)}; "
+              f"db {(rep_b or {}).get('db_bytes')} B")
+        out.update(card=chip.index, node=node, hashes=rep_a["hashes"],
+                   restore=rep, bind_ms=ms,
+                   synced_ms=[rep_a["synced_ms"], restored["synced_ms"]],
+                   restore_ms=restored["restore_ms"],
+                   gc_ms=(rep_b or {}).get("gc_ms"),
+                   db_bytes=(rep_b or {}).get("db_bytes"),
+                   tenant={k: v for k, v in (trep or {}).items()
+                           if k != "streams"})
+    finally:
+        for t in alive:
+            t.kill()
+        if api is not None:
+            api.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    out["launches"] = {k: out.get("tenant", {}).get("launches", {}).get(k, 0)
                        for k in KERNEL_NAMES}
     return out
 
@@ -4145,9 +4661,15 @@ def main() -> int:
                     help="a train tenant's runner flags")
     ap.add_argument("--barrier", default="",
                     help="a tenant's start barrier directory")
+    ap.add_argument("--agent", choices=("A", "B"),
+                    help="run as one of phase 26's agent processes")
+    ap.add_argument("--agent-dir", default="",
+                    help="phase 26's directory (db, dev root, alloc dir)")
     args = ap.parse_args()
     if args.tenant:
         return tenant_main(args)
+    if args.agent:
+        return agent_main(args)
 
     import torch
 
@@ -4253,15 +4775,17 @@ def main() -> int:
                   srv_streams, runtime, dev)
     plugin = timed("plugin_path", run_plugin_path, torch, srv, srv_streams,
                    dev)
+    agent = timed("agent_restart", run_agent_restart, torch, srv,
+                  srv_streams, dev)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
     # runner's mesh runs + the shared card's tenants, serving + the spec
-    # engine's fallback steps + the tenants of phases 24 and 25, train +
+    # engine's fallback steps + the tenants of phases 24-26, train +
     # LoRA + the sharded step + the ring + the MoE mesh step + both
     # pipeline schedules + the runner's mesh runs + the tenants
-    tenants = {k: share.get("launches", {}).get(k, 0)
-               + plugin.get("launches", {}).get(k, 0) for k in KERNEL_NAMES}
+    tenants = {k: sum(x.get("launches", {}).get(k, 0)
+                      for x in (share, plugin, agent)) for k in KERNEL_NAMES}
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
              runner_mesh["launches"])
@@ -4298,7 +4822,7 @@ def main() -> int:
               "pipeline": pipeline, "sharded_decode": decode,
               "tp_serving": tp_serving, "runner_mesh": runner_mesh,
               "device_share": share, "plugin_path": plugin,
-              "kernels": kernel_recs,
+              "agent_restart": agent, "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -4328,7 +4852,8 @@ def main() -> int:
                                 "tp_serving": tp_serving,
                                 "runner_mesh": runner_mesh,
                                 "device_share": share,
-                                "plugin_path": plugin}}))
+                                "plugin_path": plugin,
+                                "agent_restart": agent}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

@@ -4,8 +4,9 @@ injectable time source.
 The port's copy of what it needs from ``elastic_tpu_agent/common.py``:
 the extended resources and their granularity, the scheduler's pod
 annotations, the container env contract, the kubelet's file system
-contract, ``StripedLockSet`` (its locks only: the agent's wait counters
-have no reader here) and ``FileWatcher``; and ``Clock``,
+contract, ``StripedLockSet``, ``JitteredBackoff``, ``FileWatcher``, the
+process signals of the agent's entry point (``install_dump_signal``,
+``wait_for_exit_signal``); and ``Clock``,
 ``SYSTEM_CLOCK``, ``ManualClock``: production code takes a ``clock``
 defaulting to :data:`SYSTEM_CLOCK`; tests hand in a :class:`ManualClock`
 and advance it, so "an hour passed" is one method call instead of a
@@ -22,7 +23,13 @@ accelerator.
 
 from __future__ import annotations
 
+import contextlib
+import datetime
+import faulthandler
 import os
+import random
+import signal
+import sys
 import threading
 import time
 import zlib
@@ -42,6 +49,8 @@ BytesPerMemoryUnit = 1024 * 1024
 # -- Scheduler contract: pod annotations (reference const.go:5-6) ------------
 AnnotationAssumed = "elasticgpu.io/assumed"
 AnnotationContainerPrefix = "elasticgpu.io/container-"
+# An admission-stamped correlation id a bind's trace adopts
+AnnotationTraceID = "elasticgpu.io/trace-id"
 
 # -- Container env contract ---------------------------------------------------
 # The allocation hash in the container's env, which the injection resolves
@@ -59,6 +68,7 @@ AllocSidecarSubdirs = ("usage", "ack", "flight")
 DEVICE_PLUGIN_VERSION = "v1beta1"
 DEVICE_PLUGIN_DIR = "/var/lib/kubelet/device-plugins"
 KUBELET_SOCKET_NAME = "kubelet.sock"
+POD_RESOURCES_SOCKET = "/var/lib/kubelet/pod-resources/kubelet.sock"
 HEALTHY = "Healthy"
 UNHEALTHY = "Unhealthy"
 
@@ -117,6 +127,84 @@ class StripedLockSet:
 
     def lock_for(self, key: str) -> "threading.Lock":
         return self._locks[zlib.crc32(key.encode("utf-8")) % len(self._locks)]
+
+    def acquire_key(self, key: str) -> float:
+        """Block until the stripe of ``key`` is held; returns the seconds
+        spent waiting. Pair with :meth:`release_key`."""
+        lock = self.lock_for(key)
+        if lock.acquire(blocking=False):
+            return 0.0
+        t0 = time.monotonic()
+        lock.acquire()
+        return time.monotonic() - t0
+
+    def release_key(self, key: str) -> None:
+        self.lock_for(key).release()
+
+    @contextlib.contextmanager
+    def acquire(self, key: str):
+        """Context-manager form of acquire_key/release_key; yields the
+        wait seconds."""
+        wait_s = self.acquire_key(key)
+        try:
+            yield wait_s
+        finally:
+            self.release_key(key)
+
+
+class JitteredBackoff:
+    """Exponential backoff with 0.5x-1.5x jitter, shared by every retry
+    loop (the sitter's list/watch, the supervisor's restarts): one agent a
+    node means a dead shared dependency (the apiserver) is hit by every
+    node in lockstep without it."""
+
+    def __init__(self, min_s: float, max_s: float, rng=None) -> None:
+        self._min = min_s
+        self._max = max_s
+        self._rng = rng if rng is not None else random.Random()
+        self._current = min_s
+
+    def next_delay(self) -> float:
+        """The jittered delay to sleep now; doubles the base for next
+        time."""
+        delay = self._current * (0.5 + self._rng.random())
+        self._current = min(self._current * 2, self._max)
+        return delay
+
+    def reset(self) -> None:
+        self._current = self._min
+
+
+def install_dump_signal(log_dir: str = "/var/log") -> None:
+    """SIGUSR1 -> dump every thread's stack to a timestamped file under
+    ``log_dir`` (stderr when it cannot be written)."""
+
+    def _dump(signum, frame):  # noqa: ARG001
+        ts = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        path = os.path.join(log_dir, f"thread-stacks-{ts}.log")
+        try:
+            with open(path, "w") as f:
+                faulthandler.dump_traceback(file=f)
+        except OSError:
+            faulthandler.dump_traceback(file=sys.stderr)
+
+    signal.signal(signal.SIGUSR1, _dump)
+
+
+def wait_for_exit_signal() -> int:
+    """Block until SIGTERM, SIGINT or SIGQUIT; returns the signal
+    number."""
+    received: list = []
+    ev = threading.Event()
+
+    def _handler(signum, frame):  # noqa: ARG001
+        received.append(signum)
+        ev.set()
+
+    for s in (signal.SIGTERM, signal.SIGINT, signal.SIGQUIT):
+        signal.signal(s, _handler)
+    ev.wait()
+    return received[0] if received else 0
 
 
 class FileWatcher:

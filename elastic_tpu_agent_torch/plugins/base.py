@@ -12,13 +12,12 @@ not when this module is imported: ``PluginConfig`` and the plugins'
 allocation logic run where grpcio and protobuf are not installed.
 
 What the agent's config carries besides, and this copy does not: the
-node name and pod-resources socket (read by the agent's manager), the
 sampler, metrics, CRD recorder, event recorder, slice registry and
-timeline seams, and the ``dp.run`` failpoint. They belong to the agent's
-control plane, which the port has not ported yet. The restart backoff and
-the gRPC pool size are constants here, as nothing sets them yet (the
-agent's manager sets the pool size), and the plugin bundle is built
-directly, with no ``plugin_factory``, until the port's manager needs one.
+timeline seams, and the ``dp.run`` failpoint; they come with those
+subsystems. The restart backoff is a constant, as nothing sets it; the
+gRPC pool size is the manager's (``--dp-pool-size``). The manager builds
+the plugin bundle directly: the port has one plugin kind, so there is no
+``plugin_factory``.
 """
 
 from __future__ import annotations
@@ -30,21 +29,22 @@ from concurrent import futures
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
-from ..common import DEVICE_PLUGIN_DIR, KUBELET_SOCKET_NAME, FileWatcher
+from ..common import (
+    DEVICE_PLUGIN_DIR,
+    KUBELET_SOCKET_NAME,
+    POD_RESOURCES_SOCKET,
+    FileWatcher,
+)
+from ..kube.locator import LocateError  # noqa: F401 - the plugins' error
 
 logger = logging.getLogger(__name__)
 
 # seconds between a failed serve/register (or a kubelet restart) and the
 # next attempt
 RESTART_BACKOFF_S = 1.0
-# gRPC worker threads per resource server: kubelet issues concurrent
-# Allocate/PreStartContainer pairs, one per container
+# gRPC worker threads per resource server by default: kubelet sends
+# concurrent Allocate/PreStartContainer pairs, one per container
 GRPC_POOL_SIZE = 8
-
-
-class LocateError(Exception):
-    """A bind's owner or placement cannot be resolved (the agent's
-    ``kube/locator.py`` ``LocateError``)."""
 
 
 @dataclass
@@ -57,7 +57,10 @@ class PluginConfig:
     ``delete`` and the intent journal; ``locator_factory(resource)`` giving
     an object whose ``locate(device)`` returns the owning container."""
 
+    node_name: str = ""
     device_plugin_dir: str = DEVICE_PLUGIN_DIR
+    pod_resources_socket: str = POD_RESOURCES_SOCKET
+    grpc_pool_size: int = GRPC_POOL_SIZE
     operator: object = None
     sitter: object = None
     storage: object = None
@@ -82,6 +85,10 @@ class DevicePluginServer:
         self._server = None
 
     @property
+    def resource_name(self) -> str:
+        return self._resource
+
+    @property
     def socket_path(self) -> str:
         return os.path.join(self._config.device_plugin_dir, self._endpoint)
 
@@ -100,7 +107,7 @@ class DevicePluginServer:
         # named threads: a stack dump of a wedged bind burst says which
         # resource's pool it sits in
         server = grpc.server(futures.ThreadPoolExecutor(
-            max_workers=GRPC_POOL_SIZE,
+            max_workers=self._config.grpc_pool_size,
             thread_name_prefix=f"dp-grpc-{self._resource}",
         ))
         rpc.add_device_plugin_servicer(server, self._servicer)
@@ -133,7 +140,15 @@ class DevicePluginServer:
     def run(self, stop: threading.Event) -> None:
         """Blocking serve/register/watch loop until ``stop`` is set; the
         server is stopped on every exit, so a supervisor re-entering run()
-        never serves a second one on the re-created socket."""
+        never serves a second one on the re-created socket.
+
+        ``grpc`` is imported first, outside the retry loop: without it no
+        server can ever run, so the import error ends run() and the
+        supervisor counts a crash of this critical subsystem."""
+        import grpc  # noqa: F401
+
+        from .. import rpc  # noqa: F401
+
         try:
             self._run_loop(stop)
         finally:

@@ -34,9 +34,17 @@ imports neither ``grpc`` nor protobuf: it runs where neither is installed.
 The five kubelet RPCs wrap it and import the v1beta1 messages when called.
 Nothing here imports torch: the agent's process holds no CUDA context.
 
-Not ported in this slice: the agent's tracing, timeline, events, CRD
-recorder, metrics and fault points, the slice env, and the reconciler's
-and drain's entry points (``rebind``, ``restamp_spec_env_locked``).
+The bind runs under the agent's tracer and fault points: PreStart opens a
+trace whose id the spec env carries (``ELASTIC_TPU_TRACE_ID``), and the
+``bind.*`` points name the crash windows the reconciler recovers. The
+bundle runs the supervised health and GC loops and serves the reconciler
+(``rebind``, ``plugin_for_resource``, ``bind_lock``: the stripes one
+container's core and memory binds share, which the reconciler takes
+around a pod).
+
+Not ported in this slice: the agent's timeline, events, CRD recorder,
+metrics and sampler hooks, the slice env, and the drain's and
+repartition's ``restamp_spec_env_locked``.
 """
 
 from __future__ import annotations
@@ -44,15 +52,18 @@ from __future__ import annotations
 import json
 import logging
 import os
+import queue
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from .. import faults
 from ..common import (
     HEALTHY,
     UNHEALTHY,
     AllocSidecarSubdirs,
     AnnotationAssumed,
+    AnnotationTraceID,
     BytesPerMemoryUnit,
     EnvAllocationHash,
     GPUPercentEachCard,
@@ -63,6 +74,7 @@ from ..common import (
 )
 from ..device.qos import qos_env, visibility_env
 from ..slices import packing
+from ..tracing import get_tracer
 from ..types import AllocationRecord, Device, PodContainer
 from .base import DevicePluginServer, LocateError, PluginConfig
 
@@ -75,10 +87,24 @@ MEM_ENDPOINT = "elastic-gpushare-mem.sock"
 # /var/lib/elastic-tpu/alloc, hostPath-mounted)
 DEFAULT_ALLOC_SPEC_DIR = "/host/var/lib/elastic-tpu/alloc"
 
+GC_PERIOD_S = 60.0  # the reference's GC tick (base.go:248)
+HEALTH_PERIOD_S = 5.0
+
 # Striped per-owner locks serializing the alloc-spec writes of the core and
-# memory plugins: the two PreStarts of one container share a pod key, hence
-# a stripe, while unrelated pods bind in parallel.
+# memory plugins and the reconciler's repairs: the two PreStarts of one
+# container share a pod key, hence a stripe, while unrelated pods bind in
+# parallel. One set for the process, as the agent's.
 BIND_LOCK_STRIPES = 256
+_BIND_LOCKS = StripedLockSet(BIND_LOCK_STRIPES)
+
+
+def bind_lock(pod_key: str):
+    """Context manager holding the owner's bind stripe: the reconciler
+    serializes its intent rollback and drift repair against live binds
+    with the lock the bind itself takes. Not reentrant: while holding it,
+    call the ``_locked`` variants (``remove_alloc_spec_locked``), never
+    the methods that take the stripe themselves."""
+    return _BIND_LOCKS.acquire(pod_key)
 
 
 def _write_json_atomic(path: str, payload: Dict) -> None:
@@ -217,8 +243,7 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
 
     resource: str = ""
 
-    def __init__(self, config: PluginConfig,
-                 bind_locks: Optional[StripedLockSet] = None) -> None:
+    def __init__(self, config: PluginConfig) -> None:
         _ListAndWatchMixin.__init__(self)
         self._config = config
         self._operator = config.operator
@@ -238,7 +263,6 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         self._alloc_dir = config.extra.get(
             "alloc_spec_dir", DEFAULT_ALLOC_SPEC_DIR
         )
-        self._bind_locks = bind_locks or StripedLockSet(BIND_LOCK_STRIPES)
 
     # -- health ---------------------------------------------------------------
 
@@ -309,10 +333,17 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
     def allocate_container(self, ids: Iterable[str]) -> ContainerAllocation:
         """Allocate for one container's fake device ids."""
         device = Device(ids, self.resource)
-        logger.info("Allocate %s: %d ids -> hash %s", self.resource,
-                    len(device.ids), device.hash)
-        return ContainerAllocation(envs=self._alloc_envs(device),
-                                   devices=self._alloc_device_specs(device))
+        with get_tracer().trace("Allocate", resource=self.resource,
+                                hash=device.hash, n_ids=len(device.ids),
+                                node=self._config.node_name) as tr:
+            with get_tracer().span("build_response", hash=device.hash):
+                alloc = ContainerAllocation(
+                    envs=self._alloc_envs(device),
+                    devices=self._alloc_device_specs(device))
+            logger.info("Allocate %s: %d ids -> hash %s [trace %s]",
+                        self.resource, len(device.ids), device.hash,
+                        tr.trace_id)
+        return alloc
 
     def GetDevicePluginOptions(self, request, context):  # noqa: N802, ARG002
         from ..gen import deviceplugin_pb2 as dp
@@ -389,14 +420,20 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
     # -- PreStartContainer ----------------------------------------------------
 
     def pre_start(self, ids: Iterable[str]) -> None:
-        """Bind one container's fake device ids (PreStartContainer)."""
+        """Bind one container's fake device ids (PreStartContainer), under
+        a trace whose id the spec env carries."""
         device = Device(ids, self.resource)
-        try:
-            self._bind(device)
-        except Exception:
-            logger.exception("PreStartContainer %s failed for %s",
-                             self.resource, device.hash)
-            raise
+        with get_tracer().trace(
+            "PreStartContainer", resource=self.resource, hash=device.hash,
+            n_ids=len(device.ids), node=self._config.node_name,
+        ) as tr:
+            try:
+                self._bind(device)
+            except Exception:
+                logger.exception("PreStartContainer %s failed for %s "
+                                 "[trace %s]", self.resource, device.hash,
+                                 tr.trace_id)
+                raise
 
     def PreStartContainer(self, request, context):  # noqa: N802, ARG002
         from ..gen import deviceplugin_pb2 as dp
@@ -405,9 +442,14 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         return dp.PreStartContainerResponse()
 
     def _lookup_pod(self, owner) -> Optional[dict]:
-        pod = self._sitter.get_pod(owner.namespace, owner.name)
-        if pod is None:
-            pod = self._sitter.get_pod_from_api(owner.namespace, owner.name)
+        with get_tracer().span(
+            "pod_lookup", pod=f"{owner.namespace}/{owner.name}"
+        ) as sp:
+            pod = self._sitter.get_pod(owner.namespace, owner.name)
+            sp.set(informer_hit=pod is not None)
+            if pod is None:
+                pod = self._sitter.get_pod_from_api(owner.namespace,
+                                                    owner.name)
         return pod
 
     def _bind(self, device: Device) -> None:
@@ -422,6 +464,16 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
             pod = self._lookup_pod(owner)
         if pod is None:
             raise LocateError(f"pod {owner.pod_key} not found anywhere")
+        # from here the trace is attributable to a pod
+        get_tracer().annotate(
+            pod=f"{owner.namespace}/{owner.name}", container=owner.container)
+        # an admission-stamped trace id: the bind continues under it (the
+        # core and the memory bind of a container adopt the same id)
+        admission_id = (
+            pod.get("metadata", {}).get("annotations", {}) or {}
+        ).get(AnnotationTraceID, "")
+        if admission_id:
+            get_tracer().adopt_id(admission_id)
         self._bind_located(device, owner, pod)
 
     def _chips_from_ids(self, device: Device) -> List[int]:
@@ -449,6 +501,9 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
 
     def _bind_located(self, device: Device, owner, pod: dict) -> None:
         annotations = pod.get("metadata", {}).get("annotations", {}) or {}
+        # crash-window failpoints (test-only): each names the window a
+        # process death is injected into, proving the journal recovers it
+        faults.fire("bind.pre_journal")
         if self._whole_chip:
             # the kubelet's device choice is the placement; no annotation
             # is required and no link is made: Allocate handed out the
@@ -457,6 +512,7 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
             self._require_known_chips(chip_indexes)
             intent_id = self._journal_intent(owner, device, chip_indexes, [])
             try:
+                faults.fire("bind.post_journal")
                 try:
                     self._finish_bind(device, owner, pod, annotations,
                                       chip_indexes, created=[],
@@ -487,11 +543,15 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         planned = [f"{device.hash}-{p}" for p in range(len(chip_indexes))]
         intent_id = self._journal_intent(owner, device, chip_indexes, planned)
         try:
+            faults.fire("bind.post_journal")
             created: List[str] = []
             try:
-                for link_id, idx in zip(planned, chip_indexes):
-                    self._operator.create(idx, link_id)
-                    created.append(link_id)
+                with get_tracer().span("materialize_nodes",
+                                       chips=list(chip_indexes)):
+                    for link_id, idx in zip(planned, chip_indexes):
+                        self._operator.create(idx, link_id)
+                        created.append(link_id)
+                faults.fire("bind.post_create")
             except Exception:
                 self._rollback_created(created)
                 self._storage.journal_remove(intent_id)
@@ -526,12 +586,16 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         # the storage save that publishes this allocation: a core/memory
         # PreStart pair of one container racing here could otherwise both
         # miss the sibling and write unmerged specs.
-        with self._bind_locks.lock_for(owner.pod_key):
+        locks = _BIND_LOCKS  # one reference: acquire and release pair
+        with get_tracer().span("bind_lock_wait") as sp:
+            sp.set(wait_ms=round(locks.acquire_key(owner.pod_key) * 1000, 3))
+        try:
             own_path = os.path.join(self._alloc_dir, f"{device.hash}.json")
             fresh_bind = not os.path.exists(own_path)
             try:
-                self._write_alloc_spec(device, owner, chip_indexes,
-                                       annotations, pod)
+                with get_tracer().span("write_alloc_spec", hash=device.hash):
+                    self._write_alloc_spec(device, owner, chip_indexes,
+                                           annotations, pod)
             except Exception:
                 # Siblings are merged before the own file lands, so a
                 # failure may have left them naming this allocation:
@@ -545,18 +609,23 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                     self._restore_sibling_specs(owner, device.hash)
                 self._rollback_created(created)
                 raise
+            faults.fire("bind.post_spec")
             record = AllocationRecord(
                 device=device, chip_indexes=chip_indexes,
                 created_node_ids=created,
             )
-            self._storage.mutate(
-                owner.namespace, owner.name,
-                lambda info: info.set_allocation(owner.container, record),
-            )
+            with get_tracer().span("checkpoint"):
+                self._storage.mutate(
+                    owner.namespace, owner.name,
+                    lambda info: info.set_allocation(owner.container, record),
+                )
+            faults.fire("bind.post_checkpoint")
             if intent_id is not None:
                 # commit inside the stripe: the reconciler re-checks an
                 # open intent under this stripe too
                 self._storage.journal_commit(intent_id)
+        finally:
+            locks.release_key(owner.pod_key)
         logger.info("bound %s %s -> %s cards %s", self.resource, device.hash,
                     owner.pod_key, chip_indexes)
 
@@ -566,12 +635,16 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                       annotations: Dict, pod: Optional[dict] = None) -> Dict:
         """The spec of one allocation: the bound cards' nodes, their
         control nodes (the operator's ``extra_paths``) and
-        ``CUDA_VISIBLE_DEVICES`` by uuid, in the set's order, and the
-        quota env."""
+        ``CUDA_VISIBLE_DEVICES`` by uuid, in the set's order, the quota
+        env, and the bind's trace id, which the in-pod flight recorder
+        (``workloads/telemetry.py``) tags its records with."""
         cards = [self._chips[i] for i in chip_indexes]
         env = visibility_env(cards)
         env.update(qos_env(annotations, pod_spec=pod,
                            **self._qos_kwargs(device)))
+        trace_id = get_tracer().current_id()
+        if trace_id:
+            env["ELASTIC_TPU_TRACE_ID"] = trace_id
         return {
             "hash": device.hash,
             "resource": self.resource,
@@ -674,14 +747,23 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
     def remove_alloc_spec(self, alloc_hash: str, owner) -> None:
         """Unlink an allocation's spec and sidecars, and restore the
         container's surviving sibling specs."""
-        with self._bind_locks.lock_for(owner.pod_key):
-            try:
-                os.unlink(os.path.join(self._alloc_dir,
-                                       f"{alloc_hash}.json"))
-            except FileNotFoundError:
-                pass
-            self._remove_sidecars(alloc_hash)
-            self._restore_sibling_specs(owner, alloc_hash)
+        with bind_lock(owner.pod_key):
+            self.remove_alloc_spec_locked(alloc_hash, owner)
+
+    def remove_alloc_spec_locked(self, alloc_hash: str, owner) -> None:
+        """remove_alloc_spec for a caller already holding the owner's bind
+        stripe (the reconciler's intent rollback and drift repair)."""
+        try:
+            os.unlink(os.path.join(self._alloc_dir, f"{alloc_hash}.json"))
+        except FileNotFoundError:
+            pass
+        self._remove_sidecars(alloc_hash)
+        self._restore_sibling_specs(owner, alloc_hash)
+
+    def alloc_spec_exists(self, alloc_hash: str) -> bool:
+        """Whether an allocation's spec file is on disk."""
+        return os.path.exists(
+            os.path.join(self._alloc_dir, f"{alloc_hash}.json"))
 
     def read_alloc_spec(self, alloc_hash: str) -> Optional[Dict]:
         """The on-disk spec of an allocation; None when absent or
@@ -692,6 +774,20 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                 return json.load(f)
         except (OSError, ValueError):
             return None
+
+    def rebind(self, owner, device: Device) -> None:
+        """The reconciler's entry point: the whole bind transaction for an
+        owner already located (its own intent, the links, the merged spec,
+        the record). It replays a bind that the kubelet's assignment
+        proves happened but a crash cut short, rebuilds a missing spec,
+        and rebinds after a kubelet restart handed the container other
+        ids."""
+        pod = self._lookup_pod(owner)
+        if pod is None:
+            raise LocateError(f"pod {owner.pod_key} not found anywhere")
+        get_tracer().annotate(
+            pod=f"{owner.namespace}/{owner.name}", container=owner.container)
+        self._bind_located(device, owner, pod)
 
 
 class GPUShareCorePlugin(_GPUSharePluginBase):
@@ -742,9 +838,8 @@ class GPUShareMemoryPlugin(_GPUSharePluginBase):
 
     resource = ResourceGPUMemory
 
-    def __init__(self, config: PluginConfig,
-                 bind_locks: Optional[StripedLockSet] = None) -> None:
-        super().__init__(config, bind_locks)
+    def __init__(self, config: PluginConfig) -> None:
+        super().__init__(config)
         chips = list(self._chips.values())
         self._mib_per_chip = (
             chips[0].hbm_bytes // BytesPerMemoryUnit if chips else 0
@@ -776,22 +871,33 @@ class GPUShareMemoryPlugin(_GPUSharePluginBase):
 
 
 class GPUSharePlugin:
-    """The two per-resource servers, their health poll and the GC sweep
-    (reference GPUSharePlugin, base.go:203-306). The agent's periodic
-    health and GC loops, which its manager starts, come with the port's
-    manager."""
+    """The two per-resource servers, their health loop and the GC loop
+    (reference GPUSharePlugin, base.go:203-306), which the manager runs as
+    supervised subsystems."""
 
     def __init__(self, config: PluginConfig) -> None:
         self._config = config
-        locks = StripedLockSet(BIND_LOCK_STRIPES)
-        self.core = GPUShareCorePlugin(config, locks)
-        self.memory = GPUShareMemoryPlugin(config, locks)
+        self.core = GPUShareCorePlugin(config)
+        self.memory = GPUShareMemoryPlugin(config)
         self.servers = [
             DevicePluginServer(self.core, ResourceGPUCore, CORE_ENDPOINT,
                                config),
             DevicePluginServer(self.memory, ResourceGPUMemory, MEM_ENDPOINT,
                                config),
         ]
+
+    def plugin_for_resource(self, resource: str):
+        """The per-resource plugin of ``resource``; None when it is not
+        ours (the reconciler skips other extended resources in the
+        kubelet's pod-resources dump)."""
+        return {
+            ResourceGPUCore: self.core,
+            ResourceGPUMemory: self.memory,
+        }.get(resource)
+
+    @property
+    def cordoned(self) -> bool:
+        return self.core.cordoned
 
     def run(self, stop: threading.Event) -> None:
         for server in self.servers:
@@ -802,6 +908,7 @@ class GPUSharePlugin:
     def health_once(self) -> bool:
         """One health poll: probe the operator once and apply the same view
         to both resources. Returns True when anything changed."""
+        faults.fire("health.poll")
         try:
             healthy = set(self._config.operator.healthy_indexes())
         except Exception:  # noqa: BLE001 - a broken probe must not wedge
@@ -810,6 +917,18 @@ class GPUSharePlugin:
         went_bad, recovered = self.core.apply_health(healthy)
         self.memory.apply_health(healthy)
         return bool(went_bad or recovered)
+
+    def health_loop(self, stop: threading.Event) -> None:
+        """Poll at once, then every HEALTH_PERIOD_S: a card that died
+        between discovery and the plugins' start must not be advertised
+        Healthy for a whole period."""
+        while True:
+            try:
+                self.health_once()
+            except Exception:  # noqa: BLE001
+                logger.exception("health poll failed")
+            if stop.wait(HEALTH_PERIOD_S):
+                return
 
     # -- GC (reference: base.go:241-306) --------------------------------------
 
@@ -827,25 +946,56 @@ class GPUSharePlugin:
     def gc_once(self) -> int:
         """Reclaim the allocations of pods that no longer exist: their
         links, specs, sidecars and records. Returns the pods reclaimed."""
+        faults.fire("gc.sweep")
+        with get_tracer().trace("gc_sweep") as tr:
+            reclaimed = self._gc_sweep()
+            tr.set(reclaimed=reclaimed)
+            if reclaimed == 0:
+                # the periodic tick fires forever; empty sweeps would churn
+                # real allocation traces out of the bounded ring
+                tr.discard()
+        return reclaimed
+
+    def _gc_sweep(self) -> int:
         reclaimed = 0
         storage = self._config.storage
         operator = self._config.operator
         for key, info in list(storage.items()):
             if not self._pod_is_gone(info.namespace, info.name):
                 continue
-            for container, by_resource in info.allocations.items():
-                owner = PodContainer(info.namespace, info.name, container)
-                for record in by_resource.values():
-                    for link_id in record.created_node_ids:
-                        try:
-                            operator.delete(link_id)
-                        except Exception:  # noqa: BLE001 - logged, swept on
-                            logger.warning("GC: failed deleting node %s",
-                                           link_id)
-                    # the owner is passed, so a sibling outliving this
-                    # unlink never names the freed devices
-                    self.core.remove_alloc_spec(record.device.hash, owner)
-            storage.delete(info.namespace, info.name)
+            with get_tracer().span("reclaim_pod", pod=key) as sp:
+                get_tracer().annotate_pod(key)
+                hashes = []
+                for container, by_resource in info.allocations.items():
+                    owner = PodContainer(info.namespace, info.name, container)
+                    for record in by_resource.values():
+                        hashes.append(record.device.hash)
+                        for link_id in record.created_node_ids:
+                            try:
+                                operator.delete(link_id)
+                            except Exception:  # noqa: BLE001 - swept on
+                                logger.warning(
+                                    "GC: failed deleting node %s", link_id)
+                        # the owner is passed, so a sibling outliving this
+                        # unlink never names the freed devices
+                        self.core.remove_alloc_spec(record.device.hash, owner)
+                sp.set(hashes=hashes)
+                storage.delete(info.namespace, info.name)
             reclaimed += 1
             logger.info("GC: reclaimed %s", key)
         return reclaimed
+
+    def gc(self, gc_queue: "queue.Queue", stop: threading.Event) -> None:
+        """Sweep on each pod deletion the sitter queues, else every
+        GC_PERIOD_S, until ``stop``."""
+        while not stop.is_set():
+            try:
+                gc_queue.get(timeout=GC_PERIOD_S)
+            except queue.Empty:
+                pass
+            if stop.is_set():
+                return
+            try:
+                self.gc_once()
+            except Exception:  # noqa: BLE001
+                logger.exception("GC pass failed")

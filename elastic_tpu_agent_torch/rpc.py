@@ -1,10 +1,13 @@
-"""Hand-wired gRPC plumbing for the kubelet's device-plugin API.
+"""Hand-wired gRPC plumbing for the kubelet's device-plugin and
+pod-resources APIs.
 
-The device-plugin half of ``elastic_tpu_agent/rpc.py``: with no generated
+The port's copy of ``elastic_tpu_agent/rpc.py``: with no generated
 ``*_pb2_grpc.py`` stubs, the kubelet's method paths
-(``/v1beta1.Registration/Register``, ``/v1beta1.DevicePlugin/*``) are bound
-explicitly against grpcio's generic handler API. The pod-resources client
-waits for the port's locator.
+(``/v1beta1.Registration/Register``, ``/v1beta1.DevicePlugin/*``,
+``/v1.PodResourcesLister/*`` and ``/v1alpha1.PodResourcesLister/List``) are
+bound explicitly against grpcio's generic handler API. The pod-resources
+servers are the kubelet's; tests serve them with the agent's fake kubelet,
+which speaks the same wire format.
 
 This is the one module of the agent side that imports ``grpc`` at module
 level; the plugins' allocation logic (``plugins/gpushare.py``) does not, so
@@ -13,12 +16,16 @@ that it runs where grpcio and protobuf are not installed.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+import threading
+from typing import Callable, Iterable, Optional
 
 import grpc
 
-from .common import DEVICE_PLUGIN_VERSION
+from . import faults
+from .common import DEVICE_PLUGIN_VERSION, POD_RESOURCES_SOCKET
 from .gen import deviceplugin_pb2 as dp
+from .gen import podresources_pb2 as pr
+from .gen import podresources_v1_pb2 as prv1
 
 # The reference's 16 MiB cap on one message (locator.go:34). A
 # ListAndWatch response of the memory resource grows with the cards'
@@ -209,3 +216,166 @@ def add_registration_servicer(
     server.add_generic_rpc_handlers(
         (grpc.method_handlers_generic_handler("v1beta1.Registration", handlers),)
     )
+
+
+# -- PodResourcesLister service ------------------------------------------------
+
+
+class PodResourcesClient:
+    """List() of pod->container->devices (reference: podresources/client.go
+    + locator.go:32-41). Lazily re-dials on failure.
+
+    Speaks BOTH kubelet API versions: probes ``v1`` first (served since
+    k8s 1.20, adds GetAllocatableResources) and falls back to ``v1alpha1``
+    when the kubelet answers UNIMPLEMENTED — the reference spoke only
+    v1alpha1 (pkg/podresources/v1alpha1/api.proto). The negotiated version
+    sticks for the life of the channel; a reset() re-probes, so a kubelet
+    upgrade under us is picked up on reconnect. The two Lists are wire- and
+    field-name-compatible for everything the locator touches
+    (pod_resources/name/namespace/containers/devices/resource_name/
+    device_ids), so callers never see the difference.
+    """
+
+    def __init__(self, socket_path: str = POD_RESOURCES_SOCKET) -> None:
+        self._socket = socket_path
+        self._lock = threading.Lock()  # one client is shared by multiple
+        self._channel: Optional[grpc.Channel] = None  # locators + prefetch
+        # immutable per-negotiation binding: (list_fn, request_cls,
+        # allocatable_fn_or_None, version) — swapped atomically so a caller
+        # can never pair a stale callable with the other version's request
+        self._bound: Optional[tuple] = None  # threads
+
+    @property
+    def api_version(self) -> Optional[str]:
+        bound = self._bound
+        return bound[3] if bound else None
+
+    @staticmethod
+    def _bind_v1(channel) -> tuple:
+        list_fn = channel.unary_unary(
+            "/v1.PodResourcesLister/List",
+            request_serializer=prv1.ListPodResourcesRequest.SerializeToString,
+            response_deserializer=prv1.ListPodResourcesResponse.FromString,
+        )
+        allocatable = channel.unary_unary(
+            "/v1.PodResourcesLister/GetAllocatableResources",
+            request_serializer=(
+                prv1.AllocatableResourcesRequest.SerializeToString
+            ),
+            response_deserializer=(
+                prv1.AllocatableResourcesResponse.FromString
+            ),
+        )
+        return (list_fn, prv1.ListPodResourcesRequest, allocatable, "v1")
+
+    @staticmethod
+    def _bind_v1alpha1(channel) -> tuple:
+        list_fn = channel.unary_unary(
+            "/v1alpha1.PodResourcesLister/List",
+            request_serializer=pr.ListPodResourcesRequest.SerializeToString,
+            response_deserializer=pr.ListPodResourcesResponse.FromString,
+        )
+        return (list_fn, pr.ListPodResourcesRequest, None, "v1alpha1")
+
+    # Codes that mean "the kubelet (or the wire) is broken right now", not
+    # "this RPC isn't served": negotiation must re-raise these and retry
+    # later instead of concluding anything about the API version.
+    _TRANSPORT_CODES = frozenset({
+        grpc.StatusCode.UNAVAILABLE,
+        grpc.StatusCode.DEADLINE_EXCEEDED,
+        grpc.StatusCode.CANCELLED,
+    })
+
+    def _ensure(self, timeout_s: float) -> tuple:
+        """Return the negotiated binding tuple, dialing + version-probing
+        if needed (thread-safe). The probe is GetAllocatableResources — a
+        tiny response, unlike a full-node List — which a v1alpha1-only
+        kubelet rejects with UNIMPLEMENTED.
+
+        k8s 1.21-1.22 wrinkle: those kubelets serve v1 List but answer the
+        probe with a NON-UNIMPLEMENTED error when the
+        KubeletPodResourcesGetAllocatable gate is off. Treating that as
+        fatal would strand the locator on a kubelet whose List works fine,
+        so on any non-transport probe failure the v1 List itself is probed
+        to separate "v1 with allocatable disabled" (bind v1, allocatable
+        marked unavailable) from "no v1 at all" (fall back to v1alpha1).
+        """
+        with self._lock:
+            if self._bound is None:
+                channel = grpc.insecure_channel(
+                    unix_target(self._socket), options=_CHANNEL_OPTS
+                )
+                grpc.channel_ready_future(channel).result(timeout=timeout_s)
+                self._channel = channel
+                bound = self._bind_v1(channel)
+                try:
+                    bound[2](
+                        prv1.AllocatableResourcesRequest(), timeout=timeout_s
+                    )
+                except grpc.RpcError as e:
+                    if e.code() == grpc.StatusCode.UNIMPLEMENTED:
+                        bound = self._bind_v1alpha1(channel)
+                    elif e.code() in self._TRANSPORT_CODES:
+                        raise
+                    else:
+                        try:
+                            bound[0](
+                                prv1.ListPodResourcesRequest(),
+                                timeout=timeout_s,
+                            )
+                            # v1 List works; only allocatable is gated off
+                            bound = (bound[0], bound[1], None, "v1")
+                        except grpc.RpcError as e2:
+                            if (
+                                e2.code()
+                                == grpc.StatusCode.UNIMPLEMENTED
+                            ):
+                                bound = self._bind_v1alpha1(channel)
+                            else:
+                                raise
+                self._bound = bound
+            return self._bound
+
+    def reset(self) -> None:
+        """Drop the channel so the next call re-dials (and re-probes the
+        API version — a kubelet upgrade under us is picked up here). The
+        old channel is closed after a grace period, NOT immediately: other
+        threads (locator prefetch + inline locate share this client) may
+        have RPCs in flight on it, and close() would cancel them."""
+        with self._lock:
+            old = self._channel
+            self._channel = None
+            self._bound = None
+        if old is not None:
+            timer = threading.Timer(5.0, old.close)
+            timer.daemon = True
+            timer.start()
+
+    def list(self, timeout_s: float = 5.0):
+        faults.fire("podresources.list")
+        try:
+            list_fn, req_cls, _, _ = self._ensure(timeout_s)
+            return list_fn(req_cls(), timeout=timeout_s)
+        except grpc.RpcError:
+            self.reset()  # re-dial next call (reference: locator.go:47-53)
+            raise
+
+    def get_allocatable_resources(
+        self, timeout_s: float = 5.0
+    ) -> Optional[prv1.AllocatableResourcesResponse]:
+        """Node allocatable devices (v1 only). Returns None when the
+        kubelet only speaks v1alpha1 — callers treat that as 'unknown',
+        not 'empty'."""
+        try:
+            _, _, allocatable_fn, version = self._ensure(timeout_s)
+            if allocatable_fn is None:
+                return None  # negotiated v1alpha1: genuinely unavailable
+            return allocatable_fn(
+                prv1.AllocatableResourcesRequest(), timeout=timeout_s
+            )
+        except grpc.RpcError:
+            self.reset()
+            raise
+
+    def close(self) -> None:
+        self.reset()

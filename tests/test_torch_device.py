@@ -570,13 +570,20 @@ def test_visibility_env_names_cards_by_uuid(tmp_path):
 
 PROBE = r"""
 import sys
-sys.modules["torch"] = None          # any `import torch` now raises
+# any `import torch` (or grpc, protobuf, requests) now raises
+for blocked in ("torch", "grpc", "google.protobuf", "requests"):
+    sys.modules[blocked] = None
 import elastic_tpu_agent_torch.device as d
 from elastic_tpu_agent_torch.device import exclusive, nvidia, operator, qos
 from elastic_tpu_agent_torch.device import stub, topology
+# the node agent that builds the operators, on the same terms
+from elastic_tpu_agent_torch import cli, manager, reconciler, supervisor
+from elastic_tpu_agent_torch import kube, storage
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("elastic_tpu_agent", "jax")
-                or m.startswith("torch") and sys.modules[m] is not None)
+                or (m.split(".")[0] in ("torch", "grpc", "requests")
+                    or m.startswith("google.protobuf"))
+                and sys.modules[m] is not None)
 print(leaked)
 """
 

@@ -10,9 +10,10 @@ health, preferred ids, bound card sets, storage records, spec files, Allocate
 envs and GC, once the names are mapped (``gpu-`` ids and resources for
 ``tpu-`` ones, hence other hashes) and the keys that differ by design are
 set aside: the visibility env (``CUDA_VISIBLE_DEVICES`` for the agent's
-``TPU_VISIBLE_CHIPS``/``TPU_VISIBLE_DEVICES``) and the agent's
-``ELASTIC_TPU_TRACE_ID`` (its tracer is not ported), and the port's
-spec key ``control_paths``, which the agent's spec lacks. Then what differs:
+``TPU_VISIBLE_CHIPS``/``TPU_VISIBLE_DEVICES``) and the port's spec key
+``control_paths``, which the agent's spec lacks. Both stamp the bind's
+trace id as ``ELASTIC_TPU_TRACE_ID``; ids are random per bind, so each
+must be 16 hex digits and is then compared as a placeholder. Then what differs:
 ``/dev/nvidia<minor>`` and the control nodes in both modes, never
 ``/dev/accel``; ``CUDA_VISIBLE_DEVICES`` by uuid; the NRI adjustment's
 nodes, character devices only; the memory resource's message size.
@@ -23,6 +24,7 @@ characters fails, and pytest's ``tmp_path`` can be that long.
 
 import json
 import os
+import re
 import shutil
 import stat
 import tempfile
@@ -74,7 +76,9 @@ MINORS = [2, 0, 3, 1]       # card index -> /dev/nvidia<minor>
 UNITS = H100_SXM5_HBM_BYTES // BytesPerMemoryUnit       # 81,559 a card
 CONTROL = ["/dev/nvidiactl", "/dev/nvidia-uvm", "/dev/nvidia-uvm-tools"]
 VISIBILITY = {"CUDA_VISIBLE_DEVICES", "TPU_VISIBLE_CHIPS",
-              "TPU_VISIBLE_DEVICES", "ELASTIC_TPU_TRACE_ID"}
+              "TPU_VISIBLE_DEVICES"}
+TRACE_KEY = "ELASTIC_TPU_TRACE_ID"
+TRACE_ID = re.compile(r"[0-9a-f]{16}")
 # the port's spec names its cards' control nodes; the agent's has none
 PORT_ONLY = {"control_paths"}
 # the port's names -> the agent's
@@ -188,8 +192,8 @@ def rig():
 
 def agent_names(obj, hashes):
     """``obj`` (JSON-able) with the port's names and hashes mapped to the
-    agent's, and the visibility and trace keys of every env and the
-    port's own spec keys dropped."""
+    agent's, the visibility keys of every env and the port's own spec keys
+    dropped, and every trace id (16 hex digits) a placeholder."""
     text = json.dumps(obj)
     for port_h, agent_h in hashes.items():
         text = text.replace(port_h, agent_h)
@@ -199,6 +203,9 @@ def agent_names(obj, hashes):
 
     def strip(x):
         if isinstance(x, dict):
+            if TRACE_KEY in x:
+                assert TRACE_ID.fullmatch(x[TRACE_KEY]), x[TRACE_KEY]
+                x = dict(x, **{TRACE_KEY: "<trace>"})
             return {k: strip(v) for k, v in x.items()
                     if k not in VISIBILITY | PORT_ONLY}
         if isinstance(x, list):

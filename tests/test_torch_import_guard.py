@@ -2,8 +2,10 @@
 package: every module of elastic_tpu_agent_torch imports in a fresh
 interpreter where importing jax, optax or orbax fails, and no
 elastic_tpu_agent module gets loaded. The agent side (plugins, nri, rpc,
-gen, slices) loads no torch, and its allocation logic and plain injection
-run with grpc and protobuf absent too."""
+gen, slices, storage, kube, supervisor, reconciler, manager, cli, faults,
+tracing) loads no torch, its allocation logic and plain injection run with
+grpc and protobuf absent too, and the node agent's modules import with
+grpc, protobuf and requests absent."""
 
 import os
 import subprocess
@@ -33,7 +35,9 @@ new = {"export", "parallel", "ring_attention", "pipeline",
        "transformer_pipeline", "partitioner", "serving_proxy",
        "topology", "operator", "nvidia", "stub", "exclusive", "qos",
        "gpushare", "base", "packing", "plugin", "rpc", "types",
-       "deviceplugin_pb2"}
+       "deviceplugin_pb2", "store", "supervisor", "client", "sitter",
+       "locator", "reconciler", "manager", "cli", "faults", "tracing",
+       "podresources_pb2", "podresources_v1_pb2"}
 missing = sorted(new - {n.rsplit(".", 1)[-1] for n in names})
 print(len(names), missing, leaked)
 """
@@ -48,7 +52,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     count, missing, leaked = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 44         # workloads and every module in it,
+    assert int(count) >= 65         # workloads and every module in it,
     #                                 the device layer, the agent side
     assert missing == "[]"          # export, mesh, ring, pipelines, serving,
     #                                 the device layer, plugins, injection
@@ -61,7 +65,11 @@ for blocked in ("torch", "jax", "elastic_tpu_agent"):
     sys.modules[blocked] = None
 for name in ("plugins", "plugins.base", "plugins.gpushare", "nri",
              "nri.plugin", "rpc", "gen", "gen.deviceplugin_pb2",
-             "gen.nri_pb2", "slices", "slices.packing", "types"):
+             "gen.nri_pb2", "gen.podresources_pb2",
+             "gen.podresources_v1_pb2", "slices", "slices.packing", "types",
+             "storage", "storage.store", "kube", "kube.client",
+             "kube.sitter", "kube.locator", "supervisor", "reconciler",
+             "manager", "cli", "faults", "tracing", "common", "device"):
     importlib.import_module("elastic_tpu_agent_torch." + name)
 print(sorted(m for m in sys.modules if sys.modules[m] is not None and
              m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent")))
@@ -127,6 +135,25 @@ print(len(ids), [d.host_path for d in alloc.devices],
 """
 
 
+# the node agent's modules with grpc, protobuf and requests absent too (the
+# card's machine has none of them): only rpc and the generated messages
+# need grpc or protobuf, and they are imported where a server or the
+# pod-resources client starts
+NODE_AGENT = r"""
+import importlib, sys
+for blocked in ("torch", "jax", "elastic_tpu_agent", "grpc",
+                "google.protobuf", "requests"):
+    sys.modules[blocked] = None
+for name in ("manager", "cli", "storage", "storage.store", "kube",
+             "kube.client", "kube.sitter", "kube.locator", "reconciler",
+             "supervisor", "faults", "tracing", "plugins.gpushare"):
+    importlib.import_module("elastic_tpu_agent_torch." + name)
+print(sorted(m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent", "grpc",
+                        "requests") or m.startswith("google.protobuf"))))
+"""
+
+
 def _run(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -138,6 +165,10 @@ def _run(code):
 
 def test_agent_side_loads_no_torch_and_no_agent():
     assert _run(AGENT_SIDE) == "[]"
+
+
+def test_node_agent_imports_without_grpc_protobuf_or_requests():
+    assert _run(NODE_AGENT) == "[]"
 
 
 def test_allocation_logic_runs_without_grpc_protobuf_or_torch():
