@@ -5,8 +5,9 @@ training, expert-parallel, pipeline, sharded-decode, tensor-parallel
 serving and runner-across-cards slices on one NVIDIA GPU, the agent's
 device layer with four tenants sharing that GPU, the agent's device
 plugins and container injection with a tenant started from what they
-inject, and the node agent itself across a restart, with a tenant served
-from a binding it restored.
+inject, the node agent itself across a restart, with a tenant served
+from a binding it restored, and the agent's observability plane read
+around a tenant.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -146,7 +147,7 @@ shows; it then exits 1 before the summary lines. Phases:
    the sharded step, the ring, the MoE mesh step, both pipeline
    schedules, the runner's mesh runs and the train tenants for the
    backward pair; serving, the speculative fallback and the serving
-   tenants for paged_decode),
+   tenants of phases 24-27 for paged_decode),
    the card's name and power limit as
    nvidia-smi reports them, and the result line;
 19. MoE over a one-rank NCCL mesh: phase 7's MoE preset, weights and
@@ -247,7 +248,33 @@ shows; it then exits 1 before the summary lines. Phases:
    card, under the cap); pod 1's deletion at the apiserver must be
    reclaimed by GC through the sitter within 10 s; the health loop must
    have polled nvidia-smi with every id still Healthy. Host ms of each
-   bind call, sync, restore and GC, and the db's size.
+   bind call, sync, restore and GC, and the db's size;
+27. the agent's observability plane: the port's CLI ``main`` (``python3
+   chip_smoke.py --agent C``, a child without torch; phase 26's
+   operator and pod-resources stand-ins handed to the manager it builds,
+   its gRPC servers left out) with the event bus, a 0.005 s group-commit
+   window, Events and the ElasticTPU recorder against the fake apiserver,
+   ``--metrics-port`` on loopback and the profiler at 5 Hz (the rate the
+   agent pins its overhead at; the flag's default is off). It binds two
+   pods; pod 1's spec trace id must be in ``/debug/traces`` and on its
+   ``bind_intent`` before its ``bind_commit`` in ``/debug/timeline``. A
+   tenant from pod 1's spec alone (``--tenant serve_obs``) serves phase
+   4's 16 requests through the paged kernel (its streams, 1352 launches)
+   with its own AgentMetrics on a loopback port: the serving families
+   must equal ``engine.stats()`` and ``/debug/requests`` hold 16
+   records. Pod 2 deleted at the apiserver: its journal must show the
+   reclaim, both its ElasticTPU objects go Released and are removed
+   within 10 s, pod 1's stay Bound, each pod has a ``TPUBound`` Event.
+   ``/metrics`` must lint clean with 4 Allocate and 4 PreStart
+   observations, 1 bound allocation, 1 card, 1 healthy; ``/healthz``
+   200; ``/debug/latency``'s phases plus residual equal each bind's
+   total; ``/debug/profile`` has samples at under 1% overhead;
+   ``node-doctor profile`` (live) and ``node-doctor timeline`` (the
+   stopped agent's db) exit 0; the agent imports no torch. Prints the
+   bind host ms beside phase 26's, deletion-to-reclaim ms with the
+   detection lag's loop and trigger, the residual's share, the db's
+   bytes and the sinks' merged and dropped, beside the card's name and
+   power limit.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -3405,8 +3432,22 @@ def tenant_main(args) -> int:
     cfg = W.ModelConfig(**SMALL, max_seq=1024, dtype=torch.bfloat16)
     params = W.params_from_jax(W.random_tree(cfg, SEED), cfg, device=dev)
     prompts, kinds = _serving_requests(cfg, SEED + 4)
+    obs = metrics = None
+    if args.tenant == "serve_obs":
+        # phase 27: the engine's stats and request observatory on the
+        # port's AgentMetrics, served on a loopback port of its own
+        from prometheus_client import CollectorRegistry
+
+        from elastic_tpu_agent_torch.metrics import AgentMetrics
+        from elastic_tpu_agent_torch.workloads import request_obs as RO
+
+        obs = RO.RequestObservatory()
+        metrics = AgentMetrics(registry=CollectorRegistry())
+        metrics.attach_requests(obs)
+        metrics.serve(0)
     eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
-                          prompt_buckets=(16, 64, 256), device=dev)
+                          prompt_buckets=(16, 64, 256), device=dev,
+                          observatory=obs)
     for k in kerns:
         k.launches = 0
     torch.cuda.synchronize()
@@ -3414,10 +3455,24 @@ def tenant_main(args) -> int:
     streams = serve(W, eng, prompts, kinds, 64)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    extra = {}
+    if metrics is not None:
+        metrics.attach_serving(eng.stats)
+        base = f"http://127.0.0.1:{metrics.http_port}"
+        got = _samples(_http(base + "/metrics")[1])
+        st = eng.stats()
+        extra["serving_families"] = {
+            name: [got.get((name, ())), _stat(st, path)]
+            for name, path in SERVING_FAMILIES.items()}
+        reqs = _http_json(base + "/debug/requests?limit=1000")
+        extra["requests"] = dict(records=len(reqs["requests"]),
+                                 finished=reqs["finished"],
+                                 total=reqs["requests_total"])
+        metrics.close()
     print(json.dumps(dict(
         streams=streams, tokens_per_s=sum(map(len, streams)) / wall,
         wall_s=wall, decode_steps=eng.decode_steps_total,
-        paged_kernel=eng.paged_kernel, quota=quota,
+        paged_kernel=eng.paged_kernel, quota=quota, **extra,
         **_tenant_tail(torch, dev, {k.symbol: k.launches for k in kerns},
                        work_start))))
     return 0
@@ -4187,7 +4242,8 @@ def _agent_operator(dev_root):
 def _agent_manager(d, card):
     """The port's NodeManager for phase 26's children on ``d``'s db, dev
     root and alloc dir, the apiserver through ``d``'s kubeconfig; its
-    gRPC servers are left out (the only change to the manager)."""
+    gRPC servers are left out (the only change to the manager), in the
+    bind-path configuration (no event bus, Events or CRD)."""
     from elastic_tpu_agent_torch.manager import ManagerOptions, NodeManager
 
     op = _agent_operator(os.path.join(d, "dev"))
@@ -4205,7 +4261,8 @@ def _agent_manager(d, card):
         kubeconfig=os.path.join(d, "kubeconfig"),
         dev_root=os.path.join(d, "dev"),
         alloc_spec_dir=os.path.join(d, "alloc"), reconcile_period_s=3600.0,
-        operator=op, pod_resources_client=pr))
+        operator=op, pod_resources_client=pr, enable_event_bus=False,
+        enable_events=False, enable_crd=False))
     holder["m"] = mgr
     mgr.plugin.servers = []
     return mgr, op, pr
@@ -4572,6 +4629,493 @@ def run_agent_restart(torch, srv, streams, dev) -> dict:
     return out
 
 
+# -- phase 27: the agent's observability plane around a tenant ---------------
+
+OBS_PODS = 2
+OBS_BATCH_WINDOW_S = 0.005
+# The agent's profiler pins its overhead under 1% at the rate its latency
+# smoke runs, 5 Hz; the CLI's default, as the agent's, is 0 (off).
+OBS_PROFILE_HZ = 5.0
+OBS_OVERHEAD_LIMIT = 0.01
+OBS_RELEASE_DEADLINE_S = 10.0
+# attach_serving's gauges, each with the engine.stats() path it reads
+SERVING_FAMILIES = {
+    "elastic_tpu_serving_pool_blocks": ("pool_blocks",),
+    "elastic_tpu_serving_pool_used_blocks": ("used_blocks",),
+    "elastic_tpu_serving_prefilled_tokens": ("prefilled_tokens_total",),
+    "elastic_tpu_serving_admitted_tokens": ("admitted_tokens_total",),
+    "elastic_tpu_serving_prefix_cache_hits": ("prefix_cache", "hits"),
+    "elastic_tpu_serving_prefix_cache_misses": ("prefix_cache", "misses"),
+    "elastic_tpu_serving_prefix_cache_evictions": ("prefix_cache",
+                                                   "evictions"),
+    "elastic_tpu_serving_prefix_cache_hit_rate": ("prefix_cache",
+                                                  "hit_rate"),
+}
+
+
+def _http(url, timeout_s=10.0):
+    """(status, body text) of a GET; an HTTP error's body too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout_s) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _http_json(url):
+    return json.loads(_http(url)[1])
+
+
+def _samples(text) -> dict:
+    """{(sample name, sorted labels): value} of a Prometheus exposition."""
+    from prometheus_client.parser import text_string_to_metric_families
+
+    return {(s.name, tuple(sorted(s.labels.items()))): s.value
+            for fam in text_string_to_metric_families(text)
+            for s in fam.samples}
+
+
+def _stat(stats, path) -> float:
+    """The engine.stats() value at ``path`` as attach_serving reads it."""
+    node = stats or {}
+    for key in path[:-1]:
+        node = node.get(key) or {}
+    value = node.get(path[-1])
+    return float(value) if value is not None else 0.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _PhaseLogged(dict):
+    """An ElasticTPU object in the fake apiserver's store that logs each
+    status it is given."""
+
+    def __init__(self, obj, name, log):
+        super().__init__(obj)
+        self._name, self._log = name, log
+        log.append((time.time(), name, (obj.get("status") or {}).get(
+            "phase")))
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        if key == "status":
+            self._log.append((time.time(), self._name,
+                              (value or {}).get("phase")))
+
+
+class _CRDLog(dict):
+    """The fake apiserver's ElasticTPU store, logging every object's
+    phases and its removal as (wall time, name, phase or None)."""
+
+    def __init__(self):
+        super().__init__()
+        self.log = []
+
+    def __setitem__(self, name, obj):
+        super().__setitem__(name, _PhaseLogged(obj, name, self.log))
+
+    def pop(self, name, *default):
+        if name in self:
+            self.log.append((time.time(), name, None))
+        return super().pop(name, *default)
+
+    def phases(self, name) -> list:
+        """The phases ``name`` went through, None for its removal, with
+        repeats folded."""
+        out = []
+        for _, n, phase in self.log:
+            if n == name and (not out or out[-1] != phase):
+                out.append(phase)
+        return out
+
+
+def agent_obs_main(args) -> int:
+    """Phase 27's agent (``--agent C``): the port's CLI ``main`` on the
+    flags in ``obs.json``, in a process without torch. Phase 26's
+    stand-ins are handed to the manager the CLI builds (the counting
+    ``NvidiaOperator`` and ``_PodResources``; its gRPC servers left out).
+    A thread plays the kubelet for OBS_PODS pods once the agent is up and
+    writes ``bound.json``; SIGTERM ends ``main``. Prints one JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import threading
+
+    from elastic_tpu_agent_torch import cli
+    from elastic_tpu_agent_torch.types import Device
+
+    d = args.agent_dir
+    card = _read_json(os.path.join(d, "card.json"))
+    holder = {}
+
+    class Manager(cli.NodeManager):
+        def __init__(self, opts):
+            def advertised(kind):
+                return lambda: [i for i, _ in getattr(
+                    self.plugin, kind).device_list()]
+
+            opts.operator = _agent_operator(opts.dev_root)
+            opts.pod_resources_client = _PodResources(
+                os.path.join(d, "assign.json"), {
+                    card["core_resource"]: advertised("core"),
+                    card["mem_resource"]: advertised("memory")})
+            super().__init__(opts)
+            self.plugin.servers = []
+            holder["m"] = self
+
+    def drive():
+        try:
+            deadline = time.time() + AGENT_WAIT_S
+            while "allocatable-check" not in (
+                    holder["m"].supervisor.status() if "m" in holder
+                    else {}):
+                if time.time() > deadline:
+                    raise TimeoutError("the agent never came up")
+                time.sleep(0.01)
+            mgr = holder["m"]
+            core, mem = mgr.plugin.core, mgr.plugin.memory
+            ms, assigned, hashes = {}, {}, {}
+            used = {"core": set(), "mem": set()}
+
+            def clock(name, fn, *a):
+                t = time.perf_counter()
+                got = fn(*a)
+                ms.setdefault(name, []).append(
+                    (time.perf_counter() - t) * 1e3)
+                return got
+
+            for pod in (f"pod-{i}" for i in range(1, OBS_PODS + 1)):
+                ids = {}
+                for kind, plugin, n in (("core", core, card["core_units"]),
+                                        ("mem", mem, card["mem_units"])):
+                    free = [i for i, _ in plugin.device_list()
+                            if i not in used[kind]]
+                    ids[kind] = plugin.preferred_ids(free, [], n)
+                    used[kind].update(ids[kind])
+                    clock(f"allocate_{kind}", plugin.allocate_container,
+                          ids[kind])
+                    assigned.setdefault(f"default/{pod}", {}).setdefault(
+                        "main", {})[plugin.resource] = ids[kind]
+                    _write_json(os.path.join(d, "assign.json"), assigned)
+                hashes[pod] = [Device(ids["core"]).hash,
+                               Device(ids["mem"]).hash]
+                for kind, plugin in (("core", core), ("mem", mem)):
+                    clock(f"prestart_{kind}", plugin.pre_start, ids[kind])
+            _write_json(os.path.join(d, "bound.json"),
+                        dict(hashes=hashes, bind_ms=ms))
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            _write_json(os.path.join(d, "bound.json"), {"error": repr(e)})
+
+    cli.NodeManager = Manager
+    threading.Thread(target=drive, daemon=True, name="kubelet").start()
+    rc = cli.main(_read_json(os.path.join(d, "obs.json"))["argv"])
+    mgr = holder.get("m")
+    sinks = {}
+    for name, rec in (("crd", getattr(mgr, "crd_recorder", None)),
+                      ("events", getattr(mgr, "events", None))):
+        if rec is not None:
+            sinks[name] = dict(merged=rec._sink.merged,
+                               dropped=rec._sink.dropped,
+                               writes=rec._sink.writes_total)
+    print(json.dumps(dict(
+        rc=rc, sinks=sinks, torch_imported="torch" in sys.modules,
+        db_bytes=sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d) if f.startswith("meta.db")))))
+    return 0
+
+
+def _doctor(args) -> tuple:
+    """``python3 -m elastic_tpu_agent_torch.cli node-doctor ARGS``: (exit
+    code, stdout, stderr)."""
+    res = subprocess.run(
+        [sys.executable, "-m", "elastic_tpu_agent_torch.cli", "node-doctor",
+         *args], capture_output=True, text=True, timeout=60,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return res.returncode, res.stdout, res.stderr
+
+
+def run_observability(torch, srv, streams, dev, agent26) -> dict:
+    """Phase 27: the port's agent with its observability plane on, read
+    through its endpoint, journal and sinks around a tenant that serves
+    through the paged kernel (module docstring)."""
+    import shutil
+    import signal
+    import tempfile
+
+    from elastic_tpu_agent_torch.common import (
+        AnnotationAssumed, BytesPerMemoryUnit, ResourceGPUCore,
+        ResourceGPUMemory, container_annotation)
+    from elastic_tpu_agent_torch.device import NvidiaOperator
+    from elastic_tpu_agent_torch.metrics import lint_exposition
+    from elastic_tpu_agent_torch.nri import plugin as NRI
+
+    props = torch.cuda.get_device_properties(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {}
+    d = tempfile.mkdtemp(prefix="cs27", dir="/tmp")
+    api = None
+    alive = []
+    trep = {}
+    try:
+        chips = [c for c in NvidiaOperator(
+            "/dev", maintenance=lambda: None,
+            preemption=lambda: None).devices()
+            if _uuid_key(c.uuid) == _uuid_key(props.uuid)]
+        if len(chips) != 1:
+            fail(f"observability: no single card of uuid {props.uuid}")
+            return out
+        chip = chips[0]
+        api = _load_fake_apiserver().FakeAPIServer()
+        crds = api._crds = _CRDLog()
+        url = api.start()
+        os.makedirs(os.path.join(d, "dev"))
+        _write_json(os.path.join(d, "kubeconfig"), {
+            "current-context": "c",
+            "contexts": [{"name": "c", "context": {"cluster": "local",
+                                                   "user": "agent"}}],
+            "clusters": [{"name": "local", "cluster": {"server": url}}],
+            "users": [{"name": "agent", "user": {"token": "phase-27"}}]})
+        card = dict(node="h100-node", core_units=PLUGIN_CORE_UNITS,
+                    mem_units=chip.hbm_bytes // BytesPerMemoryUnit
+                    // PLUGIN_MEM_SHARE,
+                    core_resource=ResourceGPUCore,
+                    mem_resource=ResourceGPUMemory)
+        _write_json(os.path.join(d, "card.json"), card)
+        pods = [f"pod-{i}" for i in range(1, OBS_PODS + 1)]
+        for pod in pods:
+            api.upsert_pod({"metadata": {
+                "namespace": "default", "name": pod, "uid": f"uid-{pod}",
+                "annotations": {
+                    AnnotationAssumed: "true",
+                    container_annotation("main"): str(chip.index)}},
+                "spec": {"nodeName": card["node"],
+                         "containers": [{"name": "main"}]}})
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        db = os.path.join(d, "meta.db")
+        _write_json(os.path.join(d, "obs.json"), {"argv": [
+            "--node-name", card["node"], "--db-file", db,
+            "--kubeconf", os.path.join(d, "kubeconfig"),
+            "--operator", "nvidia", "--dev-root", os.path.join(d, "dev"),
+            "--alloc-spec-dir", os.path.join(d, "alloc"),
+            "--device-plugin-dir", os.path.join(d, "dp"),
+            "--pod-resources-socket", os.path.join(d, "pr.sock"),
+            "--metrics-port", str(port),
+            "--storage-batch-window", str(OBS_BATCH_WINDOW_S),
+            "--profile-hz", str(OBS_PROFILE_HZ)]})
+        agent = _AgentChild("C", d)
+        alive.append(agent)
+        bound = _read_json(os.path.join(d, "bound.json"), AGENT_WAIT_S)
+        if not bound or "error" in bound:
+            agent.kill()
+            agent.result(time.perf_counter() + 1)
+            fail(f"observability agent never bound: {bound}")
+            return out
+        hashes = bound["hashes"]
+
+        # the bind's trace id: spec env, /debug/traces, /debug/timeline
+        h1 = hashes["pod-1"][0]
+        spec_path = os.path.join(d, "alloc", f"{h1}.json")
+        with open(spec_path) as f:
+            spec = json.load(f)
+        tid = spec["env"].get("ELASTIC_TPU_TRACE_ID", "")
+        traced = {t["trace_id"] for t in _http_json(
+            base + "/debug/traces?limit=1000")["traces"]}
+        events1 = _http_json(base + "/debug/timeline?pod=default/pod-1")[
+            "events"]
+        seqs = {k: [e["seq"] for e in events1 if e["kind"] == k
+                    and e["keys"].get("trace") == tid]
+                for k in ("bind_intent", "bind_commit")}
+        trace_ok = bool(tid in traced and seqs["bind_intent"]
+                        and seqs["bind_commit"]
+                        and min(seqs["bind_intent"]) < min(seqs["bind_commit"]))
+        print(f"observability trace: pod 1's ELASTIC_TPU_TRACE_ID {tid} in "
+              f"/debug/traces {tid in traced}, its bind_intent seqs "
+              f"{seqs['bind_intent']} before bind_commit seqs "
+              f"{seqs['bind_commit']}: {trace_ok}")
+        if not trace_ok:
+            fail(f"observability trace id {tid}: {seqs}")
+
+        # the tenant from pod 1's spec alone, with its own AgentMetrics
+        adj = NRI.plain_adjustment(spec, os.stat, "/dev", spec_path)
+        tenant = _Tenant("obs_tenant", "serve_obs", d,
+                         env=dict(adj["env"], TPU=h1), strip=PLUGIN_ENV_STRIP)
+        alive.append(tenant)
+        trep = tenant.result(time.perf_counter() + TENANT_TIMEOUT_S)
+        if trep:
+            fams = trep["serving_families"]
+            differ = {k: v for k, v in fams.items() if v[0] != v[1]}
+            same = trep["streams"] == streams
+            print(f"observability tenant: streams equal phase 4's {same}, "
+                  f"launches {trep['launches']}, its /metrics serving "
+                  f"families equal engine.stats() "
+                  f"{not differ} ({len(fams)} families), /debug/requests "
+                  f"{trep['requests']}, {trep['tokens_per_s']:.1f} tokens/s")
+            if not same:
+                fail("observability tenant streams differ from phase 4's")
+            if trep["launches"]["paged_decode"] != srv["paged_launches"]:
+                fail(f"observability tenant launches {trep['launches']}")
+            if differ or len(fams) != len(SERVING_FAMILIES):
+                fail(f"observability tenant serving families {fams}")
+            if trep["requests"]["records"] != 16 or \
+                    trep["requests"]["finished"] != 16:
+                fail(f"observability tenant requests {trep['requests']}")
+
+        # pod 2 deleted at the apiserver (and the kubelet drops it)
+        t_del = time.time()
+        api.delete_pod("default", "pod-2")
+        assigned = _read_json(os.path.join(d, "assign.json"))
+        assigned.pop("default/pod-2", None)
+        _write_json(os.path.join(d, "assign.json"), assigned)
+        names2 = [f"{card['node']}-{h}" for h in hashes["pod-2"]]
+        reclaim = None
+        released = False
+        while time.time() < t_del + OBS_RELEASE_DEADLINE_S:
+            if reclaim is None:
+                for e in _http_json(
+                        base + "/debug/timeline?pod=default/pod-2")["events"]:
+                    if e["kind"] == "pod_reclaimed" or (
+                            e["kind"] == "reconcile_repair"
+                            and e["attrs"].get("class") == "reclaimed_pod"):
+                        reclaim = e
+            released = all(crds.phases(n)[-2:] == ["Released", None]
+                           for n in names2)
+            if reclaim is not None and released:
+                break
+            time.sleep(0.01)
+        released_s = max((t for t, n, p in crds.log if n in names2
+                          and p is None), default=float("nan")) - t_del
+        events2 = _http_json(base + "/debug/timeline?pod=default/pod-2")[
+            "events"]
+        kinds2 = [e["kind"] for e in events2 if not e.get("related")]
+        reclaim_ms = (reclaim["ts"] - t_del) * 1e3 if reclaim else None
+        lat = _http_json(base + "/debug/latency?top=512")
+        lag = ((lat.get("detection_lag") or {}).get("classes") or {}).get(
+            "reclaimed_pod", {})
+        last_lag = (lag.get("recent") or [{}])[-1]
+        print(f"observability deletion: pod 2's journal {kinds2}; reclaim "
+              f"event {reclaim and reclaim['kind']} "
+              f"{reclaim and reclaim['attrs'].get('source', '')} at "
+              f"{reclaim_ms} ms after the delete; detection lag "
+              f"loop {last_lag.get('loop')} trigger {last_lag.get('trigger')} "
+              f"{last_lag.get('lag_s')} s; ElasticTPU objects "
+              f"{ {n: crds.phases(n) for n in names2} } removed "
+              f"{released_s * 1e3:.1f} ms after the delete [{smi}]")
+        if reclaim is None or "bind_intent" not in kinds2 or \
+                "bind_commit" not in kinds2:
+            fail(f"observability: pod 2's journal {kinds2}")
+        if not released:
+            fail(f"observability: pod 2's objects "
+                 f"{ {n: crds.phases(n) for n in names2} }")
+        if last_lag.get("trigger") not in ("event", "poll"):
+            fail(f"observability: detection lag {lag}")
+        names1 = [f"{card['node']}-{h}" for h in hashes["pod-1"]]
+        phases1 = {n: (crds.get(n) or {}).get("status", {}).get("phase")
+                   for n in names1}
+        if set(phases1.values()) != {"Bound"}:
+            fail(f"observability: pod 1's objects {phases1}")
+        bound_events = {(e["involvedObject"].get("name"), e["reason"])
+                        for e in api.core_events}
+        want_events = {(p, "TPUBound") for p in pods}
+        if not want_events <= bound_events:
+            fail(f"observability Events {sorted(bound_events)}")
+
+        # the agent's /metrics and /healthz
+        code, text = _http(base + "/metrics")
+        problems = lint_exposition(text)
+        got = _samples(text)
+        reads = {k: got.get((k, ())) for k in (
+            "elastic_tpu_allocate_seconds_count",
+            "elastic_tpu_prestart_seconds_count",
+            "elastic_tpu_bound_allocations", "elastic_tpu_chips",
+            "elastic_tpu_chips_healthy")}
+        want = {"elastic_tpu_allocate_seconds_count": 2.0 * OBS_PODS,
+                "elastic_tpu_prestart_seconds_count": 2.0 * OBS_PODS,
+                "elastic_tpu_bound_allocations": 1.0,
+                "elastic_tpu_chips": 1.0, "elastic_tpu_chips_healthy": 1.0}
+        hz_code, _ = _http(base + "/healthz")
+        print(f"observability /metrics: {code}, {len(text)} B, lint "
+              f"problems {problems[:3]}, {json.dumps(reads)}; /healthz "
+              f"{hz_code}")
+        if code != 200 or problems or reads != want or hz_code != 200:
+            fail(f"observability /metrics {reads} (want {want}), lint "
+                 f"{problems[:5]}, healthz {hz_code}")
+
+        # /debug/latency: phases + residual = each bind's total
+        binds = lat["bind"]["slowest"]
+        bad = [b for b in binds if abs(sum(b["phases_ms"].values())
+                                       + b["residual_ms"] - b["total_ms"])
+               > 1e-3 * (len(b["phases_ms"]) + 2)]
+        share = lat["bind"]["residual_share"]
+        print(f"observability /debug/latency: {len(binds)} binds, phases + "
+              f"residual = total for all {not bad}, residual share {share}, "
+              f"total p50 {lat['bind']['total_p50_ms']} ms [{smi}]")
+        if len(binds) != 2 * OBS_PODS or bad:
+            fail(f"observability latency: {len(binds)} binds, {bad[:2]}")
+
+        # /debug/profile and node-doctor profile
+        prof = _http_json(base + "/debug/profile")
+        rc_prof, prof_out, prof_err = _doctor(["profile", "--agent-url",
+                                               base])
+        print(f"observability /debug/profile: {prof['samples_total']} "
+              f"samples at {prof['hz']} Hz, overhead "
+              f"{prof['overhead_ratio']}, {prof['unique_stacks']} stacks; "
+              f"node-doctor profile exit {rc_prof}: "
+              f"{prof_out.splitlines()[:1]} [{smi}]")
+        if not prof["samples_total"] or \
+                prof["overhead_ratio"] >= OBS_OVERHEAD_LIMIT or rc_prof:
+            fail(f"observability profile {prof['samples_total']} samples, "
+                 f"overhead {prof['overhead_ratio']}, doctor {rc_prof} "
+                 f"{prof_err[-300:]}")
+
+        # the agent stops; its db read by node-doctor timeline
+        agent.proc.send_signal(signal.SIGTERM)
+        rep = agent.result(time.perf_counter() + 60)
+        rc_tl, tl_out, tl_err = _doctor(["timeline", "--db-file", db,
+                                         "--pod", "default/pod-1"])
+        tl_events = json.loads(tl_out)["events"] if rc_tl == 0 else []
+        ms = {k: [round(x, 3) for x in v] for k, v in bound["bind_ms"].items()}
+        print(f"observability node-doctor timeline exit {rc_tl}: "
+              f"{len(tl_events)} events for pod 1 from the stopped agent's "
+              f"db; agent exit {rep.get('rc')}, torch imported "
+              f"{rep.get('torch_imported')}")
+        print(f"observability host ms [{smi}]: binds with the plane on "
+              f"{json.dumps(ms)}; phase 26's (plane off) "
+              f"{json.dumps((agent26 or {}).get('bind_ms'))}; db "
+              f"{rep.get('db_bytes')} B; sinks {json.dumps(rep.get('sinks'))}")
+        if rc_tl or not tl_events:
+            fail(f"observability node-doctor timeline {rc_tl} {tl_err[-300:]}")
+        if not rep or rep.get("torch_imported") or rep.get("rc") != 0:
+            fail(f"observability agent: {rep}")
+        out.update(card=chip.index, smi=smi, hashes=hashes, bind_ms=ms,
+                   reclaim_ms=reclaim_ms, detection_lag=last_lag,
+                   released_ms=released_s * 1e3, residual_share=share,
+                   profile={k: prof[k] for k in (
+                       "samples_total", "hz", "overhead_ratio",
+                       "unique_stacks")},
+                   metrics=reads, db_bytes=rep.get("db_bytes"),
+                   sinks=rep.get("sinks"),
+                   tenant={k: v for k, v in trep.items() if k != "streams"})
+    finally:
+        for t in alive:
+            t.kill()
+        if api is not None:
+            api.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    out["launches"] = {k: trep.get("launches", {}).get(k, 0)
+                       for k in KERNEL_NAMES}
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -4655,19 +5199,23 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the full report and profiler files")
     ap.add_argument("--tenant", choices=("discover", "probe", "train",
-                                         "serve"),
-                    help="run as one of phase 24's child processes")
+                                         "serve", "serve_obs"),
+                    help="run as one of phases 24-27's child processes")
     ap.add_argument("--runner-args", default="",
                     help="a train tenant's runner flags")
     ap.add_argument("--barrier", default="",
                     help="a tenant's start barrier directory")
-    ap.add_argument("--agent", choices=("A", "B"),
-                    help="run as one of phase 26's agent processes")
+    ap.add_argument("--agent", choices=("A", "B", "C"),
+                    help="run as one of phase 26's agent processes (A, B) "
+                         "or phase 27's (C)")
     ap.add_argument("--agent-dir", default="",
-                    help="phase 26's directory (db, dev root, alloc dir)")
+                    help="phase 26's or 27's directory (db, dev root, "
+                         "alloc dir)")
     args = ap.parse_args()
     if args.tenant:
         return tenant_main(args)
+    if args.agent == "C":
+        return agent_obs_main(args)
     if args.agent:
         return agent_main(args)
 
@@ -4777,15 +5325,18 @@ def main() -> int:
                    dev)
     agent = timed("agent_restart", run_agent_restart, torch, srv,
                   srv_streams, dev)
+    observability = timed("observability", run_observability, torch, srv,
+                          srv_streams, dev, agent)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
     # runner's mesh runs + the shared card's tenants, serving + the spec
-    # engine's fallback steps + the tenants of phases 24-26, train +
+    # engine's fallback steps + the tenants of phases 24-27, train +
     # LoRA + the sharded step + the ring + the MoE mesh step + both
     # pipeline schedules + the runner's mesh runs + the tenants
     tenants = {k: sum(x.get("launches", {}).get(k, 0)
-                      for x in (share, plugin, agent)) for k in KERNEL_NAMES}
+                      for x in (share, plugin, agent, observability))
+               for k in KERNEL_NAMES}
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
              runner_mesh["launches"])
@@ -4822,7 +5373,8 @@ def main() -> int:
               "pipeline": pipeline, "sharded_decode": decode,
               "tp_serving": tp_serving, "runner_mesh": runner_mesh,
               "device_share": share, "plugin_path": plugin,
-              "agent_restart": agent, "kernels": kernel_recs,
+              "agent_restart": agent, "observability": observability,
+              "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -4853,7 +5405,8 @@ def main() -> int:
                                 "runner_mesh": runner_mesh,
                                 "device_share": share,
                                 "plugin_path": plugin,
-                                "agent_restart": agent}}))
+                                "agent_restart": agent,
+                                "observability": observability}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

@@ -11,3 +11,5 @@ Every Pallas TPU kernel on a ported path is a CUDA kernel written by hand
 for Hopper under ``csrc/``, built at first use by ``kernels.py``. The
 package imports ``torch`` and never ``jax`` nor the JAX package.
 """
+
+__version__ = "0.1.0"

@@ -9,19 +9,35 @@ needs grpcio and protobuf for the kubelet's APIs.
 
 Usage:
     python3 -m elastic_tpu_agent_torch.cli --node-name $NODE_NAME \\
-        --db-file /host/var/lib/elastic-tpu/meta.db --operator nvidia
+        --db-file /host/var/lib/elastic-tpu/meta.db --operator nvidia \\
+        --metrics-port 9478
 
-The agent's ``node-doctor`` and ``perf-gate`` subcommands come with the
-timeline and metrics slices.
+    # a pod's lifecycle history from the db, live agent or dead
+    python3 -m elastic_tpu_agent_torch.cli node-doctor timeline \\
+        --db-file /host/var/lib/elastic-tpu/meta.db --pod default/train
+    # the running agent's hottest stacks (needs --profile-hz > 0)
+    python3 -m elastic_tpu_agent_torch.cli node-doctor profile \\
+        --agent-url http://127.0.0.1:9478
+
+``--metrics-port`` serves ``/metrics``, ``/healthz`` and the loopback-only
+``/debug/*`` routes (metrics.py); 0 turns the endpoint off, and then
+nothing imports prometheus_client. The agent's diagnostics bundle
+(``node-doctor`` with no subcommand) and ``node-doctor goodput`` come with
+the port's utilization sampler and goodput ledger, and ``perf-gate`` with
+the port's own bench history.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import math
 import os
+import re
 import sys
 import threading
+import time
 
 from .common import install_dump_signal, wait_for_exit_signal
 from .manager import ManagerOptions, NodeManager
@@ -60,10 +76,26 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="where allocation specs for the container injection are "
              "written",
     )
+    p.add_argument("--metrics-port", type=int, default=9478,
+                   help="observability HTTP port serving /metrics, "
+                        "/debug/* and /healthz (0 = off)")
+    p.add_argument("--metrics-addr", default="127.0.0.1",
+                   help="bind address for the observability endpoint "
+                        "(default loopback; 0.0.0.0 allows off-host "
+                        "Prometheus scrapes, /debug/* stays loopback-only)")
     p.add_argument("--dp-pool-size", type=int, default=8,
                    help="gRPC worker threads per device-plugin resource "
                         "server; kubelet binds containers concurrently, "
                         "so size this to the expected bind burst")
+    p.add_argument("--no-events", action="store_true",
+                   help="disable k8s Event emission (e.g. RBAC without "
+                        "events:create)")
+    p.add_argument("--no-crd", action="store_true",
+                   help="disable ElasticTPU CRD publication")
+    p.add_argument("--timeline-cap", type=int, default=None,
+                   help="ring cap on the durable lifecycle-event journal "
+                        "(timeline.py; default 4096); evictions are "
+                        "counted durably either way")
     p.add_argument("--reconcile-period", type=float, default=30.0,
                    help="seconds between continuous-reconciler passes "
                         "(store <-> kubelet <-> disk <-> live-pod drift "
@@ -72,6 +104,32 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="the reconciler observes and reports divergences "
                         "without repairing; the boot-time restore pass "
                         "still repairs")
+    p.add_argument("--storage-batch-window", type=float, default=0.0,
+                   help="group-commit window (seconds) of the checkpoint "
+                        "store (storage/batcher.py): 0 = every write "
+                        "commits itself; >0 (e.g. 0.005) coalesces "
+                        "commits, load-bearing writes still wait for "
+                        "their covering commit")
+    p.add_argument("--sink-flush-window", type=float, default=0.0,
+                   help="coalescing window (seconds) of the CRD and Event "
+                        "sinks (0 = drain at once)")
+    p.add_argument("--no-event-bus", action="store_true",
+                   help="disable the in-process event bus (events.py): "
+                        "the reconciler polls at its base period")
+    p.add_argument("--event-safety-net-factor", type=float, default=10.0,
+                   help="how far the reconciler stretches its periodic "
+                        "sweep while the event bus is healthy (clamped "
+                        "to >= 1)")
+    p.add_argument("--slow-span-ms", type=float, default=None,
+                   help="log and journal any trace span slower than this "
+                        "many milliseconds as a slow_span timeline event "
+                        "(default: the tracer's 250 ms; also "
+                        "ELASTIC_TPU_SLOW_SPAN_MS)")
+    p.add_argument("--profile-hz", type=float, default=0.0,
+                   help="continuous self-profiler sampling rate in Hz "
+                        "(0 = off); /debug/profile serves the hottest "
+                        "stacks and elastic_tpu_profiler_overhead_ratio "
+                        "its measured cost")
     p.add_argument("--crash-loop-threshold", type=int, default=5,
                    help="supervisor circuit breaker: crashes of one "
                         "subsystem within the sliding window before it is "
@@ -85,6 +143,198 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "production")
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p.parse_args(argv)
+
+
+# -- node-doctor shared plumbing ----------------------------------------------
+
+
+_SINCE_UNITS = {"s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}
+
+
+def since_arg(value: str, _now=None) -> float:
+    """argparse type for ``--since``: unix epoch seconds, OR a relative
+    duration like ``15m`` / ``2h`` / ``90s`` / ``1d`` (resolved against
+    now). Junk raises ArgumentTypeError, so argparse exits non-zero
+    with a usage message — pinned in tests."""
+    raw = value.strip()
+    try:
+        ts = float(raw)
+    except ValueError:
+        pass
+    else:
+        # 'nan'/'inf' parse as floats but make the ts >= ? filter
+        # silently match nothing — an operator typo must be an error,
+        # not an empty-but-successful read
+        if math.isfinite(ts):
+            return ts
+        raise argparse.ArgumentTypeError(
+            f"{value!r} is not a finite timestamp"
+        )
+    m = re.fullmatch(r"(\d+(?:\.\d+)?)([smhd])", raw)
+    if not m:
+        raise argparse.ArgumentTypeError(
+            f"{value!r} is neither unix seconds nor a relative duration "
+            "(15m, 2h, 90s, 1d)"
+        )
+    now = time.time() if _now is None else _now
+    return now - float(m.group(1)) * _SINCE_UNITS[m.group(2)]
+
+
+# -- node-doctor timeline -----------------------------------------------------
+
+
+def parse_timeline_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        prog="elastic-gpu-agent node-doctor timeline",
+        description="Reconstruct a causally-linked lifecycle history "
+                    "for one pod/slice/chip/node straight from the "
+                    "checkpoint db's durable event journal — works "
+                    "against a dead agent's db, exactly like the "
+                    "open-intent reader.",
+    )
+    p.add_argument(
+        "--db-file", default="/host/var/lib/elastic-tpu/meta.db",
+        help="checkpoint db holding the timeline table",
+    )
+    p.add_argument("--pod", default=None, metavar="NS/NAME",
+                   help="history of one pod (bare names accepted)")
+    p.add_argument("--slice", dest="slice_id", default=None,
+                   help="history of one slice id")
+    p.add_argument("--chip", type=int, default=None,
+                   help="history of one chip index")
+    p.add_argument("--node", default=None,
+                   help="filter to one node name (merged fleet dbs)")
+    p.add_argument("--trace", default=None,
+                   help="history of one trace/correlation id")
+    p.add_argument("--kind", action="append", default=None,
+                   help="keep only these event kinds (repeatable)")
+    p.add_argument("--since", type=since_arg, default=None,
+                   help="unix-seconds lower bound, or a relative "
+                        "duration (15m, 2h, 90s, 1d)")
+    p.add_argument("--limit", type=int, default=None,
+                   help="newest-N cap on the reconstructed history")
+    p.add_argument("--no-causal", action="store_true",
+                   help="direct key matches only — skip the causal "
+                        "expansion along shared trace/slice ids")
+    return p.parse_args(argv)
+
+
+def timeline_main(argv=None) -> int:
+    args = parse_timeline_args(argv)
+    logging.basicConfig(
+        level=logging.WARNING,
+        format="%(levelname).1s %(name)s %(message)s",
+        stream=sys.stderr,
+    )
+    if not os.path.exists(args.db_file):
+        print(f"no db at {args.db_file}", file=sys.stderr)
+        return 1
+    from .storage import Storage
+    from .timeline import Timeline
+
+    with Storage(args.db_file) as storage:
+        view = Timeline(storage)
+        events = view.events(
+            pod=args.pod, slice_id=args.slice_id, chip=args.chip,
+            node=args.node, trace=args.trace, kinds=args.kind,
+            since=args.since, limit=args.limit,
+            causal=not args.no_causal,
+        )
+        status = view.status()
+        # The cap the WRITING agent ran with (persisted alongside the
+        # events), not this reader process's default — an operator
+        # judging "could the ring have trimmed history?" needs the
+        # real bound.
+        status["cap"] = storage.timeline_cap_stored()
+    entity = {
+        k: v for k, v in (
+            ("pod", args.pod), ("slice", args.slice_id),
+            ("chip", args.chip), ("node", args.node),
+            ("trace", args.trace),
+        ) if v is not None
+    }
+    json.dump({
+        "db_file": args.db_file,
+        "entity": entity,
+        "events": events,
+        "journal": {
+            "cap": status["cap"],
+            "total_events": status["total_events"],
+            "evicted_total": status["evicted_total"],
+        },
+    }, sys.stdout, indent=2, sort_keys=True)
+    sys.stdout.write("\n")
+    return 0
+
+
+def _fetch_json(url: str, timeout_s: float) -> dict:
+    """GET ``url`` as JSON; the agent's endpoint answers JSON on every
+    status, so an HTTP error's body is returned too (the port's copy of
+    ``elastic_tpu_agent/sampler.py``'s)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout_s) as resp:
+            return json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return json.loads(e.read())
+
+
+def parse_profile_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        prog="elastic-gpu-agent node-doctor profile",
+        description="Fetch /debug/profile from a running agent and "
+                    "render the hottest stacks (continuous self-"
+                    "profiler; enable with --profile-hz on the agent).",
+    )
+    p.add_argument(
+        "--agent-url", required=True,
+        help="base URL of a running agent's observability endpoint "
+             "(e.g. http://127.0.0.1:9478)",
+    )
+    p.add_argument("--top", type=int, default=30,
+                   help="stacks to show (hottest first)")
+    p.add_argument("--json", action="store_true",
+                   help="emit the raw /debug/profile payload instead of "
+                        "the rendered view")
+    p.add_argument("--timeout", type=float, default=3.0,
+                   help="HTTP timeout in seconds")
+    return p.parse_args(argv)
+
+
+def profile_main(argv=None) -> int:
+    from .profiler import render_profile
+
+    args = parse_profile_args(argv)
+    url = f"{args.agent_url.rstrip('/')}/debug/profile?top={args.top}"
+    try:
+        payload = _fetch_json(url, args.timeout)
+    except Exception as e:  # noqa: BLE001 - one fetch, report and exit
+        print(f"cannot fetch {url}: {e}", file=sys.stderr)
+        return 1
+    if "error" in payload and "samples_total" not in payload:
+        # The endpoint answers JSON on every status; a 503 here means
+        # the agent is up but the profiler isn't attached yet.
+        print(f"agent error: {payload['error']}", file=sys.stderr)
+        return 1
+    if args.json:
+        json.dump(payload, sys.stdout, indent=2, sort_keys=True)
+        sys.stdout.write("\n")
+    else:
+        sys.stdout.write(render_profile(payload, top=args.top) + "\n")
+    return 0
+
+
+def doctor_main(argv=None) -> int:
+    if argv and argv[0] == "timeline":
+        return timeline_main(argv[1:])
+    if argv and argv[0] == "profile":
+        return profile_main(argv[1:])
+    print("usage: node-doctor {timeline,profile} ... (the diagnostics "
+          "bundle and goodput come with the port's sampler and goodput "
+          "ledger)", file=sys.stderr)
+    return 2
 
 
 def options_from_args(args: argparse.Namespace) -> ManagerOptions:
@@ -101,12 +351,24 @@ def options_from_args(args: argparse.Namespace) -> ManagerOptions:
         crash_loop_threshold=args.crash_loop_threshold,
         reconcile_period_s=args.reconcile_period,
         reconcile_dry_run=args.reconcile_dry_run,
+        enable_events=not args.no_events,
+        enable_crd=not args.no_crd,
+        slow_span_ms=args.slow_span_ms,
+        profile_hz=args.profile_hz,
+        storage_batch_window_s=args.storage_batch_window,
+        sink_flush_window_s=args.sink_flush_window,
+        enable_event_bus=not args.no_event_bus,
+        event_safety_net_factor=args.event_safety_net_factor,
+        **({"timeline_cap": args.timeline_cap}
+           if args.timeline_cap is not None else {}),
     )
 
 
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "node-doctor":
+        return doctor_main(argv[1:])
     args = parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
@@ -124,13 +386,23 @@ def main(argv=None) -> int:
         )
         faults.get_registry().arm_spec(fault_spec)
 
+    metrics = None
+    if args.metrics_port:
+        from .metrics import AgentMetrics
+
+        metrics = AgentMetrics()
+        # a busy port must not take the allocation path down: the agent
+        # runs on and the endpoint keeps retrying the bind
+        metrics.serve_with_retry(args.metrics_port, addr=args.metrics_addr)
     # the process-wide net: threads nobody registered with the supervisor
     # still cannot die unobserved
     from .supervisor import install_thread_excepthook
 
-    install_thread_excepthook()
+    install_thread_excepthook(metrics)
 
-    manager = NodeManager(options_from_args(args))
+    opts = options_from_args(args)
+    opts.metrics = metrics
+    manager = NodeManager(opts)
     run_thread = threading.Thread(
         target=manager.run, kwargs={"block": True}, daemon=True, name="manager"
     )

@@ -231,3 +231,16 @@ class FileWatcher:
             self._sig = sig
             return True
         return False
+
+
+def read_rss_bytes() -> int:
+    """This process's resident set size, from ``/proc/self/statm`` (field
+    2 is resident pages). Any failure (non-Linux, a locked-down /proc)
+    reads as 0, never an exception, so that the
+    ``elastic_tpu_agent_rss_bytes`` gauge can carry it unconditionally."""
+    try:
+        with open("/proc/self/statm") as f:
+            resident_pages = int(f.read().split()[1])
+        return resident_pages * os.sysconf("SC_PAGE_SIZE")
+    except Exception:  # noqa: BLE001 - a memory gauge must never raise
+        return 0

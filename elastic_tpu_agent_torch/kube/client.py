@@ -2,9 +2,10 @@
 library.
 
 The port's copy of ``elastic_tpu_agent/kube/client.py``, written on
-``http.client`` with an ``ssl`` context instead of ``requests`` (which the
-card's machine does not have): get/list/watch pods filtered to one node,
-get node, list every pod, merge-patch a pod's annotations. The agent's
+``http.client`` with an ``ssl`` context instead of ``requests``: get/list/
+watch pods filtered to one node, get node, list every pod, merge-patch a
+pod's annotations, post an Event, and the raw GET/POST/PUT/DELETE that the
+ElasticTPU client (``crd.py``) builds on. The agent's
 URLs, query parameters, pagination, watch-line handling and errors are
 kept: ``KubeError`` on an unexpected status, ``None`` on a 404 where the
 agent answers ``None``.
@@ -197,6 +198,15 @@ class KubeClient:
     def _get(self, path: str, params: Optional[Dict] = None) -> _Response:
         return self._call("GET", path, params)
 
+    def _post(self, path: str, body: dict) -> _Response:
+        return self._call("POST", path, body=body)
+
+    def _put(self, path: str, body: dict) -> _Response:
+        return self._call("PUT", path, body=body)
+
+    def _delete(self, path: str) -> _Response:
+        return self._call("DELETE", path)
+
     # -- API surface ----------------------------------------------------------
 
     def get_pod(self, namespace: str, name: str) -> Optional[dict]:
@@ -278,6 +288,13 @@ class KubeClient:
             raise KubeError(
                 f"patch pod {namespace}/{name}: {r.status_code}"
             )
+        return r.json()
+
+    def create_event(self, namespace: str, event: dict) -> dict:
+        """POST a core/v1 Event (kube/events.py)."""
+        r = self._post(f"/api/v1/namespaces/{namespace}/events", event)
+        if r.status_code not in (200, 201):
+            raise KubeError(f"create event: {r.status_code}")
         return r.json()
 
     def watch_pods(

@@ -3,8 +3,9 @@
 The port's copy of ``elastic_tpu_agent/kube/locator.py``. The
 pod-resources client it reads (``rpc.PodResourcesClient``) is handed in,
 never imported here: this module, and the plugins that raise its
-``LocateError``, import without grpc. The agent's metrics and event-bus
-seams (a List counter, assignment deltas) come with those slices.
+``LocateError``, import without grpc. With ``metrics`` every List is
+counted (``elastic_tpu_kubelet_list_total``); with a ``bus`` the diff of
+each installed List publishes assignment deltas (events.py).
 
 Capability parity with the reference's ``pkg/kube/locator.go`` (SURVEY.md §1
 L5): PreStartContainer only receives device IDs, so the agent asks the
@@ -37,6 +38,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+from .. import events as events_mod
 from ..tracing import get_tracer
 from ..types import Device, PodContainer, device_hash
 
@@ -78,8 +80,16 @@ class PodResourcesSnapshotSource:
     # serializing misses one stalled List at a time.
     STALL_WAIT_TIMEOUT_S = 6.0
 
-    def __init__(self, client) -> None:
+    def __init__(self, client, metrics=None, bus=None) -> None:
         self._client = client
+        # Optional AgentMetrics: every List sent is counted in
+        # elastic_tpu_kubelet_list_total, at the source.
+        self._metrics = metrics
+        # Optional events.EventBus: every installed List is diffed
+        # against the previous one and the per-hash deltas published on
+        # ASSIGNMENT_DELTA, so that the reconciler reacts to kubelet-side
+        # assignment changes instead of finding them on its next sweep.
+        self._bus = bus
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         # resource -> device-set hash -> owner
@@ -233,16 +243,36 @@ class PodResourcesSnapshotSource:
             with get_tracer().span("pod_resources_list") as sp:
                 resp = self._client.list()
                 self.lists_total += 1
+                m = self._metrics
+                if m is not None and hasattr(m, "kubelet_lists"):
+                    try:
+                        m.kubelet_lists.inc()
+                    except Exception:  # noqa: BLE001 - never fail a List
+                        pass
                 sp.set(pods=len(resp.pod_resources))
             fresh, assign = self._build_index(resp)
             install = self._capped(fresh)
+            deltas = None
             with self._cond:
                 if seq > self._installed_seq:
+                    if self._bus is not None and self._installed_seq > 0:
+                        deltas = self._assignment_deltas(
+                            self._last_assign, assign
+                        )
                     self._installed_seq = seq
                     self._snapshot = install
                     self._last_full = fresh
                     self._last_assign = assign
                 self._done_seq = max(self._done_seq, seq)
+            if deltas:
+                # Published OUTSIDE the cond: publish fans out to
+                # subscriber queues (their own locks) and must never
+                # extend the snapshot critical section.
+                for kind, resource, hsh, owner in deltas:
+                    self._bus.publish(
+                        events_mod.ASSIGNMENT_DELTA, kind=kind, key=hsh,
+                        payload={"resource": resource, "owner": owner},
+                    )
             return fresh
         finally:
             # ANY exit — including a parse failure after a successful
@@ -252,6 +282,33 @@ class PodResourcesSnapshotSource:
                 self._refresh_active -= 1
                 self._refreshing -= 1
                 self._cond.notify_all()
+
+    @staticmethod
+    def _assignment_deltas(old: Dict[str, Dict[str, tuple]],
+                           new: Dict[str, Dict[str, tuple]]) -> list:
+        """Per-hash diff between two kubelet assignment snapshots:
+        ``(kind, resource, hash, "ns/pod/container")`` tuples with kind
+        in added/removed/owner-changed. O(assignments); bounded by node
+        pod count."""
+        deltas = []
+        for resource in set(old) | set(new):
+            before = old.get(resource, {})
+            after = new.get(resource, {})
+            for hsh in set(before) | set(after):
+                b, a = before.get(hsh), after.get(hsh)
+                if b is None and a is not None:
+                    kind, owner = "added", a[0]
+                elif b is not None and a is None:
+                    kind, owner = "removed", b[0]
+                elif b is not None and a is not None and b[0] != a[0]:
+                    kind, owner = "owner-changed", a[0]
+                else:
+                    continue
+                deltas.append((
+                    kind, resource, hsh,
+                    f"{owner.pod_key}/{owner.container}",
+                ))
+        return deltas
 
     def invalidate(self) -> None:
         with self._lock:

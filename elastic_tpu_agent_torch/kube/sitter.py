@@ -1,8 +1,8 @@
 """Sitter: node-filtered pod cache with a delete hook feeding GC.
 
-The port's copy of ``elastic_tpu_agent/kube/sitter.py``; the agent's
-event-bus seam (pod deltas published off the watch) comes with the port's
-event bus.
+The port's copy of ``elastic_tpu_agent/kube/sitter.py``. With an event bus
+(events.py) it publishes pod deltas straight off the watch stream
+(``POD_DELTA``) and flips the bus degraded while the watch is down.
 
 Capability parity with the reference's ``pkg/kube/sitter.go`` (SURVEY.md §1
 L5): an informer-style list+watch over the pods bound to this node, a read
@@ -22,6 +22,7 @@ import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
+from .. import events as events_mod
 from .. import faults
 from ..common import JitteredBackoff
 from .client import KubeClient, KubeError
@@ -44,19 +45,27 @@ class Sitter:
         node_name: str,
         on_delete: Optional[DeleteHook] = None,
         relist_interval_s: float = 30.0,
+        bus=None,
     ) -> None:
         self._client = client
         self._node = node_name
         self._on_delete = on_delete
         self._relist_s = relist_interval_s
+        # Event bus (events.EventBus, optional): pod deltas publish on
+        # POD_DELTA straight off the watch stream; a dead list/watch
+        # flips the bus degraded so every subscribed loop collapses its
+        # stretched safety-net sweep back to the base period with no
+        # coverage gap (the AsyncSink/brownout fix — see run()).
+        self._bus = bus
         self._lock = threading.RLock()
         self._cache: Dict[Tuple[str, str], dict] = {}
         self._synced = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # monotonic timestamp of the last successful apiserver contact
-        # (relist success or watch event); 0.0 = never: sync_age_s()
-        # makes a long apiserver outage visible instead of silent cache
-        # rot
+        # (relist success or watch event); 0.0 = never. Staleness is
+        # surfaced via /healthz and elastic_tpu_sitter_sync_age_seconds
+        # so a long apiserver outage is visible instead of silent cache
+        # rot.
         self._last_sync_monotonic = 0.0
 
     # -- cache reads ----------------------------------------------------------
@@ -106,9 +115,20 @@ class Sitter:
         # Deletions that happened while we were not watching still reach GC.
         for pod in gone_pods:
             self._fire_delete(pod)
+            self._publish(events_mod.POD_DELTA, "relist-gone", pod)
         self._last_sync_monotonic = time.monotonic()
         self._synced.set()
         return rv
+
+    def _publish(self, topic: str, kind: str, pod: dict) -> None:
+        if self._bus is None:
+            return
+        ns, name = self._key(pod)
+        md = pod.get("metadata", {})
+        self._bus.publish(topic, kind=kind, key=f"{ns}/{name}",
+                          payload={"uid": md.get("uid", ""),
+                                   "phase": pod.get("status", {})
+                                   .get("phase", "")})
 
     def _fire_delete(self, pod: dict) -> None:
         if self._on_delete is not None:
@@ -124,10 +144,12 @@ class Sitter:
         if etype in ("ADDED", "MODIFIED"):
             with self._lock:
                 self._cache[key] = pod
+            self._publish(events_mod.POD_DELTA, etype.lower(), pod)
         elif etype == "DELETED":
             with self._lock:
                 self._cache.pop(key, None)
             self._fire_delete(pod)
+            self._publish(events_mod.POD_DELTA, "deleted", pod)
         elif etype == "ERROR":
             raise KubeError(f"watch error event: {pod}")
 
@@ -139,6 +161,11 @@ class Sitter:
             try:
                 rv = self._relist()
                 backoff.reset()  # apiserver answered
+                if self._bus is not None:
+                    # The re-list caught us up on anything missed while
+                    # the watch was down — safe to let loops stretch
+                    # their safety-net sweeps again.
+                    self._bus.set_degraded("sitter-watch", False)
                 watch_timeout = max(1, int(self._relist_s))
                 for event in self._client.watch_pods(
                     self._node, rv, timeout_s=watch_timeout
@@ -149,6 +176,15 @@ class Sitter:
                     if stop.is_set():
                         return
             except Exception as e:  # noqa: BLE001
+                if self._bus is not None:
+                    # Watch stream died (apiserver brownout, network
+                    # partition): pod deltas stop flowing, so loops
+                    # must NOT keep sleeping their stretched periods.
+                    # set_degraded broadcasts a BUS_WAKE that collapses
+                    # every subscriber back to its base sweep period
+                    # immediately — no coverage gap between push dying
+                    # and poll resuming.
+                    self._bus.set_degraded("sitter-watch", True)
                 delay = backoff.next_delay()
                 logger.warning(
                     "sitter list/watch failed (%s); retrying in %.1fs "

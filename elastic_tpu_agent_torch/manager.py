@@ -1,30 +1,37 @@
 """Manager: the node agent's wiring and lifecycle, and its restore.
 
 The port's counterpart of ``elastic_tpu_agent/manager.py``'s
-``TPUManager``, cut to the bind path: it opens the checkpoint store,
-starts the supervisor, the apiserver client and the sitter (whose pod
-deletions feed the GC queue), builds the device operator, the
-pod-resources client with one snapshot source shared by the core and
-memory locators, the plugin bundle and the reconciler; then ``run()``:
+``TPUManager``, cut to the bind path and its observability plane, wired
+in the agent's order: the event bus (on by default), the checkpoint store
+(with its group-commit window), the lifecycle timeline, the supervisor,
+the apiserver client and the sitter (whose pod deletions feed the GC
+queue and mark the detection-lag origin), the device operator, the
+metrics' attachments, the latency observatory and detection-lag tracker,
+the profiler, the tracer's slow-span listener, the CRD and Event
+recorders, the pod-resources client with one snapshot source shared by
+the core and memory locators, the plugin bundle and the reconciler; then
+``run()``:
 
-- the sitter syncs;
+- ``agent_started`` is journaled and the build-info gauges set;
+- the sitter syncs, and the card inventory is published to the CRD;
 - ``restore()``: one reconciler pass with boot semantics, before the
   device-plugin servers exist, so that no bind can be in flight. It
   re-creates the links a reboot wiped, resolves the binds a crash cut
   short, reclaims pods deleted while the agent was down, sweeps orphans
   and replays unbound kubelet assignments;
-- the device-plugin servers, GC, the health poll, the periodic reconciler
+- the device-plugin servers, GC, the health poll, the periodic reconciler,
+  the profiler (with ``profile_hz`` > 0), the CRD and Event sink workers
   and the deferred allocatable check start as supervised subsystems.
 
 Nothing here imports torch (the agent's process holds no CUDA context) or
 grpc: the pod-resources client is built from ``rpc`` only when no
 ``pod_resources_client`` is handed in, and the servers import grpc when
-they start.
+they start. ``metrics`` is an ``AgentMetrics`` built by the caller (the
+CLI's ``--metrics-port``); without it nothing imports prometheus_client.
 
-The agent's event bus, timeline and batcher, events, CRD recorder,
-sampler, metrics, latency observatory and profiler, goodput, drain,
-migration, repartition, slice registry and NRI server come with their
-slices: their options and flags come with them.
+The agent's utilization sampler, goodput ledger, drain, migration,
+repartition, slice registry and NRI server come with their slices: their
+options and flags come with them.
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from typing import Optional
 
 from . import supervisor as supervision
+from . import timeline as timeline_mod
 from .common import (
     DEVICE_PLUGIN_DIR,
     POD_RESOURCES_SOCKET,
@@ -83,12 +92,41 @@ class ManagerOptions:
     # pass always repairs)
     reconcile_period_s: float = DEFAULT_PERIOD_S
     reconcile_dry_run: bool = False
-    # test seams: an apiserver client, an operator, and a pod-resources
+    # publish bound allocations and the card inventory as ElasticTPU
+    # objects (crd_recorder.py); auto-disables when the CRD is absent
+    enable_crd: bool = True
+    # post core/v1 Events on binds, reclaims and restores (kube/events.py)
+    enable_events: bool = True
+    # ring cap of the durable lifecycle journal (timeline.py; CLI
+    # --timeline-cap)
+    timeline_cap: int = timeline_mod.DEFAULT_CAP
+    # slow-span threshold in milliseconds (CLI --slow-span-ms; None = the
+    # tracer's default or ELASTIC_TPU_SLOW_SPAN_MS); slow spans land in
+    # the timeline as slow_span events
+    slow_span_ms: Optional[float] = None
+    # sampling profiler rate (profiler.py; CLI --profile-hz; 0 = off)
+    profile_hz: float = 0.0
+    # group-commit window of the store (storage/batcher.py; CLI
+    # --storage-batch-window; 0 = every write commits itself)
+    storage_batch_window_s: float = 0.0
+    # coalescing window of the CRD and Event sinks (async_sink.py; CLI
+    # --sink-flush-window)
+    sink_flush_window_s: float = 0.0
+    # the in-process event bus (events.py): pod deltas, assignment deltas
+    # and store-change notifications wake the reconciler, whose periodic
+    # sweep stretches by event_safety_net_factor while the bus is healthy.
+    # False = plain polling (CLI --no-event-bus /
+    # --event-safety-net-factor)
+    enable_event_bus: bool = True
+    event_safety_net_factor: float = 10.0
+    # test seams: an apiserver client, an operator, a pod-resources
     # client (an object with ``list()`` and
-    # ``get_allocatable_resources()``, as ``rpc.PodResourcesClient``)
+    # ``get_allocatable_resources()``, as ``rpc.PodResourcesClient``) and
+    # an AgentMetrics (metrics.py)
     kube_client: Optional[KubeClient] = None
     operator: object = None
     pod_resources_client: object = None
+    metrics: object = None
 
 
 def build_operator(opts: ManagerOptions):
@@ -118,14 +156,81 @@ def build_operator(opts: ManagerOptions):
 
 class NodeManager:
     def __init__(self, opts: ManagerOptions) -> None:
-        self.storage = Storage(opts.db_path)
+        self._opts = opts
+        # The bus first: the store publishes its notifications from its
+        # commit path, so the bus exists before the first write.
+        self.bus = None
+        if opts.enable_event_bus:
+            from . import events as events_mod
+
+            self.bus = events_mod.EventBus()
+        self.storage = Storage(
+            opts.db_path, batch_window_s=opts.storage_batch_window_s,
+            bus=self.bus,
+        )
+        # The journal rides the checkpoint db; made before the supervisor
+        # so that even its bring-up is journaled.
+        self.timeline = timeline_mod.Timeline(
+            self.storage, node_name=opts.node_name, metrics=opts.metrics,
+            cap=opts.timeline_cap,
+        )
+        self.metrics = opts.metrics
         self.supervisor = Supervisor(
-            crash_loop_threshold=opts.crash_loop_threshold)
+            metrics=self.metrics,
+            crash_loop_threshold=opts.crash_loop_threshold,
+            timeline=self.timeline,
+        )
         self.client = opts.kube_client or KubeClient.auto(opts.kubeconfig)
         self.gc_queue: "queue.Queue" = queue.Queue()
+        from .latency import BindLatencyObservatory, DetectionLagTracker
+        from .profiler import SamplingProfiler
+
+        self.lag_tracker = DetectionLagTracker(metrics=self.metrics)
         self.sitter = Sitter(self.client, opts.node_name,
-                             on_delete=self.gc_queue.put)
+                             on_delete=self._on_pod_deleted, bus=self.bus)
         self.operator = build_operator(opts)
+        if self.metrics is not None:
+            self.metrics.attach_supervisor(self.supervisor)
+            self.metrics.attach_sitter(self.sitter)
+            self.metrics.attach_storage(self.storage)
+            self.metrics.attach_timeline(self.timeline)
+            try:
+                n = len(self.operator.devices())
+                self.metrics.chips.set(n)
+                self.metrics.healthy_chips.set(n)
+            except Exception:  # noqa: BLE001 - discovery failed: gauge stays 0
+                logger.exception("card discovery for metrics failed")
+        # The bind latency observatory and the slow-span journal listen
+        # on the process-wide tracer, filtered to this node's traces
+        # (stop() removes both).
+        self.latency = BindLatencyObservatory(
+            metrics=self.metrics, node_name=opts.node_name)
+        self.profiler = SamplingProfiler(hz=opts.profile_hz)
+        tracer = get_tracer()
+        if opts.slow_span_ms is not None:
+            tracer.slow_span_s = max(0.0, opts.slow_span_ms / 1000.0)
+        tracer.add_listener(self.latency.observe_trace)
+        tracer.add_slow_span_listener(self._on_slow_span)
+        if self.metrics is not None:
+            self.metrics.attach_latency(self.latency, self.lag_tracker)
+            self.metrics.attach_profiler(self.profiler)
+        self.crd_recorder = None
+        if opts.enable_crd:
+            from .crd_recorder import build_recorder
+
+            self.crd_recorder = build_recorder(
+                self.client, opts.node_name, self.operator,
+                metrics=self.metrics,
+                flush_window_s=opts.sink_flush_window_s,
+            )
+        self.events = None
+        if opts.enable_events:
+            from .kube.events import build_event_recorder
+
+            self.events = build_event_recorder(
+                self.client, opts.node_name, metrics=self.metrics,
+                flush_window_s=opts.sink_flush_window_s,
+            )
         pr_client = opts.pod_resources_client
         if pr_client is None:
             from . import rpc
@@ -136,7 +241,8 @@ class NodeManager:
         # locators and the reconciler: a cold core + memory bind pair
         # costs one kubelet List, and either resource's Allocate-time
         # prefetch warms both PreStarts.
-        self.locator_source = PodResourcesSnapshotSource(pr_client)
+        self.locator_source = PodResourcesSnapshotSource(
+            pr_client, metrics=self.metrics, bus=self.bus)
         self.config = PluginConfig(
             node_name=opts.node_name,
             device_plugin_dir=opts.device_plugin_dir,
@@ -147,6 +253,11 @@ class NodeManager:
             storage=self.storage,
             locator_factory=lambda res: KubeletDeviceLocator(
                 res, source=self.locator_source),
+            metrics=self.metrics,
+            crd_recorder=self.crd_recorder,
+            events=self.events,
+            timeline=self.timeline,
+            lag_tracker=self.lag_tracker,
             extra={"alloc_spec_dir": opts.alloc_spec_dir},
         )
         self.plugin = GPUSharePlugin(self.config)
@@ -157,11 +268,42 @@ class NodeManager:
             sitter=self.sitter,
             snapshot_source=self.locator_source,
             alloc_spec_dir=opts.alloc_spec_dir,
+            metrics=self.metrics,
+            events=self.events,
+            crd_recorder=self.crd_recorder,
             period_s=opts.reconcile_period_s,
             dry_run=opts.reconcile_dry_run,
+            timeline=self.timeline,
+            lag_tracker=self.lag_tracker,
+            bus=self.bus,
+            event_safety_net_factor=opts.event_safety_net_factor,
         )
         self._stop = threading.Event()
         self._stopped = False
+
+    def _on_pod_deleted(self, pod: dict) -> None:
+        """The sitter's delete hook: stamp the deletion as the origin of
+        the reclaim's detection lag, then wake GC."""
+        namespace, name = Sitter._key(pod)
+        self.lag_tracker.mark("reclaimed_pod", f"{namespace}/{name}")
+        self.gc_queue.put(pod)
+
+    def _on_slow_span(self, tr, sp) -> None:
+        """A span over the tracer's threshold lands in the timeline, keyed
+        by pod and trace (this node's traces only)."""
+        node = str(tr.attrs.get("node", ""))
+        if self._opts.node_name and node and node != self._opts.node_name:
+            return
+        pod = str(tr.attrs.get("pod", "")
+                  or ((tr.attrs.get("pods") or [""]) or [""])[0])
+        self.timeline.emit(
+            timeline_mod.KIND_SLOW_SPAN,
+            keys={"pod": pod, "trace": tr.trace_id},
+            span=sp.name,
+            duration_ms=round(sp.duration_s * 1000, 3),
+            threshold_ms=round(get_tracer().slow_span_s * 1000, 3),
+            op=tr.name,
+        )
 
     # -- restore --------------------------------------------------------------
 
@@ -177,6 +319,28 @@ class NodeManager:
                 if isinstance(v, (int, float)) and not isinstance(v, bool)
             })
         logger.info("restore report: %s", report)
+        replayed = (
+            report["intents_committed"] + report["intents_rolled_back"]
+            + report["replayed_binds"] + report["rebound_drift"]
+        )
+        if self.events is not None and (
+            report["restored_links"] or report["reclaimed_pods"]
+            or report["orphan_links"] or report["orphan_specs"] or replayed
+        ):
+            from .kube.events import ReasonRestored
+
+            self.events.node_event(
+                ReasonRestored,
+                "agent restart reconcile: "
+                f"{report['restored_links']} link(s) restored, "
+                f"{report['reclaimed_pods']} dead pod(s) reclaimed, "
+                f"{report['orphan_links'] + report['orphan_specs']} "
+                "orphan artifact(s) swept, "
+                f"{replayed} interrupted bind(s) recovered",
+            )
+        if self.metrics is not None:
+            self.metrics.restored_links.inc(report["restored_links"])
+            self.metrics.bound_allocations.set(self.storage.count())
         return report
 
     def check_allocatable_drift(self) -> Optional[dict]:
@@ -224,6 +388,25 @@ class NodeManager:
                 drift[resource] = {"missing": missing, "extra": extra}
         if drift:
             logger.warning("allocatable drift vs kubelet: %s", drift)
+            if self.events is not None:
+                from .kube.events import ReasonAllocatableDrift
+
+                parts = []
+                for resource, d in sorted(drift.items()):
+                    if d["missing"]:
+                        parts.append(
+                            f"{resource}: kubelet missing card(s) "
+                            f"{','.join(map(str, d['missing']))}")
+                    if d["extra"]:
+                        parts.append(
+                            f"{resource}: kubelet still counts absent "
+                            f"card(s) {','.join(map(str, d['extra']))}")
+                self.events.node_event(
+                    ReasonAllocatableDrift,
+                    "kubelet allocatable view disagrees with agent "
+                    "advertisement — " + "; ".join(parts),
+                    type_="Warning",
+                )
         return drift
 
     _ALLOCATABLE_CHECK_DELAY_S = 10.0
@@ -246,12 +429,29 @@ class NodeManager:
 
         ``block=True`` blocks on the supervisor's terminal event: the
         global stop, or a critical subsystem circuit-breaking."""
+        from . import __version__
+
+        # agent_started first: a history read across restarts shows the
+        # boot boundary before any event this process emits
+        self.timeline.emit(timeline_mod.KIND_AGENT_STARTED,
+                           version=__version__,
+                           boot_id=self.timeline.boot_id)
+        if self.metrics is not None:
+            self.metrics.build_info.labels(version=__version__).set(1)
+            self.metrics.agent_start_time.set(time.time())
         self.supervisor.start(self._stop)
         # Sitter is CRITICAL: binds read annotations from its cache and GC
         # learns deletions through it.
         self.supervisor.register("sitter", self.sitter.run, CRITICAL)
         if not self.sitter.wait_synced(timeout=60.0):
             logger.warning("sitter not synced after 60s; continuing anyway")
+        if self.crd_recorder is not None:
+            # capacity first: CRD readers see the node's cards as
+            # Available inventory from boot
+            try:
+                self.crd_recorder.publish_inventory(self.operator.devices())
+            except Exception:  # noqa: BLE001 - observability, never fatal
+                logger.exception("inventory publication failed")
         self.restore()
         # Device-plugin serve loops: one per extended resource, CRITICAL:
         # a dead ListAndWatch leaves the kubelet advertising stale devices.
@@ -265,6 +465,16 @@ class NodeManager:
         # DEGRADED: a broken reconciler leaves the node binding (with the
         # boot-converged state) while status() shows the loss.
         self.supervisor.register("reconciler", self.reconciler.run, DEGRADED)
+        if self._opts.profile_hz > 0:
+            # DEGRADED: observability never takes binding down; a crashed
+            # profiler restarts with its table (same instance)
+            self.supervisor.register("profiler", self.profiler.run, DEGRADED)
+        if self.crd_recorder is not None:
+            self.supervisor.register(
+                "crd-recorder", self.crd_recorder.run_supervised, DEGRADED)
+        if self.events is not None:
+            self.supervisor.register(
+                "events", self.events.run_supervised, DEGRADED)
         self.supervisor.register(
             "allocatable-check", self._deferred_allocatable_check, DEGRADED,
             one_shot=True,
@@ -277,11 +487,22 @@ class NodeManager:
             return
         self._stopped = True
         self._stop.set()
+        # detach from the process-wide tracer: a later manager in this
+        # process must not feed this one's observatory
+        tracer = get_tracer()
+        tracer.remove_listener(self.latency.observe_trace)
+        tracer.remove_slow_span_listener(self._on_slow_span)
         self.gc_queue.put(None)  # wake GC so it can observe stop
-        # the loops that write storage are joined before the db closes
+        # The loops that write storage or submit to the sinks are joined
+        # before the sinks drain and the db closes: an in-flight gc_once()
+        # may still enqueue a release.
         self.supervisor.join("gc", timeout=10.0)
         self.supervisor.join("health", timeout=10.0)
         self.supervisor.join("reconciler", timeout=10.0)
         self.plugin.core.stop_streams()
         self.plugin.memory.stop_streams()
+        if self.crd_recorder is not None:
+            self.crd_recorder.stop()
+        if self.events is not None:
+            self.events.stop()
         self.storage.close()

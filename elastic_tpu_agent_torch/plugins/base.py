@@ -12,9 +12,10 @@ not when this module is imported: ``PluginConfig`` and the plugins'
 allocation logic run where grpcio and protobuf are not installed.
 
 What the agent's config carries besides, and this copy does not: the
-sampler, metrics, CRD recorder, event recorder, slice registry and
-timeline seams, and the ``dp.run`` failpoint; they come with those
-subsystems. The restart backoff is a constant, as nothing sets it; the
+sampler and slice registry seams and the ``dp.run`` failpoint; they come
+with those subsystems. The config carries the lag tracker, which the
+agent's does not: the port's GC reports deletion-to-reclaim lag. The
+restart backoff is a constant, as nothing sets it; the
 gRPC pool size is the manager's (``--dp-pool-size``). The manager builds
 the plugin bundle directly: the port has one plugin kind, so there is no
 ``plugin_factory``.
@@ -65,6 +66,16 @@ class PluginConfig:
     sitter: object = None
     storage: object = None
     locator_factory: Optional[Callable[[str], object]] = None
+    # observability seams, all optional and fire-and-forget: AgentMetrics
+    # (metrics.py), the ElasticTPU CRD recorder (crd_recorder.py), the k8s
+    # Event recorder (kube/events.py), the lifecycle Timeline
+    # (timeline.py) and the detection-lag tracker (latency.py) that GC
+    # reports its reclaims to
+    metrics: object = None
+    crd_recorder: object = None
+    events: object = None
+    timeline: object = None
+    lag_tracker: object = None
     extra: dict = field(default_factory=dict)
 
 

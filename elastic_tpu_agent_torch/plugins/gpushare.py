@@ -42,9 +42,22 @@ bundle runs the supervised health and GC loops and serves the reconciler
 container's core and memory binds share, which the reconciler takes
 around a pod).
 
-Not ported in this slice: the agent's timeline, events, CRD recorder,
-metrics and sampler hooks, the slice env, and the drain's and
-repartition's ``restamp_spec_env_locked``.
+The observability seams are the agent's, each optional and never
+load-bearing: the timeline journals bind_intent, bind_commit,
+bind_rollback and bind_replay, card-health flips and GC reclaims; the
+Event recorder posts TPUBound / TPUBindFailed on the pod and
+TPUReclaimed and card-health Events on the node; the CRD recorder
+publishes Bound and Released objects and flips inventory objects on
+health changes; AgentMetrics takes the Allocate and PreStart latencies,
+the in-flight binds, the bind-lock wait, the bound allocations, the
+healthy cards and GC's reclaims. GC also reports each reclaim's lag from
+the sitter's deletion mark to the detection-lag tracker, with trigger
+``event`` when a queued deletion woke it and ``poll`` on its periodic
+tick.
+
+Not ported in this slice: the agent's sampler hooks, the slice env, the
+ICI packing histogram, and the drain's and repartition's
+``restamp_spec_env_locked``.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ import logging
 import os
 import queue
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -72,7 +86,15 @@ from ..common import (
     StripedLockSet,
     container_annotation,
 )
+from .. import timeline as tl
 from ..device.qos import qos_env, visibility_env
+from ..kube.events import (
+    ReasonBindFailed,
+    ReasonBound,
+    ReasonChipHealthy,
+    ReasonChipUnhealthy,
+    ReasonReclaimed,
+)
 from ..slices import packing
 from ..tracing import get_tracer
 from ..types import AllocationRecord, Device, PodContainer
@@ -263,6 +285,10 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         self._alloc_dir = config.extra.get(
             "alloc_spec_dir", DEFAULT_ALLOC_SPEC_DIR
         )
+        self._metrics = config.metrics
+        self._crd = config.crd_recorder
+        self._events = config.events
+        self._timeline = config.timeline
 
     # -- health ---------------------------------------------------------------
 
@@ -332,6 +358,7 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
 
     def allocate_container(self, ids: Iterable[str]) -> ContainerAllocation:
         """Allocate for one container's fake device ids."""
+        t0 = time.monotonic()
         device = Device(ids, self.resource)
         with get_tracer().trace("Allocate", resource=self.resource,
                                 hash=device.hash, n_ids=len(device.ids),
@@ -343,6 +370,8 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
             logger.info("Allocate %s: %d ids -> hash %s [trace %s]",
                         self.resource, len(device.ids), device.hash,
                         tr.trace_id)
+            if self._metrics is not None:
+                self._metrics.observe_allocate(time.monotonic() - t0)
         return alloc
 
     def GetDevicePluginOptions(self, request, context):  # noqa: N802, ARG002
@@ -422,7 +451,10 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
     def pre_start(self, ids: Iterable[str]) -> None:
         """Bind one container's fake device ids (PreStartContainer), under
         a trace whose id the spec env carries."""
+        t0 = time.monotonic()
         device = Device(ids, self.resource)
+        if self._metrics is not None:
+            self._metrics.bind_inflight.inc()
         with get_tracer().trace(
             "PreStartContainer", resource=self.resource, hash=device.hash,
             n_ids=len(device.ids), node=self._config.node_name,
@@ -434,6 +466,10 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                                  "[trace %s]", self.resource, device.hash,
                                  tr.trace_id)
                 raise
+            finally:
+                if self._metrics is not None:
+                    self._metrics.bind_inflight.dec()
+                    self._metrics.observe_prestart(time.monotonic() - t0)
 
     def PreStartContainer(self, request, context):  # noqa: N802, ARG002
         from ..gen import deviceplugin_pb2 as dp
@@ -474,7 +510,16 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         ).get(AnnotationTraceID, "")
         if admission_id:
             get_tracer().adopt_id(admission_id)
-        self._bind_located(device, owner, pod)
+        try:
+            self._bind_located(device, owner, pod)
+        except Exception as e:
+            if self._events is not None:
+                self._events.pod_event(
+                    owner.namespace, owner.name, ReasonBindFailed,
+                    f"{self.resource} {device.hash}: {e}", type_="Warning",
+                    uid=pod.get("metadata", {}).get("uid", ""),
+                )
+            raise
 
     def _chips_from_ids(self, device: Device) -> List[int]:
         """Card indexes encoded in the fake ids: the placement in
@@ -490,7 +535,7 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         """Write-ahead intent: what recovery needs to roll this bind back
         (the link ids it will make) or replay it (the ids), durable before
         the first side effect."""
-        return self._storage.journal_intent(
+        intent_id = self._storage.journal_intent(
             owner.pod_key, owner.container, self.resource, device.hash,
             {
                 "device_ids": list(device.ids),
@@ -498,6 +543,32 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                 "planned_link_ids": list(planned),
             },
         )
+        if self._timeline is not None:
+            self._timeline.emit(
+                tl.KIND_BIND_INTENT,
+                keys=self._bind_keys(owner, device, chip_indexes),
+                resource=self.resource, intent_id=intent_id,
+                n_ids=len(device.ids),
+            )
+        return intent_id
+
+    @staticmethod
+    def _bind_keys(owner, device: Device, chip_indexes: List[int]) -> Dict:
+        return {
+            "pod": owner.pod_key,
+            "container": owner.container,
+            "hash": device.hash,
+            "chips": list(chip_indexes),
+        }
+
+    def _emit_rollback(self, owner, device: Device, chip_indexes: List[int],
+                       intent_id: int, reason: str) -> None:
+        if self._timeline is not None:
+            self._timeline.emit(
+                tl.KIND_BIND_ROLLBACK,
+                keys=self._bind_keys(owner, device, chip_indexes),
+                resource=self.resource, intent_id=intent_id, reason=reason,
+            )
 
     def _bind_located(self, device: Device, owner, pod: dict) -> None:
         annotations = pod.get("metadata", {}).get("annotations", {}) or {}
@@ -520,6 +591,8 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                 except Exception:
                     # rolled back: the intent must not linger
                     self._storage.journal_remove(intent_id)
+                    self._emit_rollback(owner, device, chip_indexes,
+                                        intent_id, "handled_failure")
                     raise
             finally:
                 # on every exit this thread stops shielding the intent
@@ -555,6 +628,8 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
             except Exception:
                 self._rollback_created(created)
                 self._storage.journal_remove(intent_id)
+                self._emit_rollback(owner, device, chip_indexes, intent_id,
+                                    "materialize_failed")
                 raise
             try:
                 self._finish_bind(device, owner, pod, annotations,
@@ -562,6 +637,8 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
             except Exception:
                 # _finish_bind rolled back the spec and links
                 self._storage.journal_remove(intent_id)
+                self._emit_rollback(owner, device, chip_indexes, intent_id,
+                                    "handled_failure")
                 raise
         finally:
             self._storage.intent_done(intent_id)
@@ -588,8 +665,11 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         # miss the sibling and write unmerged specs.
         locks = _BIND_LOCKS  # one reference: acquire and release pair
         with get_tracer().span("bind_lock_wait") as sp:
-            sp.set(wait_ms=round(locks.acquire_key(owner.pod_key) * 1000, 3))
+            lock_wait_s = locks.acquire_key(owner.pod_key)
+            sp.set(wait_ms=round(lock_wait_s * 1000, 3))
         try:
+            if self._metrics is not None:
+                self._metrics.bind_lock_wait.observe(lock_wait_s)
             own_path = os.path.join(self._alloc_dir, f"{device.hash}.json")
             fresh_bind = not os.path.exists(own_path)
             try:
@@ -626,6 +706,35 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                 self._storage.journal_commit(intent_id)
         finally:
             locks.release_key(owner.pod_key)
+        # The sink fan-out after the lock (the timeline journal, the gauge,
+        # the CRD and Event enqueues) is its own phase of the bind: the
+        # writes are asynchronous, the enqueue work runs on this thread.
+        with get_tracer().span("sink_enqueue"):
+            if self._timeline is not None:
+                # journaled AFTER the checkpoint and the journal commit: a
+                # crash in between is what the reconciler's intent repair
+                # (and its reconcile_repair event) narrates instead
+                self._timeline.emit(
+                    tl.KIND_BIND_COMMIT,
+                    keys=self._bind_keys(owner, device, chip_indexes),
+                    resource=self.resource, intent_id=intent_id,
+                    links=len(created),
+                )
+            if self._metrics is not None:
+                self._metrics.bound_allocations.set(self._storage.count())
+            if self._crd is not None:
+                self._crd.record_bound(
+                    device.hash, self.resource, len(device.ids),
+                    owner.namespace, owner.name, owner.container,
+                    chip_indexes, trace_id=get_tracer().current_id(),
+                )
+            if self._events is not None:
+                self._events.pod_event(
+                    owner.namespace, owner.name, ReasonBound,
+                    f"bound {self.resource} ({len(device.ids)} units) to "
+                    f"GPU card(s) {','.join(map(str, chip_indexes))}",
+                    uid=pod.get("metadata", {}).get("uid", ""),
+                )
         logger.info("bound %s %s -> %s cards %s", self.resource, device.hash,
                     owner.pod_key, chip_indexes)
 
@@ -787,6 +896,14 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
             raise LocateError(f"pod {owner.pod_key} not found anywhere")
         get_tracer().annotate(
             pod=f"{owner.namespace}/{owner.name}", container=owner.container)
+        if self._timeline is not None:
+            # the transaction below journals its own intent and commit;
+            # this marks them as a recovery replay, not a kubelet bind
+            self._timeline.emit(
+                tl.KIND_BIND_REPLAY,
+                keys=self._bind_keys(owner, device, []),
+                resource=self.resource,
+            )
         self._bind_located(device, owner, pod)
 
 
@@ -916,7 +1033,69 @@ class GPUSharePlugin:
             return False
         went_bad, recovered = self.core.apply_health(healthy)
         self.memory.apply_health(healthy)
+        if went_bad or recovered:
+            self._report_health(went_bad, recovered)
+        if self._config.metrics is not None:
+            self._config.metrics.healthy_chips.set(
+                len(self.core._chips) - len(self.core.unhealthy_chips()))
         return bool(went_bad or recovered)
+
+    def _report_health(self, went_bad: set, recovered: set) -> None:
+        """Health flips to the CRD inventory, the node's and the bound
+        pods' Events and the timeline."""
+        config = self._config
+        try:
+            reasons = config.operator.health_reasons()
+        except Exception:  # noqa: BLE001 - reasons are best-effort
+            reasons = {}
+        if config.crd_recorder is not None:
+            for idx in sorted(went_bad):
+                config.crd_recorder.record_chip_health(
+                    idx, False, reasons.get(idx, "reported unhealthy"))
+            for idx in sorted(recovered):
+                config.crd_recorder.record_chip_health(idx, True)
+        events = config.events
+        if events is not None:
+            for idx in sorted(went_bad):
+                why = reasons.get(idx, "reported unhealthy by operator")
+                events.node_event(
+                    ReasonChipUnhealthy,
+                    f"GPU card {idx} unhealthy ({why}); "
+                    "kubelet will stop placing units on it",
+                    type_="Warning",
+                )
+            for idx in sorted(recovered):
+                events.node_event(ReasonChipHealthy,
+                                  f"GPU card {idx} recovered")
+            if went_bad:
+                self._warn_bound_pods(events, went_bad)
+        if config.timeline is not None:
+            if went_bad:
+                config.timeline.emit(
+                    tl.KIND_CHIP_HEALTH, keys={"chips": sorted(went_bad)},
+                    healthy=False,
+                    reasons={str(i): reasons[i] for i in sorted(went_bad)
+                             if i in reasons},
+                )
+            if recovered:
+                config.timeline.emit(
+                    tl.KIND_CHIP_HEALTH, keys={"chips": sorted(recovered)},
+                    healthy=True,
+                )
+
+    def _warn_bound_pods(self, events, went_bad: set) -> None:
+        """Tell each pod bound to a newly dead card that its device is
+        gone: ``kubectl describe pod`` answers "why did my job stall"."""
+        for _, info in list(self._config.storage.items()):
+            for record in info.records():
+                hit = sorted(set(record.chip_indexes) & went_bad)
+                if hit:
+                    events.pod_event(
+                        info.namespace, info.name, ReasonChipUnhealthy,
+                        f"GPU card(s) {','.join(map(str, hit))} bound to "
+                        "this pod became unhealthy",
+                        type_="Warning",
+                    )
 
     def health_loop(self, stop: threading.Event) -> None:
         """Poll at once, then every HEALTH_PERIOD_S: a card that died
@@ -943,12 +1122,15 @@ class GPUSharePlugin:
                            namespace, name, e)
             return False
 
-    def gc_once(self) -> int:
+    def gc_once(self, trigger: str = "poll") -> int:
         """Reclaim the allocations of pods that no longer exist: their
-        links, specs, sidecars and records. Returns the pods reclaimed."""
+        links, specs, sidecars and records. Returns the pods reclaimed.
+        ``trigger`` says what woke the sweep (``event``: a deletion the
+        sitter queued; ``poll``: the periodic tick), for the detection-lag
+        tracker."""
         faults.fire("gc.sweep")
         with get_tracer().trace("gc_sweep") as tr:
-            reclaimed = self._gc_sweep()
+            reclaimed = self._gc_sweep(trigger)
             tr.set(reclaimed=reclaimed)
             if reclaimed == 0:
                 # the periodic tick fires forever; empty sweeps would churn
@@ -956,10 +1138,11 @@ class GPUSharePlugin:
                 tr.discard()
         return reclaimed
 
-    def _gc_sweep(self) -> int:
+    def _gc_sweep(self, trigger: str) -> int:
         reclaimed = 0
-        storage = self._config.storage
-        operator = self._config.operator
+        config = self._config
+        storage = config.storage
+        operator = config.operator
         for key, info in list(storage.items()):
             if not self._pod_is_gone(info.namespace, info.name):
                 continue
@@ -979,23 +1162,46 @@ class GPUSharePlugin:
                         # the owner is passed, so a sibling outliving this
                         # unlink never names the freed devices
                         self.core.remove_alloc_spec(record.device.hash, owner)
+                        if config.crd_recorder is not None:
+                            config.crd_recorder.record_released(
+                                record.device.hash)
                 sp.set(hashes=hashes)
                 storage.delete(info.namespace, info.name)
+                if config.timeline is not None:
+                    config.timeline.emit(
+                        tl.KIND_POD_RECLAIMED,
+                        keys={"pod": key, "hash": hashes[0] if hashes else ""},
+                        source="gc", hashes=hashes,
+                    )
             reclaimed += 1
+            if config.lag_tracker is not None:
+                config.lag_tracker.handled("gc", "reclaimed_pod", key=key,
+                                           trigger=trigger)
+            if config.events is not None:
+                # the pod no longer exists: the Event lands on this Node
+                config.events.node_event(
+                    ReasonReclaimed,
+                    f"reclaimed GPU allocation(s) of deleted pod {key}",
+                )
             logger.info("GC: reclaimed %s", key)
+        if config.metrics is not None:
+            if reclaimed:
+                config.metrics.gc_reclaimed.inc(reclaimed)
+            config.metrics.bound_allocations.set(storage.count())
         return reclaimed
 
     def gc(self, gc_queue: "queue.Queue", stop: threading.Event) -> None:
         """Sweep on each pod deletion the sitter queues, else every
         GC_PERIOD_S, until ``stop``."""
         while not stop.is_set():
+            trigger = "event"
             try:
                 gc_queue.get(timeout=GC_PERIOD_S)
             except queue.Empty:
-                pass
+                trigger = "poll"
             if stop.is_set():
                 return
             try:
-                self.gc_once()
+                self.gc_once(trigger)
             except Exception:  # noqa: BLE001
                 logger.exception("GC pass failed")

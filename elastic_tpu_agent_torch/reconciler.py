@@ -22,9 +22,17 @@ the boot pass (``boot=True``, run before the device-plugin servers exist)
 acts at once. ``dry_run`` makes periodic passes observers; the boot pass
 still repairs.
 
-The agent's drain, migration, repartition, slice-reformer, CRD, timeline,
-event, event-bus and metrics hooks (``None`` by the agent's defaults)
-come with those slices, and so do its slice passes.
+The agent's observability hooks are ported, each optional: every repair
+is counted in ``elastic_tpu_reconcile_repairs_total{kind}``, journaled as
+one ``reconcile_repair`` timeline event and reported to the
+detection-lag tracker; a repairing periodic pass posts one
+``TPUReconciled`` node Event; the boot pass reconciles the node's
+ElasticTPU objects against the store. With an event bus, pod deltas,
+assignment deltas and store-change notifications start a targeted pass
+at once, and the periodic sweep stretches by ``event_safety_net_factor``
+while the bus is healthy (never while the last pass left work
+outstanding). The agent's drain, migration, repartition and
+slice-reformer hooks come with those slices, and so do its slice passes.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from . import events as bus_events
 from . import faults
 from .common import AllocSidecarSubdirs
 from .storage.store import StorageError
@@ -43,6 +52,13 @@ from .tracing import get_tracer
 from .types import Device, PodContainer
 
 logger = logging.getLogger(__name__)
+
+# Event-triggered pass pacing: a burst of bus events (one bind emits
+# several store notifications) coalesces behind one short debounce, and
+# event-triggered passes never start closer together than the minimum
+# interval.
+EVENT_DEBOUNCE_S = 0.01
+EVENT_MIN_INTERVAL_S = 0.05
 
 DEFAULT_PERIOD_S = 30.0
 
@@ -109,9 +125,16 @@ class Reconciler:
         sitter,
         snapshot_source=None,
         alloc_spec_dir: str = "",
+        metrics=None,
+        events=None,
+        crd_recorder=None,
         period_s: float = DEFAULT_PERIOD_S,
         dry_run: bool = False,
         rng=None,
+        timeline=None,
+        lag_tracker=None,
+        bus=None,
+        event_safety_net_factor: float = 1.0,
     ) -> None:
         self._storage = storage
         self._operator = operator
@@ -119,6 +142,11 @@ class Reconciler:
         self._sitter = sitter
         self._source = snapshot_source
         self._alloc_dir = alloc_spec_dir
+        self._metrics = metrics
+        self._events = events
+        self._crd = crd_recorder
+        self._timeline = timeline
+        self._lag = lag_tracker
         self.period_s = period_s
         self.dry_run = dry_run
         self._rng = rng if rng is not None else random.Random()
@@ -142,18 +170,74 @@ class Reconciler:
         # re-attempted and warn-logged every pass forever.
         self._replay_backoff: Dict[tuple, tuple] = {}
         self._last_error: Optional[str] = None
+        # Event-driven passes (events.py): the periodic sweep stays the
+        # correctness backstop for dropped events, stretched while the
+        # bus is healthy.
+        self._bus = bus
+        self.event_safety_net_factor = max(1.0, float(
+            event_safety_net_factor))
+        self._event_sub = None
+        if bus is not None:
+            self._event_sub = bus.subscribe(
+                "reconciler",
+                (bus_events.POD_DELTA, bus_events.ASSIGNMENT_DELTA,
+                 bus_events.STORE_BIND, bus_events.STORE_INTENT),
+            )
+        self._event_passes_total = 0
+        # what woke the running pass ("event" | "poll"), for the lag
+        # tracker
+        self._pass_trigger = "poll"
+        # pod keys whose records the triggering events saw DELETED: commit-
+        # ordered proof of a persistent divergence, exempt from the
+        # two-pass confirmation for this one pass
+        self._event_evidence: set = set()
 
     # -- plumbing -------------------------------------------------------------
 
-    def _count(self, report: dict, kind: str) -> None:
+    def _count(
+        self, report: dict, kind: str, keys: Optional[dict] = None,
+        emit: bool = True, **attrs,
+    ) -> None:
         report[KIND_REPORT_KEY[kind]] += 1
         with self._lock:
             self._repairs[kind] = self._repairs.get(kind, 0) + 1
+        m = self._metrics
+        if m is not None and hasattr(m, "reconcile_repairs"):
+            try:
+                m.reconcile_repairs.labels(kind=kind).inc()
+            except Exception:  # noqa: BLE001 - metrics never break repair
+                pass
+        if self._lag is not None:
+            # The reconciler both detects and repairs in one pass, so
+            # one call observes both stages; key resolution mirrors the
+            # timeline keys (pod first, then the device hash).
+            self._lag.handled(
+                "reconciler", kind,
+                key=(keys or {}).get("pod") or (keys or {}).get("hash")
+                or "",
+                trigger=self._pass_trigger,
+            )
+        if emit and self._timeline is not None:
+            from .timeline import KIND_RECONCILE_REPAIR
+
+            # One journal event per repair, divergence class as an
+            # attribute: per-entity histories show WHAT the reconciler
+            # did to them, not just that repairs happened somewhere.
+            self._timeline.emit(
+                KIND_RECONCILE_REPAIR, keys=keys,
+                **{"class": kind, **attrs},
+            )
 
     def _sweep_failure(self, report: dict) -> None:
         report["sweep_failures"] += 1
         with self._lock:
             self._sweep_failures_total += 1
+        m = self._metrics
+        if m is not None:
+            try:
+                m.orphan_sweep_failures.inc()
+            except Exception:  # noqa: BLE001 - metrics never break repair
+                pass
 
     def _replay_failure(self, report: dict) -> None:
         report["replay_failures"] += 1
@@ -190,15 +274,19 @@ class Reconciler:
 
     # -- one pass -------------------------------------------------------------
 
-    def reconcile_once(self, boot: bool = False) -> dict:
+    def reconcile_once(self, boot: bool = False,
+                       trigger: str = "poll") -> dict:
         """One full convergence pass; returns the per-class report.
 
         ``boot=True`` is the agent-startup restore: it runs before the
         device-plugin servers register (no bind can be in flight), so
-        every repair acts at once. Periodic passes confirm absence-based
-        repairs across two passes and honor ``dry_run``.
+        every repair acts at once and the CRD objects are reconciled too.
+        Periodic passes confirm absence-based repairs across two passes
+        and honor ``dry_run``. ``trigger`` records what woke the pass
+        ("event" or "poll") for the detection-lag tracker.
         """
         faults.fire("reconciler.tick")
+        self._pass_trigger = str(trigger)
         t_pass = time.monotonic()
         active = boot or not self.dry_run
         report = _new_report(boot, self.dry_run and not boot)
@@ -259,11 +347,30 @@ class Reconciler:
             )
         with get_tracer().span("reconcile_unbound"):
             self._replay_unbound(assignments, report, boot, active)
+        if boot and self._crd is not None:
+            self._reconcile_crd()
 
         report["pending_confirmation"] = len(self._tick_candidates)
         report["repaired_total"] = sum(
             report[key] for key in KIND_REPORT_KEY.values()
         )
+        if not boot and report["repaired_total"] and self._events is not None:
+            # one batched node Event a repairing periodic pass (the boot
+            # pass's is posted by NodeManager.restore())
+            from .kube.events import ReasonReconciled
+
+            try:
+                self._events.node_event(
+                    ReasonReconciled,
+                    "reconciler repaired "
+                    + ", ".join(
+                        f"{report[key]} {kind}"
+                        for kind, key in KIND_REPORT_KEY.items()
+                        if report[key]
+                    ),
+                )
+            except Exception:  # noqa: BLE001 - observability only
+                logger.exception("reconcile event emit failed")
         duration_s = time.monotonic() - t_pass
         report["duration_s"] = duration_s
         # Converged = the pass ended with NOTHING outstanding: no failed
@@ -288,6 +395,16 @@ class Reconciler:
             if converged:
                 self._last_converged_ts = wall_now
             self._last_report = dict(report)
+        m = self._metrics
+        if m is not None:
+            try:
+                m.reconcile_runs.inc()
+                m.reconcile_duration.observe(duration_s)
+                if converged:
+                    m.reconcile_last_converged.set(wall_now)
+                m.open_bind_intents.set(len(self._storage.open_intents()))
+            except Exception:  # noqa: BLE001
+                pass
         return report
 
     # -- intents --------------------------------------------------------------
@@ -361,7 +478,13 @@ class Reconciler:
                                 "reconcile: re-create %s failed", link_id
                             )
                 self._storage.journal_remove(intent["id"])
-                self._count(report, KIND_INTENT_COMMITTED)
+                self._count(
+                    report, KIND_INTENT_COMMITTED,
+                    keys={"pod": owner.pod_key,
+                          "container": owner.container,
+                          "hash": alloc_hash},
+                    intent_id=intent["id"], resource=resource,
+                )
                 logger.info(
                     "reconcile: intent %d (%s %s) was committed; journal "
                     "row dropped", intent["id"], owner.pod_key, alloc_hash,
@@ -382,7 +505,14 @@ class Reconciler:
                 retry_exists = True  # can't tell: stay non-destructive
             if retry_exists:
                 self._storage.journal_remove(intent["id"])
-                self._count(report, KIND_INTENT_ROLLED_BACK)
+                self._count(
+                    report, KIND_INTENT_ROLLED_BACK,
+                    keys={"pod": owner.pod_key,
+                          "container": owner.container,
+                          "hash": alloc_hash},
+                    intent_id=intent["id"], resource=resource,
+                    reason="superseded_by_retry",
+                )
                 logger.info(
                     "reconcile: dropped stale intent %d for %s — a "
                     "newer intent owns hash %s", intent["id"],
@@ -409,7 +539,15 @@ class Reconciler:
                 except OSError:
                     pass
             self._storage.journal_remove(intent["id"])
-            self._count(report, KIND_INTENT_ROLLED_BACK)
+            self._count(
+                report, KIND_INTENT_ROLLED_BACK,
+                keys={"pod": owner.pod_key,
+                      "container": owner.container,
+                      "hash": alloc_hash,
+                      "chips": list(payload.get("chip_indexes", []))},
+                intent_id=intent["id"], resource=resource,
+                reason="crashed_mid_bind",
+            )
             logger.warning(
                 "reconcile: rolled back crashed bind intent %d "
                 "(%s %s %s)", intent["id"], owner.pod_key, resource,
@@ -475,7 +613,14 @@ class Reconciler:
                 continue
             try:
                 self._operator.create(record.chip_indexes[pos], link_id)
-                self._count(report, KIND_RESTORED_LINK)
+                self._count(
+                    report, KIND_RESTORED_LINK,
+                    keys={"pod": owner.pod_key,
+                          "container": owner.container,
+                          "hash": record.device.hash,
+                          "chips": [record.chip_indexes[pos]]},
+                    link=link_id,
+                )
             except Exception:  # noqa: BLE001
                 logger.exception("reconcile: re-create %s failed", link_id)
         plugin = self._plugin_for(resource)
@@ -489,7 +634,13 @@ class Reconciler:
         # (idempotent — same device, same record, re-merged siblings).
         try:
             plugin.rebind(owner, record.device)
-            self._count(report, KIND_RESTORED_SPEC)
+            self._count(
+                report, KIND_RESTORED_SPEC,
+                keys={"pod": owner.pod_key, "container": owner.container,
+                      "hash": record.device.hash,
+                      "chips": list(record.chip_indexes)},
+                resource=resource,
+            )
         except Exception as e:  # noqa: BLE001
             logger.warning(
                 "reconcile: spec rebuild for %s %s failed: %s",
@@ -535,9 +686,19 @@ class Reconciler:
                     owner.container, {}
                 ).pop(resource, None),
             )
+            if self._crd is not None:
+                try:
+                    self._crd.record_released(rec.device.hash)
+                except Exception:  # noqa: BLE001 - observability only
+                    pass
         try:
             plugin.rebind(owner, Device(list(new_ids), resource))
-            self._count(report, KIND_REBOUND_DRIFT)
+            self._count(
+                report, KIND_REBOUND_DRIFT,
+                keys={"pod": owner.pod_key, "container": owner.container,
+                      "hash": new_hash},
+                resource=resource, old_hash=record.device.hash,
+            )
             logger.warning(
                 "reconcile: %s %s re-bound after kubelet device-id drift "
                 "(%s -> %s)", owner.pod_key, resource,
@@ -568,8 +729,17 @@ class Reconciler:
                         )
                         self._sweep_failure(report)
                 spec_plugin.remove_alloc_spec(record.device.hash, owner)
+                if self._crd is not None:
+                    try:
+                        self._crd.record_released(record.device.hash)
+                    except Exception:  # noqa: BLE001
+                        pass
         self._storage.delete(info.namespace, info.name)
-        self._count(report, KIND_RECLAIMED_POD)
+        self._count(
+            report, KIND_RECLAIMED_POD,
+            keys={"pod": info.key},
+            hashes=[record.device.hash for record in info.records()],
+        )
         logger.info("reconcile: reclaimed dead pod %s", info.key)
 
     # -- orphan sweep ---------------------------------------------------------
@@ -630,7 +800,7 @@ class Reconciler:
                 continue
             try:
                 self._operator.delete(link_id)
-                self._count(report, KIND_ORPHAN_LINK)
+                self._count(report, KIND_ORPHAN_LINK, link=link_id)
             except Exception:  # noqa: BLE001
                 # NOT dropped forever any more: counted, and retried on
                 # the next pass (the link stays unrecorded).
@@ -653,7 +823,7 @@ class Reconciler:
                 continue
             try:
                 os.unlink(os.path.join(self._alloc_dir, fname))
-                self._count(report, KIND_ORPHAN_SPEC)
+                self._count(report, KIND_ORPHAN_SPEC, keys={"hash": stem})
                 # the allocation's sidecar files die with its spec (the
                 # list remove_alloc_spec uses)
                 for subdir in AllocSidecarSubdirs:
@@ -712,11 +882,16 @@ class Reconciler:
                     self._candidate(ukey)
                     report["divergences_observed"] += 1
                     continue
-                if not boot and not self._confirmed(ukey):
+                if not boot and not self._confirmed(ukey) and (
+                    owner.pod_key not in self._event_evidence
+                ):
                     # kubelet assigns devices BEFORE PreStartContainer
                     # runs; a fresh assignment is normally seconds from
                     # binding itself. Only replay ones that stay unbound
-                    # across two passes.
+                    # across two passes, UNLESS the triggering events
+                    # held this pod's store-delete notification: the
+                    # store itself confirmed the record is gone (an
+                    # in-flight bind never emits a delete).
                     continue
                 failures, next_run = self._replay_backoff.get(ukey, (0, 0))
                 if not boot and self._runs_total < next_run:
@@ -726,7 +901,13 @@ class Reconciler:
                     continue  # stale kubelet state or unknowable: skip
                 try:
                     plugin.rebind(owner, Device(list(ids), resource))
-                    self._count(report, KIND_REPLAYED_BIND)
+                    self._count(
+                        report, KIND_REPLAYED_BIND,
+                        keys={"pod": owner.pod_key,
+                              "container": owner.container,
+                              "hash": alloc_hash},
+                        resource=resource,
+                    )
                     self._replay_backoff.pop(ukey, None)
                     logger.warning(
                         "reconcile: replayed unbound assignment %s %s -> "
@@ -761,28 +942,114 @@ class Reconciler:
         for key in [k for k in self._replay_backoff if k not in live_keys]:
             del self._replay_backoff[key]
 
+    # -- CRD inventory (boot only, as restore() always did) -------------------
+
+    def _reconcile_crd(self) -> None:
+        live = [
+            record.device.hash
+            for _, info in self._storage.items()
+            for record in info.records()
+        ]
+        try:
+            chips = [c.index for c in self._operator.devices()]
+        except Exception:  # noqa: BLE001 - discovery failure
+            chips = []
+        with get_tracer().span("crd_reconcile", live=len(live)):
+            try:
+                self._crd.reconcile(live, chip_indexes=chips)
+            except Exception:  # noqa: BLE001 - observability, never fatal
+                logger.exception("reconcile: CRD sweep failed")
+
     # -- the supervised loop --------------------------------------------------
 
     def run(self, stop: threading.Event) -> None:
         """Supervised loop: jittered pacing around ``period_s`` (0.75x -
         1.25x, so a fleet of agents never thunders onto the kubelet in
-        lockstep after a node-pool-wide restart)."""
+        lockstep after a node-pool-wide restart).
+
+        With an event bus the wait doubles as an event trigger: bus
+        events start a targeted pass immediately (debounced), and the
+        periodic sweep stretches to ``period_s x
+        event_safety_net_factor`` while the bus is healthy — unless the
+        LAST pass left work outstanding (pending confirmations,
+        failures, observed divergences), in which case the next sweep
+        comes at the base period regardless (two-pass confirmation must
+        never wait out a stretched safety net)."""
         consecutive_failures = 0
+        last_event_pass = 0.0
+        outstanding = False
         while True:
-            delay = self.period_s * (0.75 + 0.5 * self._rng.random())
-            if stop.wait(delay):
-                return
+            # Evidence lives for exactly one pass: cleared before the
+            # wait, set only when this iteration drains store-delete
+            # notifications.
+            self._event_evidence = set()
+            factor = 1.0
+            sub = self._event_sub
+            if (
+                sub is not None and not outstanding
+                and self._bus.healthy()
+            ):
+                factor = self.event_safety_net_factor
+            delay = self.period_s * factor * (
+                0.75 + 0.5 * self._rng.random()
+            )
+            if sub is None:
+                if stop.wait(delay):
+                    return
+                trigger = "poll"
+            else:
+                trigger = sub.wait_trigger(stop, delay)
+                if trigger == "stop":
+                    return
+                if trigger == "event":
+                    # Debounce the burst, and pace event-triggered
+                    # passes at least EVENT_MIN_INTERVAL_S apart.
+                    since = time.monotonic() - last_event_pass
+                    pace = max(EVENT_DEBOUNCE_S,
+                               EVENT_MIN_INTERVAL_S - since)
+                    if stop.wait(pace):
+                        return
+                    drained = sub.drain()
+                    last_event_pass = time.monotonic()
+                    if drained and all(
+                        e.topic == bus_events.BUS_WAKE for e in drained
+                    ):
+                        # Pure bus-health wake (watch died/recovered):
+                        # run the sweep NOW at poll attribution — the
+                        # no-gap fallback — and recompute the stretch
+                        # on the next iteration.
+                        trigger = "poll"
+                    else:
+                        with self._lock:
+                            self._event_passes_total += 1
+                        # A store-delete notification is commit-ordered
+                        # proof the pod's record is GONE — not an
+                        # in-flight bind racing the kubelet List — so
+                        # the pass it triggers may replay that pod
+                        # without the two-pass confirmation wait.
+                        self._event_evidence = {
+                            e.key for e in drained
+                            if e.topic == bus_events.STORE_BIND
+                            and e.kind == "delete"
+                        }
             with get_tracer().trace("reconcile") as tr:
                 try:
-                    report = self.reconcile_once()
+                    report = self.reconcile_once(trigger=trigger)
                     consecutive_failures = 0
+                    outstanding = bool(
+                        report["pending_confirmation"]
+                        or report["sweep_failures"]
+                        or report["replay_failures"]
+                        or report["divergences_observed"]
+                    )
                 except Exception as e:  # noqa: BLE001
                     # One-off failures (apiserver blip, transient sqlite
                     # lock) are absorbed without burning a supervisor
                     # restart; a PERSISTENTLY failing pass must escape to
-                    # the supervisor, or the node silently loses all
-                    # self-repair.
+                    # the supervisor — otherwise the node silently loses
+                    # all self-repair while /healthz reads healthy.
                     consecutive_failures += 1
+                    outstanding = True  # failed pass: retry at base period
                     with self._lock:
                         self._last_error = f"{type(e).__name__}: {e}"
                     if consecutive_failures >= 3:
@@ -806,8 +1073,10 @@ class Reconciler:
                     and report["replay_failures"] == 0
                     and report["divergences_observed"] == 0
                 ):
-                    # truly quiet passes run forever; they must not churn
-                    # real allocation traces out of the bounded ring
+                    # TRULY quiet passes run forever; don't churn real
+                    # allocation traces out of the bounded ring. Dry-run
+                    # observations and failing replays ARE the signal —
+                    # they must stay visible in /debug/traces.
                     tr.discard()
 
     # -- introspection --------------------------------------------------------
@@ -820,9 +1089,22 @@ class Reconciler:
             intents = self._storage.open_intents_brief()
         except Exception:  # noqa: BLE001 - storage may already be closed
             intents = []
+        sub = self._event_sub
+        events_block = None
+        if sub is not None:
+            events_block = {
+                "safety_net_factor": self.event_safety_net_factor,
+                "bus_healthy": self._bus.healthy(),
+                "subscription": sub.stats(),
+            }
         with self._lock:
+            if events_block is not None:
+                events_block["event_passes_total"] = (
+                    self._event_passes_total
+                )
             return {
                 "period_s": self.period_s,
+                "events": events_block,
                 "dry_run": self.dry_run,
                 "runs_total": self._runs_total,
                 "last_run_ts": self._last_run_ts,

@@ -4,19 +4,17 @@ The port's copy of ``elastic_tpu_agent/storage/store.py``: SQLite
 (stdlib, ACID, one file, WAL) on a hostPath, so that bindings survive an
 agent restart and ``NodeManager.restore()`` can converge them. The schema
 is the agent's, all five tables (``pods``, ``bind_intents``,
-``agent_state``, ``timeline``, ``timeline_meta``), and the records are the
-agent's JSON, so a node's db written by either agent opens in the other
-and a node switched between them keeps its bindings.
+``agent_state``, ``timeline``, ``timeline_meta``), and the rows are the
+agent's JSON, so that a node's db written by either agent opens in the
+other, bindings and lifecycle journal included.
 
-Ported: the pod records (``save``/``load``/``load_or_create``/``mutate``/
-``delete``/``count``/``items``/``for_each``/``corrupt_keys``, behind a
-read-through cache that a foreign connection's write drops), the bind
-intent journal, the agent-state documents, the retry of a transient
-"database is locked" and ``close``. Every write commits itself (the
-agent's ``storage_batch_window_s=0``, its default): the group-commit
-batcher and the ``timeline_*`` methods come with the port's
-``timeline.py``; their tables are created here so that the schema stays
-the agent's.
+The pod records sit behind a read-through cache that a foreign
+connection's write drops; beside them the bind intent journal, the
+agent-state documents and the timeline's ring-capped table. With
+``batch_window_s > 0`` commits go through the group-commit batcher
+(storage/batcher.py): load-bearing writes still wait for their covering
+commit. With a ``bus``, store-change notifications publish after their
+commit has landed (events.py).
 """
 
 from __future__ import annotations
@@ -29,9 +27,11 @@ import threading
 import time
 from typing import Callable, Iterator, Optional, Tuple
 
+from .. import events as events_mod
 from .. import faults
 from ..common import StripedLockSet
 from ..types import PodInfo
+from .batcher import GroupCommitBatcher, GroupCommitError
 
 logger = logging.getLogger(__name__)
 
@@ -52,9 +52,10 @@ _LOCKED_RETRY_DELAY_S = 0.05
 
 # sqlite3's per-connection compiled-statement cache is keyed by the SQL
 # text; the bind checkpoint/mutate path runs the same handful of
-# statements for every bind, so the hot SQL lives here as module
-# constants and the connection's cache is sized so that cold queries
-# never evict them.
+# statements thousands of times per churn burst, so the hot SQL lives
+# here as module constants (one string object each — guaranteed cache
+# hits) and the connection's cache is sized so cold diagnostics queries
+# can never evict the hot set.
 _STMT_CACHE_SIZE = 256
 _SQL_SAVE_POD = (
     "INSERT INTO pods(key, value) VALUES(?, ?) "
@@ -72,6 +73,7 @@ _SQL_UPSERT_STATE = (
     "VALUES(?, ?, ?) ON CONFLICT(key) DO UPDATE SET "
     "value=excluded.value, updated_ts=excluded.updated_ts"
 )
+
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS pods (
@@ -144,11 +146,23 @@ class Storage:
     save / load / load_or_create / delete / for_each / close.
     """
 
-    def __init__(self, path: str) -> None:
+    def __init__(self, path: str, batch_window_s: float = 0.0,
+                 bus=None) -> None:
         directory = os.path.dirname(os.path.abspath(path))
         os.makedirs(directory, exist_ok=True)
         self._path = path
         self._lock = threading.RLock()
+        # Optional events.EventBus: store-change notifications (bind
+        # commits on STORE_BIND, intent open/close on STORE_INTENT,
+        # agent_state writes on STORE_STATE). Notes accumulate under
+        # _lock at statement time and publish only AFTER the covering
+        # commit lands — inline for unbatched commits, from the
+        # group-commit batcher's flush path under batching — so a
+        # subscriber never hears about a write that later rolls back.
+        # Notifications are delivery HINTS for event-driven loops, not
+        # a replication log: consumers re-verify against the store.
+        self._bus = bus
+        self._pending_notes: list = []
         # Per-key striping for composite read-modify-writes (mutate()):
         # the sqlite connection itself stays serialized under self._lock,
         # but two RMWs for DIFFERENT pods never wait on each other's
@@ -156,12 +170,12 @@ class Storage:
         self._key_locks = StripedLockSet(64)
         # Read-through record cache: pod key -> parsed PodInfo snapshot
         # (None = the stored row fails to parse). Once a full scan has
-        # populated it, items()/for_each/corrupt_keys serve from memory:
-        # GC sweeps and reconciler passes stop re-parsing every row. Our
-        # own writes keep it coherent; writes from OTHER connections (a
-        # tool on the live db, the other agent) are detected via PRAGMA
-        # data_version, which sqlite bumps only for foreign
-        # modifications, and drop the cache wholesale.
+        # populated it, items()/for_each/corrupt_keys serve from memory —
+        # GC sweeps, health fan-outs and the sampler join stop re-parsing
+        # every row each tick. Our own writes keep it coherent; writes
+        # from OTHER connections (node-doctor against the live db) are
+        # detected via PRAGMA data_version, which sqlite bumps only for
+        # foreign modifications, and drop the cache wholesale.
         self._cache: dict = {}
         self._cache_complete = False
         self._data_version: Optional[int] = None
@@ -189,6 +203,133 @@ class Storage:
             self._db.commit()
         except sqlite3.Error as e:
             raise StorageError(f"open {path}: {e}") from e
+        # -- group-commit write batching (storage/batcher.py) -------------
+        # 0 = off (every write commits itself, the historical shape).
+        # >0 = statements still execute inline under the lock (reads on
+        # this connection stay read-your-writes), but the COMMIT is
+        # deferred to one flusher commit per window: load-bearing writes
+        # wait for their covering commit (durability unchanged, fsyncs
+        # amortized across concurrent writers), non-load-bearing ones
+        # (timeline events, intent-commit row drops) ride along free.
+        self.commits_total = 0   # commits this connection actually paid
+        self.writes_total = 0    # logical write transactions requested
+        self._batcher: Optional[GroupCommitBatcher] = None
+        if batch_window_s and batch_window_s > 0:
+            self._batcher = GroupCommitBatcher(
+                self._batch_commit, self._batch_rollback,
+                window_s=batch_window_s,
+                name=f"storage:{os.path.basename(path)}",
+                # The statement lock: the batcher's failure path must
+                # exclude writers while it decides which generations a
+                # rollback took with it (RLock, so the rollback callback
+                # may re-take it).
+                lock=self._lock,
+                on_commit=self._publish_batch_notes,
+            )
+
+    # -- group-commit plumbing (flusher-thread side) --------------------------
+
+    def _batch_commit(self) -> None:
+        """One group commit covering every statement executed since the
+        last flush; retried once on a transient cross-connection lock."""
+        with self._lock:
+            for attempt in (1, 2):
+                try:
+                    self._db.commit()
+                    self.commits_total += 1
+                    return
+                except sqlite3.Error as e:
+                    if not (self._is_transient_lock(e) and attempt == 1):
+                        raise
+                time.sleep(_LOCKED_RETRY_DELAY_S)
+
+    def _batch_rollback(self) -> None:
+        """A failed group commit rolls the whole open transaction back;
+        in-memory views that may now hold rolled-back state are dropped
+        (sync waiters get their error from the batcher)."""
+        with self._lock:
+            try:
+                self._db.rollback()
+            except sqlite3.Error:
+                pass
+            self._cache = {}
+            self._cache_complete = False
+            self._timeline_rows_cache = None
+            self._timeline_cap_stored = None
+            # Notes for statements that just rolled back must never
+            # publish — the events would describe state that does not
+            # exist on disk.
+            self._pending_notes = []
+
+    # -- store-change notifications (events.EventBus) -------------------------
+
+    def _note_locked(self, topic: str, kind: str, key: str) -> None:
+        """(lock held) Queue one store-change notification for the
+        commit that will cover the statement just executed."""
+        if self._bus is not None:
+            self._pending_notes.append((topic, kind, key))
+
+    def _publish_notes_locked(self) -> None:
+        """(lock held) Publish+clear pending notes — the unbatched
+        post-commit path (publish only fans out to subscriber queues;
+        it cannot re-enter storage)."""
+        if not self._pending_notes:
+            return
+        notes, self._pending_notes = self._pending_notes, []
+        for topic, kind, key in notes:
+            self._bus.publish(topic, kind=kind, key=key)
+
+    def _publish_batch_notes(self) -> None:
+        """Group-commit flush path (batcher ``on_commit``, flusher
+        thread): everything the landed commit covered publishes in one
+        burst, outside the statement lock."""
+        with self._lock:
+            notes, self._pending_notes = self._pending_notes, []
+        for topic, kind, key in notes:
+            self._bus.publish(topic, kind=kind, key=key)
+
+    def _commit_locked(self, sync: bool = True) -> Optional[int]:
+        """(lock held) Commit this write, or hand it to the group-commit
+        batcher; returns the batch generation to wait on (None when the
+        commit already happened). ``sync`` marks a write whose caller
+        will block on the commit — the batcher flushes those
+        immediately instead of riding out the coalescing window."""
+        self.writes_total += 1
+        if self._batcher is None:
+            self._db.commit()
+            self.commits_total += 1
+            self._publish_notes_locked()
+            return None
+        return self._batcher.mark_dirty(sync=sync)
+
+    def _sync_wait(self, what: str, token: Optional[int]) -> None:
+        """(lock NOT held) Block until a load-bearing write's covering
+        group commit has landed; no-op when the write committed inline."""
+        if token is None or self._batcher is None:
+            return
+        try:
+            self._batcher.wait(token)
+        except GroupCommitError as e:
+            raise StorageError(f"{what}: {e}") from e
+
+    def write_stats(self) -> dict:
+        """Write-amplification accounting for the scale harness and
+        /metrics: logical write transactions vs sqlite commits paid."""
+        with self._lock:
+            stats = {
+                "batching": self._batcher is not None,
+                "writes_total": self.writes_total,
+                "commits_total": self.commits_total,
+            }
+        if self._batcher is not None:
+            b = self._batcher.stats()
+            stats["commits_total"] = b["commits_total"]
+            stats["batch"] = b
+        writes, commits = stats["writes_total"], stats["commits_total"]
+        stats["writes_per_commit"] = (
+            round(writes / commits, 3) if commits else None
+        )
+        return stats
 
     @staticmethod
     def _is_transient_lock(e: sqlite3.Error) -> bool:
@@ -196,21 +337,39 @@ class Storage:
             "database is locked" in str(e) or "database is busy" in str(e)
         )
 
-    def _write(self, what: str, sql: str, params: tuple) -> None:
-        """Execute and commit under the lock, retrying ONCE on a transient
-        lock error (a writer on another connection, e.g. a tool reading
-        the live db, outlasting busy_timeout)."""
+    def _write(
+        self, what: str, sql: str, params: tuple, sync: bool = True,
+        note: Optional[tuple] = None,
+    ) -> Optional[int]:
+        """Execute (+commit, or join the group-commit batch) under the
+        lock, retrying ONCE on a transient lock error (a concurrent
+        writer on another connection — e.g. a node-doctor run against
+        the live db — outlasting busy_timeout). Returns the batch token
+        for :meth:`_sync_wait` (None when the commit already ran).
+        ``note`` is a ``(topic, kind, key)`` store-change notification
+        queued between execute and commit, so it publishes exactly when
+        (and only if) the statement's covering commit lands."""
         for attempt in (1, 2):
             try:
                 self._db.execute(sql, params)
-                self._db.commit()
-                return
+                if note is not None:
+                    self._note_locked(*note)
+                return self._commit_locked(sync=sync)
             except sqlite3.Error as e:
                 transient = self._is_transient_lock(e) and attempt == 1
-                try:
-                    self._db.rollback()  # clear the failed statement
-                except sqlite3.Error:
-                    pass
+                if self._batcher is None:
+                    # Under batching the open transaction carries OTHER
+                    # writers' uncommitted statements: one failed
+                    # statement must not roll them back (sqlite keeps
+                    # the transaction usable past a statement error).
+                    try:
+                        self._db.rollback()  # clear the failed statement
+                    except sqlite3.Error:
+                        pass
+                    # Unbatched, pending notes can only be our own (any
+                    # earlier write flushed its notes at commit) — drop
+                    # them with the rolled-back statement.
+                    self._pending_notes = []
                 if not transient:
                     raise StorageError(f"{what}: {e}") from e
                 logger.warning(
@@ -218,6 +377,7 @@ class Storage:
                     what, e, _LOCKED_RETRY_DELAY_S * 1000,
                 )
                 time.sleep(_LOCKED_RETRY_DELAY_S)
+        return None  # pragma: no cover - loop returns or raises
 
     # Exceptions meaning "this stored value does not parse as a PodInfo".
     _CORRUPT = (json.JSONDecodeError, KeyError, TypeError, AttributeError)
@@ -245,26 +405,39 @@ class Storage:
 
     # -- CRUD ----------------------------------------------------------------
 
-    def _save_locked(self, pod: PodInfo) -> None:
-        """(lock held) Write one record and cache a snapshot of it."""
+    def _save_locked(self, pod: PodInfo) -> Optional[int]:
+        """(lock held) Execute the save; returns the batch token. The
+        caller MUST release the lock before waiting on the token — a
+        sync wait under the lock deadlocks the group-commit flusher."""
         value = pod.to_json()
         self._check_foreign_writes()
-        self._write(f"save {pod.key}", _SQL_SAVE_POD, (pod.key, value))
-        # Cache a snapshot parsed back from the persisted JSON, never the
-        # caller's object, which the caller may keep mutating.
+        token = self._write(
+            f"save {pod.key}",
+            _SQL_SAVE_POD,
+            (pod.key, value),
+            note=(events_mod.STORE_BIND, "save", pod.key),
+        )
+        # Cache a snapshot parsed back from the persisted JSON — never
+        # the caller's object, which the caller may keep mutating.
         try:
             self._cache[pod.key] = PodInfo.from_json(value)
         except self._CORRUPT:  # pragma: no cover - to_json round-trips
             self._cache.pop(pod.key, None)
             self._cache_complete = False
+        return token
 
     def save(self, pod: PodInfo) -> None:
         faults.fire("storage.save")
         with self._lock:
-            self._save_locked(pod)
+            token = self._save_locked(pod)
+        # The checkpoint is the bind's durable commit marker: block until
+        # the covering group commit lands (outside the lock, so the
+        # flusher can take it).
+        self._sync_wait(f"save {pod.key}", token)
 
     def load(self, namespace: str, name: str) -> Optional[PodInfo]:
-        """The stored PodInfo, or None when absent."""
+        """Return the stored PodInfo, or None when absent (reference returns
+        a not-found error; None is the idiomatic Python shape)."""
         with self._lock:
             try:
                 row = self._db.execute(
@@ -283,19 +456,24 @@ class Storage:
             ) from e
 
     def load_or_create(self, namespace: str, name: str) -> PodInfo:
+        token = None
         with self._lock:
             existing = self.load(namespace, name)
             if existing is not None:
                 return existing
             pod = PodInfo(namespace=namespace, name=name)
             faults.fire("storage.save")
-            self._save_locked(pod)
+            token = self._save_locked(pod)
+        # Wait OUTSIDE the lock (see _save_locked): holding it here
+        # would block the flusher this wait depends on.
+        self._sync_wait(f"save {pod.key}", token)
         return pod
 
     def mutate(self, namespace: str, name: str, fn) -> PodInfo:
         """Atomic per-key read-modify-write: load-or-create the record,
         apply ``fn(info)``, save. Two mutate() calls for the same pod
-        serialize on a striped per-key lock; mutations of unrelated pods
+        serialize on a striped per-key lock (never on each other's SQL
+        alone, which would lose one update); mutations of UNRELATED pods
         proceed in parallel up to the sqlite connection itself."""
         with self._key_locks.acquire(f"{namespace}/{name}"):
             info = self.load_or_create(namespace, name)
@@ -307,14 +485,25 @@ class Storage:
         faults.fire("storage.delete")
         with self._lock:
             self._check_foreign_writes()
-            self._write(f"delete {namespace}/{name}", _SQL_DELETE_POD,
-                        (f"{namespace}/{name}",))
+            token = self._write(
+                f"delete {namespace}/{name}",
+                _SQL_DELETE_POD,
+                (f"{namespace}/{name}",),
+                note=(events_mod.STORE_BIND, "delete",
+                      f"{namespace}/{name}"),
+            )
             self._cache.pop(f"{namespace}/{name}", None)
+        self._sync_wait(f"delete {namespace}/{name}", token)
 
     def count(self) -> int:
-        """The record count without parsing every record: parseable
-        records once the cache is warm (corrupt rows excluded), SQL
-        COUNT(*) before the first full scan."""
+        """O(1)-per-bind record count — the gauge-update path must not
+        deserialize every record just to count them.
+
+        Once the record cache is warm this counts parseable records
+        exactly like the pre-cache ``items()`` accounting did (corrupt
+        rows excluded); before the first full scan it falls back to SQL
+        COUNT(*), which includes a corrupt row until a scanner (GC,
+        sampler — seconds after boot) warms the cache."""
         with self._lock:
             self._check_foreign_writes()
             if self._cache_complete:
@@ -339,9 +528,9 @@ class Storage:
         payload: dict,
     ) -> int:
         """Record a bind intent BEFORE the bind's first side effect;
-        returns the intent id the bind later commits. The payload names
-        everything recovery needs to undo or replay the bind (device ids,
-        card indexes, planned virtual-node link ids)."""
+        returns the intent id the bind later commits. The payload must
+        name everything recovery needs to undo or replay the bind
+        (device ids, chip indexes, planned virtual-node link ids)."""
         faults.fire("storage.journal")
         value = json.dumps(payload, sort_keys=True)
         with self._lock:
@@ -352,32 +541,55 @@ class Storage:
                         (pod_key, container, resource, alloc_hash, value,
                          time.time()),
                     )
-                    self._db.commit()
+                    self._note_locked(events_mod.STORE_INTENT, "open",
+                                      str(cur.lastrowid))
+                    token = self._commit_locked()
                     intent_id = cur.lastrowid
                     self._inflight_intents.add(intent_id)
-                    return intent_id
+                    break
                 except sqlite3.Error as e:
                     transient = self._is_transient_lock(e) and attempt == 1
-                    try:
-                        self._db.rollback()
-                    except sqlite3.Error:
-                        pass
+                    if self._batcher is None:
+                        try:
+                            self._db.rollback()
+                        except sqlite3.Error:
+                            pass
+                        self._pending_notes = []
                     if not transient:
                         raise StorageError(
                             f"journal intent {pod_key}/{container}: {e}"
                         ) from e
                     time.sleep(_LOCKED_RETRY_DELAY_S)
-        raise StorageError(  # pragma: no cover - the loop returns or raises
-            f"journal intent {pod_key}/{container}: retries exhausted")
+            else:  # pragma: no cover - loop breaks or raises
+                raise StorageError(
+                    f"journal intent {pod_key}/{container}: retries "
+                    "exhausted"
+                )
+        # The intent must be DURABLE before the bind's first side effect
+        # (that is its whole point): wait out the covering group commit.
+        self._sync_wait(f"journal intent {pod_key}/{container}", token)
+        return intent_id
 
     def journal_commit(self, intent_id: int) -> None:
         """Mark a bind intent committed. The checkpointed allocation
         record (pods table) is the durable commit marker, so committing
-        an intent removes its row: an intent that survives a crash is,
-        by construction, one whose bind never provably finished."""
+        an intent simply removes its row — an intent that survives a
+        crash is, by construction, one whose bind never provably
+        finished."""
+        # Deliberately NOT sync under batching: the checkpointed pods-
+        # table record is the durable commit marker, so a crash that
+        # loses this row drop merely leaves an open intent whose record
+        # exists — the reconciler's intent_committed repair class
+        # resolves it (the bind.post_checkpoint crash window that has
+        # always existed, now a few ms wider).
         with self._lock:
-            self._write(f"journal commit {intent_id}", _SQL_DELETE_INTENT,
-                        (intent_id,))
+            self._write(
+                f"journal commit {intent_id}",
+                _SQL_DELETE_INTENT,
+                (intent_id,),
+                sync=False,
+                note=(events_mod.STORE_INTENT, "close", str(intent_id)),
+            )
             self._inflight_intents.discard(intent_id)
 
     # A rolled-back intent leaves the journal the same way a committed
@@ -386,23 +598,22 @@ class Storage:
 
     def intent_done(self, intent_id: int) -> None:
         """Drop the in-process in-flight marker WITHOUT touching the
-        journal row: the bind path's finally, so that a thread that dies
-        on an uncaught exception stops shielding its intent from recovery
+        journal row — the bind path's finally, so a thread that dies on
+        an uncaught exception stops shielding its intent from recovery
         (the row itself survives for the reconciler)."""
         with self._lock:
             self._inflight_intents.discard(intent_id)
 
     def intent_inflight(self, intent_id: int) -> bool:
-        """True while a live bind thread in this process owns the intent;
-        the reconciler must not resolve such a row however slow the bind
-        is going."""
+        """True while a live bind thread in this process owns the
+        intent; the reconciler must not resolve such a row no matter
+        how slow the bind is going."""
         with self._lock:
             return intent_id in self._inflight_intents
 
     def intent_open(self, intent_id: int) -> bool:
-        """True while the intent row still exists (the reconciler
-        re-checks under the owner's bind stripe before rolling an intent
-        back)."""
+        """True while the intent row still exists (reconciler re-checks
+        under the owner's bind stripe before rolling an intent back)."""
         with self._lock:
             try:
                 row = self._db.execute(
@@ -413,8 +624,10 @@ class Storage:
         return row is not None
 
     def open_intents(self) -> list:
-        """Every uncommitted bind intent, oldest first, with its
-        wall-clock age."""
+        """All uncommitted bind intents, oldest first, with wall-clock
+        age — consumed by the reconciler, /debug/allocations and the
+        node-doctor bundle (a stuck intent must be diagnosable from a
+        bundle alone)."""
         with self._lock:
             try:
                 rows = self._db.execute(
@@ -443,9 +656,11 @@ class Storage:
         return out
 
     def open_intents_brief(self) -> list:
-        """open_intents() projected to the diagnostics shape
-        ``{id, pod, container, resource, hash, age_s}`` (the
-        reconciler's status())."""
+        """open_intents() projected to the public diagnostics shape
+        (``{id,pod,container,resource,hash,age_s}``) shared by the
+        reconciler's status(), /debug/allocations and the node-doctor
+        bundle — one place to evolve the field set, validated by
+        sampler.validate_bundle."""
         return [
             {
                 "id": i["id"],
@@ -458,19 +673,28 @@ class Storage:
             for i in self.open_intents()
         ]
 
-    # -- durable agent state --------------------------------------------------
+    # -- durable agent state (drain lifecycle journal) ------------------------
 
     def save_state(self, key: str, value: dict) -> None:
-        """Persist one JSON state document under ``key`` (upsert), written
-        before the side effects of the transition it describes."""
+        """Persist one JSON state document under ``key`` (upsert).
+        Written BEFORE the side effects of the transition it describes —
+        the drain orchestrator's crash-consistency contract."""
         faults.fire("storage.state")
         with self._lock:
-            self._write(f"save_state {key}", _SQL_UPSERT_STATE,
-                        (key, json.dumps(value, sort_keys=True), time.time()))
+            token = self._write(
+                f"save_state {key}",
+                _SQL_UPSERT_STATE,
+                (key, json.dumps(value, sort_keys=True), time.time()),
+                note=(events_mod.STORE_STATE, "save", key),
+            )
+        # Lifecycle journals are written BEFORE their side effects run —
+        # that ordering only means something if the row is durable first.
+        self._sync_wait(f"save_state {key}", token)
 
     def load_state(self, key: str) -> Optional[dict]:
-        """The stored state document, or None when absent or corrupt (a
-        corrupt row is logged and treated as absent)."""
+        """The stored state document, or None when absent/corrupt (a
+        corrupt row is logged and treated as absent — lifecycle state is
+        always safely re-derivable from a fresh start)."""
         with self._lock:
             try:
                 row = self._db.execute(
@@ -490,25 +714,246 @@ class Storage:
 
     def delete_state(self, key: str) -> None:
         with self._lock:
-            self._write(f"delete_state {key}",
-                        "DELETE FROM agent_state WHERE key=?", (key,))
+            token = self._write(
+                f"delete_state {key}",
+                "DELETE FROM agent_state WHERE key=?",
+                (key,),
+                note=(events_mod.STORE_STATE, "delete", key),
+            )
+        self._sync_wait(f"delete_state {key}", token)
 
-    # -- iteration ------------------------------------------------------------
+    # -- lifecycle timeline journal (timeline.py) ------------------------------
+
+    _TIMELINE_EVICTED_KEY = "timeline_evicted_total"
+    _TIMELINE_CAP_KEY = "timeline_cap"
+    # In-memory row count for the timeline ring (None = recompute from
+    # SQL on next use). Every bind emits events, so the append path
+    # must not pay a COUNT(*) b-tree scan per event; all timeline
+    # writes go through this connection, so delta-tracking under
+    # self._lock stays exact. Any sqlite error resets it to None.
+    _timeline_rows_cache: Optional[int] = None
+    # Last cap value persisted into timeline_meta (None = not yet
+    # written this process). The cap is a process argument, but the
+    # offline reader (node-doctor against a dead agent's db) must
+    # report the cap the agent actually RAN with, not a compiled-in
+    # default — so every append keeps the stored value current.
+    _timeline_cap_stored: Optional[int] = None
+
+    def timeline_append(
+        self, ts: float, kind: str, keys: dict, attrs: dict, cap: int
+    ) -> int:
+        """Append one lifecycle event and trim the ring to ``cap`` rows
+        (oldest first), bumping the durable eviction counter by however
+        many rows the trim dropped. Returns the event's monotonic seq.
+        One commit covers append + trim + counter, so a crash can never
+        leave the counter disagreeing with the rows."""
+        # Timeline events are non-load-bearing by contract (emit swallows
+        # failures): under batching they never wait for their commit —
+        # the whole churn burst's events amortize into the flusher's
+        # window commits.
+        keys_json = json.dumps(keys, sort_keys=True, default=str)
+        attrs_json = json.dumps(attrs, sort_keys=True, default=str)
+        with self._lock:
+            for attempt in (1, 2):
+                try:
+                    if self._batcher is not None:
+                        # Multi-statement append inside a SHARED open
+                        # transaction: a savepoint scopes the rollback
+                        # of a mid-append failure to THIS append, so a
+                        # partial trim/counter update can never ride a
+                        # later group commit and break the
+                        # max(seq)-rows == evicted invariant — without
+                        # touching other writers' pending statements.
+                        self._db.execute("SAVEPOINT timeline_append")
+                    cur = self._db.execute(
+                        "INSERT INTO timeline(ts, kind, keys, attrs) "
+                        "VALUES(?, ?, ?, ?)",
+                        (ts, kind, keys_json, attrs_json),
+                    )
+                    seq = cur.lastrowid
+                    if self._timeline_cap_stored != cap:
+                        self._db.execute(
+                            "INSERT INTO timeline_meta(key, value) "
+                            "VALUES(?, ?) ON CONFLICT(key) DO UPDATE "
+                            "SET value=excluded.value",
+                            (self._TIMELINE_CAP_KEY, str(cap)),
+                        )
+                        self._timeline_cap_stored = cap
+                    if self._timeline_rows_cache is None:
+                        self._timeline_rows_cache = self._db.execute(
+                            "SELECT COUNT(*) FROM timeline"
+                        ).fetchone()[0]
+                    else:
+                        self._timeline_rows_cache += 1
+                    excess = self._timeline_rows_cache - max(1, cap)
+                    if excess > 0:
+                        self._db.execute(
+                            "DELETE FROM timeline WHERE seq IN ("
+                            "SELECT seq FROM timeline ORDER BY seq "
+                            "LIMIT ?)",
+                            (excess,),
+                        )
+                        self._db.execute(
+                            "INSERT INTO timeline_meta(key, value) "
+                            "VALUES(?, ?) ON CONFLICT(key) DO UPDATE SET "
+                            "value = CAST(value AS INTEGER) + "
+                            "excluded.value",
+                            (self._TIMELINE_EVICTED_KEY, str(excess)),
+                        )
+                        self._timeline_rows_cache -= excess
+                    if self._batcher is not None:
+                        self._db.execute("RELEASE timeline_append")
+                    self._commit_locked(sync=False)
+                    return seq
+                except sqlite3.Error as e:
+                    self._timeline_rows_cache = None
+                    self._timeline_cap_stored = None  # write rolled back
+                    transient = self._is_transient_lock(e) and attempt == 1
+                    if self._batcher is None:
+                        try:
+                            self._db.rollback()
+                        except sqlite3.Error:
+                            pass
+                    else:
+                        # Scoped undo: only this append's statements.
+                        try:
+                            self._db.execute(
+                                "ROLLBACK TO timeline_append"
+                            )
+                            self._db.execute("RELEASE timeline_append")
+                        except sqlite3.Error:
+                            pass
+                    if not transient:
+                        raise StorageError(f"timeline append: {e}") from e
+                    time.sleep(_LOCKED_RETRY_DELAY_S)
+        raise StorageError(
+            "timeline append: retries exhausted"
+        )  # pragma: no cover - loop returns
+
+    def timeline_rows(
+        self,
+        since_seq: Optional[int] = None,
+        since_ts: Optional[float] = None,
+        limit: Optional[int] = None,
+    ) -> list:
+        """Journaled events oldest-first (seq order = per-agent causal
+        order), each ``{seq, ts, kind, keys, attrs}`` with the JSON
+        columns parsed (a corrupt column parses to {} rather than
+        killing the read — the journal is triage material and must
+        degrade, not disappear). ``limit`` keeps the NEWEST rows."""
+        sql = "SELECT seq, ts, kind, keys, attrs FROM timeline"
+        where, params = [], []
+        if since_seq is not None:
+            where.append("seq > ?")
+            params.append(since_seq)
+        if since_ts is not None:
+            where.append("ts >= ?")
+            params.append(since_ts)
+        if where:
+            sql += " WHERE " + " AND ".join(where)
+        sql += " ORDER BY seq"
+        with self._lock:
+            try:
+                rows = self._db.execute(sql, tuple(params)).fetchall()
+            except sqlite3.Error as e:
+                raise StorageError(f"timeline read: {e}") from e
+        if limit is not None and limit >= 0:
+            rows = rows[-limit:] if limit else []
+        out = []
+        for seq, ts, kind, keys_json, attrs_json in rows:
+            try:
+                keys = json.loads(keys_json)
+            except ValueError:
+                keys = {}
+            try:
+                attrs = json.loads(attrs_json)
+            except ValueError:
+                attrs = {}
+            out.append({
+                "seq": seq, "ts": ts, "kind": kind,
+                "keys": keys if isinstance(keys, dict) else {},
+                "attrs": attrs if isinstance(attrs, dict) else {},
+            })
+        return out
+
+    def timeline_count(self) -> int:
+        with self._lock:
+            if self._timeline_rows_cache is not None:
+                return self._timeline_rows_cache
+            try:
+                count = self._db.execute(
+                    "SELECT COUNT(*) FROM timeline"
+                ).fetchone()[0]
+            except sqlite3.Error as e:
+                raise StorageError(f"timeline count: {e}") from e
+            self._timeline_rows_cache = count
+            return count
+
+    def timeline_meta_value(self, key: str) -> Optional[str]:
+        """One timeline_meta value, or None when absent."""
+        with self._lock:
+            try:
+                row = self._db.execute(
+                    "SELECT value FROM timeline_meta WHERE key=?",
+                    (key,),
+                ).fetchone()
+            except sqlite3.Error as e:
+                raise StorageError(f"timeline meta read: {e}") from e
+        return None if row is None else row[0]
+
+    def timeline_set_meta(self, key: str, value: str) -> None:
+        """Upsert one timeline_meta value — the never-evicted side
+        channel for journal facts that must outlive the ring trim (the
+        boot identity the doctor bundle stamps)."""
+        with self._lock:
+            self._write(
+                f"timeline meta {key}",
+                "INSERT INTO timeline_meta(key, value) VALUES(?, ?) "
+                "ON CONFLICT(key) DO UPDATE SET value=excluded.value",
+                (key, value),
+                sync=False,  # journal meta: observability, like the ring
+            )
+
+    def _timeline_meta_int(self, key: str) -> Optional[int]:
+        value = self.timeline_meta_value(key)
+        if value is None:
+            return None
+        try:
+            return int(value)
+        except ValueError:
+            return None
+
+    def timeline_evicted_total(self) -> int:
+        """Durable count of events the ring cap has dropped (0 when the
+        ring never overflowed)."""
+        value = self._timeline_meta_int(self._TIMELINE_EVICTED_KEY)
+        return 0 if value is None else value
+
+    def timeline_cap_stored(self) -> Optional[int]:
+        """The ring cap the WRITING agent last appended under — what an
+        offline reader must report instead of its own default (None
+        when no event was ever journaled)."""
+        return self._timeline_meta_int(self._TIMELINE_CAP_KEY)
 
     def for_each(self, fn: Callable[[PodInfo], None]) -> None:
-        """Invoke fn on a snapshot of every stored PodInfo. The snapshot
-        is taken first, so fn may save or delete; corrupt records are
-        logged and skipped (GC keeps making progress past one bad row;
-        load() reads a point loudly)."""
+        """Invoke fn on a snapshot of every stored PodInfo.
+
+        Snapshot first so fn may call save/delete without deadlocking or
+        invalidating the cursor (the reference iterates inside one Bolt
+        transaction and therefore could not; our GC deletes during
+        iteration). Corrupt records are logged and skipped — GC must keep
+        making progress past one bad row; use load() for loud point reads.
+        """
         for _, pod in self.items():
             fn(pod)
 
     def _rows(self) -> Iterator[Tuple[str, Optional[PodInfo]]]:
-        """Snapshot every row, each parsed to a PodInfo or None when
-        corrupt; served from the read-through cache once a full scan has
-        warmed it (and no foreign connection has written since). The
-        PodInfo objects are shared snapshots: read them, never mutate
-        them in place."""
+        """Snapshot all rows; parse each to PodInfo or None when corrupt.
+
+        Served from the read-through cache once a full scan has warmed it
+        (and no foreign connection has written since). The yielded
+        PodInfo objects are shared snapshots: callers may read them or
+        re-save a fresh load(), but must not mutate them in place."""
         with self._lock:
             self._check_foreign_writes()
             if self._cache_complete:
@@ -526,10 +971,12 @@ class Storage:
                         snapshot.append((key, PodInfo.from_json(value)))
                     except self._CORRUPT:
                         snapshot.append((key, None))
+                # Parsing ran under the lock, so no save/delete raced the
+                # rebuild: installing the parsed rows is race-free.
                 self._cache = dict(snapshot)
                 self._cache_complete = True
-        # the lock is released before yielding: callers iterate (and may
-        # save or delete) without holding the storage lock
+        # Lock released before yielding: callers iterate (and may call
+        # save/delete) without holding the storage lock hostage.
         yield from snapshot
 
     def items(self) -> Iterator[Tuple[str, PodInfo]]:
@@ -540,10 +987,14 @@ class Storage:
                 yield key, pod
 
     def corrupt_keys(self) -> list:
-        """Keys whose records fail to parse (restore's report)."""
+        """Keys whose records fail to parse (for Restore() reporting)."""
         return [key for key, pod in self._rows() if pod is None]
 
     def close(self) -> None:
+        if self._batcher is not None:
+            # Flush-then-stop: pending batched writes (timeline tails,
+            # intent-commit drops) land before the connection closes.
+            self._batcher.stop()
         with self._lock:
             self._db.close()
 

@@ -2,21 +2,23 @@
 
 The port's copy of ``elastic_tpu_agent/supervisor.py``. The port's agent
 runs its sitter, its device-plugin serve loops (one a resource), GC, the
-card-health poll, the reconciler and the deferred allocatable check as
-supervised subsystems, each with an uncaught-exception trap (including
-BaseException, so that a fault-injected ``DieThread`` is caught too):
+card-health poll, the reconciler, the CRD and Event sink workers, the
+profiler and the deferred allocatable check as supervised subsystems,
+each with an uncaught-exception trap (including BaseException, so that a
+fault-injected ``DieThread`` is caught too):
 
 - a crash restarts the subsystem after a jittered exponential backoff;
 - a crash-loop circuit breaker: ``crash_loop_threshold`` crashes inside
   a sliding window mark the subsystem ``failed`` instead of thrashing;
 - a criticality class says what a circuit-broken subsystem means:
-  ``critical`` (the serve loops, GC, the sitter) fires the terminal event
-  on which ``NodeManager.run(block=True)`` blocks, so that the pod's
-  liveness probe restarts the agent; ``degraded`` (health, reconciler)
-  keeps binding alive and shows in ``status()``/``healthz()``.
+  ``critical`` (the serve loops, GC, the sitter) flips ``/healthz`` to
+  503 and fires the terminal event on which ``NodeManager.run(block=
+  True)`` blocks, so that the pod's liveness probe restarts the agent;
+  ``degraded`` (health, reconciler, sinks, profiler) keeps binding alive
+  and shows in ``/healthz`` and the ``elastic_tpu_subsystem_*`` metrics.
 
-The agent's metrics and timeline seams (restart counters, crash-loop
-journal events) come with the port's metrics and timeline.
+With ``metrics`` the up gauge and the restart and crash-loop counters are
+kept; with a ``timeline`` restarts and breaker trips are journaled.
 """
 
 from __future__ import annotations
@@ -81,11 +83,18 @@ class Supervisor:
 
     def __init__(
         self,
+        metrics=None,
         crash_loop_threshold: int = DEFAULT_CRASH_LOOP_THRESHOLD,
         crash_loop_window_s: float = DEFAULT_CRASH_LOOP_WINDOW_S,
         backoff_min_s: float = DEFAULT_BACKOFF_MIN_S,
         backoff_max_s: float = DEFAULT_BACKOFF_MAX_S,
+        timeline=None,
     ) -> None:
+        self._metrics = metrics
+        # Lifecycle timeline (timeline.py): restarts and breaker trips
+        # journaled so a history can say "the reconciler died twice
+        # right before this pod's repairs stopped".
+        self._timeline = timeline
         self._crash_loop_threshold = max(1, crash_loop_threshold)
         self._crash_loop_window_s = crash_loop_window_s
         self._backoff_min_s = backoff_min_s
@@ -166,12 +175,29 @@ class Supervisor:
 
     # -- the supervision loop -------------------------------------------------
 
+    def _set_up_gauge(self, sub: _Subsystem, up: bool) -> None:
+        m = self._metrics
+        if m is not None and hasattr(m, "subsystem_up"):
+            try:
+                m.subsystem_up.labels(subsystem=sub.name).set(1.0 if up else 0.0)
+            except Exception:  # noqa: BLE001 - metrics must not break supervision
+                pass
+
+    def _count(self, sub: _Subsystem, metric_name: str) -> None:
+        m = self._metrics
+        if m is not None and hasattr(m, metric_name):
+            try:
+                getattr(m, metric_name).labels(subsystem=sub.name).inc()
+            except Exception:  # noqa: BLE001
+                pass
+
     def _supervise(self, sub: _Subsystem) -> None:
         stop = self._stop
         backoff = JitteredBackoff(self._backoff_min_s, self._backoff_max_s)
         while not stop.is_set():
             sub.state = STATE_RUNNING
             sub.started_monotonic = time.monotonic()
+            self._set_up_gauge(sub, True)
             error: Optional[BaseException] = None
             try:
                 sub.target(stop)
@@ -187,6 +213,7 @@ class Supervisor:
                         STATE_DONE if sub.one_shot and not stop.is_set()
                         else STATE_STOPPED
                     )
+                    self._set_up_gauge(sub, False)
                     return
                 error = RuntimeError(
                     "subsystem returned before stop (silent loop death)"
@@ -199,22 +226,44 @@ class Supervisor:
             sub.crash_times.append(now)
             cutoff = now - self._crash_loop_window_s
             sub.crash_times = [t for t in sub.crash_times if t >= cutoff]
+            self._set_up_gauge(sub, False)
             if len(sub.crash_times) >= self._crash_loop_threshold:
                 # circuit breaker: stop thrashing; surface loudly instead
                 sub.state = STATE_FAILED
                 sub.crash_loops += 1
+                self._count(sub, "subsystem_crash_loops")
                 logger.error(
                     "subsystem %s FAILED: %d crashes within %.0fs "
                     "(last: %s) — circuit breaker open, no more restarts%s",
                     sub.name, len(sub.crash_times),
                     self._crash_loop_window_s, sub.last_error,
-                    "; CRITICAL: the agent's terminal event fires"
+                    "; CRITICAL: flipping /healthz to 503 so the liveness "
+                    "probe restarts this pod"
                     if sub.criticality == CRITICAL else "",
                 )
+                if self._timeline is not None:
+                    from .timeline import KIND_SUBSYSTEM_CRASH_LOOP
+
+                    self._timeline.emit(
+                        KIND_SUBSYSTEM_CRASH_LOOP,
+                        subsystem=sub.name,
+                        criticality=sub.criticality,
+                        crashes_in_window=len(sub.crash_times),
+                        error=sub.last_error,
+                    )
                 if sub.criticality == CRITICAL:
                     self.terminal.set()
                 return
             sub.restarts += 1
+            self._count(sub, "subsystem_restarts")
+            if self._timeline is not None:
+                from .timeline import KIND_SUBSYSTEM_RESTART
+
+                self._timeline.emit(
+                    KIND_SUBSYSTEM_RESTART,
+                    subsystem=sub.name, restart=sub.restarts,
+                    error=sub.last_error,
+                )
             if uptime > 2 * self._backoff_max_s:
                 backoff.reset()  # it ran long enough: healthy again
             delay = backoff.next_delay()
@@ -226,6 +275,7 @@ class Supervisor:
             if stop.wait(delay):
                 break
         sub.state = STATE_STOPPED
+        self._set_up_gauge(sub, False)
 
     # -- introspection --------------------------------------------------------
 
@@ -282,8 +332,9 @@ class Supervisor:
 #
 # Even with every known loop supervised, a thread someone forgot to
 # register (or a library thread) can still die on an uncaught exception.
-# threading.excepthook is the process-wide net: every such death is
-# counted and logged, so it cannot happen unobserved.
+# threading.excepthook is the process-wide net: every such death bumps
+# elastic_tpu_thread_crashes_total so it at least cannot happen
+# *unobserved*.
 
 _thread_crashes = 0
 _thread_crashes_lock = threading.Lock()
@@ -293,15 +344,20 @@ def thread_crash_count() -> int:
     return _thread_crashes
 
 
-def install_thread_excepthook():
+def install_thread_excepthook(metrics=None):
     """Install a counting threading.excepthook; returns the previous hook
-    (pass it to ``uninstall_thread_excepthook`` to restore: tests)."""
+    (pass it to ``uninstall_thread_excepthook`` to restore — tests)."""
     previous = threading.excepthook
 
     def _hook(args):
         global _thread_crashes
         with _thread_crashes_lock:
             _thread_crashes += 1
+        if metrics is not None and hasattr(metrics, "thread_crashes"):
+            try:
+                metrics.thread_crashes.inc()
+            except Exception:  # noqa: BLE001
+                pass
         name = args.thread.name if args.thread is not None else "?"
         logger.error(
             "unsupervised thread %r died: %s: %s",

@@ -8,9 +8,11 @@ locator, storage, the bind's phases) attach spans through a contextvar,
 with no plumbing. Completed traces land in a bounded ring (``dump()``
 reads it), and PreStart stamps the bind's trace id into the spec env
 (``ELASTIC_TPU_TRACE_ID``), which the in-pod flight recorder
-(``workloads/telemetry.py``) tags its step records with. The agent's debug
-endpoint that serves the ring, and its latency observatory and timeline
-that listen on it, come with the port's metrics and timeline.
+(``workloads/telemetry.py``) tags its step records with. ``/debug/traces``
+(metrics.py) serves the ring; the latency observatory listens for
+completed traces and the timeline for slow spans (``add_listener``,
+``add_slow_span_listener``); ``ring_bytes`` feeds the ring's memory
+gauge.
 
 Design constraints:
 - **Zero dependencies** (stdlib only): the tracer must import in the
@@ -142,6 +144,63 @@ class Tracer:
         self._ring: "deque[Trace]" = deque(maxlen=capacity)
         self._lock = threading.Lock()
         self.completed = 0  # lifetime count (ring only keeps the newest)
+        # Completed-trace listeners (latency observatory) and slow-span
+        # listeners (timeline slow_span events). Both fire on the
+        # recording thread and must never break it — failures are
+        # swallowed at WARNING. Lists, not sets: registration order is
+        # deterministic and callables need not be hashable.
+        self._listeners: List = []
+        self._slow_span_listeners: List = []
+
+    def add_listener(self, fn) -> None:
+        """Register ``fn(trace)``, called after every non-discarded
+        trace lands in the ring."""
+        with self._lock:
+            if fn not in self._listeners:
+                self._listeners.append(fn)
+
+    def remove_listener(self, fn) -> None:
+        with self._lock:
+            if fn in self._listeners:
+                self._listeners.remove(fn)
+
+    def add_slow_span_listener(self, fn) -> None:
+        """Register ``fn(trace, span)``, called when a span under an
+        active trace exceeds ``slow_span_s``."""
+        with self._lock:
+            if fn not in self._slow_span_listeners:
+                self._slow_span_listeners.append(fn)
+
+    def remove_slow_span_listener(self, fn) -> None:
+        with self._lock:
+            if fn in self._slow_span_listeners:
+                self._slow_span_listeners.remove(fn)
+
+    def ring_bytes(self, sample: int = 16) -> int:
+        """Approximate bytes held by the trace ring: the JSON-encoded
+        size of the newest ``sample`` traces extrapolated over the ring
+        length. An estimate by design — exact accounting would
+        serialize every trace on every scrape; this is the bounded-
+        memory gauge (elastic_tpu_trace_ring_bytes) the scale harness
+        asserts a ceiling against, not a byte-exact ledger."""
+        import json
+
+        with self._lock:
+            n = len(self._ring)
+            if n == 0:
+                return 0
+            newest = [self._ring[-1 - i] for i in range(min(n, sample))]
+        sampled = 0
+        counted = 0
+        for tr in newest:
+            try:
+                sampled += len(json.dumps(tr.to_dict(), default=str))
+                counted += 1
+            except Exception:  # noqa: BLE001 - estimate must not raise
+                continue
+        if not counted:
+            return 0
+        return int(sampled / counted * n)
 
     # -- recording ------------------------------------------------------------
 
@@ -165,6 +224,14 @@ class Tracer:
                 with self._lock:
                     self._ring.append(tr)
                     self.completed += 1
+                    listeners = list(self._listeners)
+                for fn in listeners:
+                    try:
+                        fn(tr)
+                    except Exception:  # noqa: BLE001 - never load-bearing
+                        logger.warning(
+                            "trace listener %r failed", fn, exc_info=True
+                        )
 
     @contextlib.contextmanager
     def span(self, name: str, **attrs):
@@ -190,6 +257,16 @@ class Tracer:
                         tr.name,
                         f": {sp.error}" if sp.error else "",
                     )
+                    with self._lock:
+                        listeners = list(self._slow_span_listeners)
+                    for fn in listeners:
+                        try:
+                            fn(tr, sp)
+                        except Exception:  # noqa: BLE001
+                            logger.warning(
+                                "slow-span listener %r failed",
+                                fn, exc_info=True,
+                            )
 
     def current(self) -> Optional[Trace]:
         return _current_trace.get()
@@ -262,7 +339,6 @@ class Tracer:
                     continue
             out.append(tr.to_dict())
         return out
-
 
 
 def _default_tracer() -> Tracer:

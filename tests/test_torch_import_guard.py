@@ -3,9 +3,11 @@ package: every module of elastic_tpu_agent_torch imports in a fresh
 interpreter where importing jax, optax or orbax fails, and no
 elastic_tpu_agent module gets loaded. The agent side (plugins, nri, rpc,
 gen, slices, storage, kube, supervisor, reconciler, manager, cli, faults,
-tracing) loads no torch, its allocation logic and plain injection run with
-grpc and protobuf absent too, and the node agent's modules import with
-grpc, protobuf and requests absent."""
+tracing, and the observability plane: events, timeline, the batcher,
+async_sink, kube.events, crd, crd_recorder, latency, profiler, metrics)
+loads no torch, its allocation logic and plain injection run with grpc
+and protobuf absent too, the node agent's modules import with grpc,
+protobuf and requests absent, and only metrics needs prometheus_client."""
 
 import os
 import subprocess
@@ -37,7 +39,9 @@ new = {"export", "parallel", "ring_attention", "pipeline",
        "gpushare", "base", "packing", "plugin", "rpc", "types",
        "deviceplugin_pb2", "store", "supervisor", "client", "sitter",
        "locator", "reconciler", "manager", "cli", "faults", "tracing",
-       "podresources_pb2", "podresources_v1_pb2"}
+       "podresources_pb2", "podresources_v1_pb2", "events", "timeline",
+       "batcher", "async_sink", "crd", "crd_recorder", "metrics",
+       "latency", "profiler"}
 missing = sorted(new - {n.rsplit(".", 1)[-1] for n in names})
 print(len(names), missing, leaked)
 """
@@ -69,7 +73,10 @@ for name in ("plugins", "plugins.base", "plugins.gpushare", "nri",
              "gen.podresources_v1_pb2", "slices", "slices.packing", "types",
              "storage", "storage.store", "kube", "kube.client",
              "kube.sitter", "kube.locator", "supervisor", "reconciler",
-             "manager", "cli", "faults", "tracing", "common", "device"):
+             "manager", "cli", "faults", "tracing", "common", "device",
+             "events", "timeline", "storage.batcher", "async_sink",
+             "kube.events", "crd", "crd_recorder", "latency", "profiler",
+             "metrics"):
     importlib.import_module("elastic_tpu_agent_torch." + name)
 print(sorted(m for m in sys.modules if sys.modules[m] is not None and
              m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent")))
@@ -146,11 +153,45 @@ for blocked in ("torch", "jax", "elastic_tpu_agent", "grpc",
     sys.modules[blocked] = None
 for name in ("manager", "cli", "storage", "storage.store", "kube",
              "kube.client", "kube.sitter", "kube.locator", "reconciler",
-             "supervisor", "faults", "tracing", "plugins.gpushare"):
+             "supervisor", "faults", "tracing", "plugins.gpushare",
+             "events", "timeline", "storage.batcher", "async_sink",
+             "kube.events", "crd", "crd_recorder", "latency", "profiler",
+             "metrics"):
     importlib.import_module("elastic_tpu_agent_torch." + name)
 print(sorted(m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent", "grpc",
                         "requests") or m.startswith("google.protobuf"))))
+"""
+
+
+# an agent without --metrics-port: the manager with its whole
+# observability plane but no AgentMetrics never imports prometheus_client
+NO_PROMETHEUS = r"""
+import os, sys, tempfile
+for blocked in ("torch", "prometheus_client", "grpc", "google.protobuf"):
+    sys.modules[blocked] = None
+from elastic_tpu_agent_torch import cli
+from elastic_tpu_agent_torch.kube.client import KubeClient
+from elastic_tpu_agent_torch.manager import ManagerOptions, NodeManager
+
+class PodResources:
+    def list(self):
+        return type("R", (), {"pod_resources": []})()
+
+root = tempfile.mkdtemp(dir="/tmp")
+os.makedirs(os.path.join(root, "dev"))
+mgr = NodeManager(ManagerOptions(
+    node_name="node-a", db_path=os.path.join(root, "meta.db"),
+    operator_kind="stub:1", dev_root=os.path.join(root, "dev"),
+    kube_client=KubeClient("http://127.0.0.1:9"),
+    pod_resources_client=PodResources(), storage_batch_window_s=0.005))
+mgr.timeline.emit("agent_started")
+kinds = [e["kind"] for e in mgr.timeline.events()]
+mgr.stop()
+print(kinds, mgr.bus is not None, mgr.crd_recorder is not None,
+      mgr.events is not None,
+      sorted(m for m in sys.modules if sys.modules[m] is not None
+             and m.split(".")[0] in ("torch", "prometheus_client")))
 """
 
 
@@ -165,6 +206,10 @@ def _run(code):
 
 def test_agent_side_loads_no_torch_and_no_agent():
     assert _run(AGENT_SIDE) == "[]"
+
+
+def test_observability_plane_needs_no_prometheus_without_metrics():
+    assert _run(NO_PROMETHEUS) == "['agent_started'] True True True []"
 
 
 def test_node_agent_imports_without_grpc_protobuf_or_requests():

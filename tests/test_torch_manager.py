@@ -12,6 +12,14 @@ it runs is reclaimed by GC through the sitter's queue. The allocatable
 cross-check, ``stop()`` twice, the CLI's flags and ``main()`` until
 SIGTERM follow, and a node without grpc: its device-plugin servers crash
 until the supervisor's breaker ends ``run(block=True)``.
+
+The same flow runs again with the observability plane on both sides, with
+every flag of the slice (the bus, a 0.005 s group-commit window, a sink
+flush window, a timeline cap, Events, CRD, the profiler, a slow-span
+threshold, an AgentMetrics): the restore reports, the pods' journals,
+the Events' reasons, the ElasticTPU objects and the ported families'
+samples equal the agent's. ``main()`` serves ``--metrics-port``, and
+``node-doctor timeline`` and ``profile`` answer as the agent's.
 """
 
 import json
@@ -28,9 +36,13 @@ import pytest
 
 pytest.importorskip("torch")
 
+from prometheus_client import CollectorRegistry, generate_latest  # noqa: E402
+from prometheus_client.parser import text_string_to_metric_families  # noqa: E402
+
 from elastic_tpu_agent import cli as agent_cli  # noqa: E402
+from elastic_tpu_agent import metrics as agent_metrics  # noqa: E402
 from elastic_tpu_agent.kube.client import KubeClient as AgentKube  # noqa: E402
-from elastic_tpu_agent_torch import cli, rpc  # noqa: E402
+from elastic_tpu_agent_torch import cli, metrics, rpc  # noqa: E402
 from elastic_tpu_agent_torch.device import StubOperator  # noqa: E402
 from elastic_tpu_agent_torch.kube.client import KubeClient  # noqa: E402
 from elastic_tpu_agent_torch.manager import (  # noqa: E402
@@ -60,6 +72,16 @@ AGENT_BIND_PATH = dict(
     enable_event_bus=False, enable_events=False, enable_crd=False,
     enable_sampler=False, enable_migration=False, enable_repartition=False,
     nri_socket="")
+# the port's manager in the same configuration (its observability plane,
+# on by default as the agent's, is held against the agent's below)
+PORT_BIND_PATH = dict(enable_event_bus=False, enable_events=False,
+                      enable_crd=False)
+# the observability plane on both sides, with every option of the slice
+AGENT_OBS = dict(AGENT_BIND_PATH, enable_event_bus=True, enable_events=True,
+                 enable_crd=True)
+OBS_OPTIONS = dict(storage_batch_window_s=0.005, sink_flush_window_s=0.02,
+                   timeline_cap=200, profile_hz=5.0, slow_span_ms=1000.0,
+                   event_safety_net_factor=10.0)
 
 
 def wait_until(fn, timeout=20.0):
@@ -106,18 +128,23 @@ class PortCluster:
 class Side:
     """One side's cluster and the kubelet's view of its plugins."""
 
-    def __init__(self, port: bool):
+    def __init__(self, port: bool, obs: bool = False):
         self.port = port
         self.root = pathlib.Path(tempfile.mkdtemp(prefix="mg", dir="/tmp"))
         self.names = Node.__new__(Node)       # ids and resources only
         self.names.port = port
         stub = StubOperator(str(self.root / "dev"), num_chips=4,
                             minors=MINORS)
+        opts = AGENT_BIND_PATH if not port else PORT_BIND_PATH
+        if obs:
+            self.registry = CollectorRegistry()
+            opts = dict(OBS_OPTIONS, **({} if port else AGENT_OBS),
+                        metrics=(metrics if port else agent_metrics)
+                        .AgentMetrics(registry=self.registry))
         if port:
-            self.c = PortCluster(self.root, operator=stub)
+            self.c = PortCluster(self.root, operator=stub, **opts)
         else:
-            self.c = AgentCluster(self.root, operator=stub,
-                                  **AGENT_BIND_PATH)
+            self.c = AgentCluster(self.root, operator=stub, **opts)
         self.managers = [self.c.manager]
 
     @property
@@ -166,9 +193,15 @@ class Side:
         mgr = (NodeManager if self.port else type(self.manager))(self.c.opts)
         self.c.manager = mgr
         self.managers.append(mgr)
+        # the boot pass's report, as restore() returns it: with the event
+        # bus on, a targeted pass may follow it before the reconciler's
+        # last report is read
+        reports = []
+        restore = mgr.restore
+        mgr.restore = lambda: reports.append(restore()) or reports[-1]
         mgr.run(block=False)
         assert self.c.kubelet.wait_registrations(n + 2)
-        return mgr.reconciler.status()["last_report"]
+        return reports[0]
 
     def state(self):
         dev = self.c.opts.dev_root
@@ -259,6 +292,102 @@ def flow(port: bool) -> dict:
 @pytest.fixture(scope="module")
 def flows():
     return {"port": flow(True), "agent": flow(False)}
+
+
+# the families the port feeds on this flow (the rest wait for their slices)
+OBS_FAMILIES = ("elastic_tpu_allocate_seconds", "elastic_tpu_prestart_seconds",
+                "elastic_tpu_bound_allocations", "elastic_tpu_gc_reclaimed",
+                "elastic_tpu_restored_links", "elastic_tpu_chips",
+                "elastic_tpu_chips_healthy", "elastic_tpu_reconcile_repairs",
+                "elastic_tpu_build_info", "elastic_tpu_bind_inflight")
+# what a reconciler event pass may add when it sees a kubelet assignment
+# still unbound across two passes (a race, on either side)
+RACY = {("bind_replay", None), ("reconcile_repair", "replayed_bind")}
+
+
+def _samples(registry) -> dict:
+    out = {}
+    for fam in text_string_to_metric_families(
+            generate_latest(registry).decode()):
+        if fam.name in OBS_FAMILIES:
+            for x in fam.samples:
+                if x.name.endswith(("_created", "_bucket", "_sum")):
+                    continue
+                labels = ",".join(f"{k}={v}" for k, v in sorted(
+                    x.labels.items()))
+                out[f"{x.name}{{{labels}}}"] = x.value
+    return out
+
+
+def obs_flow(port: bool) -> dict:
+    s = Side(port, obs=True)
+    out = {}
+    try:
+        s.c.start()
+        mgr = s.manager
+        for pod, chips in (("train", "2"), ("web", "1")):
+            s.add_pod(pod, chips)
+        for k, p, c, u in BINDS:
+            if p != "gone":
+                s.bind(k, p, c, u)
+        # a reboot wipes the links while no agent runs (a live one's
+        # event passes would restore them at once)
+        mgr.stop()
+        for name in os.listdir(s.c.opts.dev_root):
+            os.unlink(os.path.join(s.c.opts.dev_root, name))
+        out["restore"] = s.restart()
+        mgr = s.manager
+        s.c.apiserver.delete_pod("default", "web")
+        s.c.kubelet.unassign_pod("default", "web")
+        assert wait_until(lambda: mgr.storage.load("default", "web") is None)
+        assert wait_until(lambda: any(
+            e["kind"] == "pod_reclaimed" for e in mgr.timeline.events(
+                pod="default/web")))
+        assert mgr.crd_recorder.flush(10) and mgr.events.flush(10)
+        out["state"] = s.state()
+        out["journals"] = {
+            pod: sorted({(e["kind"], e["attrs"].get("class"))
+                         for e in mgr.timeline.events(
+                             pod=f"default/{pod}", causal=False)} - RACY)
+            for pod in ("train", "web")}
+        out["reasons"] = sorted(
+            (e["reason"], e["involvedObject"]["name"])
+            for e in s.c.apiserver.core_events)
+        out["objects"] = sorted(
+            (o["status"]["phase"], o["spec"]["claimRef"]["name"])
+            for o in s.c.apiserver._crds.values())
+        out["samples"] = _samples(s.registry)
+        out["lag"] = mgr.lag_tracker.status()["classes"]
+        out["healthz"] = mgr.supervisor.healthz()["critical_failed"]
+        out["profile"] = mgr.profiler.status()["enabled"]
+        mgr.stop()
+        return out
+    finally:
+        s.close()
+
+
+@pytest.fixture(scope="module")
+def obs_flows():
+    return {"port": obs_flow(True), "agent": obs_flow(False)}
+
+
+def test_observability_flow_matches_the_agents(obs_flows):
+    port, agent = obs_flows["port"], obs_flows["agent"]
+    hashes = hash_map()
+    rp = {k: v for k, v in port["restore"].items() if k != "duration_s"}
+    assert rp == port_report(agent["restore"])
+    assert to_agent(port["state"], hashes) == to_agent(agent["state"], {})
+    for key in ("journals", "reasons", "objects", "healthz", "profile"):
+        assert to_agent(port[key], hashes) == to_agent(agent[key], {}), key
+    assert to_agent(port["samples"], hashes) == to_agent(
+        agent["samples"], {})
+    assert ("pod_reclaimed", None) in port["journals"]["web"]
+    assert ("TPUBound", "train") in port["reasons"]
+    assert ("Bound", "train") in port["objects"]
+    assert port["samples"]["elastic_tpu_restored_links_total{}"] == 3
+    # the port's GC reports the deletion's lag (the agent's GC does not)
+    assert port["lag"]["reclaimed_pod"]["loops"] == ["gc"]
+    assert port["lag"]["reclaimed_pod"]["triggers"]["event"]["count"] == 1
 
 
 def test_registrations_and_lists_match_the_agents(flows):
@@ -474,3 +603,123 @@ def test_the_agents_kube_client_reads_the_ports_apiserver_contract():
             url).get_pod("default", "p")
     finally:
         api.stop()
+
+
+OBS_FLAGS = ["--metrics-port", "0", "--metrics-addr", "0.0.0.0",
+             "--no-events", "--no-crd", "--timeline-cap", "50",
+             "--storage-batch-window", "0.005", "--sink-flush-window", "0.02",
+             "--no-event-bus", "--event-safety-net-factor", "4",
+             "--slow-span-ms", "300", "--profile-hz", "5"]
+
+
+def test_observability_flags_match_the_agents():
+    port = vars(cli.parse_args(OBS_FLAGS))
+    agent = vars(agent_cli.parse_args(OBS_FLAGS))
+    assert {k: (v, agent[k]) for k, v in port.items()
+            if v != agent[k]} == {"operator": ("nvidia", "tpuvm")}
+    opts = cli.options_from_args(cli.parse_args(OBS_FLAGS))
+    assert (opts.enable_events, opts.enable_crd, opts.timeline_cap,
+            opts.storage_batch_window_s, opts.sink_flush_window_s,
+            opts.enable_event_bus, opts.event_safety_net_factor,
+            opts.slow_span_ms, opts.profile_hz) == (
+        False, False, 50, 0.005, 0.02, False, 4.0, 300.0, 5.0)
+    defaults = cli.options_from_args(cli.parse_args([]))
+    assert (defaults.enable_event_bus, defaults.enable_events,
+            defaults.enable_crd, defaults.profile_hz,
+            defaults.storage_batch_window_s) == (True, True, True, 0.0, 0.0)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _doctor(mod, argv):
+    res = subprocess.run([sys.executable, "-m", mod, "node-doctor", *argv],
+                         cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=60)
+    return res.returncode, res.stdout, res.stderr
+
+
+def test_main_serves_metrics_and_node_doctor_reads_it():
+    """``main()`` with --metrics-port and --profile-hz: /metrics lints
+    clean, /healthz answers, the journal holds the boot; node-doctor
+    profile reads the live agent and node-doctor timeline its db after
+    SIGTERM, each as the agent's subcommand does."""
+    root = pathlib.Path(tempfile.mkdtemp(prefix="cm", dir="/tmp"))
+    api = FakeAPIServer()
+    url = api.start()
+    kubelet = FakeKubelet(str(root / "dp"), str(root / "pr.sock"))
+    kubelet.start()
+    kc = root / "kubeconfig"
+    kc.write_text(json.dumps({
+        "current-context": "c",
+        "contexts": [{"name": "c", "context": {"cluster": "k",
+                                               "user": "u"}}],
+        "clusters": [{"name": "k", "cluster": {"server": url}}],
+        "users": [{"name": "u", "user": {"token": "t"}}]}))
+    (root / "dev").mkdir()
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    db = str(root / "meta.db")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "elastic_tpu_agent_torch.cli",
+         "--node-name", NODE_NAME, "--db-file", db, "--kubeconf", str(kc),
+         "--operator", "stub:2", "--dev-root", str(root / "dev"),
+         "--device-plugin-dir", str(root / "dp"),
+         "--pod-resources-socket", str(root / "pr.sock"),
+         "--alloc-spec-dir", str(root / "alloc"),
+         "--metrics-port", str(port), "--profile-hz", "20",
+         "--storage-batch-window", "0.005"],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        assert kubelet.wait_registrations(2, timeout=30), proc.stderr
+        code, text = _get(base + "/metrics")
+        assert code == 200 and metrics.lint_exposition(text) == []
+        assert 'elastic_tpu_chips 2.0' in text
+        assert _get(base + "/healthz")[0] == 200
+        kinds = [e["kind"] for e in json.loads(
+            _get(base + "/debug/timeline")[1])["events"]]
+        assert kinds[0] == "agent_started"
+        assert wait_until(lambda: json.loads(_get(
+            base + "/debug/profile")[1])["samples_total"] > 0)
+        rc, out, err = _doctor("elastic_tpu_agent_torch.cli",
+                               ["profile", "--agent-url", base, "--top", "3"])
+        assert rc == 0 and out.startswith("samples="), err
+        rc_a, out_a, _ = _doctor("elastic_tpu_agent.cli",
+                                 ["profile", "--agent-url", base, "--top",
+                                  "3"])
+        assert rc_a == 0 and out_a.startswith("samples=")
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        argv = ["timeline", "--db-file", db, "--kind", "agent_started"]
+        rc, out, err = _doctor("elastic_tpu_agent_torch.cli", argv)
+        rc_a, out_a, err_a = _doctor("elastic_tpu_agent.cli", argv)
+        assert rc == rc_a == 0, (err, err_a)
+        assert json.loads(out) == json.loads(out_a)
+        assert [e["kind"] for e in json.loads(out)["events"]] == [
+            "agent_started"]
+        assert _doctor("elastic_tpu_agent_torch.cli",
+                       ["timeline", "--db-file", str(root / "no.db")])[0] == 1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        kubelet.stop()
+        api.stop()
+        shutil.rmtree(root, ignore_errors=True)

@@ -328,11 +328,11 @@ def test_cache_blocks_outlive_requests_and_clear(runs, path):
 
 
 def test_serving_gauges_read_port_stats():
-    """The agent's serving gauges (the JAX package's AgentMetrics) read
-    the port engine's stats() as they read the JAX engine's."""
+    """The port's serving gauges (its own AgentMetrics, whose families are
+    the agent's) read the port engine's stats()."""
     from prometheus_client import CollectorRegistry, generate_latest
 
-    from elastic_tpu_agent.metrics import AgentMetrics
+    from elastic_tpu_agent_torch.metrics import AgentMetrics
 
     _, tcfg, _, params = _models()
     eng = ts.ServingEngine(params, tcfg, **ENGINE, prefix_cache=True,

@@ -1,8 +1,8 @@
 """The port's request observatory (elastic_tpu_agent_torch/workloads/
 request_obs.py, ServingEngine(observatory=)) against the JAX package:
 the same event script under a ManualClock gives the same status() and
-records; bind_metrics observes the same histograms through the agent's
-AgentMetrics; and real engines on both sides, driven by one script of
+records; bind_metrics observes the same histograms through the port's
+AgentMetrics (the agent's families); and real engines on both sides, driven by one script of
 calls (admit/step/release churn, a cancelled prefill, a drain, a
 disaggregated pair sharing one observatory, a mid-stream handoff), keep
 equal ledgers with conservation and one partition per stitched id."""
@@ -210,11 +210,12 @@ def test_event_script_readings():
 
 
 def test_agent_metrics_bind_the_port_observatory():
-    """AgentMetrics.attach_requests (the agent's /debug/requests and
-    request histograms) binds the port's observatory."""
+    """The port's AgentMetrics.attach_requests (its /debug/requests and
+    request histograms, the agent's families) binds the port's
+    observatory."""
     from prometheus_client import CollectorRegistry, generate_latest
 
-    from elastic_tpu_agent.metrics import AgentMetrics
+    from elastic_tpu_agent_torch.metrics import AgentMetrics
 
     registry = CollectorRegistry()
     m = AgentMetrics(registry=registry)

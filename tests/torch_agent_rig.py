@@ -6,6 +6,13 @@ port's modules or the agent's. Both sides get the port's 4-card
 ``StubOperator`` with minors permuted against the indexes, as
 ``test_torch_gpushare.py`` does, so that links and device paths agree.
 
+``boot(**obs)`` wires a generation's observability plane too, each part
+of the side's own package: ``bus`` (an EventBus), ``metrics`` (an
+AgentMetrics), ``timeline=True`` (a Timeline over the generation's store,
+on ``clock``), ``events`` and ``crd_recorder`` (recorders),
+``lag_tracker`` (the port's only: the agent's plugins take none) and
+``batch_window_s`` (the store's group-commit window).
+
 ``to_agent`` maps the port's names onto the agent's (``gpu-`` ids and
 resources, their hashes) and sets aside what differs by design: the
 visibility env and the port's ``control_paths``. Trace ids are random per
@@ -18,12 +25,14 @@ import re
 
 from elastic_tpu_agent import rpc as agent_rpc
 from elastic_tpu_agent import reconciler as agent_reconciler
+from elastic_tpu_agent import timeline as agent_timeline
 from elastic_tpu_agent.kube import locator as agent_locator
 from elastic_tpu_agent.plugins import tpushare
 from elastic_tpu_agent.plugins.base import PluginConfig as AgentConfig
 from elastic_tpu_agent.storage import Storage as AgentStorage
 from elastic_tpu_agent.types import Device as AgentDevice
 from elastic_tpu_agent_torch import reconciler, rpc
+from elastic_tpu_agent_torch import timeline as timeline_mod
 from elastic_tpu_agent_torch.common import (
     AnnotationAssumed,
     BytesPerMemoryUnit,
@@ -119,12 +128,13 @@ class Node:
         self.sitter.add_pod("default", pod, {
             AnnotationAssumed: "true", container_annotation(container): chips})
 
-    def boot(self, dry_run=False):
+    def boot(self, dry_run=False, **obs):
         """A new generation over the node's state (the previous one's
-        store closed first)."""
+        store closed first), with the observability parts ``obs`` names
+        (module docstring)."""
         if self.gen is not None:
             self.gen.close()
-        self.gen = Generation(self, dry_run)
+        self.gen = Generation(self, dry_run, **obs)
         return self.gen
 
     def bind(self, kind, pod, chip, units, container="main"):
@@ -164,15 +174,27 @@ class Generation:
     pod-resources client and shared snapshot source, locators, plugin
     bundle and reconciler, with a port stub operator."""
 
-    def __init__(self, node: Node, dry_run: bool) -> None:
+    def __init__(self, node: Node, dry_run: bool, bus=None, metrics=None,
+                 timeline=False, clock=None, events=None, crd_recorder=None,
+                 lag_tracker=None, batch_window_s=0.0) -> None:
         port = node.port
-        self.storage = (Storage if port else AgentStorage)(node.db)
+        self.bus = bus
+        self.storage = (Storage if port else AgentStorage)(
+            node.db, batch_window_s=batch_window_s, bus=bus)
         self.operator = StubOperator(node.dev_root, num_chips=4,
                                      minors=MINORS)
         sock = node.kubelet.pod_resources_socket
         self.pr_client = (rpc if port else agent_rpc).PodResourcesClient(sock)
         loc = locator if port else agent_locator
-        self.source = loc.PodResourcesSnapshotSource(self.pr_client)
+        self.source = loc.PodResourcesSnapshotSource(
+            self.pr_client, metrics=metrics, bus=bus)
+        self.timeline = None
+        if timeline:
+            self.timeline = (timeline_mod if port else agent_timeline
+                             ).Timeline(self.storage, node_name="node-a",
+                                        metrics=metrics, clock=clock)
+        obs = dict(metrics=metrics, events=events, crd_recorder=crd_recorder,
+                   timeline=self.timeline)
         wiring = dict(
             device_plugin_dir=node.kubelet.device_plugin_dir,
             operator=self.operator, sitter=node.sitter,
@@ -180,7 +202,10 @@ class Generation:
             locator_factory=lambda res: loc.KubeletDeviceLocator(
                 res, source=self.source),
             extra={"alloc_spec_dir": node.alloc_dir},
+            **obs,
         )
+        if port:
+            wiring["lag_tracker"] = lag_tracker
         config = (PluginConfig if port else AgentConfig)(
             node_name="node-a", pod_resources_socket=sock, **wiring)
         self.plugin = (gpushare.GPUSharePlugin if port
@@ -190,7 +215,7 @@ class Generation:
             storage=self.storage, operator=self.operator,
             plugin=self.plugin, sitter=node.sitter,
             snapshot_source=self.source, alloc_spec_dir=node.alloc_dir,
-            dry_run=dry_run)
+            dry_run=dry_run, lag_tracker=lag_tracker, bus=bus, **obs)
 
     def plugin_of(self, kind):
         return self.plugin.core if kind == "core" else self.plugin.memory
