@@ -6,8 +6,10 @@ serving and runner-across-cards slices on one NVIDIA GPU, the agent's
 device layer with four tenants sharing that GPU, the agent's device
 plugins and container injection with a tenant started from what they
 inject, the node agent itself across a restart, with a tenant served
-from a binding it restored, and the agent's observability plane read
-around a tenant.
+from a binding it restored, the agent's observability plane read
+around a tenant, and the agent's runtime activation: its NRI server and
+the OCI hook chain, each starting a tenant, with a card-failure
+eviction.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -137,7 +139,7 @@ shows; it then exits 1 before the summary lines. Phases:
    ring run on the kernels' plain versions on the CPU, 4 launches of each
    kernel a ring, and the ring's forward and forward + backward device
    times beside one flash call over the whole 4096 and SDPA;
-18. the summary, printed after phases 19-24: the device time of the
+18. the summary, printed after phases 19-28: the device time of the
    whole bf16 backward (delta, dK/dV and dQ) against SDPA's whole
    backward, each phase's host seconds, a
    ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
@@ -147,7 +149,7 @@ shows; it then exits 1 before the summary lines. Phases:
    the sharded step, the ring, the MoE mesh step, both pipeline
    schedules, the runner's mesh runs and the train tenants for the
    backward pair; serving, the speculative fallback and the serving
-   tenants of phases 24-27 for paged_decode),
+   tenants of phases 24-28 for paged_decode),
    the card's name and power limit as
    nvidia-smi reports them, and the result line;
 19. MoE over a one-rank NCCL mesh: phase 7's MoE preset, weights and
@@ -274,7 +276,35 @@ shows; it then exits 1 before the summary lines. Phases:
    bind host ms beside phase 26's, deletion-to-reclaim ms with the
    detection lag's loop and trigger, the residual's share, the db's
    bytes and the sinks' merged and dropped, beside the card's name and
-   power limit.
+   power limit;
+28. the agent's runtime activation: the port's native helpers built from
+   ``elastic_tpu_agent_torch/native`` (g++/gcc, ``native/build.py``);
+   the CLI ``main`` (``python3 chip_smoke.py --agent D``, a child without
+   torch, phase 26's stand-ins, its health read through a flag file the
+   script controls on top of nvidia-smi) with ``--nri-socket`` and
+   ``--nri-evict-on-chip-failure``, its dev root a view of /dev holding
+   the card's nodes beside its links. A runtime stand-in on the port's
+   mux and ttrpc (``tests/torch_nri_runtime.py``) takes its
+   registration, Configure (CREATE and REMOVE subscribed) and
+   Synchronize; the agent binds two pods of 25 gpu-core units and a
+   quarter of the card's gpu-memory units. CreateContainer with
+   ``GPU=<pod 1's hash>`` must inject the card at ``/dev/nvidia<minor>``
+   with its major:minor, the control nodes and the spec's env; a tenant
+   runs in a /dev of those nodes alone from the adjustment's env. A
+   bundle with ``GPU=<pod 2's hash>`` goes through ``elastic-gpu-hook``
+   (the OCI state on stdin): the same nodes and the spec's env in the
+   rootfs's ``/run/elastic-tpu/env``; with the spec moved away the
+   dev-scan fallback injects the same nodes and the card's uuid; a tenant
+   runs with the rootfs's /dev bound over /dev and its env from that file
+   alone. Both tenants serve phase 4's 16 requests (its streams, 1352
+   paged launches, one card, under the cap). The flag marks the card
+   unhealthy: within two health periods the stand-in must get one
+   UpdateContainers evicting the NRI tenant's container; the flag
+   cleared, a second CreateContainer is injected and not evicted. The
+   stand-in restarts: the agent re-registers within its first backoff
+   and synchronizes. Prints the host ms of the CreateContainer round
+   trips, hook + toolkit, flag to UpdateContainers and re-registration,
+   beside the card's name and power limit.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -4157,14 +4187,15 @@ AGENT_GC_DEADLINE_S = 10.0
 AGENT_WAIT_S = 300.0
 
 
-def _load_fake_apiserver():
-    """tests/fake_apiserver.py (standard library only) from this
-    checkout."""
+def _load_tests_module(name):
+    """``tests/<name>.py`` of this checkout: the stand-ins the tests share
+    (``fake_apiserver``, standard library only; ``torch_nri_runtime``, the
+    port's NRI transport)."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "fake_apiserver.py")
-    spec = importlib.util.spec_from_file_location("fake_apiserver", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -4216,10 +4247,13 @@ class _PodResources:
             for r, ids in self.advertised.items()])
 
 
-def _agent_operator(dev_root):
+def _agent_operator(dev_root, flag_dir=None):
     """NvidiaOperator over the host's /dev, links under ``dev_root``,
     counting its nvidia-smi calls and health polls; the metadata fetchers
-    of the drain (not on this path) answer nothing."""
+    of the drain (not on this path) answer nothing. With ``flag_dir``
+    (phase 28), the cards listed in its ``unhealthy.json`` read unhealthy
+    on top of nvidia-smi's view, and each poll appends its wall time and
+    healthy cards to ``polls.jsonl`` there."""
     from elastic_tpu_agent_torch.device import NvidiaOperator
     from elastic_tpu_agent_torch.device.nvidia import run_nvidia_smi
 
@@ -4227,9 +4261,26 @@ def _agent_operator(dev_root):
         smi_calls = 0
         health_polls = 0
 
+        def _flagged(self):
+            return (_read_json(os.path.join(flag_dir, "unhealthy.json"))
+                    or {}) if flag_dir else {}
+
         def healthy_indexes(self):
             Counting.health_polls += 1
-            return super().healthy_indexes()
+            healthy = set(super().healthy_indexes())
+            if flag_dir:
+                healthy -= set(self._flagged().get("cards", []))
+                with open(os.path.join(flag_dir, "polls.jsonl"), "a") as f:
+                    f.write(json.dumps({"at": time.time(),
+                                        "healthy": sorted(healthy)}) + "\n")
+            return healthy
+
+        def health_reasons(self):
+            reasons = dict(super().health_reasons())
+            flagged = self._flagged()
+            for c in flagged.get("cards", []):
+                reasons[c] = flagged.get("reason", "flagged")
+            return reasons
 
     def smi():
         Counting.smi_calls += 1
@@ -4362,15 +4413,30 @@ def agent_main(args) -> int:
         if go is not None:
             gone = [False]
             deadline = go["at"] + AGENT_GC_DEADLINE_S
+            h1 = hashes["pod-1"]
             while time.time() < deadline:
-                view = _pod_view(mgr, op, d, "pod-1", hashes["pod-1"])
-                if view["record"] is None and not view["links"] and \
-                        not any(view["specs"].values()):
+                # the record, links and specs only: _pod_view resolves the
+                # links, which can wait on an nvidia-smi call of its own
+                if mgr.storage.load("default", "pod-1") is None and \
+                        not any(link.startswith(h) for link in
+                                op.list_links() for h in h1) and \
+                        not any(mgr.plugin.core.read_alloc_spec(h)
+                                for h in h1):
                     gone = [True]
                     break
                 time.sleep(0.005)
             out["gc_reclaimed"] = gone[0]
             out["gc_ms"] = (time.time() - go["at"]) * 1e3
+            # the split: apiserver delete -> the sitter's deletion mark,
+            # and the mark -> GC's reclaim (the detection-lag tracker's)
+            recent = (mgr.lag_tracker.status()["classes"].get(
+                "reclaimed_pod") or {}).get("recent") or []
+            if recent:
+                last = recent[-1]
+                out["gc_split_ms"] = dict(
+                    to_sitter=(last["ts"] - last["lag_s"] - go["at"]) * 1e3,
+                    sitter_to_gc=last["lag_s"] * 1e3,
+                    trigger=last.get("trigger"))
             out["pod_1_after_gc"] = _pod_view(mgr, op, d, "pod-1",
                                               hashes["pod-1"])
         out["health_polls"] = op.health_polls
@@ -4435,7 +4501,7 @@ def run_agent_restart(torch, srv, streams, dev) -> dict:
         chip = chips[0]
         node = chip.device_path
         units = chip.hbm_bytes // BytesPerMemoryUnit
-        api = _load_fake_apiserver().FakeAPIServer()
+        api = _load_tests_module("fake_apiserver").FakeAPIServer()
         url = api.start()
         os.makedirs(os.path.join(d, "dev"))
         _write_json(os.path.join(d, "kubeconfig"), {
@@ -4583,7 +4649,8 @@ def run_agent_restart(torch, srv, streams, dev) -> dict:
         if rep_b:
             print(f"agent boot B: GC reclaimed pod 1 "
                   f"{rep_b.get('gc_reclaimed')} in {rep_b.get('gc_ms', 0):.1f}"
-                  f" ms; health polls {rep_b['health_polls']}, nvidia-smi "
+                  f" ms (delete to the sitter's mark, mark to GC's reclaim: "
+                  f"{json.dumps(rep_b.get('gc_split_ms'))}); health polls {rep_b['health_polls']}, nvidia-smi "
                   f"calls {rep_b['smi_calls']}, all ids Healthy "
                   f"{rep_b['all_healthy']}; allocatable drift "
                   f"{rep_b['allocatable_drift']}; kubelet Lists "
@@ -4615,6 +4682,7 @@ def run_agent_restart(torch, srv, streams, dev) -> dict:
                    synced_ms=[rep_a["synced_ms"], restored["synced_ms"]],
                    restore_ms=restored["restore_ms"],
                    gc_ms=(rep_b or {}).get("gc_ms"),
+                   gc_split_ms=(rep_b or {}).get("gc_split_ms"),
                    db_bytes=(rep_b or {}).get("db_bytes"),
                    tenant={k: v for k, v in (trep or {}).items()
                            if k != "streams"})
@@ -4738,20 +4806,19 @@ class _CRDLog(dict):
         return out
 
 
-def agent_obs_main(args) -> int:
-    """Phase 27's agent (``--agent C``): the port's CLI ``main`` on the
-    flags in ``obs.json``, in a process without torch. Phase 26's
-    stand-ins are handed to the manager the CLI builds (the counting
-    ``NvidiaOperator`` and ``_PodResources``; its gRPC servers left out).
-    A thread plays the kubelet for OBS_PODS pods once the agent is up and
-    writes ``bound.json``; SIGTERM ends ``main``. Prints one JSON line."""
+def _cli_agent(d, argv_file, pods, flag_dir=None):
+    """The port's CLI ``main`` on the flags in ``d/argv_file``, in this
+    process (a child without torch), with phase 26's stand-ins handed to
+    the manager the CLI builds (``_agent_operator``, with ``flag_dir``, and
+    ``_PodResources``; its gRPC servers left out). A thread plays the
+    kubelet for ``pods`` once the agent is up and writes ``bound.json``;
+    SIGTERM ends ``main``. Returns (exit code, the manager)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import threading
 
     from elastic_tpu_agent_torch import cli
     from elastic_tpu_agent_torch.types import Device
 
-    d = args.agent_dir
     card = _read_json(os.path.join(d, "card.json"))
     holder = {}
 
@@ -4761,7 +4828,7 @@ def agent_obs_main(args) -> int:
                 return lambda: [i for i, _ in getattr(
                     self.plugin, kind).device_list()]
 
-            opts.operator = _agent_operator(opts.dev_root)
+            opts.operator = _agent_operator(opts.dev_root, flag_dir)
             opts.pod_resources_client = _PodResources(
                 os.path.join(d, "assign.json"), {
                     card["core_resource"]: advertised("core"),
@@ -4791,7 +4858,7 @@ def agent_obs_main(args) -> int:
                     (time.perf_counter() - t) * 1e3)
                 return got
 
-            for pod in (f"pod-{i}" for i in range(1, OBS_PODS + 1)):
+            for pod in pods:
                 ids = {}
                 for kind, plugin, n in (("core", core, card["core_units"]),
                                         ("mem", mem, card["mem_units"])):
@@ -4815,8 +4882,21 @@ def agent_obs_main(args) -> int:
 
     cli.NodeManager = Manager
     threading.Thread(target=drive, daemon=True, name="kubelet").start()
-    rc = cli.main(_read_json(os.path.join(d, "obs.json"))["argv"])
-    mgr = holder.get("m")
+    rc = cli.main(_read_json(os.path.join(d, argv_file))["argv"])
+    return rc, holder.get("m")
+
+
+def _db_bytes(d) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+               if f.startswith("meta.db"))
+
+
+def agent_obs_main(args) -> int:
+    """Phase 27's agent (``--agent C``): ``_cli_agent`` on ``obs.json``'s
+    flags, binding OBS_PODS pods. Prints one JSON line."""
+    d = args.agent_dir
+    rc, mgr = _cli_agent(d, "obs.json",
+                         [f"pod-{i}" for i in range(1, OBS_PODS + 1)])
     sinks = {}
     for name, rec in (("crd", getattr(mgr, "crd_recorder", None)),
                       ("events", getattr(mgr, "events", None))):
@@ -4826,8 +4906,7 @@ def agent_obs_main(args) -> int:
                                writes=rec._sink.writes_total)
     print(json.dumps(dict(
         rc=rc, sinks=sinks, torch_imported="torch" in sys.modules,
-        db_bytes=sum(os.path.getsize(os.path.join(d, f))
-                     for f in os.listdir(d) if f.startswith("meta.db")))))
+        db_bytes=_db_bytes(d))))
     return 0
 
 
@@ -4874,7 +4953,7 @@ def run_observability(torch, srv, streams, dev, agent26) -> dict:
             fail(f"observability: no single card of uuid {props.uuid}")
             return out
         chip = chips[0]
-        api = _load_fake_apiserver().FakeAPIServer()
+        api = _load_tests_module("fake_apiserver").FakeAPIServer()
         crds = api._crds = _CRDLog()
         url = api.start()
         os.makedirs(os.path.join(d, "dev"))
@@ -5116,6 +5195,423 @@ def run_observability(torch, srv, streams, dev, agent26) -> dict:
     return out
 
 
+# -- phase 28: runtime activation; tenants started by NRI and by the hook ----
+
+ACT_PODS = ("pod-1", "pod-2")    # the NRI tenant's pod, the hook tenant's
+ACT_FLAG_REASON = "marked unhealthy by the script's flag file"
+# the eviction must reach the runtime within two health polls
+ACT_EVICT_DEADLINE_S = 2 * 5.0   # 2 x plugins/gpushare.py HEALTH_PERIOD_S
+ACT_QUIET_S = 1.0                # no eviction of the second container
+
+
+def agent_act_main(args) -> int:
+    """Phase 28's agent (``--agent D``): ``_cli_agent`` on ``act.json``'s
+    flags (an NRI socket, the eviction policy), binding ACT_PODS, health
+    read through the flag file in its directory. Prints one JSON line."""
+    d = args.agent_dir
+    rc, mgr = _cli_agent(d, "act.json", list(ACT_PODS), flag_dir=d)
+    nri = getattr(mgr, "nri_plugin", None)
+    print(json.dumps(dict(
+        rc=rc, torch_imported="torch" in sys.modules,
+        nri_injected=nri and nri.injected_count,
+        hooked=bool(mgr and mgr.plugin.on_chips_failed is not None),
+        subsystems={k: v["state"] for k, v in
+                    (mgr.supervisor.status() if mgr else {}).items()})))
+    return 0
+
+
+def _char_nodes(root) -> dict:
+    """{path under ``root``: (major, minor)} of its character devices."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            st = os.lstat(os.path.join(dirpath, name))
+            if stat.S_ISCHR(st.st_mode):
+                rel = "/" + os.path.relpath(os.path.join(dirpath, name),
+                                            root)
+                out[rel] = (os.major(st.st_rdev), os.minor(st.st_rdev))
+    return out
+
+
+def _in_rootfs_dev(dev_dir):
+    """An argv wrapper: run the command in a new mount namespace with
+    ``dev_dir`` (a rootfs's /dev) bound over /dev."""
+    script = f'mount --bind {dev_dir} /dev && exec "$@"'
+    return lambda argv: ["unshare", "-m", "--propagation", "private", "sh",
+                         "-c", script, "sh"] + argv
+
+
+def _bundle(root, name, env, mounts):
+    """An OCI bundle: config.json with ``env`` and a rootfs whose /dev is
+    a tmpfs, as a runtime mounts one (the script's temp directory need
+    not allow device nodes); the mount point is added to ``mounts``."""
+    bundle = os.path.join(root, name)
+    dev_dir = os.path.join(bundle, "rootfs", "dev")
+    os.makedirs(dev_dir)
+    subprocess.run(["mount", "-t", "tmpfs", "-o", "mode=755", "none",
+                    dev_dir], check=True, timeout=60)
+    mounts.append(dev_dir)
+    _write_json(os.path.join(bundle, "config.json"), {
+        "ociVersion": "1.0.2", "process": {"env": env},
+        "root": {"path": "rootfs"}})
+    return bundle
+
+
+def _run_hook(bins, bundle, alloc_dir, dev_dir):
+    """The OCI createRuntime call: the state on stdin; (exit code, stderr,
+    host ms of hook + toolkit)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("ELASTIC_GPU_")}
+    env.update(ELASTIC_GPU_TOOLKIT=bins["elastic-gpu-container-toolkit"],
+               ELASTIC_GPU_ALLOC_DIR=alloc_dir, ELASTIC_GPU_DEV_DIR=dev_dir)
+    t0 = time.perf_counter()
+    res = subprocess.run([bins["elastic-gpu-hook"], "--verbose"],
+                         input=json.dumps({"ociVersion": "1.0.2", "id": "h",
+                                           "pid": os.getpid(),
+                                           "bundle": bundle}).encode(),
+                         env=env, capture_output=True, timeout=60)
+    return res.returncode, res.stderr.decode()[-800:], \
+        (time.perf_counter() - t0) * 1e3
+
+
+def _check_tenant(name, rep, srv, streams, chip, want_nodes):
+    """Phase 4's checks on a served tenant's report: its streams, the
+    paged launches, one card (the allocated one), under its cap, and its
+    /dev's nvidia nodes."""
+    q = rep["quota"]
+    cap = q["hbm_fraction"] * rep["total_memory"]
+    same = rep["streams"] == streams
+    print(f"activation {name}: sees {rep['device_count']} card "
+          f"{rep['device_uuid']}, nvidia nodes {rep['dev_nodes']}, streams "
+          f"equal phase 4's: {same}, launches {rep['launches']}, max "
+          f"reserved {rep['max_memory_reserved']} B of a cap of {cap:.0f} B "
+          f"(quota {q}), {rep['tokens_per_s']:.1f} tokens/s, "
+          f"{rep['seconds']:.1f} s")
+    if rep["device_count"] != 1 or \
+            rep["device_uuid"] != _uuid_key(chip.uuid):
+        fail(f"activation {name} saw {rep['device_count']} cards, "
+             f"{rep['device_uuid']}")
+    if not same:
+        fail(f"activation {name} streams differ from phase 4's")
+    if rep["launches"]["paged_decode"] != srv["paged_launches"] or \
+            rep["launches"]["paged_decode"] != SMALL["n_layers"] * \
+            rep["decode_steps"]:
+        fail(f"activation {name} paged launches {rep['launches']}")
+    if rep["max_memory_reserved"] > cap or not cap or \
+            not q["hbm_limit_bytes"]:
+        fail(f"activation {name} reserved {rep['max_memory_reserved']} B, "
+             f"cap {cap:.0f}, quota {q}")
+    if rep["dev_nodes"] != want_nodes:
+        fail(f"activation {name}'s /dev holds {rep['dev_nodes']}, want "
+             f"{want_nodes}")
+
+
+def run_runtime_activation(torch, srv, streams, dev) -> dict:
+    """Phase 28: the agent's runtime activation on the card: the NRI
+    server (a runtime stand-in on the port's mux and ttrpc), the OCI hook
+    chain built from the port's sources, a tenant started by each, the
+    eviction of the NRI tenant's container when its card is flagged, and
+    the re-registration after the runtime restarts (module docstring)."""
+    import shutil
+    import signal
+    import tempfile
+
+    from elastic_tpu_agent_torch.common import (
+        AnnotationAssumed, BytesPerMemoryUnit, ResourceGPUCore,
+        ResourceGPUMemory, container_annotation)
+    from elastic_tpu_agent_torch.device import NvidiaOperator
+    from elastic_tpu_agent_torch.gen import nri_pb2 as pb
+    from elastic_tpu_agent_torch.native import build as native_build
+    from elastic_tpu_agent_torch.nri import NRIPlugin
+    from elastic_tpu_agent_torch.nri.plugin import event_mask
+
+    props = torch.cuda.get_device_properties(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {}
+    ms = {"create_container": []}
+    d = tempfile.mkdtemp(prefix="cs28", dir="/tmp")
+    api = rt = None
+    alive = []
+    mounts = []
+    reps = {}
+    try:
+        t0 = time.perf_counter()
+        bins = native_build.build()
+        ms["native_build"] = (time.perf_counter() - t0) * 1e3
+        chips = [c for c in NvidiaOperator(
+            "/dev", maintenance=lambda: None,
+            preemption=lambda: None).devices()
+            if _uuid_key(c.uuid) == _uuid_key(props.uuid)]
+        if len(chips) != 1:
+            fail(f"activation: no single card of uuid {props.uuid}")
+            return out
+        chip = chips[0]
+        nvidia = _load_tests_module("torch_nri_runtime")
+        rt = nvidia.NRIRuntime(os.path.join(d, "nri.sock"),
+                               accept_timeout_s=AGENT_WAIT_S)
+        api = _load_tests_module("fake_apiserver").FakeAPIServer()
+        url = api.start()
+        # the agent's view of the host's /dev (its DaemonSet's /host/dev):
+        # the card's and control nodes (links to this host's), beside
+        # which the agent makes its links
+        dev_view = os.path.join(d, "dev")
+        os.makedirs(dev_view)
+        for path in [chip.device_path] + list(chip.extra_paths):
+            os.symlink(path, os.path.join(dev_view, os.path.basename(path)))
+        _write_json(os.path.join(d, "kubeconfig"), {
+            "current-context": "c",
+            "contexts": [{"name": "c", "context": {"cluster": "local",
+                                                   "user": "agent"}}],
+            "clusters": [{"name": "local", "cluster": {"server": url}}],
+            "users": [{"name": "agent", "user": {"token": "phase-28"}}]})
+        card = dict(node="h100-node", core_units=PLUGIN_CORE_UNITS,
+                    mem_units=chip.hbm_bytes // BytesPerMemoryUnit
+                    // PLUGIN_MEM_SHARE,
+                    core_resource=ResourceGPUCore,
+                    mem_resource=ResourceGPUMemory)
+        _write_json(os.path.join(d, "card.json"), card)
+        for pod in ACT_PODS:
+            api.upsert_pod({"metadata": {
+                "namespace": "default", "name": pod, "uid": f"uid-{pod}",
+                "annotations": {
+                    AnnotationAssumed: "true",
+                    container_annotation("main"): str(chip.index)}},
+                "spec": {"nodeName": card["node"],
+                         "containers": [{"name": "main"}]}})
+        alloc = os.path.join(d, "alloc")
+        _write_json(os.path.join(d, "act.json"), {"argv": [
+            "--node-name", card["node"], "--db-file",
+            os.path.join(d, "meta.db"),
+            "--kubeconf", os.path.join(d, "kubeconfig"),
+            "--operator", "nvidia", "--plugin", "gpushare",
+            "--dev-root", dev_view, "--alloc-spec-dir", alloc,
+            "--device-plugin-dir", os.path.join(d, "dp"),
+            "--pod-resources-socket", os.path.join(d, "pr.sock"),
+            "--metrics-port", "0", "--reconcile-period", "3600",
+            "--no-event-bus", "--no-events", "--no-crd",
+            "--nri-socket", rt.socket_path, "--nri-evict-on-chip-failure"]})
+        agent = _AgentChild("D", d)
+        alive.append(agent)
+
+        # the runtime takes the agent's registration, configures, syncs
+        rt.accept()
+        if not rt.registered.wait(AGENT_WAIT_S):
+            fail("activation: the agent never registered over NRI")
+            return out
+        events = rt.configure().events
+        rt.synchronize()
+        bound = _read_json(os.path.join(d, "bound.json"), AGENT_WAIT_S)
+        if not bound or "error" in bound:
+            fail(f"activation agent never bound: {bound}")
+            return out
+        h_nri, h_hook = (bound["hashes"][p][0] for p in ACT_PODS)
+        subscribed = events == event_mask(pb.CREATE_CONTAINER,
+                                          pb.REMOVE_CONTAINER)
+        print(f"activation NRI: registered as "
+              f"{rt.register_request.plugin_idx}-"
+              f"{rt.register_request.plugin_name}, Configure events "
+              f"{events} (CREATE_CONTAINER and REMOVE_CONTAINER: "
+              f"{subscribed})")
+        if not subscribed:
+            fail(f"activation NRI Configure events {events}")
+
+        def create(cid, alloc_hash):
+            t = time.perf_counter()
+            resp = rt.create_container([f"GPU={alloc_hash}", "PATH=/bin"],
+                                       pod_name=ACT_PODS[0],
+                                       namespace="default",
+                                       container_id=cid)
+            ms["create_container"].append((time.perf_counter() - t) * 1e3)
+            return resp.adjust
+
+        adj = create("nri-1", h_nri)
+        devices = [dict(path=x.path, major=x.major, minor=x.minor)
+                   for x in adj.linux.devices]
+        nri_env = {kv.key: kv.value for kv in adj.env}
+        with open(os.path.join(alloc, f"{h_nri}.json")) as f:
+            spec_nri = json.load(f)
+        st = os.stat(chip.device_path)
+        want_card = dict(path=chip.device_path, major=os.major(st.st_rdev),
+                         minor=os.minor(st.st_rdev))
+        print(f"activation NRI adjustment: devices "
+              f"{[(x['path'], x['major'], x['minor']) for x in devices]}, "
+              f"env {sorted(nri_env)}, mounts "
+              f"{[(m.destination, m.source) for m in adj.mounts]}")
+        if devices[:1] != [want_card] or nri_env != spec_nri["env"] or \
+                [x["path"] for x in devices[1:]] != chip.extra_paths:
+            fail(f"activation NRI adjustment {devices} {nri_env}")
+
+        # the hook chain over the same view of /dev: a bundle, the hook
+        # with the OCI state on stdin
+        bundle = _bundle(d, "bundle", [f"GPU={h_hook}", "PATH=/bin"],
+                         mounts)
+        rootfs = os.path.join(bundle, "rootfs")
+        rc, err, ms["hook_spec"] = _run_hook(bins, bundle, alloc, dev_view)
+        hook_nodes = _char_nodes(rootfs)
+        env_path = os.path.join(rootfs, "run", "elastic-tpu", "env")
+        with open(env_path) as f:
+            hook_env = dict(line.rstrip("\n").split("=", 1) for line in f)
+        with open(os.path.join(alloc, f"{h_hook}.json")) as f:
+            spec_hook = json.load(f)
+        want_nodes = {x["path"]: (x["major"], x["minor"]) for x in devices}
+        print(f"activation hook: exit {rc}, {ms['hook_spec']:.1f} ms, "
+              f"nodes {hook_nodes}, env {sorted(hook_env)}")
+        if rc != 0 or hook_nodes != want_nodes or \
+                hook_env != spec_hook["env"]:
+            fail(f"activation hook: exit {rc} {err}, nodes {hook_nodes} "
+                 f"(want {want_nodes}), env {hook_env}")
+        # the dev-scan fallback: the spec moved away, the same nodes and
+        # the card's uuid from the agent's links
+        moved = os.path.join(d, "moved.json")
+        os.replace(os.path.join(alloc, f"{h_hook}.json"), moved)
+        try:
+            scan = _bundle(d, "bundle-scan", [f"GPU={h_hook}"], mounts)
+            rc2, err2, ms["hook_devscan"] = _run_hook(bins, scan, alloc,
+                                                      dev_view)
+        finally:
+            os.replace(moved, os.path.join(alloc, f"{h_hook}.json"))
+        scan_nodes = _char_nodes(os.path.join(scan, "rootfs"))
+        scan_env = {}
+        scan_env_path = os.path.join(scan, "rootfs", "run", "elastic-tpu",
+                                     "env")
+        if os.path.exists(scan_env_path):
+            with open(scan_env_path) as f:
+                scan_env = dict(line.rstrip("\n").split("=", 1)
+                                for line in f)
+        print(f"activation dev-scan fallback: exit {rc2}, "
+              f"{ms['hook_devscan']:.1f} ms, nodes {scan_nodes}, env "
+              f"{scan_env}")
+        if rc2 != 0 or scan_nodes != hook_nodes or scan_env != {
+                "CUDA_VISIBLE_DEVICES": spec_hook["env"][
+                    "CUDA_VISIBLE_DEVICES"]}:
+            fail(f"activation dev-scan: exit {rc2} {err2}, nodes "
+                 f"{scan_nodes}, env {scan_env}")
+
+        # both tenants at once: the NRI one in a /dev of the adjustment's
+        # nodes, the hook one with the rootfs's /dev over /dev and its env
+        # from the rootfs's env file alone
+        for n, ma, mi in OCI_DEFAULT_NODES:
+            os.mknod(os.path.join(rootfs, "dev", n), 0o666 | stat.S_IFCHR,
+                     os.makedev(ma, mi))
+        tenants = [
+            _Tenant("nri_tenant", "serve", d,
+                    env=dict(nri_env, GPU=h_nri), strip=PLUGIN_ENV_STRIP,
+                    wrap=_in_device_namespace(devices)),
+            _Tenant("hook_tenant", "serve", d, env_file=env_path,
+                    strip=PLUGIN_ENV_STRIP,
+                    wrap=_in_rootfs_dev(os.path.join(rootfs, "dev")))]
+        alive += tenants
+        deadline = time.perf_counter() + TENANT_TIMEOUT_S
+        reps = {t.name: t.result(deadline) for t in tenants}
+        names = sorted(os.path.basename(p) for p in want_nodes)
+        for name, rep in reps.items():
+            if rep:
+                _check_tenant(name, rep, srv, streams, chip, names)
+
+        # the card flagged unhealthy: one UpdateContainers evicting the
+        # NRI tenant's container, which the script then stops
+        t_flag = time.perf_counter()
+        _write_json(os.path.join(d, "unhealthy.json"),
+                    {"cards": [chip.index], "reason": ACT_FLAG_REASON})
+        got = rt.wait_updates(1, ACT_EVICT_DEADLINE_S)
+        ms["flag_to_update"] = (rt.update_times[0] - t_flag) * 1e3 \
+            if got else None
+        evicted = rt.evicted_ids()
+        reason = got and rt.update_requests[0].evict[0].reason
+        tenants[0].kill()
+        rt.state_change(pb.REMOVE_CONTAINER, "nri-1")
+        print(f"activation eviction: UpdateContainers {len(evicted)} "
+              f"evicting {evicted} ({reason!r}) "
+              f"{ms['flag_to_update']} ms after the flag [{smi}]")
+        if not got or evicted != ["nri-1"] or \
+                ACT_FLAG_REASON not in (reason or ""):
+            fail(f"activation eviction: {evicted} {reason!r}")
+
+        # the flag cleared: once a health poll has completed after it, a
+        # second container on the card is injected and not evicted
+        t_clear = time.time()
+        os.unlink(os.path.join(d, "unhealthy.json"))
+        deadline = time.time() + ACT_EVICT_DEADLINE_S + 5.0
+        polls = []
+        while time.time() < deadline:
+            with open(os.path.join(d, "polls.jsonl")) as f:
+                polls = [json.loads(line) for line in f
+                         if json.loads(line)["at"] > t_clear]
+            # a second poll's start: the first, hooks included, is done
+            if len(polls) >= 2:
+                break
+            time.sleep(0.05)
+        adj2 = create("nri-2", h_nri)
+        time.sleep(ACT_QUIET_S)
+        print(f"activation recovery: {len(polls)} polls after the clear, "
+              f"card healthy {polls and chip.index in polls[0]['healthy']}; "
+              f"second CreateContainer injected "
+              f"{len(adj2.linux.devices)} devices, evictions now "
+              f"{rt.evicted_ids()}")
+        if len(polls) < 2 or chip.index not in polls[0]["healthy"] or \
+                len(adj2.linux.devices) != len(devices) or \
+                rt.evicted_ids() != ["nri-1"]:
+            fail(f"activation recovery: polls {polls}, devices "
+                 f"{len(adj2.linux.devices)}, evictions {rt.evicted_ids()}")
+
+        # the runtime restarts: the agent re-registers within its first
+        # backoff and synchronizes
+        t_restart = time.perf_counter()
+        rt.restart()
+        rt.accept()
+        again = rt.registered.wait(AGENT_WAIT_S)
+        ms["reregister"] = (rt.registered_at - t_restart) * 1e3 \
+            if again else None
+        rt.configure()
+        sync = rt.synchronize(containers=[pb.Container(
+            id="nri-2", name="main", env=[f"GPU={h_nri}"])])
+        print(f"activation restart: re-registered {again} in "
+              f"{ms['reregister']} ms (first backoff "
+              f"{NRIPlugin.RECONNECT_MIN_S} s), Synchronize answered "
+              f"{list(sync.update)}")
+        if not again or ms["reregister"] > (
+                NRIPlugin.RECONNECT_MIN_S + 1.0) * 1e3:
+            fail(f"activation restart: re-registered {again} in "
+                 f"{ms['reregister']} ms")
+
+        agent.proc.send_signal(signal.SIGTERM)
+        rep = agent.result(time.perf_counter() + 60)
+        print(f"activation agent: exit {rep.get('rc')}, NRI injections "
+              f"{rep.get('nri_injected')}, eviction hooked "
+              f"{rep.get('hooked')}, torch imported "
+              f"{rep.get('torch_imported')}, subsystems "
+              f"{rep.get('subsystems')}")
+        if rep.get("rc") != 0 or rep.get("torch_imported") or \
+                rep.get("nri_injected") != 2 or not rep.get("hooked"):
+            fail(f"activation agent: {rep}")
+        print(f"activation host ms [{smi}]: CreateContainer round trips "
+              f"{[round(x, 3) for x in ms['create_container']]}, hook + "
+              f"toolkit {ms['hook_spec']:.3f} (spec) "
+              f"{ms['hook_devscan']:.3f} (dev scan), flag to "
+              f"UpdateContainers {ms['flag_to_update']}, re-registration "
+              f"{ms['reregister']}, native build {ms['native_build']:.1f}")
+        out.update(card=chip.index, smi=smi, hashes=[h_nri, h_hook],
+                   host_ms=ms, devices=devices, evicted=evicted,
+                   tenants={k: {x: y for x, y in v.items() if x != "streams"}
+                            for k, v in reps.items()})
+    finally:
+        for t in alive:
+            t.kill()
+        if rt is not None:
+            rt.close()
+        if api is not None:
+            api.stop()
+        for path in mounts:
+            subprocess.run(["umount", "-l", path], timeout=60)
+        shutil.rmtree(d, ignore_errors=True)
+    out["launches"] = {k: sum(r.get("launches", {}).get(k, 0)
+                              for r in reps.values() if r)
+                       for k in KERNEL_NAMES}
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -5200,22 +5696,24 @@ def main() -> int:
                     help="directory for the full report and profiler files")
     ap.add_argument("--tenant", choices=("discover", "probe", "train",
                                          "serve", "serve_obs"),
-                    help="run as one of phases 24-27's child processes")
+                    help="run as one of phases 24-28's child processes")
     ap.add_argument("--runner-args", default="",
                     help="a train tenant's runner flags")
     ap.add_argument("--barrier", default="",
                     help="a tenant's start barrier directory")
-    ap.add_argument("--agent", choices=("A", "B", "C"),
-                    help="run as one of phase 26's agent processes (A, B) "
-                         "or phase 27's (C)")
+    ap.add_argument("--agent", choices=("A", "B", "C", "D"),
+                    help="run as one of phase 26's agent processes (A, B), "
+                         "phase 27's (C) or phase 28's (D)")
     ap.add_argument("--agent-dir", default="",
-                    help="phase 26's or 27's directory (db, dev root, "
-                         "alloc dir)")
+                    help="phase 26's, 27's or 28's directory (db, dev "
+                         "root, alloc dir)")
     args = ap.parse_args()
     if args.tenant:
         return tenant_main(args)
     if args.agent == "C":
         return agent_obs_main(args)
+    if args.agent == "D":
+        return agent_act_main(args)
     if args.agent:
         return agent_main(args)
 
@@ -5327,15 +5825,18 @@ def main() -> int:
                   srv_streams, dev)
     observability = timed("observability", run_observability, torch, srv,
                           srv_streams, dev, agent)
+    activation = timed("runtime_activation", run_runtime_activation, torch,
+                       srv, srv_streams, dev)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
     # runner's mesh runs + the shared card's tenants, serving + the spec
-    # engine's fallback steps + the tenants of phases 24-27, train +
+    # engine's fallback steps + the tenants of phases 24-28, train +
     # LoRA + the sharded step + the ring + the MoE mesh step + both
     # pipeline schedules + the runner's mesh runs + the tenants
     tenants = {k: sum(x.get("launches", {}).get(k, 0)
-                      for x in (share, plugin, agent, observability))
+                      for x in (share, plugin, agent, observability,
+                                activation))
                for k in KERNEL_NAMES}
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
@@ -5374,6 +5875,7 @@ def main() -> int:
               "tp_serving": tp_serving, "runner_mesh": runner_mesh,
               "device_share": share, "plugin_path": plugin,
               "agent_restart": agent, "observability": observability,
+              "runtime_activation": activation,
               "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
@@ -5406,7 +5908,8 @@ def main() -> int:
                                 "device_share": share,
                                 "plugin_path": plugin,
                                 "agent_restart": agent,
-                                "observability": observability}}))
+                                "observability": observability,
+                                "runtime_activation": activation}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

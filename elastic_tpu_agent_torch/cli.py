@@ -21,7 +21,11 @@ Usage:
 
 ``--metrics-port`` serves ``/metrics``, ``/healthz`` and the loopback-only
 ``/debug/*`` routes (metrics.py); 0 turns the endpoint off, and then
-nothing imports prometheus_client. The agent's diagnostics bundle
+nothing imports prometheus_client. ``--nri-socket`` registers the agent
+as containerd's NRI plugin (nri/plugin.py): it injects at CreateContainer,
+with ``--nri-driver-lib`` mounts of host driver libraries, and with
+``--nri-evict-on-chip-failure`` evicts the containers of a card that
+goes unhealthy. The agent's diagnostics bundle
 (``node-doctor`` with no subcommand) and ``node-doctor goodput`` come with
 the port's utilization sampler and goodput ledger, and ``perf-gate`` with
 the port's own bench history.
@@ -53,6 +57,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     p.add_argument("--kubeconf", default="",
                    help="kubeconfig path (default: in-cluster)")
+    p.add_argument("--plugin", default="gpushare", choices=("gpushare",),
+                   help="plugin kind (gpushare: gpu-core and gpu-memory)")
     p.add_argument(
         "--operator",
         default="nvidia",
@@ -75,6 +81,24 @@ def parse_args(argv=None) -> argparse.Namespace:
         default="/host/var/lib/elastic-tpu/alloc",
         help="where allocation specs for the container injection are "
              "written",
+    )
+    p.add_argument(
+        "--nri-socket", default="",
+        help="containerd NRI socket; when set the agent registers as an "
+             "NRI plugin and injects devices at CreateContainer "
+             "(containerd activation; typical: /var/run/nri/nri.sock)",
+    )
+    p.add_argument(
+        "--nri-driver-lib", action="append", default=[], metavar="PATH",
+        help="host driver library (e.g. /usr/lib/x86_64-linux-gnu/"
+             "libcuda.so.1) to bind-mount read-only at its own path into "
+             "GPU containers via NRI; repeatable",
+    )
+    p.add_argument(
+        "--nri-evict-on-chip-failure", action="store_true",
+        help="policy: evict containers bound to a card that goes "
+             "unhealthy (via NRI UpdateContainers) so the kubelet "
+             "restarts them onto healthy cards",
     )
     p.add_argument("--metrics-port", type=int, default=9478,
                    help="observability HTTP port serving /metrics, "
@@ -142,7 +166,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "also read from ELASTIC_TPU_FAULTS. Never set in "
                         "production")
     p.add_argument("-v", "--verbose", action="count", default=0)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.nri_evict_on_chip_failure and not args.nri_socket:
+        p.error(
+            "--nri-evict-on-chip-failure requires --nri-socket (evictions "
+            "go through the NRI session)"
+        )
+    return args
 
 
 # -- node-doctor shared plumbing ----------------------------------------------
@@ -342,11 +372,15 @@ def options_from_args(args: argparse.Namespace) -> ManagerOptions:
         node_name=args.node_name,
         db_path=args.db_file,
         kubeconfig=args.kubeconf,
+        plugin_kind=args.plugin,
         operator_kind=args.operator,
         dev_root=args.dev_root,
         device_plugin_dir=args.device_plugin_dir,
         pod_resources_socket=args.pod_resources_socket,
         alloc_spec_dir=args.alloc_spec_dir,
+        nri_socket=args.nri_socket,
+        nri_driver_libs=list(args.nri_driver_lib),
+        nri_evict_on_chip_failure=args.nri_evict_on_chip_failure,
         dp_pool_size=args.dp_pool_size,
         crash_loop_threshold=args.crash_loop_threshold,
         reconcile_period_s=args.reconcile_period,

@@ -20,8 +20,15 @@ the core and memory locators, the plugin bundle and the reconciler; then
   short, reclaims pods deleted while the agent was down, sweeps orphans
   and replays unbound kubelet assignments;
 - the device-plugin servers, GC, the health poll, the periodic reconciler,
-  the profiler (with ``profile_hz`` > 0), the CRD and Event sink workers
-  and the deferred allocatable check start as supervised subsystems.
+  the profiler (with ``profile_hz`` > 0), the NRI server (with
+  ``nri_socket``), the CRD and Event sink workers and the deferred
+  allocatable check start as supervised subsystems.
+
+With ``nri_socket`` the agent registers as an external NRI plugin on the
+runtime's socket and injects the allocation at CreateContainer (the
+containerd activation; the OCI hook chain in ``native/`` is the other),
+and with ``nri_evict_on_chip_failure`` a card that goes unhealthy evicts
+the containers injected with it.
 
 Nothing here imports torch (the agent's process holds no CUDA context) or
 grpc: the pod-resources client is built from ``rpc`` only when no
@@ -30,8 +37,8 @@ they start. ``metrics`` is an ``AgentMetrics`` built by the caller (the
 CLI's ``--metrics-port``); without it nothing imports prometheus_client.
 
 The agent's utilization sampler, goodput ledger, drain, migration,
-repartition, slice registry and NRI server come with their slices: their
-options and flags come with them.
+repartition and slice registry come with their slices: their options and
+flags come with them.
 """
 
 from __future__ import annotations
@@ -40,8 +47,8 @@ import logging
 import queue
 import threading
 import time
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 from . import supervisor as supervision
 from . import timeline as timeline_mod
@@ -76,11 +83,25 @@ class ManagerOptions:
     node_name: str = ""
     db_path: str = "/host/var/lib/elastic-tpu/meta.db"
     kubeconfig: str = ""
+    # the device-plugin bundle: gpushare (gpu-core and gpu-memory) is the
+    # port's one kind, as tpushare is the agent's
+    plugin_kind: str = "gpushare"
     operator_kind: str = "nvidia"  # nvidia | stub[:<cards>] | exclusive[:<inner>]
     dev_root: str = "/host/dev"
     device_plugin_dir: str = DEVICE_PLUGIN_DIR
     pod_resources_socket: str = POD_RESOURCES_SOCKET
     alloc_spec_dir: str = DEFAULT_ALLOC_SPEC_DIR
+    # the containerd activation (nri/plugin.py): register as an external
+    # NRI plugin on this socket and inject at CreateContainer ("" = off)
+    nri_socket: str = ""
+    # host driver libraries (libcuda.so.1, ...) bind-mounted read-only at
+    # their own paths into GPU containers through NRI (the agent's
+    # nri_libtpu; empty = the images carry their own)
+    nri_driver_libs: List[str] = field(default_factory=list)
+    # policy (off by default): a card that goes unhealthy evicts, through
+    # NRI UpdateContainers, the containers injected with it; the kubelet
+    # restarts them on healthy cards
+    nri_evict_on_chip_failure: bool = False
     # gRPC worker threads per device-plugin resource server
     # (plugins/base.py; CLI --dp-pool-size)
     dp_pool_size: int = GRPC_POOL_SIZE
@@ -156,6 +177,8 @@ def build_operator(opts: ManagerOptions):
 
 class NodeManager:
     def __init__(self, opts: ManagerOptions) -> None:
+        if opts.plugin_kind != "gpushare":
+            raise ValueError(f"unknown plugin kind {opts.plugin_kind!r}")
         self._opts = opts
         # The bus first: the store publishes its notifications from its
         # commit path, so the bus exists before the first write.
@@ -278,6 +301,27 @@ class NodeManager:
             bus=self.bus,
             event_safety_net_factor=opts.event_safety_net_factor,
         )
+        self.nri_plugin = None
+        if opts.nri_socket:
+            from .nri import NRIPlugin
+
+            # runc resolves an adjustment's Mount.source in the host's
+            # mount namespace, and the agent sees the host under /host
+            host_alloc = opts.alloc_spec_dir
+            if host_alloc.startswith("/host/"):
+                host_alloc = host_alloc[len("/host"):]
+            self.nri_plugin = NRIPlugin(
+                socket_path=opts.nri_socket,
+                alloc_spec_dir=opts.alloc_spec_dir,
+                host_alloc_dir=host_alloc,
+                dev_root=opts.dev_root,
+                driver_libs=opts.nri_driver_libs,
+                metrics=self.metrics,
+            )
+            if opts.nri_evict_on_chip_failure:
+                self.plugin.on_chips_failed = self.nri_plugin.evict_for_chips
+                self.plugin.on_chips_recovered = (
+                    self.nri_plugin.clear_failed_chips)
         self._stop = threading.Event()
         self._stopped = False
 
@@ -469,6 +513,10 @@ class NodeManager:
             # DEGRADED: observability never takes binding down; a crashed
             # profiler restarts with its table (same instance)
             self.supervisor.register("profiler", self.profiler.run, DEGRADED)
+        if self.nri_plugin is not None:
+            # DEGRADED: without NRI the node still binds, and the OCI hook
+            # chain still injects where the runtime reads hooks.d
+            self.supervisor.register("nri", self.nri_plugin.run, DEGRADED)
         if self.crd_recorder is not None:
             self.supervisor.register(
                 "crd-recorder", self.crd_recorder.run_supervised, DEGRADED)
@@ -499,6 +547,8 @@ class NodeManager:
         self.supervisor.join("gc", timeout=10.0)
         self.supervisor.join("health", timeout=10.0)
         self.supervisor.join("reconciler", timeout=10.0)
+        if self.nri_plugin is not None:
+            self.nri_plugin.stop()
         self.plugin.core.stop_streams()
         self.plugin.memory.stop_streams()
         if self.crd_recorder is not None:

@@ -1,8 +1,14 @@
 """The container injection of a CUDA allocation (the agent's NRI path):
-the counterpart of ``elastic_tpu_agent/nri/``. So far the adjustment an
-allocation spec makes (:mod:`plugin`); the NRI plugin server waits for a
-later slice."""
+the counterpart of ``elastic_tpu_agent/nri/``. The adjustment an
+allocation spec makes and the NRI plugin server (:mod:`plugin`), over the
+runtime socket's multiplexer (:mod:`mux`) and ttrpc (:mod:`ttrpc`)."""
 
-from .plugin import adjustment_from_spec, hash_from_env, plain_adjustment
+from .plugin import (
+    NRIPlugin,
+    adjustment_from_spec,
+    hash_from_env,
+    plain_adjustment,
+)
 
-__all__ = ["adjustment_from_spec", "hash_from_env", "plain_adjustment"]
+__all__ = ["NRIPlugin", "adjustment_from_spec", "hash_from_env",
+           "plain_adjustment"]

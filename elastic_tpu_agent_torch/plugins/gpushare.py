@@ -55,8 +55,12 @@ the sitter's deletion mark to the detection-lag tracker, with trigger
 ``event`` when a queued deletion woke it and ``poll`` on its periodic
 tick.
 
-Not ported in this slice: the agent's sampler hooks, the slice env, the
-ICI packing histogram, and the drain's and repartition's
+The bundle's ``on_chips_failed``/``on_chips_recovered`` hooks are the
+agent's: the manager points them at the NRI server's eviction under
+``--nri-evict-on-chip-failure``.
+
+Not ported in this slice: the agent's utilization-sampler hooks, the
+slice env, the ICI packing histogram, and the drain's and repartition's
 ``restamp_spec_env_locked``.
 """
 
@@ -1022,9 +1026,17 @@ class GPUSharePlugin:
 
     # -- card health ----------------------------------------------------------
 
+    # Policy hooks the manager sets (the agent's, plugins/tpushare.py):
+    # on_chips_failed(went_bad, reasons) and on_chips_recovered(recovered)
+    # on health flips; NRI eviction of the containers injected with a dead
+    # card, and its clearing when the card comes back.
+    on_chips_failed = None
+    on_chips_recovered = None
+
     def health_once(self) -> bool:
         """One health poll: probe the operator once and apply the same view
-        to both resources. Returns True when anything changed."""
+        to both resources, then call the policy hooks on flips. Returns
+        True when anything changed."""
         faults.fire("health.poll")
         try:
             healthy = set(self._config.operator.healthy_indexes())
@@ -1033,21 +1045,33 @@ class GPUSharePlugin:
             return False
         went_bad, recovered = self.core.apply_health(healthy)
         self.memory.apply_health(healthy)
+        reasons = {}
         if went_bad or recovered:
-            self._report_health(went_bad, recovered)
+            try:
+                reasons = self._config.operator.health_reasons()
+            except Exception:  # noqa: BLE001 - reasons are best-effort
+                pass
+            self._report_health(went_bad, recovered, reasons)
         if self._config.metrics is not None:
             self._config.metrics.healthy_chips.set(
                 len(self.core._chips) - len(self.core.unhealthy_chips()))
+        if self.on_chips_failed is not None and went_bad:
+            try:
+                self.on_chips_failed(set(went_bad), reasons)
+            except Exception:  # noqa: BLE001 - policy must not wedge health
+                logger.exception("card-failure policy hook failed")
+        if self.on_chips_recovered is not None and recovered:
+            try:
+                self.on_chips_recovered(set(recovered))
+            except Exception:  # noqa: BLE001
+                logger.exception("card-recovery policy hook failed")
         return bool(went_bad or recovered)
 
-    def _report_health(self, went_bad: set, recovered: set) -> None:
+    def _report_health(self, went_bad: set, recovered: set,
+                       reasons: Dict[int, str]) -> None:
         """Health flips to the CRD inventory, the node's and the bound
         pods' Events and the timeline."""
         config = self._config
-        try:
-            reasons = config.operator.health_reasons()
-        except Exception:  # noqa: BLE001 - reasons are best-effort
-            reasons = {}
         if config.crd_recorder is not None:
             for idx in sorted(went_bad):
                 config.crd_recorder.record_chip_health(

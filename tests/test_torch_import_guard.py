@@ -1,15 +1,20 @@
 """The PyTorch port imports neither JAX (nor optax or orbax) nor the JAX
 package: every module of elastic_tpu_agent_torch imports in a fresh
 interpreter where importing jax, optax or orbax fails, and no
-elastic_tpu_agent module gets loaded. The agent side (plugins, nri, rpc,
-gen, slices, storage, kube, supervisor, reconciler, manager, cli, faults,
-tracing, and the observability plane: events, timeline, the batcher,
-async_sink, kube.events, crd, crd_recorder, latency, profiler, metrics)
-loads no torch, its allocation logic and plain injection run with grpc
-and protobuf absent too, the node agent's modules import with grpc,
-protobuf and requests absent, and only metrics needs prometheus_client."""
+elastic_tpu_agent module gets loaded. The agent side (plugins, nri with
+its ttrpc and mux, rpc, gen, slices, storage, kube, supervisor,
+reconciler, manager, cli, faults, tracing, the native helpers' builder,
+and the observability plane: events, timeline, the batcher, async_sink,
+kube.events, crd, crd_recorder, latency, profiler, metrics) loads no
+torch, its allocation logic and plain injection run with grpc and
+protobuf absent too, the node agent's modules (the NRI server's included)
+import with grpc, protobuf and requests absent, a manager with an NRI
+socket builds without them, only metrics needs prometheus_client, and
+chip_smoke.py and the NRI runtime stand-in it loads import nothing of the
+JAX package."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -41,7 +46,7 @@ new = {"export", "parallel", "ring_attention", "pipeline",
        "locator", "reconciler", "manager", "cli", "faults", "tracing",
        "podresources_pb2", "podresources_v1_pb2", "events", "timeline",
        "batcher", "async_sink", "crd", "crd_recorder", "metrics",
-       "latency", "profiler"}
+       "latency", "profiler", "ttrpc", "mux", "ttrpc_pb2", "build"}
 missing = sorted(new - {n.rsplit(".", 1)[-1] for n in names})
 print(len(names), missing, leaked)
 """
@@ -68,8 +73,9 @@ import importlib, sys
 for blocked in ("torch", "jax", "elastic_tpu_agent"):
     sys.modules[blocked] = None
 for name in ("plugins", "plugins.base", "plugins.gpushare", "nri",
-             "nri.plugin", "rpc", "gen", "gen.deviceplugin_pb2",
-             "gen.nri_pb2", "gen.podresources_pb2",
+             "nri.plugin", "nri.ttrpc", "nri.mux", "rpc", "gen",
+             "gen.deviceplugin_pb2", "gen.nri_pb2", "gen.ttrpc_pb2",
+             "native", "native.build", "gen.podresources_pb2",
              "gen.podresources_v1_pb2", "slices", "slices.packing", "types",
              "storage", "storage.store", "kube", "kube.client",
              "kube.sitter", "kube.locator", "supervisor", "reconciler",
@@ -153,7 +159,8 @@ for blocked in ("torch", "jax", "elastic_tpu_agent", "grpc",
     sys.modules[blocked] = None
 for name in ("manager", "cli", "storage", "storage.store", "kube",
              "kube.client", "kube.sitter", "kube.locator", "reconciler",
-             "supervisor", "faults", "tracing", "plugins.gpushare",
+             "supervisor", "faults", "tracing", "plugins.gpushare", "nri",
+             "nri.plugin", "native.build",
              "events", "timeline", "storage.batcher", "async_sink",
              "kube.events", "crd", "crd_recorder", "latency", "profiler",
              "metrics"):
@@ -195,6 +202,52 @@ print(kinds, mgr.bus is not None, mgr.crd_recorder is not None,
 """
 
 
+# a manager with an NRI socket and the eviction policy, before it serves:
+# the NRI server imports protobuf only when its session starts
+NRI_MANAGER = r"""
+import os, sys, tempfile
+for blocked in ("torch", "grpc", "google.protobuf", "elastic_tpu_agent"):
+    sys.modules[blocked] = None
+from elastic_tpu_agent_torch.kube.client import KubeClient
+from elastic_tpu_agent_torch.manager import ManagerOptions, NodeManager
+
+class PodResources:
+    def list(self):
+        return type("R", (), {"pod_resources": []})()
+
+root = tempfile.mkdtemp(dir="/tmp")
+os.makedirs(os.path.join(root, "dev"))
+mgr = NodeManager(ManagerOptions(
+    node_name="node-a", db_path=os.path.join(root, "meta.db"),
+    operator_kind="stub:1", dev_root=os.path.join(root, "dev"),
+    kube_client=KubeClient("http://127.0.0.1:9"),
+    pod_resources_client=PodResources(), enable_event_bus=False,
+    enable_events=False, enable_crd=False,
+    nri_socket=os.path.join(root, "nri.sock"),
+    nri_evict_on_chip_failure=True))
+hooked = mgr.plugin.on_chips_failed == mgr.nri_plugin.evict_for_chips
+mgr.stop()
+print(hooked, sorted(m for m in sys.modules if sys.modules[m] is not None
+                     and (m.split(".")[0] in ("torch", "grpc")
+                          or m.startswith("google.protobuf"))))
+"""
+
+# chip_smoke.py and the NRI runtime stand-in it loads from tests/, with the
+# JAX package blocked: importing them loads none of it
+CHIP_SMOKE = r"""
+import importlib.util, sys
+for blocked in ("jax", "elastic_tpu_agent"):
+    sys.modules[blocked] = None
+import chip_smoke
+spec = importlib.util.spec_from_file_location("torch_nri_runtime",
+                                              "tests/torch_nri_runtime.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+print(sorted(m for m in sys.modules if sys.modules[m] is not None
+             and m.split(".")[0] in ("jax", "elastic_tpu_agent")))
+"""
+
+
 def _run(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -221,3 +274,17 @@ def test_allocation_logic_runs_without_grpc_protobuf_or_torch():
     nodes = "['/dev/nvidiactl', '/dev/nvidia-uvm', '/dev/nvidia-uvm-tools']"
     assert _run(PLAIN) == (f"30 {nodes} ['/dev/nvidia0', '/dev/nvidiactl', "
                            "'/dev/nvidia-uvm', '/dev/nvidia-uvm-tools'] []")
+
+
+def test_a_manager_with_an_nri_socket_loads_no_grpc_protobuf_or_torch():
+    assert _run(NRI_MANAGER) == "True []"
+
+
+def test_chip_smoke_and_its_nri_stand_in_import_no_jax_package():
+    assert _run(CHIP_SMOKE) == "[]"
+    pattern = re.compile(r"^\s*(from|import)\s+elastic_tpu_agent(\.|\s|$)",
+                         re.M)
+    for rel in ("chip_smoke.py", os.path.join("tests",
+                                              "torch_nri_runtime.py")):
+        with open(os.path.join(ROOT, rel)) as f:
+            assert not pattern.search(f.read()), rel

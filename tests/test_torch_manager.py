@@ -20,6 +20,12 @@ threshold, an AgentMetrics): the restore reports, the pods' journals,
 the Events' reasons, the ElasticTPU objects and the ported families'
 samples equal the agent's. ``main()`` serves ``--metrics-port``, and
 ``node-doctor timeline`` and ``profile`` answer as the agent's.
+
+The NRI flags parse as the agent's (``--nri-driver-lib`` is the port's
+``--nri-libtpu``); the flags the port still lacks are pinned; with
+``nri_socket`` the manager registers with a runtime stand-in
+(``tests/torch_nri_runtime.py``), and with the eviction policy a card
+flipped unhealthy evicts exactly the containers injected with it.
 """
 
 import json
@@ -470,10 +476,14 @@ PORTED_FLAGS = [
 def test_parse_args_matches_the_agents(argv):
     port = vars(cli.parse_args(argv))
     agent = vars(agent_cli.parse_args(argv))
-    assert set(port) <= set(agent)
-    differ = {k: (port[k], agent[k]) for k in port if port[k] != agent[k]}
-    # the port's operator is nvidia where the agent's is tpuvm
-    assert differ == ({} if argv else {"operator": ("nvidia", "tpuvm")})
+    # --nri-driver-lib is the port's --nri-libtpu
+    assert set(port) - set(agent) == {"nri_driver_lib"}
+    differ = {k: (port[k], agent[k]) for k in port
+              if k in agent and port[k] != agent[k]}
+    # the port's operator is nvidia where the agent's is tpuvm, its plugin
+    # kind gpushare where the agent's is tpushare
+    assert differ == dict({} if argv else {"operator": ("nvidia", "tpuvm")},
+                          plugin=("gpushare", "tpushare"))
     opts = cli.options_from_args(cli.parse_args(argv))
     if argv:
         assert (opts.node_name, opts.operator_kind, opts.dp_pool_size,
@@ -616,7 +626,8 @@ def test_observability_flags_match_the_agents():
     port = vars(cli.parse_args(OBS_FLAGS))
     agent = vars(agent_cli.parse_args(OBS_FLAGS))
     assert {k: (v, agent[k]) for k, v in port.items()
-            if v != agent[k]} == {"operator": ("nvidia", "tpuvm")}
+            if k in agent and v != agent[k]} == {
+        "operator": ("nvidia", "tpuvm"), "plugin": ("gpushare", "tpushare")}
     opts = cli.options_from_args(cli.parse_args(OBS_FLAGS))
     assert (opts.enable_events, opts.enable_crd, opts.timeline_cap,
             opts.storage_batch_window_s, opts.sink_flush_window_s,
@@ -627,6 +638,132 @@ def test_observability_flags_match_the_agents():
     assert (defaults.enable_event_bus, defaults.enable_events,
             defaults.enable_crd, defaults.profile_hz,
             defaults.storage_batch_window_s) == (True, True, True, 0.0, 0.0)
+
+
+NRI_FLAGS = ["--plugin", "gpushare", "--nri-socket", "/run/nri/nri.sock",
+             "--nri-evict-on-chip-failure"]
+# the agent's flags the port lacks: those of items 10.3-10.7 (sampler,
+# drain, migration, repartition, goodput, slices) and --nri-libtpu, whose
+# counterpart is --nri-driver-lib
+MISSING_FLAGS = {
+    "sampler_period", "no_sampler", "drain_deadline", "drain_period",
+    "preemption_notice", "maintenance_poll_ttl", "migration_period",
+    "no_migration", "repartition_period", "no_repartition",
+    "qos_evict_after", "goodput_period", "slice_membership_ttl",
+    "nri_libtpu"}
+
+
+def test_nri_flags_match_the_agents():
+    port = vars(cli.parse_args(NRI_FLAGS))
+    agent = vars(agent_cli.parse_args(NRI_FLAGS))
+    assert {k: (v, agent[k]) for k, v in port.items()
+            if k in agent and v != agent[k]} == {
+        "operator": ("nvidia", "tpuvm")}
+    opts = cli.options_from_args(cli.parse_args(NRI_FLAGS + [
+        "--nri-driver-lib", "/lib/libcuda.so.1",
+        "--nri-driver-lib", "/lib/libnvidia-ml.so.1"]))
+    assert (opts.plugin_kind, opts.nri_socket, opts.nri_evict_on_chip_failure,
+            opts.nri_driver_libs) == (
+        "gpushare", "/run/nri/nri.sock", True,
+        ["/lib/libcuda.so.1", "/lib/libnvidia-ml.so.1"])
+    defaults = cli.options_from_args(cli.parse_args([]))
+    assert (defaults.nri_socket, defaults.nri_driver_libs,
+            defaults.nri_evict_on_chip_failure) == ("", [], False)
+
+
+def test_evict_without_nri_socket_is_rejected_as_the_agent_rejects_it(
+        capsys):
+    for parse in (cli.parse_args, agent_cli.parse_args):
+        with pytest.raises(SystemExit) as ei:
+            parse(["--nri-evict-on-chip-failure"])
+        assert ei.value.code == 2
+        assert "requires --nri-socket" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--plugin", "tpushare"])
+    with pytest.raises(ValueError):
+        NodeManager(ManagerOptions(plugin_kind="tpushare"))
+
+
+def test_the_flags_the_port_lacks_are_those_of_later_items():
+    port = vars(cli.parse_args([]))
+    agent = vars(agent_cli.parse_args([]))
+    assert set(agent) - set(port) == MISSING_FLAGS
+
+
+def _nri_cluster(evict):
+    from torch_nri_runtime import NRIRuntime
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="mn", dir="/tmp"))
+    rt = NRIRuntime(str(root / "nri.sock"))
+    stub = StubOperator(str(root / "dev"), num_chips=4, minors=MINORS)
+    c = PortCluster(root, operator=stub, nri_socket=rt.socket_path,
+                    nri_evict_on_chip_failure=evict, **PORT_BIND_PATH)
+    return root, rt, stub, c
+
+
+def test_manager_runs_the_nri_plugin():
+    """--nri-socket registers the NRI plugin beside the device-plugin
+    servers, supervised as DEGRADED, and stop() ends its session."""
+    from elastic_tpu_agent_torch.gen import nri_pb2 as pb
+    from elastic_tpu_agent_torch.nri.plugin import event_mask
+
+    root, rt, _, c = _nri_cluster(evict=False)
+    try:
+        c.start()
+        rt.accept()
+        assert rt.registered.wait(5.0)
+        assert rt.configure().events == event_mask(pb.CREATE_CONTAINER,
+                                                   pb.REMOVE_CONTAINER)
+        status = c.manager.supervisor.status()
+        assert status["nri"]["criticality"] == "degraded"
+        assert c.manager.plugin.on_chips_failed is None
+        c.manager.stop()
+        assert wait_until(lambda: c.manager.nri_plugin._runtime is None)
+    finally:
+        c.stop()
+        rt.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def test_a_card_flipped_unhealthy_evicts_exactly_its_containers():
+    """With --nri-evict-on-chip-failure, the health poll's flip of card 1
+    evicts the one container injected with it; its recovery lets a new
+    container on it stay."""
+    root, rt, stub, c = _nri_cluster(evict=True)
+    try:
+        c.start()
+        # specs written after the boot pass, which sweeps unrecorded ones
+        alloc = root / "alloc"
+        alloc.mkdir(exist_ok=True)
+        # the card nodes in the agent's view of the host's /dev
+        os.symlink("/dev/null", root / "dev" / "nvidia91")
+        for h, card in (("c1c1c1c1", 1), ("c2c2c2c2", 2)):
+            (alloc / f"{h}.json").write_text(json.dumps({
+                "hash": h, "chip_indexes": [card],
+                "device_paths": ["/dev/nvidia91"], "control_paths": [],
+                "env": {"CUDA_VISIBLE_DEVICES": f"GPU-{card}"}}))
+        rt.accept()
+        assert rt.registered.wait(5.0)
+        rt.configure()
+        for cid, h in (("on-1", "c1c1c1c1"), ("on-2", "c2c2c2c2")):
+            resp = rt.create_container([f"GPU={h}"], container_id=cid)
+            assert [d.path for d in resp.adjust.linux.devices] == [
+                "/dev/nvidia91"]
+        mgr = c.manager
+        stub.set_unhealthy({1})
+        assert mgr.plugin.health_once()
+        assert rt.evicted_ids() == ["on-1"]
+        assert "GPU card(s) 1" in rt.update_requests[0].evict[0].reason
+        stub.set_unhealthy(set())
+        assert mgr.plugin.health_once()
+        assert mgr.nri_plugin._failed_chips == {}
+        rt.create_container(["GPU=c1c1c1c1"], container_id="on-1b")
+        assert mgr.nri_plugin._flush_evictions() == 0
+        assert rt.evicted_ids() == ["on-1"]
+    finally:
+        c.stop()
+        rt.close()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _free_port():
