@@ -7,9 +7,11 @@ device layer with four tenants sharing that GPU, the agent's device
 plugins and container injection with a tenant started from what they
 inject, the node agent itself across a restart, with a tenant served
 from a binding it restored, the agent's observability plane read
-around a tenant, and the agent's runtime activation: its NRI server and
+around a tenant, the agent's runtime activation: its NRI server and
 the OCI hook chain, each starting a tenant, with a card-failure
-eviction.
+eviction, and the agent's utilization sampler, drain and migration
+handshake around a runner tenant that is drained, reclaimed early and
+resumed.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -139,17 +141,17 @@ shows; it then exits 1 before the summary lines. Phases:
    ring run on the kernels' plain versions on the CPU, 4 launches of each
    kernel a ring, and the ring's forward and forward + backward device
    times beside one flash call over the whole 4096 and SDPA;
-18. the summary, printed after phases 19-28: the device time of the
+18. the summary, printed after phases 19-29: the device time of the
    whole bf16 backward (delta, dK/dV and dQ) against SDPA's whole
    backward, each phase's host seconds, a
    ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
    summed over the paths it lies on: forward, LoRA, the sharded step, the
    ring, the MoE mesh step, both pipeline schedules, the runner's mesh
-   runs and the shared card's train tenants for flash_fwd; train, LoRA,
-   the sharded step, the ring, the MoE mesh step, both pipeline
+   runs and the train tenants of phases 24 and 29 for flash_fwd; train,
+   LoRA, the sharded step, the ring, the MoE mesh step, both pipeline
    schedules, the runner's mesh runs and the train tenants for the
    backward pair; serving, the speculative fallback and the serving
-   tenants of phases 24-28 for paged_decode),
+   tenants of phases 24-29 for paged_decode),
    the card's name and power limit as
    nvidia-smi reports them, and the result line;
 19. MoE over a one-rank NCCL mesh: phase 7's MoE preset, weights and
@@ -304,7 +306,42 @@ shows; it then exits 1 before the summary lines. Phases:
    stand-in restarts: the agent re-registers within its first backoff
    and synchronizes. Prints the host ms of the CreateContainer round
    trips, hook + toolkit, flag to UpdateContainers and re-registration,
-   beside the card's name and power limit.
+   beside the card's name and power limit;
+29. the agent's utilization sampler, drain and migration handshake: the
+   CLI ``main`` (``python3 chip_smoke.py --agent E``, a child without
+   torch, phase 26's stand-ins) with ``--metrics-port`` on loopback,
+   ``--sampler-period 1``, ``--drain-period 0.5``, ``--migration-period
+   0.5`` and ``--drain-deadline 120`` binds pod T (50 gpu-core units and
+   half the card's gpu-memory units) and pod S (25 gpu-core units). A
+   tenant from T's spec env (and the pod's mount of the alloc dir) runs
+   the runner in train mode on phase 6's preset and token file, 30 steps
+   (under torch.profiler), beside one from S's that serves phase 4's 16
+   requests on the paged kernel (under torch.profiler); meanwhile
+   ``/debug/allocations`` must list both pods with the card's duty and
+   their 1m windows, and the sampler's duty p50 and each pod's
+   attributed share are printed beside each tenant's device-busy share
+   (shown, not judged); ``node-doctor`` (live) and ``--validate`` exit 0.
+   S's pod is deleted and reclaimed; ``elasticgpu.io/drain`` set on the
+   node at the fake apiserver must take the agent to cordoned, then
+   draining (the cordon journaled) and stamp ``ELASTIC_TPU_DRAIN`` and
+   its deadline into T's spec; T's tenant then runs the same 30 steps
+   with pre-copy rounds every 3 steps and a checkpoint dir: the
+   coordinator must stamp the cutover, the runner ship the final delta
+   and ack, and the coordinator reclaim T before the deadline (the drain
+   ``drained_acked``, ``elastic_tpu_drain_early_reclaims_total`` 1) and
+   publish a ``Migrated`` ElasticTPU object carrying the step, the chain
+   digest and T's bind trace id, with ``TPUNodeDraining`` and
+   ``TPUMigrationRecorded`` Events. The annotation cleared and T deleted,
+   a replacement pod of T's name binds; its spec must gain
+   ``ELASTIC_TPU_RESTORE_DIR``/``_STEP``, and a tenant from it alone
+   resumes from the delta chain to step 30 at the first run's final loss
+   (RESUME_TOL); its resume ack must give ``TPUMigrationCompleted``,
+   ``elastic_tpu_migrations_completed_total`` 1 and a ``migration``
+   completed row with T's trace id. Prints the host ms of cordon ->
+   signaled -> acked -> reclaimed beside the deadline, the pre-copy
+   rounds with their bytes and the cutover ms, replacement bind ->
+   verified and the flash launches of the runs, beside the card's name
+   and power limit; the agent imports no torch.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -3377,14 +3414,44 @@ def _tenant_tail(torch, dev, launches, work_start) -> dict:
                 max_memory_allocated=torch.cuda.max_memory_allocated(dev))
 
 
+@contextlib.contextmanager
+def _busy_profile(torch, on: bool):
+    """With ``on``, torch.profiler around the block: yields a dict that
+    gets the block's wall-clock start and end and the device time of its
+    kernels (``busy_us``, and ``busy_share`` of the wall time; None when
+    the profiler saw no device time). Without, an empty dict. Device
+    activity only: a trace of every host op of a whole run takes the
+    profiler minutes to fold."""
+    out: dict = {}
+    if not on:
+        yield out
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out["start"] = time.time()
+        yield out
+        torch.cuda.synchronize()
+        out["end"] = time.time()
+    busy_us = sum(_device_us(e) for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU)
+    out["busy_us"] = busy_us
+    out["busy_share"] = (busy_us / ((out["end"] - out["start"]) * 1e6)
+                         if busy_us else None)
+
+
 def tenant_main(args) -> int:
-    """A child of phase 24, started by ``run_device_share``: prints one
-    JSON line. ``discover`` runs ``NvidiaOperator("/dev")`` without torch;
-    the others wait at ``--barrier`` (if given) and then apply the env file
-    named by $ELASTIC_TPU_ENV_FILE as the runner does, before CUDA starts:
+    """A child of phases 24-29: prints one JSON line. ``discover`` runs
+    ``NvidiaOperator("/dev")`` without torch; the others wait at
+    ``--barrier`` (if given) and then apply the env file named by
+    $ELASTIC_TPU_ENV_FILE as the runner does, before CUDA starts:
     ``probe`` allocates below and above its HBM quota, ``train`` runs
-    ``runner.main`` on ``--runner-args``, ``serve`` runs phase 4's 16
-    requests on the kernel-path engine."""
+    ``runner.main`` on ``--runner-args``, ``train2`` (phase 29) runs it on
+    ``--runner-args``, waits at ``--barrier2`` and runs it on
+    ``--runner-args2``, ``serve`` runs phase 4's 16 requests on the
+    kernel-path engine. ``--profile-busy`` puts torch.profiler around the
+    first run or the requests (``_busy_profile``)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.tenant == "discover":
         from elastic_tpu_agent_torch.device import NvidiaOperator
@@ -3421,6 +3488,27 @@ def tenant_main(args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ, PA.PAGED_DECODE)
     work_start = _await_go(args.barrier)
+    if args.tenant == "train2":
+        runs = []
+        for i, argv in enumerate((args.runner_args, args.runner_args2)):
+            if i:
+                _await_go(args.barrier2)
+            for k in kerns:
+                k.launches = 0
+            buf = io.StringIO()
+            with _busy_profile(torch, args.profile_busy and not i) as busy:
+                with contextlib.redirect_stdout(buf):
+                    rc = R.main(argv.split())   # device "cuda"
+                torch.cuda.synchronize()
+            runs.append(dict(
+                rc=rc, busy=busy,
+                report=json.loads(buf.getvalue().strip().splitlines()[-1]),
+                launches={k.symbol: k.launches for k in kerns}))
+        total = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
+                 for k in kerns}
+        print(json.dumps(dict(runs=runs, quota=_quota(), **_tenant_tail(
+            torch, torch.device("cuda", 0), total, work_start))))
+        return max(r["rc"] for r in runs)
     if args.tenant == "train":
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -3482,10 +3570,11 @@ def tenant_main(args) -> int:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    streams = serve(W, eng, prompts, kinds, 64)
+    with _busy_profile(torch, args.profile_busy) as busy:
+        streams = serve(W, eng, prompts, kinds, 64)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    extra = {}
+    extra = {"busy": busy} if busy else {}
     if metrics is not None:
         metrics.attach_serving(eng.stats)
         base = f"http://127.0.0.1:{metrics.http_port}"
@@ -3512,7 +3601,8 @@ class _Tenant:
     """One child process of phase 24, its output in files under ``tmp``."""
 
     def __init__(self, name, kind, tmp, env_file=None, runner_args=None,
-                 barrier=None, env=None, strip=TENANT_ENV_STRIP, wrap=None):
+                 barrier=None, env=None, strip=TENANT_ENV_STRIP, wrap=None,
+                 runner_args2=None, barrier2=None, profile_busy=False):
         self.name = name
         self.out = os.path.join(tmp, f"{name}.out")
         self.err = os.path.join(tmp, f"{name}.err")
@@ -3526,6 +3616,12 @@ class _Tenant:
             argv += ["--runner-args", runner_args]
         if barrier:
             argv += ["--barrier", barrier]
+        if runner_args2:
+            argv += ["--runner-args2", runner_args2]
+        if barrier2:
+            argv += ["--barrier2", barrier2]
+        if profile_busy:
+            argv += ["--profile-busy"]
         if wrap:
             argv = wrap(argv)
         with open(self.out, "w") as out, open(self.err, "w") as err:
@@ -4294,7 +4390,8 @@ def _agent_manager(d, card):
     """The port's NodeManager for phase 26's children on ``d``'s db, dev
     root and alloc dir, the apiserver through ``d``'s kubeconfig; its
     gRPC servers are left out (the only change to the manager), in the
-    bind-path configuration (no event bus, Events or CRD)."""
+    bind-path configuration (no event bus, Events, CRD, sampler or
+    migration coordinator; the drain, as the agent's, is always on)."""
     from elastic_tpu_agent_torch.manager import ManagerOptions, NodeManager
 
     op = _agent_operator(os.path.join(d, "dev"))
@@ -4313,7 +4410,8 @@ def _agent_manager(d, card):
         dev_root=os.path.join(d, "dev"),
         alloc_spec_dir=os.path.join(d, "alloc"), reconcile_period_s=3600.0,
         operator=op, pod_resources_client=pr, enable_event_bus=False,
-        enable_events=False, enable_crd=False))
+        enable_events=False, enable_crd=False, enable_sampler=False,
+        enable_migration=False))
     holder["m"] = mgr
     mgr.plugin.servers = []
     return mgr, op, pr
@@ -4806,13 +4904,17 @@ class _CRDLog(dict):
         return out
 
 
-def _cli_agent(d, argv_file, pods, flag_dir=None):
+def _cli_agent(d, argv_file, pods, flag_dir=None, follow=False):
     """The port's CLI ``main`` on the flags in ``d/argv_file``, in this
     process (a child without torch), with phase 26's stand-ins handed to
     the manager the CLI builds (``_agent_operator``, with ``flag_dir``, and
     ``_PodResources``; its gRPC servers left out). A thread plays the
     kubelet for ``pods`` once the agent is up and writes ``bound.json``;
-    SIGTERM ends ``main``. Returns (exit code, the manager)."""
+    ``pods`` is a list (each pod card.json's units) or a dict of pod ->
+    (core units, memory units; 0: no memory). With ``follow``, the thread
+    then binds the pods of each ``bind-<n>.json`` the parent writes (n =
+    1, 2, ...) and answers in ``bound-<n>.json``. SIGTERM ends ``main``.
+    Returns (exit code, the manager)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import threading
 
@@ -4838,6 +4940,7 @@ def _cli_agent(d, argv_file, pods, flag_dir=None):
             holder["m"] = self
 
     def drive():
+        n = 0
         try:
             deadline = time.time() + AGENT_WAIT_S
             while "allocatable-check" not in (
@@ -4848,37 +4951,56 @@ def _cli_agent(d, argv_file, pods, flag_dir=None):
                 time.sleep(0.01)
             mgr = holder["m"]
             core, mem = mgr.plugin.core, mgr.plugin.memory
-            ms, assigned, hashes = {}, {}, {}
             used = {"core": set(), "mem": set()}
 
-            def clock(name, fn, *a):
-                t = time.perf_counter()
-                got = fn(*a)
-                ms.setdefault(name, []).append(
-                    (time.perf_counter() - t) * 1e3)
-                return got
+            def bind(pods):
+                ms, hashes = {}, {}
+                assigned = _read_json(os.path.join(d, "assign.json")) or {}
 
-            for pod in pods:
-                ids = {}
-                for kind, plugin, n in (("core", core, card["core_units"]),
-                                        ("mem", mem, card["mem_units"])):
-                    free = [i for i, _ in plugin.device_list()
-                            if i not in used[kind]]
-                    ids[kind] = plugin.preferred_ids(free, [], n)
-                    used[kind].update(ids[kind])
-                    clock(f"allocate_{kind}", plugin.allocate_container,
-                          ids[kind])
-                    assigned.setdefault(f"default/{pod}", {}).setdefault(
-                        "main", {})[plugin.resource] = ids[kind]
-                    _write_json(os.path.join(d, "assign.json"), assigned)
-                hashes[pod] = [Device(ids["core"]).hash,
-                               Device(ids["mem"]).hash]
-                for kind, plugin in (("core", core), ("mem", mem)):
-                    clock(f"prestart_{kind}", plugin.pre_start, ids[kind])
-            _write_json(os.path.join(d, "bound.json"),
-                        dict(hashes=hashes, bind_ms=ms))
+                def clock(name, fn, *a):
+                    t = time.perf_counter()
+                    got = fn(*a)
+                    ms.setdefault(name, []).append(
+                        (time.perf_counter() - t) * 1e3)
+                    return got
+
+                for pod in pods:
+                    units = (pods[pod] if isinstance(pods, dict) else
+                             (card["core_units"], card["mem_units"]))
+                    ids = {}
+                    for kind, plugin, n in (("core", core, units[0]),
+                                            ("mem", mem, units[1])):
+                        if not n:
+                            continue
+                        free = [i for i, _ in plugin.device_list()
+                                if i not in used[kind]]
+                        ids[kind] = plugin.preferred_ids(free, [], n)
+                        used[kind].update(ids[kind])
+                        clock(f"allocate_{kind}", plugin.allocate_container,
+                              ids[kind])
+                        assigned.setdefault(f"default/{pod}", {}).setdefault(
+                            "main", {})[plugin.resource] = ids[kind]
+                        _write_json(os.path.join(d, "assign.json"), assigned)
+                    hashes[pod] = [Device(ids[k]).hash for k in ids]
+                    for kind, plugin in (("core", core), ("mem", mem)):
+                        if kind in ids:
+                            clock(f"prestart_{kind}", plugin.pre_start,
+                                  ids[kind])
+                return dict(hashes=hashes, bind_ms=ms)
+
+            _write_json(os.path.join(d, "bound.json"), bind(pods))
+            n = 1
+            while follow:
+                req = _read_json(os.path.join(d, f"bind-{n}.json"), 3600.0)
+                if req is None:
+                    return
+                _write_json(os.path.join(d, f"bound-{n}.json"),
+                            dict(bind(req["pods"]), at=time.time()))
+                n += 1
         except Exception as e:  # noqa: BLE001 - reported to the parent
-            _write_json(os.path.join(d, "bound.json"), {"error": repr(e)})
+            _write_json(os.path.join(
+                d, f"bound-{n}.json" if n else "bound.json"),
+                {"error": repr(e)})
 
     cli.NodeManager = Manager
     threading.Thread(target=drive, daemon=True, name="kubelet").start()
@@ -5612,6 +5734,493 @@ def run_runtime_activation(torch, srv, streams, dev) -> dict:
     return out
 
 
+MIG_PODS = {"pod-t": (50, 2),    # core units, memory share divisor
+            "pod-s": (25, 0)}    # core units only
+MIG_DEADLINE_S = 120.0           # --drain-deadline
+MIG_STEPS = 30                   # the runner's schedule and step budget
+MIG_PRECOPY_EVERY = 3            # a pre-copy round every 3 steps
+MIG_WAIT_S = 120.0               # each wait of the phase on the agent
+MIG_FLAGS = ["--sampler-period", "1", "--drain-period", "0.5",
+             "--migration-period", "0.5",
+             "--drain-deadline", str(MIG_DEADLINE_S)]
+
+
+def agent_mig_main(args) -> int:
+    """Phase 29's agent (``--agent E``): ``_cli_agent`` on ``mig.json``'s
+    flags, binding the pods of ``pods.json`` and then those of each bind
+    request. Prints one JSON line."""
+    d = args.agent_dir
+    pods = {k: tuple(v) for k, v in _read_json(
+        os.path.join(d, "pods.json")).items()}
+    rc, mgr = _cli_agent(d, "mig.json", pods, follow=True)
+    print(json.dumps(dict(
+        rc=rc, torch_imported="torch" in sys.modules,
+        subsystems={k: v["state"] for k, v in
+                    mgr.supervisor.status().items()} if mgr else {})))
+    return 0
+
+
+class _AllocPoller:
+    """GETs ``/debug/allocations`` about twice a second in a thread:
+    (wall time, the card's duty, {pod: attributed core %}) each."""
+
+    def __init__(self, base):
+        import threading
+
+        self.base, self.rows, self.last = base, [], None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            code, text = _http(self.base + "/debug/allocations")
+            if code == 200:
+                table = json.loads(text)
+                self.last = table
+                chips = table.get("chips") or [{}]
+                self.rows.append((time.time(), chips[0].get(
+                    "duty_cycle_percent"), {
+                    p["pod"]: p.get("used_core_percent")
+                    for p in table.get("pods", [])}))
+            self._stop.wait(0.5)
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def window(self, start, end) -> dict:
+        """Duty p50 and each pod's attributed p50 over [start, end]."""
+        rows = [r for r in self.rows if start <= r[0] <= end]
+        duty = [r[1] for r in rows if r[1] is not None]
+        pods = sorted({p for r in rows for p in r[2]})
+        return dict(samples=len(rows),
+                    duty_p50=float(np.median(duty)) if duty else None,
+                    pods={p: float(np.median(v)) if v else None
+                          for p in pods for v in [[
+                              r[2][p] for r in rows
+                              if r[2].get(p) is not None]]})
+
+
+def _wait(what, fn, timeout_s=MIG_WAIT_S, period_s=0.02):
+    """fn()'s first truthy value within ``timeout_s``; None (a failed
+    check) after it."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        got = fn()
+        if got:
+            return got
+        time.sleep(period_s)
+    fail(f"migration: {what} within {timeout_s:.0f} s")
+    return None
+
+
+def _spec(d, h) -> dict:
+    try:
+        with open(os.path.join(d, "alloc", f"{h}.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def run_migration(torch, D, srv, streams, dev) -> dict:
+    """Phase 29: the port's agent drains a runner tenant, which streams
+    pre-copy rounds until the coordinator's cutover, is reclaimed early on
+    its ack, recorded, and resumed by a replacement pod from the restore
+    env the agent stamps (module docstring)."""
+    import shutil
+    import signal
+    import tempfile
+
+    from elastic_tpu_agent_torch.common import (
+        AnnotationAssumed, AnnotationDrain, BytesPerMemoryUnit,
+        EnvDrain, EnvDrainDeadline, EnvRestoreDir, EnvRestoreStep,
+        ResourceGPUCore, ResourceGPUMemory, container_annotation)
+    from elastic_tpu_agent_torch.device import NvidiaOperator
+    from elastic_tpu_agent_torch.migration import migration_object_name
+    from elastic_tpu_agent_torch.nri import plugin as NRI
+    from elastic_tpu_agent_torch.workloads import telemetry as T
+
+    props = torch.cuda.get_device_properties(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"launches": {k: 0 for k in KERNEL_NAMES}}
+    d = tempfile.mkdtemp(prefix="cs29", dir="/tmp")
+    api = poller = None
+    alive = []
+    try:
+        chips = [c for c in NvidiaOperator(
+            "/dev", maintenance=lambda: None,
+            preemption=lambda: None).devices()
+            if _uuid_key(c.uuid) == _uuid_key(props.uuid)]
+        if len(chips) != 1:
+            fail(f"migration: no single card of uuid {props.uuid}")
+            return out
+        chip = chips[0]
+        units = chip.hbm_bytes // BytesPerMemoryUnit
+        pods = {p: (core, units // share if share else 0)
+                for p, (core, share) in MIG_PODS.items()}
+        api = _load_tests_module("fake_apiserver").FakeAPIServer()
+        url = api.start()
+        node = "h100-node"
+        api.add_node(node)
+        os.makedirs(os.path.join(d, "dev"))
+        _write_json(os.path.join(d, "kubeconfig"), {
+            "current-context": "c",
+            "contexts": [{"name": "c", "context": {"cluster": "local",
+                                                   "user": "agent"}}],
+            "clusters": [{"name": "local", "cluster": {"server": url}}],
+            "users": [{"name": "agent", "user": {"token": "phase-29"}}]})
+        _write_json(os.path.join(d, "card.json"), dict(
+            node=node, core_units=0, mem_units=0,
+            core_resource=ResourceGPUCore, mem_resource=ResourceGPUMemory))
+        _write_json(os.path.join(d, "pods.json"), pods)
+
+        def admit(pod, uid):
+            api.upsert_pod({"metadata": {
+                "namespace": "default", "name": pod, "uid": uid,
+                "annotations": {
+                    AnnotationAssumed: "true",
+                    container_annotation("main"): str(chip.index)}},
+                "spec": {"nodeName": node,
+                         "containers": [{"name": "main"}]}})
+
+        for pod in pods:
+            admit(pod, f"uid-{pod}")
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        db = os.path.join(d, "meta.db")
+        _write_json(os.path.join(d, "mig.json"), {"argv": [
+            "--node-name", node, "--db-file", db,
+            "--kubeconf", os.path.join(d, "kubeconfig"),
+            "--operator", "nvidia", "--dev-root", os.path.join(d, "dev"),
+            "--alloc-spec-dir", os.path.join(d, "alloc"),
+            "--device-plugin-dir", os.path.join(d, "dp"),
+            "--pod-resources-socket", os.path.join(d, "pr.sock"),
+            "--metrics-port", str(port), *MIG_FLAGS]})
+        agent = _AgentChild("E", d)
+        alive.append(agent)
+        bound = _read_json(os.path.join(d, "bound.json"), AGENT_WAIT_S)
+        if not bound or "error" in bound:
+            agent.kill()
+            agent.result(time.perf_counter() + 1)
+            fail(f"migration agent never bound: {bound}")
+            return out
+        hashes = bound["hashes"]
+        ht, hs = hashes["pod-t"][0], hashes["pod-s"][0]
+        trace_t = _spec(d, ht)["env"].get("ELASTIC_TPU_TRACE_ID", "")
+
+        def pod_env(h):
+            """The tenant's env from the pod's spec alone: the injection's
+            env, its hash, and the pod's mount of the alloc dir."""
+            spec_path = os.path.join(d, "alloc", f"{h}.json")
+            adj = NRI.plain_adjustment(_spec(d, h), os.stat, "/dev",
+                                       spec_path)
+            return dict(adj["env"], TPU=h,
+                        ELASTIC_TPU_ALLOC_DIR=os.path.join(d, "alloc"),
+                        ELASTIC_TPU_RESTORE_WAIT_S="0")
+
+        data = _runtime_data(D, os.path.join(d, "tokens.bin"))
+        ref = (f"{data} --steps {MIG_STEPS} --warmup-steps 5 "
+               f"--total-steps {MIG_STEPS}")
+        ck = os.path.join(d, "ckpt")
+        fr = os.path.join(d, "fr.jsonl")
+        drained_args = (f"{ref} --precopy-every {MIG_PRECOPY_EVERY} "
+                        f"--checkpoint-every 0 --checkpoint-dir {ck} "
+                        f"--flight-recorder {fr}")
+        b1, b2 = os.path.join(d, "b1"), os.path.join(d, "b2")
+        os.makedirs(b1)
+        os.makedirs(b2)
+        t_ten = _Tenant("mig_t", "train2", d, env=pod_env(ht),
+                        strip=PLUGIN_ENV_STRIP, runner_args=ref,
+                        runner_args2=drained_args, barrier=b1, barrier2=b2,
+                        profile_busy=True)
+        s_ten = _Tenant("mig_s", "serve", d, env=pod_env(hs),
+                        strip=PLUGIN_ENV_STRIP, barrier=b1,
+                        profile_busy=True)
+        alive += [t_ten, s_ten]
+        poller = _AllocPoller(base)
+        _wait("both tenants ready", lambda: len(os.listdir(b1)) >= 2,
+              timeout_s=TENANT_TIMEOUT_S)
+        open(os.path.join(b1, "go"), "w").close()
+        srep = s_ten.result(time.perf_counter() + TENANT_TIMEOUT_S)
+        _wait("tenant T's uninterrupted run", lambda: os.listdir(b2),
+              timeout_s=TENANT_TIMEOUT_S)
+        table = poller.last or {}
+        poller.close()
+
+        # the sampler while both worked, beside each tenant's profiler
+        listed = sorted(p["pod"] for p in table.get("pods", []))
+        chip_rows = table.get("chips") or [{}]
+        have_1m = chip_rows[0].get("duty_cycle_percent") is not None and all(
+            (p.get("windows") or {}).get("1m", {}).get("samples", 0) > 0
+            for p in table.get("pods", []))
+        if srep:
+            if srep["streams"] != streams:
+                fail("migration: serving tenant streams differ from "
+                     "phase 4's")
+            if srep["launches"]["paged_decode"] != srv["paged_launches"]:
+                fail(f"migration: serving launches {srep['launches']}")
+            out["launches"]["paged_decode"] += srep["launches"][
+                "paged_decode"]
+        if listed != ["default/pod-s", "default/pod-t"] or not have_1m:
+            fail(f"migration: /debug/allocations pods {listed}, card row "
+                 f"{chip_rows[0]}")
+        rc, bundle_out, err = _doctor([
+            "--agent-url", base, "--operator", "nvidia", "--dev-root",
+            "/dev", "--db-file", db, "--alloc-spec-dir",
+            os.path.join(d, "alloc"), "--samples", "1"])
+        bundle_path = os.path.join(d, "bundle.json")
+        with open(bundle_path, "w") as f:
+            f.write(bundle_out)
+        rc_v, _, err_v = _doctor(["--validate", bundle_path])
+        print(f"migration doctor: node-doctor (live) exit {rc}, --validate "
+              f"exit {rc_v}")
+        if rc or rc_v:
+            fail(f"migration node-doctor: {err[-500:]} {err_v[-500:]}")
+
+        # S done: its pod goes, and GC reclaims it before the drain
+        api.delete_pod("default", "pod-s")
+        assigned = _read_json(os.path.join(d, "assign.json"))
+        assigned.pop("default/pod-s", None)
+        _write_json(os.path.join(d, "assign.json"), assigned)
+        _wait("pod S reclaimed", lambda: "default/pod-s" not in {
+            p["pod"] for p in _http_json(
+                base + "/debug/allocations").get("pods", [])})
+
+        # the drain: the node annotation at the apiserver
+        t_ann = time.time()
+        api.annotate_node(node, AnnotationDrain, "true")
+        stamped = _wait("T's spec signalled", lambda: {
+            k: v for k, v in _spec(d, ht).get("env", {}).items()
+            if k in (EnvDrain, EnvDrainDeadline)} or None, period_s=0.005)
+        t_signal_seen = time.time()
+        open(os.path.join(b2, "go"), "w").close()   # T's drained run
+        trep = t_ten.result(time.perf_counter() + TENANT_TIMEOUT_S)
+        mig_name = migration_object_name("default", "pod-t")
+        rec_obj = _wait("T's MigrationRecord", lambda: api._crds.get(
+            mig_name)) or {}
+        mig = _wait("T reclaimed early", lambda: (lambda m: m if m.get(
+            "early_reclaims_total") else None)(_http_json(
+                base + "/debug/allocations").get("migration") or {})) or {}
+        drain = _wait("the drain drained", lambda: (lambda x: x if x.get(
+            "state") == "drained" else None)(_http_json(
+                base + "/debug/allocations").get("drain") or {})) or {}
+        metrics_text = _http(base + "/metrics")[1]
+        sm = _samples(metrics_text)
+        rows = _http_json(base + "/debug/timeline?pod=default/pod-t"
+                          "&limit=1000")["events"]
+        node_rows = _http_json(base + "/debug/timeline?limit=1000")["events"]
+        trans = [(e["ts"], e["attrs"].get("state")) for e in node_rows
+                 if e["kind"] == "drain_transition"]
+        cordons = [e["attrs"].get("cordoned") for e in node_rows
+                   if e["kind"] == "cordon"]
+        early = [e for e in rows if e["kind"] == "migration"
+                 and e["attrs"].get("action") == "early_reclaim"]
+        record = (rec_obj.get("spec") or {}).get("migration") or {}
+        pre = record.get("precopy") or {}
+        runs = (trep or {}).get("runs") or [{}, {}]
+        first, second = runs[0].get("report", {}), runs[1].get("report", {})
+        t_cordon = next((ts for ts, st in trans if st == "cordoned"), None)
+        signal_s = sm.get(("elastic_tpu_drain_phase_seconds_sum",
+                           (("phase", "cordon_to_signaled"),)))
+        ack_ts = record.get("ack_ts")
+        ms = {}
+        if t_cordon is not None and signal_s is not None and ack_ts:
+            ms = dict(cordon_to_signaled=signal_s * 1e3,
+                      signaled_to_acked=(ack_ts - t_cordon - signal_s) * 1e3,
+                      acked_to_reclaimed=((early[-1]["ts"] - ack_ts) * 1e3
+                                          if early else None),
+                      annotation_to_cordon=(t_cordon - t_ann) * 1e3,
+                      annotation_to_spec_seen=(t_signal_seen - t_ann) * 1e3)
+        flight = [r for r in (T.load_jsonl(fr) if os.path.exists(fr)
+                              else []) if r["kind"] in ("precopy_round",
+                                                        "cutover")]
+        events = {(e["involvedObject"].get("name"), e["reason"])
+                  for e in api.core_events}
+        print(f"migration drain ({smi}): annotation -> cordoned "
+              f"{ms.get('annotation_to_cordon', float('nan')):.1f} ms; "
+              f"cordon -> signaled {ms.get('cordon_to_signaled', 0):.1f} ms, "
+              f"signaled -> acked {ms.get('signaled_to_acked', 0):.1f} ms, "
+              f"acked -> reclaimed {ms.get('acked_to_reclaimed') or 0:.1f} "
+              f"ms, beside the {MIG_DEADLINE_S:.0f} s deadline; states "
+              f"{[st for _, st in trans]}, cordon rows {cordons}")
+        print(f"migration pre-copy ({smi}): " + "; ".join(
+            f"{r['kind']} {r['round']} at step {r['step']}: "
+            f"{r['delta_bytes']} of {r['total_bytes']} bytes in "
+            f"{r['duration_ms']:.1f} ms" for r in flight)
+            + f"; the coordinator saw {pre.get('rounds')} round(s), cut "
+            f"over on {pre.get('cutover_reason')!r}, cutover_ms "
+            f"{pre.get('cutover_ms')}; the run stopped at step "
+            f"{second.get('start_step', 0) + second.get('steps', 0)} of "
+            f"{MIG_STEPS}")
+        checks = {
+            "states": [st for _, st in trans][:2] == ["cordoned", "draining"],
+            "cordoned": bool(cordons) and cordons[0] is True,
+            "stamped": (stamped or {}).get(EnvDrain) == "operator:annotation"
+            and EnvDrainDeadline in (stamped or {}),
+            "drained run": second.get("lifecycle_signal") == "drain"
+            and second.get("precopy_rounds", 0) >= 1,
+            # the coordinator's stamp (converged, the round cap or the
+            # deadline margin), not the runner's own end of budget
+            "cutover by the coordinator": (mig.get("cutovers_total") or 0)
+            >= 1 and pre.get("cutover_reason") in (
+                "converged", "rounds", "deadline"),
+            "record": rec_obj.get("status", {}).get("phase") == "Migrated"
+            and record.get("trace") == trace_t and bool(trace_t)
+            and record.get("digest") and record.get("step") is not None
+            and record.get("mode") == "precopy",
+            "early": bool(early) and ack_ts is not None
+            and early[-1]["ts"] < t_cordon + MIG_DEADLINE_S,
+            "outcome": drain.get("outcome") == "drained_acked",
+            "early metric": sm.get((
+                "elastic_tpu_drain_early_reclaims_total", ())) == 1.0,
+            "events": {(node, "TPUNodeDraining"),
+                       ("pod-t", "TPUMigrationRecorded")} <= events,
+        }
+        print(f"migration record: {mig_name} phase "
+              f"{rec_obj.get('status', {}).get('phase')}, step "
+              f"{record.get('step')}, digest {record.get('digest')}, trace "
+              f"{record.get('trace')} (T's bind {trace_t}); outcome "
+              f"{drain.get('outcome')}; checks {checks}")
+        for k, ok in checks.items():
+            if not ok:
+                fail(f"migration drain check {k!r} failed")
+
+        # the replacement: the annotation cleared, T deleted, a new pod
+        # of T's namespace and name bound
+        api.annotate_node(node, AnnotationDrain, None)
+        _wait("the drain cancelled", lambda: (_http_json(
+            base + "/debug/allocations").get("drain") or {}).get(
+            "state") == "active")
+        api.delete_pod("default", "pod-t")
+        assigned = _read_json(os.path.join(d, "assign.json"))
+        assigned.pop("default/pod-t", None)
+        _write_json(os.path.join(d, "assign.json"), assigned)
+        admit("pod-t", "uid-pod-t-2")
+        t_req = time.time()
+        _write_json(os.path.join(d, "bind-1.json"),
+                    {"pods": {"pod-t": pods["pod-t"]}})
+        bound2 = _read_json(os.path.join(d, "bound-1.json"), MIG_WAIT_S)
+        if not bound2 or "error" in bound2:
+            fail(f"migration replacement never bound: {bound2}")
+            return out
+        h2 = bound2["hashes"]["pod-t"][0]
+        restore = _wait("the restore stamp", lambda: {
+            k: v for k, v in _spec(d, h2).get("env", {}).items()
+            if k in (EnvRestoreDir, EnvRestoreStep)} if EnvRestoreStep in
+            _spec(d, h2).get("env", {}) else None, period_s=0.005) or {}
+        t_stamped = time.time()
+        step = int(restore.get(EnvRestoreStep, "-1"))
+        r_ten = _Tenant("mig_t2", "train", d, env=pod_env(h2),
+                        strip=PLUGIN_ENV_STRIP, runner_args=(
+                            f"{data} --steps {MIG_STEPS - step - 1} "
+                            f"--warmup-steps 5 --total-steps {MIG_STEPS}"))
+        alive.append(r_ten)
+        rrep = r_ten.result(time.perf_counter() + TENANT_TIMEOUT_S)
+        resumed = (rrep or {}).get("report", {})
+        done = _wait("the verified resume", lambda: (lambda m: m if m.get(
+            "completed_total") else None)(_http_json(
+                base + "/debug/allocations").get("migration") or {})) or {}
+        t_done = time.time()
+        sm2 = _samples(_http(base + "/metrics")[1])
+        rows2 = _http_json(base + "/debug/timeline?pod=default/pod-t"
+                           "&limit=1000")["events"]
+        completed = [e for e in rows2 if e["kind"] == "migration"
+                     and e["attrs"].get("action") == "completed"]
+        events = {(e["involvedObject"].get("name"), e["reason"])
+                  for e in api.core_events}
+        gap = (abs(resumed.get("final_loss", float("nan"))
+                   - first.get("final_loss", float("nan")))
+               if resumed and first else float("nan"))
+        launches = {"t_reference": runs[0].get("launches"),
+                    "t_drained": runs[1].get("launches"),
+                    "t_resumed": (rrep or {}).get("launches")}
+        for run in launches.values():
+            for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+                out["launches"][k] += (run or {}).get(k, 0)
+        print(f"migration resume ({smi}): replacement bind -> restore "
+              f"stamped {(t_stamped - t_req) * 1e3:.1f} ms, -> verified "
+              f"{(t_done - t_req) * 1e3:.1f} ms (the resumed run's tenant "
+              f"{rrep.get('seconds', 0) if rrep else 0:.1f} s of it); "
+              f"resumed at step {resumed.get('start_step')} from "
+              f"{restore.get(EnvRestoreDir)}, final loss "
+              f"{resumed.get('final_loss')} vs uninterrupted "
+              f"{first.get('final_loss')}: gap {gap:.3g} (limit "
+              f"{RESUME_TOL}); flash launches {launches}")
+        rchecks = {
+            "resumed": resumed.get("resumed_from_migration") is True
+            and resumed.get("start_step") == step + 1
+            and resumed.get("platform") == "gpu",
+            "loss": gap <= RESUME_TOL,
+            "completed": done.get("completed_total") == 1
+            and sm2.get(("elastic_tpu_migrations_completed_total", ()))
+            == 1.0,
+            "event": ("pod-t", "TPUMigrationCompleted") in events,
+            "timeline": bool(completed) and completed[-1]["keys"].get(
+                "trace") == trace_t,
+        }
+        print(f"migration resume checks {rchecks}")
+        for k, ok in rchecks.items():
+            if not ok:
+                fail(f"migration resume check {k!r} failed")
+
+        # the sampler's window beside the profilers' busy shares
+        tb = runs[0].get("busy") or {}
+        sb = (srep or {}).get("busy") or {}
+        win = {}
+        if tb.get("start") and sb.get("start"):
+            win = poller.window(max(tb["start"], sb["start"]),
+                                min(tb["end"], sb["end"]))
+        spans = [b.get("end", 0) - b.get("start", 0) for b in (tb, sb)]
+        print(f"migration sampler ({smi}): while both tenants worked, "
+              f"{win.get('samples')} sample(s) of /debug/allocations: card "
+              f"duty p50 {win.get('duty_p50')}%, attributed core % p50 "
+              f"{win.get('pods')}; the profilers' device-busy shares: T "
+              f"{tb.get('busy_share')} over {spans[0]:.2f} s, S "
+              f"{sb.get('busy_share')} over {spans[1]:.2f} s (shown, not "
+              "judged)")
+        agent.proc.send_signal(signal.SIGTERM)
+        arep = agent.result(time.perf_counter() + 60)
+        print(f"migration agent: exit {arep.get('rc')}, torch imported "
+              f"{arep.get('torch_imported')}, subsystems "
+              f"{arep.get('subsystems')}")
+        if arep.get("rc") != 0 or arep.get("torch_imported") is not False:
+            fail(f"migration agent: {arep}")
+        out.update(
+            card=smi, host_ms=ms, deadline_s=MIG_DEADLINE_S,
+            precopy=dict(rounds_seen=pre.get("rounds"),
+                         cutover_reason=pre.get("cutover_reason"),
+                         cutover_ms=pre.get("cutover_ms"),
+                         runner_rounds=second.get("precopy_rounds"),
+                         flight=flight),
+            record=dict(step=record.get("step"), digest=record.get("digest"),
+                        trace=record.get("trace")),
+            outcome=drain.get("outcome"),
+            resume=dict(start_step=resumed.get("start_step"),
+                        final_loss=resumed.get("final_loss"),
+                        reference_loss=first.get("final_loss"), gap=gap,
+                        bind_to_stamped_ms=(t_stamped - t_req) * 1e3,
+                        bind_to_verified_ms=(t_done - t_req) * 1e3),
+            sampler=dict(window=win, t_busy=tb, s_busy=sb),
+            run_launches=launches, checks=checks, resume_checks=rchecks,
+            runs={k: {f: r.get(f) for f in (
+                "steps", "start_step", "final_loss", "step_time_ms",
+                "tokens_per_s", "precopy_rounds", "lifecycle_signal")}
+                for k, r in (("t_reference", first), ("t_drained", second),
+                             ("t_resumed", resumed))})
+    finally:
+        if poller is not None:
+            poller.close()
+        for p in alive:
+            p.kill()
+        if api is not None:
+            api.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -5695,17 +6304,23 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the full report and profiler files")
     ap.add_argument("--tenant", choices=("discover", "probe", "train",
-                                         "serve", "serve_obs"),
-                    help="run as one of phases 24-28's child processes")
+                                         "train2", "serve", "serve_obs"),
+                    help="run as one of phases 24-29's child processes")
     ap.add_argument("--runner-args", default="",
                     help="a train tenant's runner flags")
+    ap.add_argument("--runner-args2", default="",
+                    help="a train2 tenant's second runner flags")
     ap.add_argument("--barrier", default="",
                     help="a tenant's start barrier directory")
-    ap.add_argument("--agent", choices=("A", "B", "C", "D"),
+    ap.add_argument("--barrier2", default="",
+                    help="a train2 tenant's barrier before its second run")
+    ap.add_argument("--profile-busy", action="store_true",
+                    help="a tenant's work under torch.profiler")
+    ap.add_argument("--agent", choices=("A", "B", "C", "D", "E"),
                     help="run as one of phase 26's agent processes (A, B), "
-                         "phase 27's (C) or phase 28's (D)")
+                         "phase 27's (C), 28's (D) or 29's (E)")
     ap.add_argument("--agent-dir", default="",
-                    help="phase 26's, 27's or 28's directory (db, dev "
+                    help="phase 26's, 27's, 28's or 29's directory (db, dev "
                          "root, alloc dir)")
     args = ap.parse_args()
     if args.tenant:
@@ -5714,6 +6329,8 @@ def main() -> int:
         return agent_obs_main(args)
     if args.agent == "D":
         return agent_act_main(args)
+    if args.agent == "E":
+        return agent_mig_main(args)
     if args.agent:
         return agent_main(args)
 
@@ -5827,16 +6444,18 @@ def main() -> int:
                           srv_streams, dev, agent)
     activation = timed("runtime_activation", run_runtime_activation, torch,
                        srv, srv_streams, dev)
+    migration = timed("migration", run_migration, torch, D, srv,
+                      srv_streams, dev)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
-    # runner's mesh runs + the shared card's tenants, serving + the spec
-    # engine's fallback steps + the tenants of phases 24-28, train +
+    # runner's mesh runs + the tenants of phases 24 and 29, serving + the
+    # spec engine's fallback steps + the tenants of phases 24-29, train +
     # LoRA + the sharded step + the ring + the MoE mesh step + both
     # pipeline schedules + the runner's mesh runs + the tenants
     tenants = {k: sum(x.get("launches", {}).get(k, 0)
                       for x in (share, plugin, agent, observability,
-                                activation))
+                                activation, migration))
                for k in KERNEL_NAMES}
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
@@ -5875,7 +6494,7 @@ def main() -> int:
               "tp_serving": tp_serving, "runner_mesh": runner_mesh,
               "device_share": share, "plugin_path": plugin,
               "agent_restart": agent, "observability": observability,
-              "runtime_activation": activation,
+              "runtime_activation": activation, "migration": migration,
               "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
@@ -5909,7 +6528,8 @@ def main() -> int:
                                 "plugin_path": plugin,
                                 "agent_restart": agent,
                                 "observability": observability,
-                                "runtime_activation": activation}}))
+                                "runtime_activation": activation,
+                                "migration": migration}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

@@ -18,6 +18,11 @@ Usage:
     # the running agent's hottest stacks (needs --profile-hz > 0)
     python3 -m elastic_tpu_agent_torch.cli node-doctor profile \\
         --agent-url http://127.0.0.1:9478
+    # the diagnostics bundle (devices, health, allocations, the sampler's
+    # windows, the timeline, live traces), and its schema check
+    python3 -m elastic_tpu_agent_torch.cli node-doctor \\
+        --agent-url http://127.0.0.1:9478 > bundle.json
+    python3 -m elastic_tpu_agent_torch.cli node-doctor --validate bundle.json
 
 ``--metrics-port`` serves ``/metrics``, ``/healthz`` and the loopback-only
 ``/debug/*`` routes (metrics.py); 0 turns the endpoint off, and then
@@ -25,10 +30,12 @@ nothing imports prometheus_client. ``--nri-socket`` registers the agent
 as containerd's NRI plugin (nri/plugin.py): it injects at CreateContainer,
 with ``--nri-driver-lib`` mounts of host driver libraries, and with
 ``--nri-evict-on-chip-failure`` evicts the containers of a card that
-goes unhealthy. The agent's diagnostics bundle
-(``node-doctor`` with no subcommand) and ``node-doctor goodput`` come with
-the port's utilization sampler and goodput ledger, and ``perf-gate`` with
-the port's own bench history.
+goes unhealthy. ``--sampler-period``/``--no-sampler`` set the
+utilization sampler, ``--drain-deadline``, ``--drain-period``,
+``--preemption-notice`` and ``--maintenance-poll-ttl`` the drain, and
+``--migration-period``/``--no-migration`` the migration coordinator.
+``node-doctor goodput`` comes with the port's goodput ledger, and
+``perf-gate`` with the port's own bench history.
 """
 
 from __future__ import annotations
@@ -111,6 +118,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="gRPC worker threads per device-plugin resource "
                         "server; kubelet binds containers concurrently, "
                         "so size this to the expected bind burst")
+    p.add_argument("--sampler-period", type=float, default=10.0,
+                   help="seconds between utilization/health samples "
+                        "(sampler.py)")
+    p.add_argument("--no-sampler", action="store_true",
+                   help="disable the utilization & health sampler")
     p.add_argument("--no-events", action="store_true",
                    help="disable k8s Event emission (e.g. RBAC without "
                         "events:create)")
@@ -128,6 +140,32 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="the reconciler observes and reports divergences "
                         "without repairing; the boot-time restore pass "
                         "still repairs")
+    p.add_argument("--drain-deadline", type=float, default=300.0,
+                   help="graceful-drain checkpoint deadline (seconds): on "
+                        "a maintenance event, preemption notice or "
+                        "operator drain, resident pods get this long after "
+                        "the ELASTIC_TPU_DRAIN signal before their "
+                        "bindings are reclaimed (drain.py)")
+    p.add_argument("--drain-period", type=float, default=2.0,
+                   help="seconds between drain-orchestrator trigger polls "
+                        "(jittered 0.75x-1.25x)")
+    p.add_argument("--preemption-notice", type=float, default=30.0,
+                   help="spot preemption notice window (seconds): a "
+                        "preemption-triggered drain clamps its budget to "
+                        "min(--drain-deadline, this); 0 disables the clamp")
+    p.add_argument("--migration-period", type=float, default=2.0,
+                   help="seconds between migration-coordinator ticks (ack "
+                        "consumption, early drain reclaim, MigrationRecord "
+                        "publication, inbound resume verification; "
+                        "jittered 0.75x-1.25x)")
+    p.add_argument("--no-migration", action="store_true",
+                   help="disable the checkpoint-handshake migration "
+                        "coordinator (drains run to their deadline and "
+                        "nothing verifies checkpoints or resumes)")
+    p.add_argument("--maintenance-poll-ttl", type=float, default=None,
+                   help="seconds one maintenance-event/preempted metadata "
+                        "fetch stays cached (default 30; env "
+                        "ELASTIC_TPU_MAINTENANCE_POLL_TTL also honored)")
     p.add_argument("--storage-batch-window", type=float, default=0.0,
                    help="group-commit window (seconds) of the checkpoint "
                         "store (storage/batcher.py): 0 = every write "
@@ -297,20 +335,6 @@ def timeline_main(argv=None) -> int:
     return 0
 
 
-def _fetch_json(url: str, timeout_s: float) -> dict:
-    """GET ``url`` as JSON; the agent's endpoint answers JSON on every
-    status, so an HTTP error's body is returned too (the port's copy of
-    ``elastic_tpu_agent/sampler.py``'s)."""
-    import urllib.error
-    import urllib.request
-
-    try:
-        with urllib.request.urlopen(url, timeout=timeout_s) as resp:
-            return json.loads(resp.read())
-    except urllib.error.HTTPError as e:
-        return json.loads(e.read())
-
-
 def parse_profile_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="elastic-gpu-agent node-doctor profile",
@@ -335,6 +359,7 @@ def parse_profile_args(argv=None) -> argparse.Namespace:
 
 def profile_main(argv=None) -> int:
     from .profiler import render_profile
+    from .sampler import _fetch_json
 
     args = parse_profile_args(argv)
     url = f"{args.agent_url.rstrip('/')}/debug/profile?top={args.top}"
@@ -356,15 +381,119 @@ def profile_main(argv=None) -> int:
     return 0
 
 
+def parse_doctor_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        prog="elastic-gpu-agent node-doctor",
+        description="Snapshot devices, health, error counters, "
+                    "allocations, sampler windows and recent traces into "
+                    "one JSON diagnostics bundle (stdout).",
+    )
+    p.add_argument("--node-name", default="", help="node name for the bundle")
+    p.add_argument(
+        "--operator", default="nvidia",
+        help="device operator to inspect: nvidia | stub[:<cards>] | "
+             "exclusive[:<inner>]",
+    )
+    p.add_argument("--dev-root", default="/host/dev", help="host /dev mount")
+    p.add_argument(
+        "--db-file", default="/host/var/lib/elastic-tpu/meta.db",
+        help="checkpoint db to read allocations from (skipped if absent)",
+    )
+    p.add_argument(
+        "--alloc-spec-dir", default="/host/var/lib/elastic-tpu/alloc",
+        help="alloc-spec dir (trace-id correlation)",
+    )
+    p.add_argument(
+        "--agent-url", default="",
+        help="base URL of a running agent's observability endpoint "
+             "(e.g. http://127.0.0.1:9478) to include live traces and "
+             "the live allocation table",
+    )
+    p.add_argument("--samples", type=int, default=3,
+                   help="utilization samples to take before bundling")
+    p.add_argument("--interval", type=float, default=1.0,
+                   help="seconds between samples")
+    p.add_argument("--trace-limit", type=int, default=50,
+                   help="max traces pulled into the bundle")
+    p.add_argument(
+        "--validate", default="", metavar="BUNDLE_JSON",
+        help="validate an existing bundle file against the schema and "
+             "exit (no snapshot is taken)",
+    )
+    return p.parse_args(argv)
+
+
+def bundle_main(argv=None) -> int:
+    """``node-doctor`` with no subcommand: a diagnostics bundle on stdout
+    (pure JSON; the rest goes to stderr), or with ``--validate`` the
+    schema check of a bundle file."""
+    from .sampler import (
+        UtilizationSampler,
+        build_diagnostics_bundle,
+        validate_bundle,
+    )
+
+    args = parse_doctor_args(argv)
+    logging.basicConfig(
+        level=logging.WARNING,
+        format="%(levelname).1s %(name)s %(message)s",
+        stream=sys.stderr,
+    )
+    if args.validate:
+        try:
+            with open(args.validate) as f:
+                bundle = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"cannot read bundle {args.validate}: {e}", file=sys.stderr)
+            return 1
+        problems = validate_bundle(bundle)
+        if problems:
+            for problem in problems:
+                print(f"INVALID: {problem}", file=sys.stderr)
+            return 1
+        print(f"bundle {args.validate} is valid", file=sys.stderr)
+        return 0
+    from .manager import build_operator
+    from .tracing import get_tracer
+
+    operator = build_operator(
+        ManagerOptions(operator_kind=args.operator, dev_root=args.dev_root)
+    )
+    storage = None
+    if os.path.exists(args.db_file):
+        from .storage import Storage
+
+        storage = Storage(args.db_file)
+    sampler = UtilizationSampler(
+        operator, storage=storage, alloc_spec_dir=args.alloc_spec_dir,
+        period_s=max(args.interval, 0.0),
+    )
+    for i in range(max(1, args.samples)):
+        sampler.sample_once()
+        if i + 1 < max(1, args.samples) and args.interval > 0:
+            time.sleep(args.interval)
+    bundle = build_diagnostics_bundle(
+        operator,
+        sampler=sampler,
+        tracer=None if args.agent_url else get_tracer(),
+        node_name=args.node_name,
+        agent_url=args.agent_url,
+        trace_limit=args.trace_limit,
+        storage=storage,
+    )
+    if storage is not None:
+        storage.close()
+    json.dump(bundle, sys.stdout, indent=2, sort_keys=True)
+    sys.stdout.write("\n")
+    return 0
+
+
 def doctor_main(argv=None) -> int:
     if argv and argv[0] == "timeline":
         return timeline_main(argv[1:])
     if argv and argv[0] == "profile":
         return profile_main(argv[1:])
-    print("usage: node-doctor {timeline,profile} ... (the diagnostics "
-          "bundle and goodput come with the port's sampler and goodput "
-          "ledger)", file=sys.stderr)
-    return 2
+    return bundle_main(argv)
 
 
 def options_from_args(args: argparse.Namespace) -> ManagerOptions:
@@ -387,6 +516,14 @@ def options_from_args(args: argparse.Namespace) -> ManagerOptions:
         reconcile_dry_run=args.reconcile_dry_run,
         enable_events=not args.no_events,
         enable_crd=not args.no_crd,
+        enable_sampler=not args.no_sampler,
+        sampler_period_s=args.sampler_period,
+        drain_deadline_s=args.drain_deadline,
+        drain_period_s=args.drain_period,
+        preemption_notice_s=args.preemption_notice,
+        maintenance_poll_ttl_s=args.maintenance_poll_ttl,
+        enable_migration=not args.no_migration,
+        migration_period_s=args.migration_period,
         slow_span_ms=args.slow_span_ms,
         profile_hz=args.profile_hz,
         storage_batch_window_s=args.storage_batch_window,

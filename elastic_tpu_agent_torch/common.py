@@ -3,7 +3,9 @@ injectable time source.
 
 The port's copy of what it needs from ``elastic_tpu_agent/common.py``:
 the extended resources and their granularity, the scheduler's pod
-annotations, the container env contract, the kubelet's file system
+annotations, the keys of the drain and the migration handshake (node and
+pod annotations, spec env, alloc-dir sidecars), the container env
+contract, the kubelet's file system
 contract, ``StripedLockSet``, ``JitteredBackoff``, ``FileWatcher``, the
 process signals of the agent's entry point (``install_dump_signal``,
 ``wait_for_exit_signal``); and ``Clock``,
@@ -52,17 +54,52 @@ AnnotationContainerPrefix = "elasticgpu.io/container-"
 # An admission-stamped correlation id a bind's trace adopts
 AnnotationTraceID = "elasticgpu.io/trace-id"
 
+# Job-unique slice identity: pods carrying the same id are members of one
+# logical slice (a draining agent annotates its resident members).
+AnnotationSliceID = "elasticgpu.io/tpu-slice-id"
+# The slice's identity and generation counter in the spec env.
+EnvSliceName = "ELASTIC_TPU_SLICE_NAME"
+EnvSliceEpoch = "ELASTIC_TPU_SLICE_EPOCH"
+
+# -- Graceful drain and the migration handshake (drain.py, migration.py) ------
+# The node annotation that asks this node's agent to cordon and drain;
+# removing it cancels.
+AnnotationDrain = "elasticgpu.io/drain"
+# Stamped by a draining agent on its resident slice-member pods, so that
+# the peers' registries count the member as lost before the host goes.
+AnnotationDraining = "elasticgpu.io/draining"
+# Restamped into resident pods' specs when a drain starts: the trigger
+# and the wall-clock deadline (unix seconds) of the binding reclaim.
+EnvDrain = "ELASTIC_TPU_DRAIN"
+EnvDrainDeadline = "ELASTIC_TPU_DRAIN_DEADLINE"
+# Alloc-dir subdirectories of per-allocation sidecar files, each keyed by
+# the allocation hash: self-reported utilization ({"ts",
+# "duty_cycle_percent"}), checkpoint acks, flight-recorder summaries.
+UsageReportSubdir = "usage"
+AckSubdir = "ack"
+FlightSummarySubdir = "flight"
+# One list for the spec reclaim and the reconciler's orphan sweep: a
+# released allocation's sidecars go with its spec.
+AllocSidecarSubdirs = (UsageReportSubdir, AckSubdir, FlightSummarySubdir)
+# Restamped into a replacement pod's specs from a published migration
+# record: the checkpoint to resume from, its acked step, and the source
+# bind's trace id.
+EnvRestoreDir = "ELASTIC_TPU_RESTORE_DIR"
+EnvRestoreStep = "ELASTIC_TPU_RESTORE_STEP"
+EnvRestoreTrace = "ELASTIC_TPU_RESTORE_TRACE"
+# The coordinator's stamp that ends a pre-copy stream: the workload
+# pauses, ships the final delta and acks.
+EnvCutover = "ELASTIC_TPU_CUTOVER"
+
+# The pod side reads the same keys from workloads/contract.py, which this
+# module cannot import (the workloads package imports torch, and the
+# agent's process must not); tests hold the two copies equal.
+
 # -- Container env contract ---------------------------------------------------
 # The allocation hash in the container's env, which the injection resolves
 # back to the alloc spec ("GPU" is the reference's spelling, also accepted).
 EnvAllocationHash = "TPU"
 EnvAllocationHashCompat = "GPU"
-
-# Alloc-dir subdirectories of per-allocation sidecar files, each keyed by
-# the allocation hash (usage reports, checkpoint acks, flight summaries;
-# workloads/contract.py spells them for the in-pod runtime). A released
-# allocation's sidecars go with its spec.
-AllocSidecarSubdirs = ("usage", "ack", "flight")
 
 # -- Kubelet file system and device-plugin contract (upstream constants) ------
 DEVICE_PLUGIN_VERSION = "v1beta1"

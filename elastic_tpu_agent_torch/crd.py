@@ -8,9 +8,9 @@ in either. The objects the port writes carry its resource names
 (``elasticgpu.io/gpu-core``, ``gpu-memory``) and card indexes. The CRD
 surface is optional: the allocation path never depends on it.
 
-The agent's MigrationRecord parts (phase ``Migrated``, the migration
-payload and label, ``list_migrations``) come with the port's migration
-coordinator.
+A MigrationRecord (migration.py) is an object in phase ``Migrated``
+with a ``migration`` payload in its spec and the ``MigrationLabel``, which
+a destination agent lists by.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ VERSION = "v1alpha1"
 PLURAL = "elastictpus"
 KIND = "ElasticTPU"
 NodeLabel = "elasticgpu.io/node"
+# on MigrationRecord objects: the destination's LIST selects by it
+MigrationLabel = "elasticgpu.io/migration"
 
 # Canonical phases (reference types.go:49-57).
 PhasePending = "Pending"
@@ -32,6 +34,10 @@ PhaseAvailable = "Available"
 PhaseBound = "Bound"
 PhaseReleased = "Released"
 PhaseFailed = "Failed"
+# a MigrationRecord: the source verified a resident's checkpoint durable
+# before reclaiming its cards; the destination deletes it once the resume
+# is verified
+PhaseMigrated = "Migrated"
 
 
 @dataclass
@@ -46,6 +52,9 @@ class ElasticTPU:
     claim_container: str = ""
     phase: str = PhasePending
     message: str = ""
+    # the MigrationRecord payload (checkpoint location, step, digest,
+    # source node, topology env, trace id); None on other objects
+    migration: Optional[Dict] = None
     # Server-assigned; must round-trip into updates (a real apiserver
     # rejects RV-less PUTs on custom resources).
     resource_version: str = ""
@@ -59,6 +68,8 @@ class ElasticTPU:
             # Node-scoped label so agents can list with a labelSelector
             # instead of downloading the cluster-wide collection.
             labels[NodeLabel] = self.node_name
+        if self.migration is not None:
+            labels[MigrationLabel] = "true"
         if labels:
             metadata["labels"] = labels
         spec = {
@@ -76,6 +87,8 @@ class ElasticTPU:
                 "container": self.claim_container,
             },
         }
+        if self.migration is not None:
+            spec["migration"] = dict(self.migration)
         return {
             "apiVersion": f"{GROUP}/{VERSION}",
             "kind": KIND,
@@ -105,6 +118,10 @@ class ElasticTPU:
             claim_container=claim.get("container", ""),
             phase=status.get("phase", PhasePending),
             message=status.get("message", ""),
+            migration=(
+                dict(spec["migration"])
+                if isinstance(spec.get("migration"), dict) else None
+            ),
             resource_version=m.get("metadata", {}).get("resourceVersion", ""),
         )
 
@@ -175,6 +192,18 @@ class ElasticTPUClient:
             # Belt-and-braces for objects created before the label existed.
             items = [i for i in items if i.node_name == node_name]
         return items
+
+    def list_migrations(self) -> List[ElasticTPU]:
+        """The MigrationRecord objects only (selected by label), so that
+        the destination's LIST does not grow with the allocations."""
+        r = self._kube._get(
+            self._base, params={"labelSelector": f"{MigrationLabel}=true"}
+        )
+        if r.status_code != 200:
+            raise KubeError(f"list migration records: {r.status_code}")
+        return [
+            ElasticTPU.from_manifest(m) for m in r.json().get("items", [])
+        ]
 
     def delete(self, name: str) -> None:
         r = self._kube._delete(f"{self._base}/{name}")

@@ -5,7 +5,8 @@ allocation is published as an ``ElasticTPU`` object (phase Bound, claimRef
 -> pod/container, the card indexes, capacity in the port's resource
 names); a released allocation is marked Released and then removed; each
 card is published as an Available inventory object at boot (Failed while
-unhealthy); ``restore()`` reconciles the node's objects against the
+unhealthy); the migration coordinator's records are published as
+``Migrated`` objects; ``restore()`` reconciles the node's objects against the
 checkpoint store. Object names are the agent's (``<node>-<hash>``,
 ``<node>-chip<index>``), so that a node switched between the agents keeps
 its objects.
@@ -149,6 +150,16 @@ class CRDRecorder:
         self._submit(
             lambda: self._client.update_status(name, phase, message),
             key=("chip", chip_index),
+        )
+
+    def record_migration(self, obj: ElasticTPU) -> None:
+        """Publish or refresh a MigrationRecord (migration.py), keyed by
+        its name so that a re-publish supersedes a queued one. The
+        coordinator confirms by reading it back and re-submits until it
+        is there: its journal, not this queue, is the durable copy."""
+        self._submit(
+            lambda: self._client.create(obj, update_existing=True),
+            key=("obj", obj.name),
         )
 
     def record_released(self, alloc_hash: str) -> None:

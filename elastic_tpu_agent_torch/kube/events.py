@@ -50,8 +50,16 @@ ReasonReconciled = "TPUReconciled"
 ReasonChipUnhealthy = "TPUChipUnhealthy"
 ReasonChipHealthy = "TPUChipHealthy"
 ReasonAllocatableDrift = "TPUAllocatableDrift"
-# The drain, repartition, slice and migration reasons come with those
-# subsystems.
+# the drain lifecycle (drain.py)
+ReasonMaintenanceImminent = "TPUMaintenanceImminent"
+ReasonNodeDraining = "TPUNodeDraining"
+ReasonNodeDrained = "TPUNodeDrained"
+ReasonDrainCancelled = "TPUDrainCancelled"
+# the migration handshake (migration.py): a resident's checkpoint verified
+# durable and its record published; the replacement's resume verified
+ReasonMigrationRecorded = "TPUMigrationRecorded"
+ReasonMigrationCompleted = "TPUMigrationCompleted"
+# The repartition and slice reasons come with those subsystems.
 
 
 class EventRecorder:

@@ -1,28 +1,35 @@
 """Manager: the node agent's wiring and lifecycle, and its restore.
 
 The port's counterpart of ``elastic_tpu_agent/manager.py``'s
-``TPUManager``, cut to the bind path and its observability plane, wired
-in the agent's order: the event bus (on by default), the checkpoint store
-(with its group-commit window), the lifecycle timeline, the supervisor,
-the apiserver client and the sitter (whose pod deletions feed the GC
-queue and mark the detection-lag origin), the device operator, the
-metrics' attachments, the latency observatory and detection-lag tracker,
-the profiler, the tracer's slow-span listener, the CRD and Event
-recorders, the pod-resources client with one snapshot source shared by
-the core and memory locators, the plugin bundle and the reconciler; then
-``run()``:
+``TPUManager``: the bind path, its observability plane, the utilization
+sampler, the drain and the migration handshake, wired in the agent's
+order: the event bus (on by default), the checkpoint store (with its
+group-commit window), the lifecycle timeline, the supervisor, the
+apiserver client and the sitter (whose pod deletions feed the GC queue
+and mark the detection-lag origin), the device operator, the metrics'
+attachments, the latency observatory and detection-lag tracker, the
+profiler, the tracer's slow-span listener, the CRD and Event recorders,
+the utilization sampler, the pod-resources client with one snapshot
+source shared by the core and memory locators, the plugin bundle (which
+folds the sampler's flags into its health), the reconciler, the drain
+orchestrator and the migration coordinator (both assigned to the
+reconciler, and the coordinator to the drain); then ``run()``:
 
 - ``agent_started`` is journaled and the build-info gauges set;
 - the sitter syncs, and the card inventory is published to the CRD;
+- the drain's and the coordinator's journaled state is resumed (the
+  cordon back up, replay suppression armed) before the boot pass, which
+  would otherwise replay the bindings a drain reclaimed;
 - ``restore()``: one reconciler pass with boot semantics, before the
   device-plugin servers exist, so that no bind can be in flight. It
   re-creates the links a reboot wiped, resolves the binds a crash cut
   short, reclaims pods deleted while the agent was down, sweeps orphans
   and replays unbound kubelet assignments;
 - the device-plugin servers, GC, the health poll, the periodic reconciler,
-  the profiler (with ``profile_hz`` > 0), the NRI server (with
-  ``nri_socket``), the CRD and Event sink workers and the deferred
-  allocatable check start as supervised subsystems.
+  the drain, the migration coordinator, the sampler, the profiler (with
+  ``profile_hz`` > 0), the NRI server (with ``nri_socket``), the CRD and
+  Event sink workers and the deferred allocatable check start as
+  supervised subsystems.
 
 With ``nri_socket`` the agent registers as an external NRI plugin on the
 runtime's socket and injects the allocation at CreateContainer (the
@@ -36,9 +43,8 @@ grpc: the pod-resources client is built from ``rpc`` only when no
 they start. ``metrics`` is an ``AgentMetrics`` built by the caller (the
 CLI's ``--metrics-port``); without it nothing imports prometheus_client.
 
-The agent's utilization sampler, goodput ledger, drain, migration,
-repartition and slice registry come with their slices: their options and
-flags come with them.
+The agent's goodput ledger, repartition controller and slice registry
+come with their slices: their options and flags come with them.
 """
 
 from __future__ import annotations
@@ -140,6 +146,28 @@ class ManagerOptions:
     # --event-safety-net-factor)
     enable_event_bus: bool = True
     event_safety_net_factor: float = 10.0
+    # the utilization sampler (sampler.py): each card's duty and used
+    # memory joined against the store, for /metrics, /debug/allocations
+    # and node-doctor; its flags fold into the health poll (CLI
+    # --no-sampler / --sampler-period)
+    enable_sampler: bool = True
+    sampler_period_s: float = 10.0
+    # the drain (drain.py): the checkpoint deadline between the signal and
+    # the reclaim, and the trigger-poll period (jittered 0.75x-1.25x)
+    # (CLI --drain-deadline / --drain-period)
+    drain_deadline_s: float = 300.0
+    drain_period_s: float = 2.0
+    # a spot host's preemption notice: a preemption drain's budget is
+    # min(deadline, notice) (CLI --preemption-notice; 0 = no clamp)
+    preemption_notice_s: float = 30.0
+    # how long one maintenance/preempted metadata read stays cached (None:
+    # the operator's default; CLI --maintenance-poll-ttl)
+    maintenance_poll_ttl_s: Optional[float] = None
+    # the migration coordinator (migration.py): acks consumed, drains
+    # completed early, records published, resumes verified (CLI
+    # --no-migration / --migration-period)
+    enable_migration: bool = True
+    migration_period_s: float = 2.0
     # test seams: an apiserver client, an operator, a pod-resources
     # client (an object with ``list()`` and
     # ``get_allocatable_resources()``, as ``rpc.PodResourcesClient``) and
@@ -168,7 +196,8 @@ def build_operator(opts: ManagerOptions):
         return ExclusiveOperator(
             build_operator(replace(opts, operator_kind=inner_kind)))
     if kind == "nvidia":
-        return NvidiaOperator(opts.dev_root)
+        return NvidiaOperator(
+            opts.dev_root, maintenance_poll_ttl_s=opts.maintenance_poll_ttl_s)
     if kind == "stub" or kind.startswith("stub:"):
         return StubOperator(opts.dev_root,
                             num_chips=int(kind.partition(":")[2] or 8))
@@ -254,6 +283,18 @@ class NodeManager:
                 self.client, opts.node_name, metrics=self.metrics,
                 flush_window_s=opts.sink_flush_window_s,
             )
+        self.sampler = None
+        if opts.enable_sampler:
+            from .sampler import UtilizationSampler
+
+            self.sampler = UtilizationSampler(
+                self.operator, storage=self.storage, metrics=self.metrics,
+                alloc_spec_dir=opts.alloc_spec_dir,
+                period_s=opts.sampler_period_s,
+                lag_tracker=self.lag_tracker, bus=self.bus,
+            )
+            if self.metrics is not None:
+                self.metrics.attach_sampler(self.sampler)
         pr_client = opts.pod_resources_client
         if pr_client is None:
             from . import rpc
@@ -281,9 +322,16 @@ class NodeManager:
             events=self.events,
             timeline=self.timeline,
             lag_tracker=self.lag_tracker,
+            sampler=self.sampler,
             extra={"alloc_spec_dir": opts.alloc_spec_dir},
         )
         self.plugin = GPUSharePlugin(self.config)
+        if self.sampler is not None:
+            self.sampler.locator_stats_fn = self.plugin.locator_stats
+            self.sampler.bind_stats_fn = self.plugin.bind_stats
+            # the plugin's applied health view, not an operator probe from
+            # the debug handler's thread
+            self.sampler.unhealthy_view_fn = self.plugin.core.unhealthy_chips
         self.reconciler = Reconciler(
             storage=self.storage,
             operator=self.operator,
@@ -301,6 +349,51 @@ class NodeManager:
             bus=self.bus,
             event_safety_net_factor=opts.event_safety_net_factor,
         )
+        from .drain import DrainOrchestrator
+
+        self.drain = DrainOrchestrator(
+            operator=self.operator, plugin=self.plugin,
+            storage=self.storage, sitter=self.sitter,
+            reconciler=self.reconciler, kube_client=self.client,
+            events=self.events, metrics=self.metrics,
+            node_name=opts.node_name, deadline_s=opts.drain_deadline_s,
+            preemption_notice_s=opts.preemption_notice_s,
+            period_s=opts.drain_period_s, timeline=self.timeline,
+            lag_tracker=self.lag_tracker, bus=self.bus,
+            event_safety_net_factor=opts.event_safety_net_factor,
+        )
+        # while the drain has reclaimed bindings, the kubelet's listed
+        # assignments are not replayed
+        self.reconciler.drain = self.drain
+        self.migration = None
+        if opts.enable_migration:
+            from .migration import MigrationCoordinator
+
+            self.migration = MigrationCoordinator(
+                storage=self.storage, plugin=self.plugin,
+                sitter=self.sitter, reconciler=self.reconciler,
+                drain=self.drain, kube_client=self.client,
+                crd_recorder=self.crd_recorder, events=self.events,
+                metrics=self.metrics, node_name=opts.node_name,
+                alloc_spec_dir=opts.alloc_spec_dir,
+                period_s=opts.migration_period_s, timeline=self.timeline,
+                lag_tracker=self.lag_tracker, bus=self.bus,
+                event_safety_net_factor=opts.event_safety_net_factor,
+            )
+            # early-reclaimed residents are not replayed; the drain
+            # classifies its outcome by the acks
+            self.reconciler.migration = self.migration
+            self.drain.migration = self.migration
+        if self.sampler is not None:
+            # self-reports steer attribution, so only opted-in pods'
+            # usage files are trusted
+            self.sampler.usage_report_allowed_fn = self._report_allowed
+            self.sampler.reconcile_status_fn = self.reconciler.status
+            self.sampler.drain_status_fn = self.drain.status
+            if self.migration is not None:
+                self.sampler.migration_status_fn = self.migration.status
+            if self.bus is not None:
+                self.sampler.event_bus_stats_fn = self.bus.stats
         self.nri_plugin = None
         if opts.nri_socket:
             from .nri import NRIPlugin
@@ -324,6 +417,18 @@ class NodeManager:
                     self.nri_plugin.clear_failed_chips)
         self._stop = threading.Event()
         self._stopped = False
+
+    def _report_allowed(self, pod_key: str) -> bool:
+        """Whether a pod's usage self-reports are trusted: it opted into
+        repartitioning (``elasticgpu.io/repartition``)."""
+        from .device.qos import repartition_opt_in
+
+        ns, _, name = pod_key.partition("/")
+        pod = self.sitter.get_pod(ns, name)
+        if pod is None:
+            return False
+        return repartition_opt_in(
+            (pod.get("metadata") or {}).get("annotations") or {})
 
     def _on_pod_deleted(self, pod: dict) -> None:
         """The sitter's delete hook: stamp the deletion as the origin of
@@ -496,6 +601,12 @@ class NodeManager:
                 self.crd_recorder.publish_inventory(self.operator.devices())
             except Exception:  # noqa: BLE001 - observability, never fatal
                 logger.exception("inventory publication failed")
+        # the journaled drain and handshake state before the boot pass: a
+        # node restarted mid-drain re-cordons and arms replay suppression
+        # first, or restore() would replay what the drain reclaimed
+        self.drain.resume()
+        if self.migration is not None:
+            self.migration.resume()
         self.restore()
         # Device-plugin serve loops: one per extended resource, CRITICAL:
         # a dead ListAndWatch leaves the kubelet advertising stale devices.
@@ -509,6 +620,15 @@ class NodeManager:
         # DEGRADED: a broken reconciler leaves the node binding (with the
         # boot-converged state) while status() shows the loss.
         self.supervisor.register("reconciler", self.reconciler.run, DEGRADED)
+        # DEGRADED: losing the drain or the handshake never takes binding
+        # down (drains then run to their deadline); resume() re-enters the
+        # journaled state on every start
+        self.supervisor.register("drain", self.drain.run, DEGRADED)
+        if self.migration is not None:
+            self.supervisor.register("migration", self.migration.run,
+                                     DEGRADED)
+        if self.sampler is not None:
+            self.supervisor.register("sampler", self.sampler.run, DEGRADED)
         if self._opts.profile_hz > 0:
             # DEGRADED: observability never takes binding down; a crashed
             # profiler restarts with its table (same instance)
@@ -546,7 +666,11 @@ class NodeManager:
         # may still enqueue a release.
         self.supervisor.join("gc", timeout=10.0)
         self.supervisor.join("health", timeout=10.0)
+        self.supervisor.join("sampler", timeout=10.0)
         self.supervisor.join("reconciler", timeout=10.0)
+        # the drain and the coordinator journal, reclaim and publish
+        self.supervisor.join("drain", timeout=10.0)
+        self.supervisor.join("migration", timeout=10.0)
         if self.nri_plugin is not None:
             self.nri_plugin.stop()
         self.plugin.core.stop_streams()

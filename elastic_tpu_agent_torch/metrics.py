@@ -4,11 +4,11 @@ The port's copy of ``elastic_tpu_agent/metrics.py``. ``AgentMetrics``
 declares every family of the agent's, with its name, type and label set:
 they are a contract that dashboards and fleet aggregation read, and
 ``tests/test_torch_metrics.py`` holds the two declarations equal. Families
-fed by subsystems the port has not yet (drain, migration, repartition,
-the utilization sampler, goodput, slices, NRI) are declared and stay
-unset until those subsystems come, and so do the agent's
-``attach_sampler`` and ``attach_goodput``: ``/debug/allocations`` and
-``/debug/goodput`` answer 503, as the agent's do before attachment.
+fed by subsystems the port has not yet (repartition, goodput, slices) are
+declared and stay unset until those subsystems come, and so does the
+agent's ``attach_goodput``: ``/debug/goodput`` answers 503, as the agent's
+does before attachment. ``attach_sampler`` points ``/debug/allocations``
+at the utilization sampler (503 until then).
 
 One HTTP server serves:
 
@@ -912,6 +912,7 @@ class AgentMetrics:
             "agent start",
             **kw,
         )
+        self._sampler = None
         self._supervisor = None
         self._sitter = None
         self._timeline = None
@@ -920,6 +921,12 @@ class AgentMetrics:
         self._profiler = None
         self._requests = None
         self._httpd: Optional[ThreadingHTTPServer] = None
+
+    def attach_sampler(self, sampler) -> None:
+        """Point /debug/allocations at a live UtilizationSampler. Late on
+        purpose: the endpoint starts before the manager (cli.py) and
+        answers 503 until the sampler exists."""
+        self._sampler = sampler
 
     def attach_timeline(self, timeline) -> None:
         """Point /debug/timeline at the agent's lifecycle journal
@@ -1391,20 +1398,26 @@ class AgentMetrics:
                     elif parsed.path == "/debug/allocations":
                         if not self._require_loopback():
                             return
-                        # 503 until the port's utilization sampler comes,
-                        # as the agent's answers without one
-                        self._reply_json(
-                            {"error": "utilization sampler not "
-                                      "attached (agent starting, or "
-                                      "sampling disabled)"},
-                            code=503,
-                        )
+                        sampler = agent_metrics._sampler
+                        if sampler is None:
+                            self._reply_json(
+                                {"error": "utilization sampler not "
+                                          "attached (agent starting, or "
+                                          "sampling disabled)"},
+                                code=503,
+                            )
+                            return
+                        self._reply_json(sampler.allocations_snapshot())
                     elif parsed.path == "/healthz":
                         status = {
                             "status": "ok",
                             "traces_completed": tracer.completed,
                         }
                         code = 200
+                        if agent_metrics._sampler is not None:
+                            status["sampler_samples"] = (
+                                agent_metrics._sampler.samples_total
+                            )
                         sitter = agent_metrics._sitter
                         if sitter is not None:
                             status["sitter_sync_age_s"] = sitter.sync_age_s()

@@ -57,11 +57,15 @@ tick.
 
 The bundle's ``on_chips_failed``/``on_chips_recovered`` hooks are the
 agent's: the manager points them at the NRI server's eviction under
-``--nri-evict-on-chip-failure``.
+``--nri-evict-on-chip-failure``. The health poll folds in the utilization
+sampler's flags (``PluginConfig.sampler``); the drain cordons both
+resources through ``set_cordoned``; ``restamp_spec_env_locked`` is the one
+path by which the drain's signal, the pre-copy cutover and the restore
+stamp reach a running pod's specs (``plugins.restamp_owner_env`` takes the
+owner's stripe around it).
 
-Not ported in this slice: the agent's utilization-sampler hooks, the
-slice env, the ICI packing histogram, and the drain's and repartition's
-``restamp_spec_env_locked``.
+Not ported in this slice: the slice env, the ICI packing histogram and
+the repartition controller's quota restamps.
 """
 
 from __future__ import annotations
@@ -293,6 +297,9 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         self._crd = config.crd_recorder
         self._events = config.events
         self._timeline = config.timeline
+        self._bind_count_lock = threading.Lock()
+        self._bind_counts = {"inflight": 0, "binds_total": 0,
+                             "bind_failures_total": 0}
 
     # -- health ---------------------------------------------------------------
 
@@ -459,6 +466,7 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         device = Device(ids, self.resource)
         if self._metrics is not None:
             self._metrics.bind_inflight.inc()
+        self._count_bind("inflight", 1)
         with get_tracer().trace(
             "PreStartContainer", resource=self.resource, hash=device.hash,
             n_ids=len(device.ids), node=self._config.node_name,
@@ -466,14 +474,21 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
             try:
                 self._bind(device)
             except Exception:
+                self._count_bind("bind_failures_total", 1)
                 logger.exception("PreStartContainer %s failed for %s "
                                  "[trace %s]", self.resource, device.hash,
                                  tr.trace_id)
                 raise
             finally:
+                self._count_bind("inflight", -1)
+                self._count_bind("binds_total", 1)
                 if self._metrics is not None:
                     self._metrics.bind_inflight.dec()
                     self._metrics.observe_prestart(time.monotonic() - t0)
+
+    def _count_bind(self, key: str, delta: int) -> None:
+        with self._bind_count_lock:
+            self._bind_counts[key] += delta
 
     def PreStartContainer(self, request, context):  # noqa: N802, ARG002
         from ..gen import deviceplugin_pb2 as dp
@@ -888,6 +903,55 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         except (OSError, ValueError):
             return None
 
+    def restamp_spec_env_locked(self, owner, records: Dict,
+                                env_updates: Dict[str, str],
+                                remove_keys=()) -> int:
+        """(owner's stripe held) Set ``env_updates`` and drop
+        ``remove_keys`` in every on-disk spec of this container, in the
+        merged env and the pre-merge ``own`` snapshot both, atomically per
+        file, without re-running the bind: the cards stay as bound. The
+        drain's signal (and its removal on cancel), the cutover and the
+        restore stamp go through here. Returns the specs that carry the
+        env afterwards (an already-stamped spec counts and is not
+        rewritten, so that re-stamping every tick is cheap)."""
+        restamped = 0
+        for record in records.values():
+            path = os.path.join(self._alloc_dir, f"{record.device.hash}.json")
+            try:
+                with open(path) as f:
+                    spec = json.load(f)
+            except (OSError, ValueError):
+                continue
+            targets = [spec.setdefault("env", {})]
+            own = spec.get("own")
+            if isinstance(own, dict):
+                targets.append(own.setdefault("env", {}))
+            changed = False
+            for env in targets:
+                for key, value in env_updates.items():
+                    if env.get(key) != value:
+                        env[key] = value
+                        changed = True
+                for key in remove_keys:
+                    if env.pop(key, None) is not None:
+                        changed = True
+            if changed:
+                _write_json_atomic(path, spec)
+            # crash window between the sibling specs of one container
+            faults.fire("restamp.spec_file")
+            restamped += 1
+        return restamped
+
+    def locator_stats(self) -> Dict:
+        """The locator's cache stats (empty when it keeps none)."""
+        stats = getattr(self._locator, "stats", None)
+        return stats() if stats is not None else {}
+
+    def bind_stats(self) -> Dict:
+        """This resource's binds: in flight, done and failed."""
+        with self._bind_count_lock:
+            return dict(self._bind_counts)
+
     def rebind(self, owner, device: Device) -> None:
         """The reconciler's entry point: the whole bind transaction for an
         owner already located (its own intent, the links, the merged spec,
@@ -1020,6 +1084,32 @@ class GPUSharePlugin:
     def cordoned(self) -> bool:
         return self.core.cordoned
 
+    def set_cordoned(self, flag: bool) -> None:
+        """The drain's cordon on both resources (they never disagree on
+        schedulability, as on health), journaled on a change."""
+        changed = bool(flag) != self.core.cordoned
+        self.core.set_cordoned(flag)
+        self.memory.set_cordoned(flag)
+        if changed and self._config.timeline is not None:
+            self._config.timeline.emit(
+                tl.KIND_CORDON, keys={"chips": sorted(self.core._chips)},
+                cordoned=bool(flag),
+            )
+
+    def locator_stats(self) -> Dict[str, Dict]:
+        """Each resource's locator cache stats."""
+        return {ResourceGPUCore: self.core.locator_stats(),
+                ResourceGPUMemory: self.memory.locator_stats()}
+
+    def bind_stats(self) -> Dict:
+        """The bind pipeline: the gRPC pool size of each resource server
+        and each resource's binds in flight, done and failed."""
+        return {
+            "grpc_pool_size": self._config.grpc_pool_size,
+            "resources": {ResourceGPUCore: self.core.bind_stats(),
+                          ResourceGPUMemory: self.memory.bind_stats()},
+        }
+
     def run(self, stop: threading.Event) -> None:
         for server in self.servers:
             server.start(stop)
@@ -1034,23 +1124,39 @@ class GPUSharePlugin:
     on_chips_recovered = None
 
     def health_once(self) -> bool:
-        """One health poll: probe the operator once and apply the same view
-        to both resources, then call the policy hooks on flips. Returns
-        True when anything changed."""
+        """One health poll: probe the operator once, fold in the
+        utilization sampler's flags (a card whose telemetry keeps failing
+        degrades like one the operator reports broken), apply the same
+        view to both resources, then call the policy hooks on flips.
+        Returns True when anything changed."""
         faults.fire("health.poll")
         try:
             healthy = set(self._config.operator.healthy_indexes())
         except Exception:  # noqa: BLE001 - a broken probe must not wedge
             logger.exception("health probe failed")
             return False
+        sampler = self._config.sampler
+        sampler_reasons: Dict[int, str] = {}
+        if sampler is not None:
+            try:
+                flagged = sampler.unhealthy_chips()
+                if flagged:
+                    sampler_reasons = sampler.health_reasons()
+                    healthy -= flagged
+            except Exception:  # noqa: BLE001 - never load-bearing
+                logger.exception("sampler health view failed")
         went_bad, recovered = self.core.apply_health(healthy)
         self.memory.apply_health(healthy)
         reasons = {}
         if went_bad or recovered:
             try:
-                reasons = self._config.operator.health_reasons()
+                reasons = dict(self._config.operator.health_reasons())
             except Exception:  # noqa: BLE001 - reasons are best-effort
                 pass
+            # the operator's reasons win (more specific); the sampler's
+            # fill in for the cards only it flagged
+            for idx, why in sampler_reasons.items():
+                reasons.setdefault(idx, why)
             self._report_health(went_bad, recovered, reasons)
         if self._config.metrics is not None:
             self._config.metrics.healthy_chips.set(

@@ -31,8 +31,16 @@ ElasticTPU objects against the store. With an event bus, pod deltas,
 assignment deltas and store-change notifications start a targeted pass
 at once, and the periodic sweep stretches by ``event_safety_net_factor``
 while the bus is healthy (never while the last pass left work
-outstanding). The agent's drain, migration, repartition and
-slice-reformer hooks come with those slices, and so do its slice passes.
+outstanding).
+
+The drain and the migration coordinator are assigned after both exist
+(``drain``, ``migration``): while the drain has reclaimed this node's
+bindings past its deadline, the record walk rebuilds nothing and no
+kubelet assignment is replayed; an acked resident reclaimed early is not
+replayed until its pod is gone. ``reclaim_pods`` is their teardown, the
+dead-pod repair run under each owner's bind stripe. The agent's
+repartition and slice-reformer hooks come with those slices, and so do
+its slice passes.
 """
 
 from __future__ import annotations
@@ -147,6 +155,10 @@ class Reconciler:
         self._crd = crd_recorder
         self._timeline = timeline
         self._lag = lag_tracker
+        # DrainOrchestrator and MigrationCoordinator, assigned by the
+        # manager once both exist (module docstring)
+        self.drain = None
+        self.migration = None
         self.period_s = period_s
         self.dry_run = dry_run
         self._rng = rng if rng is not None else random.Random()
@@ -581,6 +593,14 @@ class Reconciler:
             report["kept_pods"] += 1
             for container, by_resource in list(info.allocations.items()):
                 for resource, record in list(by_resource.items()):
+                    if self.drain is not None and (
+                        self.drain.suppress_replays()
+                    ):
+                        # the drain's reclaim is tearing bindings down
+                        # under this walk's snapshot: a rebuild here would
+                        # resurrect them (checked per record, so that a
+                        # reclaim starting mid-pass stops it at once)
+                        continue
                     owner = PodContainer(
                         info.namespace, info.name, container
                     )
@@ -711,10 +731,12 @@ class Reconciler:
             )
             self._replay_failure(report)
 
-    def _reclaim_pod(self, info, report: dict) -> None:
-        """Tear down a dead pod's bindings: links, specs, the record. The
-        stripe is taken by the spec removal alone: the pod no longer
-        exists, so no bind of it can be in flight."""
+    def _reclaim_pod(self, info, report: dict, locked: bool = False) -> None:
+        """Tear down a pod's bindings: links, specs, the record. For a
+        dead pod the spec removal alone takes the stripe (no bind of it
+        can be in flight); ``locked=True``: the caller holds the owner's
+        stripe (``reclaim_pods``, live pods), and the stripes are not
+        reentrant."""
         spec_plugin = self._plugin.core  # the plugins share the spec dir
         for container, by_resource in info.allocations.items():
             owner = PodContainer(info.namespace, info.name, container)
@@ -728,7 +750,11 @@ class Reconciler:
                             "(retried next pass)", link_id,
                         )
                         self._sweep_failure(report)
-                spec_plugin.remove_alloc_spec(record.device.hash, owner)
+                if locked:
+                    spec_plugin.remove_alloc_spec_locked(
+                        record.device.hash, owner)
+                else:
+                    spec_plugin.remove_alloc_spec(record.device.hash, owner)
                 if self._crd is not None:
                     try:
                         self._crd.record_released(record.device.hash)
@@ -740,7 +766,37 @@ class Reconciler:
             keys={"pod": info.key},
             hashes=[record.device.hash for record in info.records()],
         )
-        logger.info("reconcile: reclaimed dead pod %s", info.key)
+        logger.info("reconcile: reclaimed pod %s", info.key)
+
+    def reclaim_pods(self, pod_keys) -> dict:
+        """Policy reclaim of the named pods' bindings (the drain's deadline
+        and the migration coordinator's early reclaim), through the
+        dead-pod repair: counted as ``reclaimed_pod``, no orphan left. The
+        pods may still be live, so each teardown holds the owner's bind
+        stripe against its binds and this reconciler's repairs, and each
+        caller suppresses replays until its pods are gone."""
+        from .plugins import gpushare
+
+        report = _new_report(boot=False, dry_run=False)
+        for pod_key in pod_keys:
+            namespace, _, name = pod_key.partition("/")
+            try:
+                info = self._storage.load(namespace, name)
+            except StorageError:
+                logger.warning(
+                    "policy reclaim: %s has a corrupt record; left for "
+                    "the corrupt-row runbook", pod_key,
+                )
+                continue
+            if info is None:
+                continue
+            try:
+                with gpushare.bind_lock(pod_key):
+                    self._reclaim_pod(info, report, locked=True)
+            except Exception:  # noqa: BLE001 - reclaim the rest
+                logger.exception("policy reclaim: %s failed", pod_key)
+                self._sweep_failure(report)
+        return report
 
     # -- orphan sweep ---------------------------------------------------------
 
@@ -854,12 +910,26 @@ class Reconciler:
         intent was rolled back above). Replay it end to end."""
         if assignments is None:
             return
+        if self.drain is not None and self.drain.suppress_replays():
+            # the drain reclaimed this node's bindings past its deadline;
+            # the pods' assignments may outlive the reclaim until eviction
+            logger.info(
+                "reconcile: unbound-assignment replay suppressed "
+                "(node drain reclaimed bindings)"
+            )
+            return
         for resource in sorted(assignments):
             plugin = self._plugin_for(resource)
             if plugin is None:
                 continue  # not our extended resource
             for alloc_hash in sorted(assignments[resource]):
                 owner, ids = assignments[resource][alloc_hash]
+                if self.migration is not None and (
+                    self.migration.replay_suppressed(owner.pod_key)
+                ):
+                    # reclaimed early on its acked checkpoint: the
+                    # assignment stays reclaimed until the pod goes
+                    continue
                 try:
                     info = self._storage.load(owner.namespace, owner.name)
                 except StorageError:

@@ -5,13 +5,21 @@ elastic_tpu_agent module gets loaded. The agent side (plugins, nri with
 its ttrpc and mux, rpc, gen, slices, storage, kube, supervisor,
 reconciler, manager, cli, faults, tracing, the native helpers' builder,
 and the observability plane: events, timeline, the batcher, async_sink,
-kube.events, crd, crd_recorder, latency, profiler, metrics) loads no
+kube.events, crd, crd_recorder, latency, profiler, metrics; the
+utilization sampler, the drain and the migration coordinator) loads no
 torch, its allocation logic and plain injection run with grpc and
 protobuf absent too, the node agent's modules (the NRI server's included)
 import with grpc, protobuf and requests absent, a manager with an NRI
-socket builds without them, only metrics needs prometheus_client, and
-chip_smoke.py and the NRI runtime stand-in it loads import nothing of the
-JAX package."""
+socket builds without them, and so does one with the sampler, the drain
+and the migration coordinator on, which sample and tick; only metrics
+needs prometheus_client, and chip_smoke.py and the NRI runtime stand-in it
+loads import nothing of the JAX package.
+
+The agent side keeps its own copies of what it reads of the pod side
+(whose package imports torch): ``common.py``'s handshake keys equal
+``workloads/contract.py``'s, and ``migration.py``'s ack reader,
+``world_size_of`` and delta-chain check answer as ``workloads/
+lifecycle.py`` and ``checkpointing.py`` on the same files."""
 
 import os
 import re
@@ -46,7 +54,8 @@ new = {"export", "parallel", "ring_attention", "pipeline",
        "locator", "reconciler", "manager", "cli", "faults", "tracing",
        "podresources_pb2", "podresources_v1_pb2", "events", "timeline",
        "batcher", "async_sink", "crd", "crd_recorder", "metrics",
-       "latency", "profiler", "ttrpc", "mux", "ttrpc_pb2", "build"}
+       "latency", "profiler", "ttrpc", "mux", "ttrpc_pb2", "build",
+       "sampler", "drain", "migration"}
 missing = sorted(new - {n.rsplit(".", 1)[-1] for n in names})
 print(len(names), missing, leaked)
 """
@@ -61,7 +70,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     count, missing, leaked = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 65         # workloads and every module in it,
+    assert int(count) >= 83         # workloads and every module in it,
     #                                 the device layer, the agent side
     assert missing == "[]"          # export, mesh, ring, pipelines, serving,
     #                                 the device layer, plugins, injection
@@ -82,7 +91,7 @@ for name in ("plugins", "plugins.base", "plugins.gpushare", "nri",
              "manager", "cli", "faults", "tracing", "common", "device",
              "events", "timeline", "storage.batcher", "async_sink",
              "kube.events", "crd", "crd_recorder", "latency", "profiler",
-             "metrics"):
+             "metrics", "sampler", "drain", "migration"):
     importlib.import_module("elastic_tpu_agent_torch." + name)
 print(sorted(m for m in sys.modules if sys.modules[m] is not None and
              m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent")))
@@ -163,7 +172,7 @@ for name in ("manager", "cli", "storage", "storage.store", "kube",
              "nri.plugin", "native.build",
              "events", "timeline", "storage.batcher", "async_sink",
              "kube.events", "crd", "crd_recorder", "latency", "profiler",
-             "metrics"):
+             "metrics", "sampler", "drain", "migration"):
     importlib.import_module("elastic_tpu_agent_torch." + name)
 print(sorted(m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent", "grpc",
@@ -232,6 +241,38 @@ print(hooked, sorted(m for m in sys.modules if sys.modules[m] is not None
                           or m.startswith("google.protobuf"))))
 """
 
+# a manager with the sampler, the drain and the migration coordinator on
+# (the defaults), each driven once by hand: no torch, grpc or protobuf
+HANDSHAKE_MANAGER = r"""
+import os, sys, tempfile
+for blocked in ("torch", "grpc", "google.protobuf", "elastic_tpu_agent"):
+    sys.modules[blocked] = None
+from elastic_tpu_agent_torch.kube.client import KubeClient
+from elastic_tpu_agent_torch.manager import ManagerOptions, NodeManager
+
+class PodResources:
+    def list(self):
+        return type("R", (), {"pod_resources": []})()
+
+root = tempfile.mkdtemp(dir="/tmp")
+os.makedirs(os.path.join(root, "dev"))
+mgr = NodeManager(ManagerOptions(
+    node_name="", db_path=os.path.join(root, "meta.db"),
+    operator_kind="stub:1", dev_root=os.path.join(root, "dev"),
+    alloc_spec_dir=os.path.join(root, "alloc"),
+    kube_client=KubeClient("http://127.0.0.1:9"),
+    pod_resources_client=PodResources(), enable_event_bus=False,
+    enable_events=False, enable_crd=False))
+mgr.sampler.sample_once()
+state = mgr.drain.tick()
+mgr.migration.tick()
+rows = [r["chip"] for r in mgr.sampler.allocations_snapshot()["chips"]]
+mgr.stop()
+print(state, rows, sorted(m for m in sys.modules if sys.modules[m] is not None
+                          and (m.split(".")[0] in ("torch", "grpc")
+                               or m.startswith("google.protobuf"))))
+"""
+
 # chip_smoke.py and the NRI runtime stand-in it loads from tests/, with the
 # JAX package blocked: importing them loads none of it
 CHIP_SMOKE = r"""
@@ -278,6 +319,81 @@ def test_allocation_logic_runs_without_grpc_protobuf_or_torch():
 
 def test_a_manager_with_an_nri_socket_loads_no_grpc_protobuf_or_torch():
     assert _run(NRI_MANAGER) == "True []"
+
+
+def test_a_manager_with_the_handshake_on_loads_no_grpc_protobuf_or_torch():
+    assert _run(HANDSHAKE_MANAGER) == "active [0] []"
+
+
+def test_agent_side_copies_of_the_pod_contract_are_equal():
+    from elastic_tpu_agent_torch import common
+    from elastic_tpu_agent_torch.workloads import contract
+
+    keys = [k for k in vars(contract) if k[0].isupper()]
+    shared = [k for k in keys if hasattr(common, k)]
+    # every key the agent side reads or writes; the throttle keys come
+    # with the repartition controller
+    assert set(keys) - set(shared) == {"EnvThrottle", "EnvThrottleDeadline"}
+    assert {k: getattr(common, k) for k in shared} == {
+        k: getattr(contract, k) for k in shared}
+    assert common.AllocSidecarSubdirs == (
+        contract.UsageReportSubdir, contract.AckSubdir,
+        contract.FlightSummarySubdir)
+
+
+def test_agent_side_ack_reader_and_world_size_agree_with_the_pod_side(
+        tmp_path):
+    import json
+
+    from elastic_tpu_agent_torch import migration
+    from elastic_tpu_agent_torch.workloads import checkpointing, lifecycle
+
+    alloc = str(tmp_path / "alloc")
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    (ckpt / "state").write_bytes(b"x" * 100)
+    acks = tmp_path / "alloc" / "ack"
+
+    def both(h):
+        got = migration.read_checkpoint_ack(alloc, h)
+        assert got == lifecycle.read_checkpoint_ack(alloc, h)
+        return got
+
+    assert both("absent") is None
+    lifecycle.write_checkpoint_ack(alloc, "ok", 7, str(ckpt), world_size=2)
+    assert both("ok")["step"] == 7
+    # a future-dated ack reads as it stands (the coordinator judges it)
+    lifecycle.write_checkpoint_ack(alloc, "future", 3, ts=4e9)
+    assert both("future")["ts"] == 4e9
+    # a digest that does not match the directory reads as it stands too
+    lifecycle.write_checkpoint_ack(alloc, "mismatch", 3, str(ckpt),
+                                   digest="0" * 32)
+    assert both("mismatch")["digest"] != lifecycle.checkpoint_digest(
+        str(ckpt))
+    (acks / "torn.json").write_text('{"ts": 1, "step"')
+    (acks / "list.json").write_text(json.dumps([1, 2]))
+    assert both("torn") is None and both("list") is None
+    for env in ({}, {"TPU_WORKER_HOSTNAMES": ""},
+                {"TPU_WORKER_HOSTNAMES": "a"},
+                {"TPU_WORKER_HOSTNAMES": "a,b,,c"}):
+        assert migration.world_size_of(env) == lifecycle.world_size_of(env)
+    # the delta chain: whole, torn (a block gone) and corrupt (a block
+    # rewritten), as DeltaCheckpointer.verify reads it
+    delta = tmp_path / "delta"
+    ckptr = checkpointing.DeltaCheckpointer(str(delta), block_size=16)
+    ckptr.save(1, bytes(range(64)))
+    ckptr.save(2, bytes(range(1, 65)))
+    blocks = [delta / "blocks" / f"{d}.bin"
+              for d in ckptr.read_manifest(2)["blocks"]]
+    reports = [migration.verify_delta_chain(str(delta))]
+    blocks[0].write_bytes(b"corrupt")
+    reports.append(migration.verify_delta_chain(str(delta)))
+    blocks[1].unlink()
+    reports.append(migration.verify_delta_chain(str(delta)))
+    assert [r["ok"] for r in reports] == [True, False, False]
+    assert reports[-1] == ckptr.verify()
+    assert migration.verify_delta_chain(str(tmp_path / "none")) == (
+        checkpointing.DeltaCheckpointer(str(tmp_path / "none")).verify())
 
 
 def test_chip_smoke_and_its_nri_stand_in_import_no_jax_package():

@@ -79,9 +79,11 @@ AGENT_BIND_PATH = dict(
     enable_sampler=False, enable_migration=False, enable_repartition=False,
     nri_socket="")
 # the port's manager in the same configuration (its observability plane,
-# on by default as the agent's, is held against the agent's below)
+# on by default as the agent's, is held against the agent's below; the
+# drain, as the agent's, is always on)
 PORT_BIND_PATH = dict(enable_event_bus=False, enable_events=False,
-                      enable_crd=False)
+                      enable_crd=False, enable_sampler=False,
+                      enable_migration=False)
 # the observability plane on both sides, with every option of the slice
 AGENT_OBS = dict(AGENT_BIND_PATH, enable_event_bus=True, enable_events=True,
                  enable_crd=True)
@@ -456,7 +458,7 @@ def test_subsystems_are_the_agents_bind_path(flows):
     assert set(to_agent(port["subsystems"], {})) <= set(agent["subsystems"])
     assert port["subsystems"] == [
         "allocatable-check", "device-plugin:elasticgpu.io/gpu-core",
-        "device-plugin:elasticgpu.io/gpu-memory", "gc", "health",
+        "device-plugin:elasticgpu.io/gpu-memory", "drain", "gc", "health",
         "reconciler", "sitter"]
 
 
@@ -642,15 +644,11 @@ def test_observability_flags_match_the_agents():
 
 NRI_FLAGS = ["--plugin", "gpushare", "--nri-socket", "/run/nri/nri.sock",
              "--nri-evict-on-chip-failure"]
-# the agent's flags the port lacks: those of items 10.3-10.7 (sampler,
-# drain, migration, repartition, goodput, slices) and --nri-libtpu, whose
-# counterpart is --nri-driver-lib
+# the agent's flags the port lacks: those of items 10.5-10.7 (repartition,
+# goodput, slices) and --nri-libtpu, whose counterpart is --nri-driver-lib
 MISSING_FLAGS = {
-    "sampler_period", "no_sampler", "drain_deadline", "drain_period",
-    "preemption_notice", "maintenance_poll_ttl", "migration_period",
-    "no_migration", "repartition_period", "no_repartition",
-    "qos_evict_after", "goodput_period", "slice_membership_ttl",
-    "nri_libtpu"}
+    "repartition_period", "no_repartition", "qos_evict_after",
+    "goodput_period", "slice_membership_ttl", "nri_libtpu"}
 
 
 def test_nri_flags_match_the_agents():
@@ -682,6 +680,30 @@ def test_evict_without_nri_socket_is_rejected_as_the_agent_rejects_it(
         cli.parse_args(["--plugin", "tpushare"])
     with pytest.raises(ValueError):
         NodeManager(ManagerOptions(plugin_kind="tpushare"))
+
+
+HANDSHAKE_FLAGS = ["--sampler-period", "1", "--drain-deadline", "120",
+                   "--drain-period", "0.5", "--preemption-notice", "20",
+                   "--maintenance-poll-ttl", "5", "--migration-period",
+                   "0.25"]
+
+
+@pytest.mark.parametrize("argv", [HANDSHAKE_FLAGS,
+                                  ["--no-sampler", "--no-migration"]],
+                         ids=["periods", "off"])
+def test_handshake_flags_match_the_agents(argv):
+    port = vars(cli.parse_args(argv))
+    agent = vars(agent_cli.parse_args(argv))
+    assert {k: v for k, v in port.items() if k in agent and agent[k] != v
+            } == {"operator": "nvidia", "plugin": "gpushare"}
+    opts = cli.options_from_args(cli.parse_args(argv))
+    assert (opts.enable_sampler, opts.sampler_period_s, opts.drain_deadline_s,
+            opts.drain_period_s, opts.preemption_notice_s,
+            opts.maintenance_poll_ttl_s, opts.enable_migration,
+            opts.migration_period_s) == (
+        (True, 1.0, 120.0, 0.5, 20.0, 5.0, True, 0.25)
+        if argv is HANDSHAKE_FLAGS
+        else (False, 10.0, 300.0, 2.0, 30.0, None, False, 2.0))
 
 
 def test_the_flags_the_port_lacks_are_those_of_later_items():
@@ -795,8 +817,11 @@ def _doctor(mod, argv):
 def test_main_serves_metrics_and_node_doctor_reads_it():
     """``main()`` with --metrics-port and --profile-hz: /metrics lints
     clean, /healthz answers, the journal holds the boot; node-doctor
-    profile reads the live agent and node-doctor timeline its db after
-    SIGTERM, each as the agent's subcommand does."""
+    profile reads the live agent, /debug/allocations holds the sampler's
+    table with the drain and migration blocks, node-doctor's bundle of
+    the live agent passes both packages' --validate, and node-doctor
+    timeline reads its db after SIGTERM, each as the agent's subcommand
+    does."""
     root = pathlib.Path(tempfile.mkdtemp(prefix="cm", dir="/tmp"))
     api = FakeAPIServer()
     url = api.start()
@@ -842,6 +867,26 @@ def test_main_serves_metrics_and_node_doctor_reads_it():
                                  ["profile", "--agent-url", base, "--top",
                                   "3"])
         assert rc_a == 0 and out_a.startswith("samples=")
+        # the sampler's table, and the doctor's bundle of the live agent,
+        # valid by both packages' schema checks
+        code, text = _get(base + "/debug/allocations")
+        table = json.loads(text)
+        assert code == 200 and [c["chip"] for c in table["chips"]] == [0, 1]
+        assert table["drain"]["state"] == "active"
+        assert table["migration"]["completed_total"] == 0
+        rc, out, err = _doctor("elastic_tpu_agent_torch.cli", [
+            "--agent-url", base, "--operator", "stub:2", "--dev-root",
+            str(root / "dev"), "--db-file", db, "--samples", "1",
+            "--alloc-spec-dir", str(root / "alloc")])
+        assert rc == 0, err
+        (root / "bundle.json").write_text(out)
+        bundle = json.loads(out)
+        assert bundle["agent"]["reachable"] and bundle["allocations"][
+            "chips"] and "drain" in bundle["agent"]["allocations"]
+        for mod in ("elastic_tpu_agent_torch.cli", "elastic_tpu_agent.cli"):
+            rc, _, err = _doctor(mod, ["--validate",
+                                       str(root / "bundle.json")])
+            assert rc == 0, err
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
         argv = ["timeline", "--db-file", db, "--kind", "agent_started"]

@@ -72,11 +72,17 @@ def drive(side: str, name: str):
         sup.register("steady", lambda s: s.wait(), sup_mod.DEGRADED)
         sup.start(stop)
         sup.register("sub", target, crit, one_shot=one_shot)
+        # Wait until both subsystems have settled before reading: the
+        # schedule's subsystem in its final state, and the steady one
+        # running. A fast schedule (one_shot_retried ends within a few
+        # milliseconds) can otherwise be read while the steady thread has
+        # not yet left "pending" on one side only.
         deadline = time.monotonic() + 20
         while time.monotonic() < deadline:
-            st = sup.status()["sub"]
-            if st["state"] == settled and (settled != "running"
-                                           or calls["n"] > failures):
+            st = sup.status()
+            if (st["sub"]["state"] == settled
+                    and (settled != "running" or calls["n"] > failures)
+                    and st["steady"]["state"] == "running"):
                 break
             time.sleep(0.005)
         out = dict(

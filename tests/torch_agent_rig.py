@@ -17,24 +17,51 @@ on ``clock``), ``events`` and ``crd_recorder`` (recorders),
 resources, their hashes) and sets aside what differs by design: the
 visibility env and the port's ``control_paths``. Trace ids are random per
 bind: each must be 16 hex digits, and compares as a placeholder.
+
+``Handshake`` puts a generation's drain orchestrator, migration
+coordinator and utilization sampler over it, each from the side's own
+package, on the side's ``ManualClock``, with an Event recorder that keeps
+(object, reason), an AgentMetrics on its own registry and a KubeClient of
+a ``tests/fake_apiserver.py``; ``snapshot()`` reads what the three show.
+Tests drive ``tick()`` and ``sample_once()`` by hand: no sleeps, no
+threads.
 """
 
 import json
 import os
 import re
+import shutil
+import tempfile
 
+from prometheus_client import CollectorRegistry, generate_latest
+from prometheus_client.parser import text_string_to_metric_families
+
+from elastic_tpu_agent import common as agent_common
+from elastic_tpu_agent import drain as agent_drain
+from elastic_tpu_agent import faults as agent_faults
+from elastic_tpu_agent import metrics as agent_metrics
+from elastic_tpu_agent import migration as agent_migration
 from elastic_tpu_agent import rpc as agent_rpc
 from elastic_tpu_agent import reconciler as agent_reconciler
+from elastic_tpu_agent import sampler as agent_sampler
 from elastic_tpu_agent import timeline as agent_timeline
+from elastic_tpu_agent import tracing as agent_tracing
+from elastic_tpu_agent.kube.client import KubeClient as AgentKube
 from elastic_tpu_agent.kube import locator as agent_locator
 from elastic_tpu_agent.plugins import tpushare
 from elastic_tpu_agent.plugins.base import PluginConfig as AgentConfig
 from elastic_tpu_agent.storage import Storage as AgentStorage
 from elastic_tpu_agent.types import Device as AgentDevice
-from elastic_tpu_agent_torch import reconciler, rpc
+from elastic_tpu_agent_torch import common as port_common
+from elastic_tpu_agent_torch import (
+    drain, faults, metrics, migration, reconciler, rpc,
+)
+from elastic_tpu_agent_torch import sampler as sampler_mod
 from elastic_tpu_agent_torch import timeline as timeline_mod
+from elastic_tpu_agent_torch import tracing
 from elastic_tpu_agent_torch.common import (
     AnnotationAssumed,
+    AnnotationSliceID,
     BytesPerMemoryUnit,
     ResourceGPUCore,
     ResourceGPUMemory,
@@ -43,11 +70,13 @@ from elastic_tpu_agent_torch.common import (
 from elastic_tpu_agent_torch.device import StubOperator
 from elastic_tpu_agent_torch.device.stub import H100_SXM5_HBM_BYTES
 from elastic_tpu_agent_torch.kube import locator
+from elastic_tpu_agent_torch.kube.client import KubeClient
 from elastic_tpu_agent_torch.plugins import gpushare
 from elastic_tpu_agent_torch.plugins.base import PluginConfig
 from elastic_tpu_agent_torch.storage import Storage
 from elastic_tpu_agent_torch.types import Device
 
+from fake_apiserver import FakeAPIServer
 from fake_kubelet import FakeKubelet, FakeSitter
 
 MINORS = [2, 0, 3, 1]       # card index -> /dev/nvidia<minor>
@@ -234,3 +263,177 @@ def port_report(agent_report: dict) -> dict:
         assert agent_report[key] == 0, (key, agent_report[key])
     return {k: v for k, v in agent_report.items()
             if k not in AGENT_ONLY_REPORT and k != "duration_s"}
+
+
+# the metric families the handshake and the sampler feed
+HANDSHAKE_FAMILIES = ("elastic_tpu_drain", "elastic_tpu_maintenance",
+                      "elastic_tpu_migration", "elastic_tpu_workload",
+                      "elastic_tpu_overcommit", "elastic_tpu_chip_duty",
+                      "elastic_tpu_chip_hbm", "elastic_tpu_pod_core")
+# timeline kinds the handshake writes
+HANDSHAKE_KINDS = ("drain_transition", "migration", "cordon")
+
+
+def clock_of(port: bool):
+    """A side's ManualClock at its fixed fake start (equal on both)."""
+    return (port_common if port else agent_common).ManualClock()
+
+
+class Events:
+    """An Event recorder keeping the (object, reason) of every Event."""
+
+    def __init__(self) -> None:
+        self.posted = []
+
+    def node_event(self, reason, message, type_="Normal", **kw):
+        self.posted.append(("node", reason))
+
+    def pod_event(self, namespace, name, reason, message, type_="Normal",
+                  **kw):
+        self.posted.append((f"{namespace}/{name}", reason))
+
+
+class Handshake:
+    """One generation's drain orchestrator, migration coordinator and
+    sampler, from the side's package (module docstring). The generation
+    must have been booted with ``timeline=True`` on ``clock``."""
+
+    def __init__(self, node: Node, api_url: str, clock,
+                 deadline_s: float = 300.0, notice_s: float = 30.0) -> None:
+        port = node.port
+        gen = node.gen
+        self.node, self.gen, self.clock = node, gen, clock
+        self.events = Events()
+        self.registry = CollectorRegistry()
+        self.metrics = (metrics if port else agent_metrics).AgentMetrics(
+            registry=self.registry)
+        self.kube = (KubeClient if port else AgentKube)(api_url)
+        obs = dict(events=self.events, metrics=self.metrics,
+                   node_name="node-a", timeline=gen.timeline, clock=clock)
+        self.drain = (drain if port else agent_drain).DrainOrchestrator(
+            operator=gen.operator, plugin=gen.plugin, storage=gen.storage,
+            sitter=node.sitter, reconciler=gen.reconciler,
+            kube_client=self.kube, deadline_s=deadline_s,
+            preemption_notice_s=notice_s, node_poll_ttl_s=0.0, **obs)
+        self.migration = (migration if port
+                          else agent_migration).MigrationCoordinator(
+            storage=gen.storage, plugin=gen.plugin, sitter=node.sitter,
+            reconciler=gen.reconciler, drain=self.drain,
+            kube_client=self.kube, alloc_spec_dir=node.alloc_dir, **obs)
+        gen.reconciler.drain = self.drain
+        gen.reconciler.migration = self.migration
+        self.drain.migration = self.migration
+        self.sampler = (sampler_mod if port
+                        else agent_sampler).UtilizationSampler(
+            gen.operator, storage=gen.storage, metrics=self.metrics,
+            alloc_spec_dir=node.alloc_dir)
+
+    def samples(self) -> dict:
+        """The handshake's and the sampler's metric samples, keyed
+        ``name{label=value,...}``."""
+        text = generate_latest(self.registry).decode()
+        return {
+            s.name + "{" + ",".join(
+                f"{k}={v}" for k, v in sorted(s.labels.items())) + "}":
+            s.value
+            for fam in text_string_to_metric_families(text)
+            for s in fam.samples if s.name.startswith(HANDSHAKE_FAMILIES)
+            and not s.name.endswith("_created")
+        }
+
+    def timeline(self) -> list:
+        """(kind, attrs) of the handshake's timeline rows, in order."""
+        return [(r["kind"], r["attrs"]) for r in
+                self.gen.storage.timeline_rows()
+                if r["kind"] in HANDSHAKE_KINDS]
+
+    def snapshot(self) -> dict:
+        """What the node shows: the drain's and the coordinator's status,
+        the node's links, specs and records, the Events, the cordon, the
+        samples and the timeline."""
+        drain_status = dict(self.drain.status(), last_error=None)
+        mig = self.migration.status()
+        return dict(
+            drain=drain_status, migration=mig, state=self.node.state(),
+            events=list(self.events.posted),
+            cordoned=self.gen.plugin.core.cordoned,
+            samples=self.samples(), timeline=self.timeline(),
+        )
+
+
+# the handshake node's binds: pod a (a slice member) 50 core units and a
+# quarter of the memory of card 2, pod b 100 core units of card 1
+HANDSHAKE_SETS = [("core", 2, range(50)), ("mem", 2, range(UNITS // 4)),
+                  ("core", 1, range(100))]
+
+
+def hash_map(sets):
+    """The port's hash of each device set (kind, card, units) -> the
+    agent's."""
+    port, agent = Node.__new__(Node), Node.__new__(Node)
+    port.port, agent.port = True, False
+    return {port.device(k, port.ids(k, c, u)).hash:
+            agent.device(k, agent.ids(k, c, u)).hash
+            for k, c, u in sets}
+
+
+class HandshakeSide:
+    """One side's node with pods a and b bound (HANDSHAKE_SETS), a fake
+    apiserver holding the node and pod a, and a ``Handshake``."""
+
+    def __init__(self, port: bool, deadline_s=300.0, notice_s=30.0,
+                 clock=None):
+        self.port = port
+        self.root = tempfile.mkdtemp(prefix="hs", dir="/tmp")
+        self.api = FakeAPIServer()
+        self.url = self.api.start()
+        self.api.add_node("node-a")
+        self.node = Node(self.root, port)
+        self.clock = clock if clock is not None else clock_of(port)
+        self.limits = (deadline_s, notice_s)
+        self.faults = faults if port else agent_faults
+        self.boot()
+        self.admit("a", "2", uid="uid-a", slice_id="job-1")
+        self.admit("b", "1", uid="uid-b")
+        for kind, chip, units in HANDSHAKE_SETS:
+            self.bind(kind, "a" if chip == 2 else "b", chip, units)
+
+    def bind(self, kind, pod, chip, units):
+        """``Node.bind`` under a trace, as PreStart binds: the spec
+        carries its id."""
+        tracer = (tracing if self.port else agent_tracing).get_tracer()
+        with tracer.trace("PreStartContainer"):
+            return self.node.bind(kind, pod, chip, units)
+
+    def admit(self, pod, chips, uid, slice_id=""):
+        """The pod at the sitter (with its uid) and at the apiserver."""
+        self.node.annotate(pod, chips)
+        meta = self.node.sitter.pods[("default", pod)]["metadata"]
+        meta["uid"] = uid
+        if slice_id:
+            meta["annotations"][AnnotationSliceID] = slice_id
+        self.api.upsert_pod({"metadata": {"namespace": "default",
+                                          "name": pod, "uid": uid,
+                                          "annotations": {}}})
+
+    def hash(self, kind, chip, units):
+        return self.node.device(kind, self.node.ids(kind, chip, units)).hash
+
+    def boot(self):
+        """A new generation (an agent restart) with its handshake."""
+        self.node.boot(timeline=True, clock=self.clock)
+        self.hs = Handshake(self.node, self.url, self.clock, *self.limits)
+        return self.hs
+
+    def exit_pod(self, pod):
+        """The pod goes (sitter, apiserver and kubelet) and the reconciler
+        reclaims what it still holds."""
+        self.node.sitter.remove_pod("default", pod)
+        self.api.delete_pod("default", pod)
+        self.node.kubelet.unassign_pod("default", pod)
+        self.node.gen.reconciler.reconcile_once()
+
+    def close(self):
+        self.node.close()
+        self.api.stop()
+        shutil.rmtree(self.root, ignore_errors=True)
