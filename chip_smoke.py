@@ -9,9 +9,10 @@ inject, the node agent itself across a restart, with a tenant served
 from a binding it restored, the agent's observability plane read
 around a tenant, the agent's runtime activation: its NRI server and
 the OCI hook chain, each starting a tenant, with a card-failure
-eviction, and the agent's utilization sampler, drain and migration
+eviction, the agent's utilization sampler, drain and migration
 handshake around a runner tenant that is drained, reclaimed early and
-resumed.
+resumed, and the agent's live re-partitioning and goodput ledger around
+three tenants that report their own device-busy shares.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -141,17 +142,17 @@ shows; it then exits 1 before the summary lines. Phases:
    ring run on the kernels' plain versions on the CPU, 4 launches of each
    kernel a ring, and the ring's forward and forward + backward device
    times beside one flash call over the whole 4096 and SDPA;
-18. the summary, printed after phases 19-29: the device time of the
+18. the summary, printed after phases 19-30: the device time of the
    whole bf16 backward (delta, dK/dV and dQ) against SDPA's whole
    backward, each phase's host seconds, a
    ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
    summed over the paths it lies on: forward, LoRA, the sharded step, the
    ring, the MoE mesh step, both pipeline schedules, the runner's mesh
-   runs and the train tenants of phases 24 and 29 for flash_fwd; train,
-   LoRA, the sharded step, the ring, the MoE mesh step, both pipeline
-   schedules, the runner's mesh runs and the train tenants for the
-   backward pair; serving, the speculative fallback and the serving
-   tenants of phases 24-29 for paged_decode),
+   runs and the train tenants of phases 24, 29 and 30 for flash_fwd;
+   train, LoRA, the sharded step, the ring, the MoE mesh step, both
+   pipeline schedules, the runner's mesh runs and the train tenants for
+   the backward pair; serving, the speculative fallback and the serving
+   tenants of phases 24-30 for paged_decode),
    the card's name and power limit as
    nvidia-smi reports them, and the result line;
 19. MoE over a one-rank NCCL mesh: phase 7's MoE preset, weights and
@@ -341,7 +342,53 @@ shows; it then exits 1 before the summary lines. Phases:
    signaled -> acked -> reclaimed beside the deadline, the pre-copy
    rounds with their bytes and the cutover ms, replacement bind ->
    verified and the flash launches of the runs, beside the card's name
-   and power limit; the agent imports no torch.
+   and power limit; the agent imports no torch;
+30. the agent's live re-partitioning and goodput ledger: the CLI ``main``
+   (``python3 chip_smoke.py --agent F``, a child without torch, phase
+   26's stand-ins) with ``--metrics-port`` on loopback, the sampler,
+   repartition and goodput periods 1 s, migration 0.5 s, reconcile 1 s
+   and ``--qos-evict-after 60`` binds three pods opted in through
+   ``elasticgpu.io/repartition``: D (high priority, 40 gpu-core units and
+   a quarter of the memory) whose tenant serves phase 4's 16 requests on
+   the paged kernel and then idles, O (low, 1 unit) whose runner then
+   trains at the small preset, batch 32, seq 512 with a checkpoint dir
+   until it is stopped, and B (high, a quarter of the memory and the
+   gpu-core units that centre the growth band on its workload's share:
+   the p50 of its shares over a 150-step run of it alone, outside any
+   pod, just before, the start-up window left out) whose runner then
+   trains 300 steps at phase 6's preset and token file, batch 2, and
+   idles. Each tenant starts from its spec's env alone and writes its
+   own device-busy share every 2 s through
+   ``telemetry.write_usage_report``: the device time torch.profiler
+   (CUPTI, device activity only) saw of it in the window over the
+   window's wall time, the windows turning in the tenant's working
+   thread. O over its grant must be throttled (the throttle keys
+   stamped, ``TPUThrottled``), its runner checkpoint and ack, and the
+   controller evict it before the deadline with a ``Migrated`` record of
+   reason ``qos_evict``, reclaim its links and specs, count 1 throttle
+   and 1 eviction, post ``TPUQoSEvicted``, and replay nothing for 3
+   reconcile periods while the kubelet stand-in still lists O; O's
+   tenant is then stopped (SIGTERM) and B starts. D idle and B busy
+   must move core units D -> B (both specs restamped, their sum the sum
+   of the grants, ``direction="grow"`` counted, ``TPURepartitioned``
+   posted, a ``repartition`` row, the edge in ``/debug/allocations``, no
+   unit to low O); B's run ending must unwind the edge (specs back to
+   the grants, ``direction="shrink"``).
+   ``/debug/goodput`` must hold the
+   three pods, each conserved, O's partition queued, productive and
+   checkpointing (its cause the throttle; the ack's checkpointing and
+   migrating claims outrank ``throttled``), every cause resolving in the
+   timeline, ``elastic_tpu_downtime_seconds_total{cause="qos_throttle"}``
+   above 0 and a goodput-ratio series for each live pod; ``node-doctor``
+   (live) and ``--validate`` exit 0; after SIGTERM ``node-doctor goodput
+   --db-file`` gives O's intervals as the last live read. Prints each
+   tenant's measured share beside the sampler's card duty p50, host ms
+   from B's first busy report to its restamped spec and from its idle
+   report to the unwind, throttle -> ack -> evict beside the deadline,
+   each pod's goodput ratio and O's downtime by cause, and the phase's
+   launches, beside the card's name and power limit.
+   ``ELASTIC_TPU_CORE_UNITS`` is a hint on this card (nothing time-slices
+   SMs by it): the restamps are shown as restamps.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -3388,16 +3435,19 @@ def _quota() -> dict:
                                            "0")))
 
 
-def _await_go(barrier: str) -> float:
+def _await_go(barrier: str, poll=None) -> float:
     """Announce this tenant ready in ``barrier`` and wait for the parent's
-    ``go`` (so that the tenants of a window start their work together);
-    returns the wall time of the start. No barrier: start at once."""
+    ``go`` (so that the tenants of a window start their work together),
+    calling ``poll`` meanwhile; returns the wall time of the start. No
+    barrier: start at once."""
     if barrier:
         open(os.path.join(barrier, f"{os.getpid()}.ready"), "w").close()
         deadline = time.time() + TENANT_TIMEOUT_S
         while not os.path.exists(os.path.join(barrier, "go")):
             if time.time() > deadline:
                 raise TimeoutError(f"no go in {barrier}")
+            if poll is not None:
+                poll()
             time.sleep(0.01)
     return time.time()
 
@@ -3441,8 +3491,87 @@ def _busy_profile(torch, on: bool):
                          if busy_us else None)
 
 
+REP_REPORT_S = 2.0              # a phase-30 tenant's usage report period
+
+
+def _busy_ns(prof) -> int:
+    """Nanoseconds in which any device activity of this process ran during
+    a stopped torch.profiler window (the union of its kernels' and copies'
+    spans, as CUPTI timed them)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() != DeviceType.CPU)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+class _UsageReporter:
+    """A phase-30 tenant's own device-busy share, written at least
+    REP_REPORT_S apart through ``telemetry.write_usage_report`` into the
+    pod's alloc dir: the device time torch.profiler (CUPTI, device
+    activity only) saw of this process in the window, over the window's
+    wall time, x 100. A step timed by CUDA events would not do: the steps
+    are host-bound, so events around one span the host's launches and the
+    device's idle gaps between them. The windows turn in the thread that
+    does the work, between its steps (``poll``); turning one (the
+    profiler's stop) is not timed by any window."""
+
+    def __init__(self):
+        self.alloc = os.environ["ELASTIC_TPU_ALLOC_DIR"]
+        self.hash = os.environ["TPU"]
+        self.reports = []
+        self._start()
+
+    def _start(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+        self._t0 = time.time()
+
+    def poll(self, restart=True):
+        """Close the window once REP_REPORT_S has passed (at once with
+        ``restart`` False) and write its share."""
+        from elastic_tpu_agent_torch.workloads import telemetry as T
+
+        if restart and time.time() - self._t0 < REP_REPORT_S:
+            return
+        self._prof.stop()
+        t1 = time.time()
+        share = 100.0 * _busy_ns(self._prof) / ((t1 - self._t0) * 1e9)
+        T.write_usage_report(self.alloc, self.hash, share, ts=t1)
+        self.reports.append((round(t1, 3), round(share, 3)))
+        if restart:
+            self._start()
+
+    def close(self) -> list:
+        self.poll(restart=False)
+        return self.reports
+
+
+def _hold(hold, rep, reporter) -> None:
+    """Phase 30: the work's report in ``hold/<pid>.done``, then stay up
+    (idle, still reporting) until ``hold/stop`` exists."""
+    _write_json(os.path.join(hold, f"{os.getpid()}.done"), rep)
+    deadline = time.time() + TENANT_TIMEOUT_S
+    while not os.path.exists(os.path.join(hold, "stop")):
+        if time.time() > deadline:
+            raise TimeoutError(f"no stop in {hold}")
+        reporter.poll()
+        time.sleep(0.05)
+
+
 def tenant_main(args) -> int:
-    """A child of phases 24-29: prints one JSON line. ``discover`` runs
+    """A child of phases 24-30: prints one JSON line. ``discover`` runs
     ``NvidiaOperator("/dev")`` without torch; the others wait at
     ``--barrier`` (if given) and then apply the env file named by
     $ELASTIC_TPU_ENV_FILE as the runner does, before CUDA starts:
@@ -3451,7 +3580,10 @@ def tenant_main(args) -> int:
     ``--runner-args``, waits at ``--barrier2`` and runs it on
     ``--runner-args2``, ``serve`` runs phase 4's 16 requests on the
     kernel-path engine. ``--profile-busy`` puts torch.profiler around the
-    first run or the requests (``_busy_profile``)."""
+    first run or the requests (``_busy_profile``). ``--usage-report``
+    (phase 30) writes the tenant's measured device-busy share every
+    REP_REPORT_S (``_UsageReporter``), and ``--hold DIR`` keeps a train or
+    serve tenant up after its work until ``DIR/stop`` (``_hold``)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.tenant == "discover":
         from elastic_tpu_agent_torch.device import NvidiaOperator
@@ -3487,7 +3619,27 @@ def tenant_main(args) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     kerns = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ, PA.PAGED_DECODE)
-    work_start = _await_go(args.barrier)
+    reporter = None
+    if args.usage_report:
+        # the card's context first (the visibility env is the process's
+        # own); the reports start before the work, and turn with the
+        # runner's steps and the engine's
+        from elastic_tpu_agent_torch.workloads import telemetry as T
+
+        R.load_alloc_env()
+        torch.zeros(1, device="cuda")
+        reporter = _UsageReporter()
+        step = T.FlightRecorder.step
+
+        @contextlib.contextmanager
+        def polled(self, *a, **k):
+            with step(self, *a, **k) as timer:
+                yield timer
+            reporter.poll()
+
+        T.FlightRecorder.step = polled
+    work_start = _await_go(args.barrier,
+                           reporter.poll if reporter is not None else None)
     if args.tenant == "train2":
         runs = []
         for i, argv in enumerate((args.runner_args, args.runner_args2)):
@@ -3514,11 +3666,15 @@ def tenant_main(args) -> int:
         with contextlib.redirect_stdout(buf):
             rc = R.main(args.runner_args.split())   # device "cuda"
         torch.cuda.synchronize()
-        rep = json.loads(buf.getvalue().strip().splitlines()[-1])
-        print(json.dumps(dict(rc=rc, report=rep, quota=_quota(),
-                              **_tenant_tail(torch, torch.device("cuda", 0),
-                                             {k.symbol: k.launches
-                                              for k in kerns}, work_start))))
+        rep = dict(rc=rc, report=json.loads(
+            buf.getvalue().strip().splitlines()[-1]), quota=_quota(),
+            **_tenant_tail(torch, torch.device("cuda", 0),
+                           {k.symbol: k.launches for k in kerns}, work_start))
+        if args.hold:
+            _hold(args.hold, rep, reporter)
+        if reporter is not None:
+            rep["usage_reports"] = reporter.close()
+        print(json.dumps(rep))
         return rc
 
     R.load_alloc_env()
@@ -3566,6 +3722,15 @@ def tenant_main(args) -> int:
     eng = W.ServingEngine(params, cfg, slots=8, max_len=512,
                           prompt_buckets=(16, 64, 256), device=dev,
                           observatory=obs)
+    if reporter is not None:
+        engine_step = eng.step
+
+        def step_polled(*a, **k):
+            out = engine_step(*a, **k)
+            reporter.poll()
+            return out
+
+        eng.step = step_polled
     for k in kerns:
         k.launches = 0
     torch.cuda.synchronize()
@@ -3588,12 +3753,18 @@ def tenant_main(args) -> int:
                                  finished=reqs["finished"],
                                  total=reqs["requests_total"])
         metrics.close()
-    print(json.dumps(dict(
+    rep = dict(
         streams=streams, tokens_per_s=sum(map(len, streams)) / wall,
         wall_s=wall, decode_steps=eng.decode_steps_total,
         paged_kernel=eng.paged_kernel, quota=quota, **extra,
         **_tenant_tail(torch, dev, {k.symbol: k.launches for k in kerns},
-                       work_start))))
+                       work_start))
+    if args.hold:
+        _hold(args.hold, dict(wall_s=wall, work_end=rep["work_end"]),
+              reporter)
+    if reporter is not None:
+        rep["usage_reports"] = reporter.close()
+    print(json.dumps(rep))
     return 0
 
 
@@ -3602,7 +3773,8 @@ class _Tenant:
 
     def __init__(self, name, kind, tmp, env_file=None, runner_args=None,
                  barrier=None, env=None, strip=TENANT_ENV_STRIP, wrap=None,
-                 runner_args2=None, barrier2=None, profile_busy=False):
+                 runner_args2=None, barrier2=None, profile_busy=False,
+                 usage_report=False, hold=None):
         self.name = name
         self.out = os.path.join(tmp, f"{name}.out")
         self.err = os.path.join(tmp, f"{name}.err")
@@ -3622,6 +3794,10 @@ class _Tenant:
             argv += ["--barrier2", barrier2]
         if profile_busy:
             argv += ["--profile-busy"]
+        if usage_report:
+            argv += ["--usage-report"]
+        if hold:
+            argv += ["--hold", hold]
         if wrap:
             argv = wrap(argv)
         with open(self.out, "w") as out, open(self.err, "w") as err:
@@ -5802,7 +5978,7 @@ class _AllocPoller:
                               if r[2].get(p) is not None]]})
 
 
-def _wait(what, fn, timeout_s=MIG_WAIT_S, period_s=0.02):
+def _wait(what, fn, timeout_s=MIG_WAIT_S, period_s=0.02, phase="migration"):
     """fn()'s first truthy value within ``timeout_s``; None (a failed
     check) after it."""
     deadline = time.time() + timeout_s
@@ -5811,7 +5987,7 @@ def _wait(what, fn, timeout_s=MIG_WAIT_S, period_s=0.02):
         if got:
             return got
         time.sleep(period_s)
-    fail(f"migration: {what} within {timeout_s:.0f} s")
+    fail(f"{phase}: {what} within {timeout_s:.0f} s")
     return None
 
 
@@ -6221,6 +6397,610 @@ def run_migration(torch, D, srv, streams, dev) -> dict:
     return out
 
 
+# Phase 30: three pods opted into live re-partitioning, each a tenant
+# that reports its own measured device-busy share.
+# core units (None: sized by a run of B's workload beside O's), memory
+# share divisor (0: no memory), QoS priority
+REP_PODS = {"pod-d": (40, 4, "high"),
+            "pod-b": (None, 4, "high"),
+            "pod-o": (1, 0, "low")}
+REP_EVICT_AFTER_S = 60.0          # --qos-evict-after
+REP_B_STEPS = 300                 # B's run: phase 6's preset and file,
+REP_B_SHAPE = "--batch 2"         # at a batch that keeps its share small
+REP_SIZING_STEPS = 150            # the sizing run of B's workload
+REP_O_SHAPE = "--batch 32 --seq 512"   # O's run: the small preset, busier
+REP_O_STEPS = 100000              # O trains until it is stopped
+REP_REPLAY_PERIODS = 3            # reconcile periods O's assignment stays
+REP_FLAGS = ["--sampler-period", "1", "--repartition-period", "1",
+             "--migration-period", "0.5", "--goodput-period", "1",
+             "--reconcile-period", "1",
+             "--qos-evict-after", str(REP_EVICT_AFTER_S)]
+
+
+def agent_rep_main(args) -> int:
+    """Phase 30's agent (``--agent F``): ``_cli_agent`` on ``rep.json``'s
+    flags, binding the pods of ``pods.json`` and then those of each bind
+    request. Prints one JSON line."""
+    d = args.agent_dir
+    pods = {k: tuple(v) for k, v in _read_json(
+        os.path.join(d, "pods.json")).items()}
+    rc, mgr = _cli_agent(d, "rep.json", pods, follow=True)
+    print(json.dumps(dict(
+        rc=rc, torch_imported="torch" in sys.modules,
+        subsystems={k: v["state"] for k, v in
+                    mgr.supervisor.status().items()} if mgr else {})))
+    return 0
+
+
+class _RepWatch:
+    """Polls each pod's spec env (the quota and throttle keys), usage
+    report and ack file every 10 ms in a thread; keeps (wall time, value)
+    at each change (None: no file)."""
+
+    KEYS = ("ELASTIC_TPU_CORE_UNITS", "ELASTIC_TPU_HBM_LIMIT_BYTES",
+            "ELASTIC_TPU_HBM_FRACTION", "ELASTIC_TPU_THROTTLE",
+            "ELASTIC_TPU_THROTTLE_DEADLINE")
+
+    def __init__(self, d, hashes):
+        import threading
+
+        self.d, self.hashes = d, hashes
+        self.spec = {p: [] for p in hashes}
+        self.report = {p: [] for p in hashes}
+        self.ack = {p: [] for p in hashes}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _file(self, sub, h):
+        try:
+            with open(os.path.join(self.d, "alloc", sub, f"{h}.json")) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    @staticmethod
+    def _note(series, now, value):
+        if not series or series[-1][1] != value:
+            series.append((now, value))
+
+    def _run(self):
+        while not self._stop.is_set():
+            for p, h in self.hashes.items():
+                now = time.time()
+                spec = _spec(self.d, h)
+                self._note(self.spec[p], now, {
+                    k: v for k, v in spec.get("env", {}).items()
+                    if k in self.KEYS} if spec else None)
+                rep = self._file("usage", h)
+                self._note(self.report[p], now, None if rep is None else (
+                    rep.get("ts"), rep.get("duty_cycle_percent")))
+                ack = self._file("ack", h)
+                self._note(self.ack[p], now, None if ack is None else (
+                    ack.get("ts"), ack.get("step"), ack.get("signal")))
+            self._stop.wait(0.01)
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def units(self, pod):
+        """The pod's stamped core units now (None: no spec)."""
+        env = self.spec[pod][-1][1] if self.spec[pod] else None
+        return None if env is None else int(env.get(
+            "ELASTIC_TPU_CORE_UNITS", "-1"))
+
+    def first(self, series, pred, after=0.0):
+        """The first (wall, value) of ``series`` after ``after`` whose
+        value satisfies ``pred``; None when none does."""
+        return next(((t, v) for t, v in series
+                     if t >= after and pred(v)), None)
+
+
+def run_repartition(torch, D, srv, streams, dev) -> dict:
+    """Phase 30: the port's agent moves gpu-core quota between two tenants
+    and back, throttles and evicts an overcommitting runner with its work
+    kept, and accounts every second of each pod's life (module
+    docstring)."""
+    import shutil
+    import signal
+    import tempfile
+
+    from elastic_tpu_agent_torch.common import (
+        AnnotationAssumed, BytesPerMemoryUnit, ResourceGPUCore,
+        ResourceGPUMemory, container_annotation)
+    from elastic_tpu_agent_torch.device import NvidiaOperator
+    from elastic_tpu_agent_torch.device.qos import (
+        AnnotationQoSPriority, AnnotationRepartition)
+    from elastic_tpu_agent_torch.migration import migration_object_name
+    from elastic_tpu_agent_torch.nri import plugin as NRI
+    from elastic_tpu_agent_torch.repartition import (
+        DEFAULT_BUSY_FRAC as BUSY, DEFAULT_OVERCOMMIT_MARGIN as MARGIN)
+
+    props = torch.cuda.get_device_properties(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"launches": {k: 0 for k in KERNEL_NAMES}}
+    d = tempfile.mkdtemp(prefix="cs30", dir="/tmp")
+    api = poller = watch = None
+    alive = []
+
+    def wait(what, fn, timeout_s=MIG_WAIT_S, period_s=0.02):
+        return _wait(what, fn, timeout_s, period_s, phase="repartition")
+
+    try:
+        chips = [c for c in NvidiaOperator(
+            "/dev", maintenance=lambda: None,
+            preemption=lambda: None).devices()
+            if _uuid_key(c.uuid) == _uuid_key(props.uuid)]
+        if len(chips) != 1:
+            fail(f"repartition: no single card of uuid {props.uuid}")
+            return out
+        chip = chips[0]
+        units = chip.hbm_bytes // BytesPerMemoryUnit
+        pods = {p: (core, units // share if share else 0)
+                for p, (core, share, _) in REP_PODS.items()
+                if core is not None}
+        grants = {p: core for p, (core, _, _) in REP_PODS.items()}
+        api = _load_tests_module("fake_apiserver").FakeAPIServer()
+        url = api.start()
+        node = "h100-node"
+        api.add_node(node)
+        os.makedirs(os.path.join(d, "dev"))
+        _write_json(os.path.join(d, "kubeconfig"), {
+            "current-context": "c",
+            "contexts": [{"name": "c", "context": {"cluster": "local",
+                                                   "user": "agent"}}],
+            "clusters": [{"name": "local", "cluster": {"server": url}}],
+            "users": [{"name": "agent", "user": {"token": "phase-30"}}]})
+        _write_json(os.path.join(d, "card.json"), dict(
+            node=node, core_units=0, mem_units=0,
+            core_resource=ResourceGPUCore, mem_resource=ResourceGPUMemory))
+        _write_json(os.path.join(d, "pods.json"), pods)
+        for pod, (_, _, priority) in REP_PODS.items():
+            api.upsert_pod({"metadata": {
+                "namespace": "default", "name": pod, "uid": f"uid-{pod}",
+                "annotations": {
+                    AnnotationAssumed: "true",
+                    container_annotation("main"): str(chip.index),
+                    AnnotationRepartition: "true",
+                    AnnotationQoSPriority: priority}},
+                "spec": {"nodeName": node,
+                         "containers": [{"name": "main"}]}})
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        db = os.path.join(d, "meta.db")
+        _write_json(os.path.join(d, "rep.json"), {"argv": [
+            "--node-name", node, "--db-file", db,
+            "--kubeconf", os.path.join(d, "kubeconfig"),
+            "--operator", "nvidia", "--dev-root", os.path.join(d, "dev"),
+            "--alloc-spec-dir", os.path.join(d, "alloc"),
+            "--device-plugin-dir", os.path.join(d, "dp"),
+            "--pod-resources-socket", os.path.join(d, "pr.sock"),
+            "--metrics-port", str(port), *REP_FLAGS]})
+        agent = _AgentChild("F", d)
+        alive.append(agent)
+        data = _runtime_data(D, os.path.join(d, "tokens.bin"))
+        b_args = (f"{data} {REP_B_SHAPE} --steps {REP_B_STEPS} "
+                  f"--warmup-steps 5 --total-steps {REP_B_STEPS} "
+                  f"--checkpoint-every 0")
+        o_args = (f"{data} {REP_O_SHAPE} --steps {REP_O_STEPS} "
+                  f"--warmup-steps 5 --total-steps {REP_O_STEPS} "
+                  f"--checkpoint-every 0")
+        # B's grant is its request sized to what its workload uses on this
+        # card (its share moved 1.7x between calls, and read 0.6-1.3x the
+        # p50 of a run just before while O trained beside it; alone, run
+        # to run within 9%): a short run of B's workload alone, outside
+        # any pod, its shares written into a scratch dir. The growth band
+        # [busy_frac x grant, grant + margin] is centred, as a factor, on
+        # the p50 of B's shares, its first window (the runner's start-up)
+        # left out (in the pods B read 0.78-1.28x that p50);
+        # B's small batch keeps its share, and so its grant, small, where
+        # that band is widest (its top is 2.5x its floor at 4 units, 1.57x
+        # at 12). In the pods B trains alone too: D has served its
+        # requests and O has been stopped before B starts
+        os.makedirs(os.path.join(d, "sizing"))
+        sized = _Tenant("rep_size_b", "train", d, env=dict(
+            CUDA_VISIBLE_DEVICES=chip.uuid, TPU="sizing-b",
+            ELASTIC_TPU_ALLOC_DIR=os.path.join(d, "sizing"),
+            ELASTIC_TPU_RESTORE_WAIT_S="0"), strip=PLUGIN_ENV_STRIP,
+            runner_args=(f"{data} {REP_B_SHAPE} --steps {REP_SIZING_STEPS} "
+                         f"--warmup-steps 5 --total-steps {REP_SIZING_STEPS} "
+                         f"--checkpoint-every 0"), usage_report=True)
+        alive.append(sized)
+        size_rep = sized.result(time.perf_counter() + TENANT_TIMEOUT_S)
+        size_shares = [v for t, v in size_rep.get("usage_reports", [])
+                       if size_rep["work_start"] < t
+                       <= size_rep["work_end"] + REP_REPORT_S][1:]
+        size = float(np.median(size_shares)) if size_shares else 0.0
+        # g with busy_frac x g x (g + margin) = p50^2: the p50 as far
+        # (as a factor) from the band's floor as from its top
+        grants["pod-b"] = max(2, round((math.sqrt(
+            (BUSY * MARGIN) ** 2 + 4 * BUSY * size ** 2)
+            - BUSY * MARGIN) / (2 * BUSY)))
+        for k in KERNEL_NAMES:
+            out["launches"][k] += size_rep.get("launches", {}).get(k, 0)
+        print(f"repartition sizing ({smi}): B's workload alone, outside "
+              f"any pod: shares {size_shares}, p50 "
+              f"{size:.3f}%: B requests {grants['pod-b']} gpu-core units "
+              f"(growth band {BUSY * grants['pod-b']:.1f}-"
+              f"{grants['pod-b'] + MARGIN:.1f}%)")
+        bound = _read_json(os.path.join(d, "bound.json"), AGENT_WAIT_S)
+        if not bound or "error" in bound:
+            agent.kill()
+            agent.result(time.perf_counter() + 1)
+            fail(f"repartition agent never bound: {bound}")
+            return out
+        _write_json(os.path.join(d, "bind-1.json"), {"pods": {
+            "pod-b": (grants["pod-b"], units // REP_PODS["pod-b"][1])}})
+        bound_b = _read_json(os.path.join(d, "bound-1.json"), AGENT_WAIT_S)
+        if not bound_b or "error" in bound_b:
+            fail(f"repartition: B never bound: {bound_b}")
+            return out
+        hashes = {p: (bound_b if p == "pod-b" else bound)["hashes"][p][0]
+                  for p in REP_PODS}
+        keys = {p: f"default/{p}" for p in REP_PODS}
+
+        def pod_env(h):
+            """The tenant's env from the pod's spec alone (phase 29's)."""
+            spec_path = os.path.join(d, "alloc", f"{h}.json")
+            adj = NRI.plain_adjustment(_spec(d, h), os.stat, "/dev",
+                                       spec_path)
+            return dict(adj["env"], TPU=h,
+                        ELASTIC_TPU_ALLOC_DIR=os.path.join(d, "alloc"),
+                        ELASTIC_TPU_RESTORE_WAIT_S="0")
+
+        o_args += f" --checkpoint-dir {os.path.join(d, 'ckpt-o')}"
+        hold = os.path.join(d, "hold")
+        go = {p: os.path.join(d, f"go-{p}") for p in REP_PODS}
+        for sub in (hold, *go.values()):
+            os.makedirs(sub)
+        watch = _RepWatch(d, hashes)
+        poller = _AllocPoller(base)
+        tenants = {
+            "pod-d": _Tenant("rep_d", "serve", d, env=pod_env(
+                hashes["pod-d"]), strip=PLUGIN_ENV_STRIP,
+                barrier=go["pod-d"], usage_report=True, hold=hold),
+            "pod-b": _Tenant("rep_b", "train", d, env=pod_env(
+                hashes["pod-b"]), strip=PLUGIN_ENV_STRIP,
+                barrier=go["pod-b"], runner_args=b_args, usage_report=True,
+                hold=hold),
+            "pod-o": _Tenant("rep_o", "train", d, env=pod_env(
+                hashes["pod-o"]), strip=PLUGIN_ENV_STRIP,
+                barrier=go["pod-o"], runner_args=o_args, usage_report=True),
+        }
+        alive += list(tenants.values())
+        wait("the tenants ready and reporting", lambda: all(
+            os.listdir(go[p]) and watch.report[p] and watch.report[p][-1][1]
+            for p in REP_PODS), timeout_s=TENANT_TIMEOUT_S)
+        # D serves its requests, then O trains, then B: each tenant's
+        # share is its own, not its neighbour's
+        t_go = time.time()
+        open(os.path.join(go["pod-d"], "go"), "w").close()
+        wait("D's requests served", lambda: any(
+            n.endswith(".done") for n in os.listdir(hold)),
+             timeout_s=TENANT_TIMEOUT_S)
+        open(os.path.join(go["pod-o"], "go"), "w").close()
+
+        def allocations():
+            return _http_json(base + "/debug/allocations")
+
+        def edges():
+            return (allocations().get("repartition") or {}).get("edges", [])
+
+        # throttle -> ack -> evict: O over its grant on its own reports
+        throttled = wait("O's spec throttled", lambda: watch.first(
+            watch.spec["pod-o"], lambda v: v is not None
+            and "ELASTIC_TPU_THROTTLE" in v))
+        acked = wait("O's ack", lambda: watch.first(
+            watch.ack["pod-o"], lambda v: v is not None),
+            timeout_s=REP_EVICT_AFTER_S)
+        evicted = wait("O evicted", lambda: watch.first(
+            watch.spec["pod-o"], lambda v: v is None,
+            after=throttled[0] if throttled else 0.0),
+            timeout_s=REP_EVICT_AFTER_S + 30)
+        t_evicted = time.time()
+        mig_name = migration_object_name("default", "pod-o")
+        rec_obj = wait("O's MigrationRecord", lambda: api._crds.get(
+            mig_name)) or {}
+        record = (rec_obj.get("spec") or {}).get("migration") or {}
+        # the kubelet still lists O's assignment: no replay for 3 periods
+        time.sleep(REP_REPLAY_PERIODS * 1.25 + 0.5)
+        table = allocations()
+        rep_status = table.get("repartition") or {}
+        rows_o = _http_json(base + "/debug/timeline?pod=default/pod-o"
+                            "&limit=1000")["events"]
+        sm = _samples(_http(base + "/metrics")[1])
+        events = {(e["involvedObject"].get("name"), e["reason"])
+                  for e in api.core_events}
+        deadline = (float(throttled[1]["ELASTIC_TPU_THROTTLE_DEADLINE"])
+                    if throttled else None)
+        links_o = [n for n in os.listdir(os.path.join(d, "dev"))
+                   if hashes["pod-o"] in n]
+        ms_o = {}
+        if throttled and acked and evicted:
+            ms_o = dict(throttle_to_ack=(acked[1][0] - throttled[0]) * 1e3,
+                        ack_to_evict=(evicted[0] - acked[1][0]) * 1e3,
+                        evict_before_deadline_s=deadline - evicted[0])
+        ochecks = {
+            "stamped": bool(throttled) and bool(throttled[1].get(
+                "ELASTIC_TPU_THROTTLE_DEADLINE")),
+            "acked": bool(acked) and acked[1][2] == "overcommit",
+            "before the deadline": bool(evicted) and deadline is not None
+            and evicted[0] < deadline,
+            "record": rec_obj.get("status", {}).get("phase") == "Migrated"
+            and record.get("reason") == "qos_evict",
+            "reclaimed": not links_o and keys["pod-o"] not in {
+                p["pod"] for p in table.get("pods", [])},
+            "counters": sm.get(("elastic_tpu_throttles_total", ())) == 1.0
+            and sm.get(("elastic_tpu_qos_evictions_total", ())) == 1.0,
+            "events": {("pod-o", "TPUThrottled"),
+                       ("pod-o", "TPUQoSEvicted")} <= events,
+            "no replay": keys["pod-o"] in rep_status.get("evicted_pods", [])
+            and not any(e["kind"] == "bind_replay" for e in rows_o)
+            and keys["pod-o"] in (_read_json(os.path.join(
+                d, "assign.json")) or {}),
+        }
+        print(f"repartition throttle ({smi}): O throttled "
+              f"{throttled[1] if throttled else None}; host ms throttle -> "
+              f"ack {ms_o.get('throttle_to_ack')}, ack -> evicted "
+              f"{ms_o.get('ack_to_evict')}, evicted "
+              f"{ms_o.get('evict_before_deadline_s')} s before the "
+              f"{REP_EVICT_AFTER_S:.0f} s deadline; record {mig_name} "
+              f"reason {record.get('reason')} step {record.get('step')}; "
+              f"checks {ochecks}")
+        for k, ok in ochecks.items():
+            if not ok:
+                fail(f"repartition throttle check {k!r} failed")
+
+        # O's pod is killed as a kubelet would: SIGTERM; then B trains
+        tenants["pod-o"].proc.send_signal(signal.SIGTERM)
+        orep = tenants["pod-o"].result(time.perf_counter() + 120)
+        open(os.path.join(go["pod-b"], "go"), "w").close()
+
+        # grow: D idle, B busy -> core units D -> B, in both specs
+        sum_grants = grants["pod-d"] + grants["pod-b"]
+        grown = wait("the grow restamped in both specs", lambda: (
+            lambda b, dd: (b, dd) if b is not None and dd is not None
+            and b > grants["pod-b"] and b + dd == sum_grants else None)(
+                watch.units("pod-b"), watch.units("pod-d")),
+            timeout_s=60, period_s=0.005) or (None, None)
+        t_grown = time.time()
+        grow_edges = wait("the edge D -> B listed", lambda: [
+            e for e in edges() if e["donor"] == keys["pod-d"]
+            and e["borrower"] == keys["pod-b"]], timeout_s=10) or []
+        # the move's trail follows its restamps: the row, the counter,
+        # then the Event through the async sink
+        wait("the grow's row, counter and Event", lambda: (
+            ("pod-b", "TPURepartitioned") in {
+                (e["involvedObject"].get("name"), e["reason"])
+                for e in api.core_events}), timeout_s=10)
+        rows_b = _http_json(base + "/debug/timeline?pod=default/pod-b"
+                            "&limit=1000")["events"]
+        sm = _samples(_http(base + "/metrics")[1])
+        events = {(e["involvedObject"].get("name"), e["reason"])
+                  for e in api.core_events}
+        busy = watch.first(watch.report["pod-b"], lambda v: v is not None
+                           and v[1] >= BUSY * grants["pod-b"])
+        restamp = watch.first(watch.spec["pod-b"], lambda v: v is not None
+                              and int(v.get("ELASTIC_TPU_CORE_UNITS", "0"))
+                              > grants["pod-b"])
+        grow_ms = ((restamp[0] - busy[1][0]) * 1e3
+                   if busy and restamp else None)
+        gchecks = {
+            "both specs": grown[0] is not None,
+            "metric": (sm.get(("elastic_tpu_repartitions_total",
+                               (("direction", "grow"),))) or 0) >= 1,
+            "event": ("pod-b", "TPURepartitioned") in events,
+            "timeline": any(e["kind"] == "repartition"
+                            and e["attrs"].get("direction") == "grow"
+                            for e in rows_b),
+            "edge listed": bool(grow_edges),
+            "no unit to O": not any(e["borrower"] == keys["pod-o"]
+                                    for e in edges()),
+        }
+        print(f"repartition grow ({smi}): ELASTIC_TPU_CORE_UNITS restamped "
+              f"B {grants['pod-b']} -> {grown[0]}, D {grants['pod-d']} -> "
+              f"{grown[1]} (a hint on this card: nothing time-slices SMs by "
+              f"it); edge {grow_edges}; B's first busy report "
+              f"{busy[1][1] if busy else None}% -> B's restamped spec "
+              f"{grow_ms if grow_ms is None else round(grow_ms, 1)} ms "
+              f"(host); checks {gchecks}")
+        for k, ok in gchecks.items():
+            if not ok:
+                fail(f"repartition grow check {k!r} failed")
+
+        # shrink: B's run ends, its reports go idle, the edge unwinds
+        done_b = wait("B's run", lambda: [
+            n for n in os.listdir(hold) if n.endswith(".done")
+            and _read_json(os.path.join(hold, n)).get("report")],
+            timeout_s=TENANT_TIMEOUT_S)
+        b_run = _read_json(os.path.join(hold, done_b[0])) if done_b else {}
+        unwound = wait("the edge unwound in both specs", lambda: (
+            not edges() and watch.units("pod-b") == grants["pod-b"]
+            and watch.units("pod-d") == grants["pod-d"]))
+        t_unwound = time.time()
+        # the last unwind, and B's last report before it: the one the
+        # controller unwound on (below half its grown units)
+        b_units = [(t, int(v.get("ELASTIC_TPU_CORE_UNITS", "0")))
+                   for t, v in watch.spec["pod-b"] if v is not None]
+        back = next((t for (t, u), (_, prev) in zip(
+            reversed(b_units), reversed([(0, None)] + b_units[:-1]))
+            if u == grants["pod-b"] and prev is not None
+            and prev > grants["pod-b"]), None)
+        trigger = next((v for _, v in reversed(watch.report["pod-b"])
+                        if v is not None and back is not None
+                        and v[0] < back), None)
+        unwind_ms = (back - trigger[0]) * 1e3 if trigger else None
+        shrunk = wait("the shrink counted", lambda: (_samples(_http(
+            base + "/metrics")[1]).get(("elastic_tpu_repartitions_total", (
+                ("direction", "shrink"),))) or 0) >= 1, timeout_s=10)
+        sm = _samples(_http(base + "/metrics")[1])
+        moves = {d_: sm.get(("elastic_tpu_repartitions_total", (
+            ("direction", d_),))) for d_ in ("grow", "shrink")}
+        schecks = {"specs at grants": bool(unwound), "metric": bool(shrunk)}
+        print(f"repartition shrink ({smi}): B's report "
+              f"{trigger[1] if trigger else None}% -> the unwind "
+              f"{unwind_ms if unwind_ms is None else round(unwind_ms, 1)} "
+              f"ms (host), B's run ending at {b_run.get('work_end')}; moves "
+              f"{moves}; B's stamped units {b_units}; specs back to D "
+              f"{watch.units('pod-d')}, B {watch.units('pod-b')}; checks "
+              f"{schecks}")
+        for k, ok in schecks.items():
+            if not ok:
+                fail(f"repartition shrink check {k!r} failed")
+        time.sleep(2.5)          # two goodput periods past the last row
+        good = _http_json(base + "/debug/goodput")
+        node_rows = _http_json(base + "/debug/timeline?limit=100000")[
+            "events"]
+        known = {(e["keys"].get("node", ""), e["seq"]) for e in node_rows}
+        sm = _samples(_http(base + "/metrics")[1])
+        gp = good.get("pods", {})
+        o_entry = gp.get(keys["pod-o"], {})
+        o_states = {itv["state"] for itv in o_entry.get("intervals", [])}
+        o_ck = [itv for itv in o_entry.get("intervals", [])
+                if itv["state"] == "checkpointing"]
+        unresolved = [(p, itv["state"]) for p, e in gp.items()
+                      for itv in e.get("intervals", [])
+                      if itv["state"] not in ("productive", "unattributed")
+                      and (itv.get("cause") is None or (
+                          itv["cause"].get("node", ""),
+                          itv["cause"].get("seq")) not in known)]
+        sums = {p: abs(sum(i["end"] - i["start"] for i in e["intervals"])
+                       - e["lifetime_s"]) for p, e in gp.items()}
+        ratios = {p: v for (n, lab), v in sm.items()
+                  if n == "elastic_tpu_goodput_ratio"
+                  for k, p in lab if k == "pod"}
+        live = {p for p, e in gp.items() if e.get("live")}
+        gchecks2 = {
+            "pods": set(keys.values()) <= set(gp),
+            "conserved": not good.get("conservation_problems")
+            and all(v < 1e-6 for v in sums.values()),
+            "O's states": {"queued", "productive", "checkpointing"}
+            <= o_states and not o_entry.get("live")
+            and bool(o_ck) and all(itv["cause"]["category"]
+                                   == "qos_throttle" for itv in o_ck),
+            "causes resolve": not unresolved,
+            "downtime metric": (sm.get((
+                "elastic_tpu_downtime_seconds_total",
+                (("cause", "qos_throttle"),))) or 0) > 0,
+            "ratio series": live == {keys["pod-d"], keys["pod-b"]}
+            and live <= set(ratios),
+        }
+        o_down = {}
+        for itv in o_entry.get("intervals", []):
+            if itv["state"] != "productive" and itv.get("cause"):
+                cat = itv["cause"]["category"]
+                o_down[cat] = round(o_down.get(cat, 0.0) + itv["end"]
+                                    - itv["start"], 6)
+        print(f"repartition goodput ({smi}): ratios " + ", ".join(
+            f"{p} {e.get('goodput_ratio')} over {e.get('lifetime_s')} s"
+            for p, e in sorted(gp.items())) + f"; O's states "
+            f"{o_entry.get('states')}, its downtime by cause {o_down}; "
+            f"the node's {good.get('downtime_by_cause')}; checks "
+            f"{gchecks2}")
+        for k, ok in gchecks2.items():
+            if not ok:
+                fail(f"repartition goodput check {k!r} failed")
+        rc, bundle_out, err = _doctor([
+            "--agent-url", base, "--operator", "nvidia", "--dev-root",
+            "/dev", "--db-file", db, "--alloc-spec-dir",
+            os.path.join(d, "alloc"), "--samples", "1"])
+        bundle_path = os.path.join(d, "bundle.json")
+        with open(bundle_path, "w") as f:
+            f.write(bundle_out)
+        rc_v, _, err_v = _doctor(["--validate", bundle_path])
+        bundle = json.loads(bundle_out) if rc == 0 else {}
+        has_blocks = "goodput" in bundle and "repartition" in (
+            bundle.get("agent") or {}).get("allocations", {})
+        print(f"repartition doctor: node-doctor (live) exit {rc}, "
+              f"--validate exit {rc_v}, goodput and repartition blocks "
+              f"{has_blocks}")
+        if rc or rc_v or not has_blocks:
+            fail(f"repartition node-doctor: {err[-500:]} {err_v[-500:]}")
+
+        # D and B stop; then the agent; then the dead agent's db
+        open(os.path.join(hold, "stop"), "w").close()
+        drep = tenants["pod-d"].result(time.perf_counter() + 60)
+        brep = tenants["pod-b"].result(time.perf_counter() + 60)
+        win = poller.window(t_go, t_unwound)
+        poller.close()
+        agent.proc.send_signal(signal.SIGTERM)
+        arep = agent.result(time.perf_counter() + 60)
+        if arep.get("rc") != 0 or arep.get("torch_imported") is not False:
+            fail(f"repartition agent: {arep}")
+        rc_g, g_out, g_err = _doctor(["goodput", "--db-file", db, "--pod",
+                                      keys["pod-o"]])
+        dead = (json.loads(g_out)["goodput"]["pods"].get(keys["pod-o"], {})
+                if rc_g == 0 else {})
+        same = bool(dead) and dead.get("intervals") == o_entry.get(
+            "intervals")
+        print(f"repartition dead db: node-doctor goodput exit {rc_g}, O's "
+              f"intervals equal the last live read {same}")
+        if rc_g or not same:
+            fail(f"repartition node-doctor goodput: {g_err[-500:]}")
+        if drep:
+            if drep["streams"] != streams:
+                fail("repartition: D's streams differ from phase 4's")
+            if drep["launches"]["paged_decode"] != srv["paged_launches"]:
+                fail(f"repartition: D's launches {drep['launches']}")
+        for rep in (drep, brep, orep):
+            for k in KERNEL_NAMES:
+                out["launches"][k] += (rep or {}).get("launches", {}).get(
+                    k, 0)
+
+        def p50(rep):
+            """The tenant's reports over its work, p50 and range."""
+            rep = rep or {}
+            vals = [v for t, v in rep.get("usage_reports", [])
+                    if rep.get("work_start", 0) < t <= rep.get(
+                        "work_end", float("inf")) + REP_REPORT_S]
+            return ((float(np.median(vals)), min(vals), max(vals))
+                    if vals else None)
+
+        shares = {p: p50(r) for p, r in (("pod-d", drep), ("pod-b", brep),
+                                         ("pod-o", orep))}
+        print(f"repartition shares ({smi}): each tenant's measured device-"
+              f"busy share over its work (its usage reports: p50, min, "
+              f"max) D {shares['pod-d']}%, B {shares['pod-b']}%, O "
+              f"{shares['pod-o']}%, beside the sampler's card duty p50 "
+              f"{win.get('duty_p50')}% ({win.get('samples')} reads); "
+              f"launches {out['launches']}")
+        out.update(
+            card=smi, grants=grants, sizing=size_shares,
+            grown=dict(b=grown[0], d=grown[1]),
+            host_ms=dict(grow=grow_ms, unwind=unwind_ms, **ms_o),
+            moves=moves, b_units=b_units,
+            deadline_s=REP_EVICT_AFTER_S, record=dict(
+                reason=record.get("reason"), step=record.get("step")),
+            goodput={p: dict(ratio=e.get("goodput_ratio"),
+                             lifetime_s=e.get("lifetime_s"),
+                             states=e.get("states"))
+                     for p, e in gp.items()},
+            downtime_by_cause=good.get("downtime_by_cause"),
+            o_downtime_by_cause=o_down,
+            shares=shares, sampler=win,
+            reports={p: (r or {}).get("usage_reports") for p, r in (
+                ("pod-d", drep), ("pod-b", brep), ("pod-o", orep))},
+            b_run={f: ((brep or {}).get("report") or {}).get(f) for f in (
+                "steps", "final_loss", "step_time_ms")},
+            o_run={f: ((orep or {}).get("report") or {}).get(f) for f in (
+                "steps", "final_loss", "step_time_ms", "preempted")},
+            checks=dict(grow=gchecks, throttle=ochecks, shrink=schecks,
+                        goodput=gchecks2))
+    finally:
+        for x in (poller, watch):
+            if x is not None:
+                x.close()
+        for p in alive:
+            p.kill()
+        if api is not None:
+            api.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -6305,7 +7085,7 @@ def main() -> int:
                     help="directory for the full report and profiler files")
     ap.add_argument("--tenant", choices=("discover", "probe", "train",
                                          "train2", "serve", "serve_obs"),
-                    help="run as one of phases 24-29's child processes")
+                    help="run as one of phases 24-30's child processes")
     ap.add_argument("--runner-args", default="",
                     help="a train tenant's runner flags")
     ap.add_argument("--runner-args2", default="",
@@ -6316,12 +7096,18 @@ def main() -> int:
                     help="a train2 tenant's barrier before its second run")
     ap.add_argument("--profile-busy", action="store_true",
                     help="a tenant's work under torch.profiler")
-    ap.add_argument("--agent", choices=("A", "B", "C", "D", "E"),
+    ap.add_argument("--usage-report", action="store_true",
+                    help="a tenant writes its measured device-busy share "
+                         "as usage reports (phase 30)")
+    ap.add_argument("--hold", default="",
+                    help="a tenant stays up after its work until "
+                         "HOLD/stop exists (phase 30)")
+    ap.add_argument("--agent", choices=("A", "B", "C", "D", "E", "F"),
                     help="run as one of phase 26's agent processes (A, B), "
-                         "phase 27's (C), 28's (D) or 29's (E)")
+                         "phase 27's (C), 28's (D), 29's (E) or 30's (F)")
     ap.add_argument("--agent-dir", default="",
-                    help="phase 26's, 27's, 28's or 29's directory (db, dev "
-                         "root, alloc dir)")
+                    help="phase 26's, 27's, 28's, 29's or 30's directory "
+                         "(db, dev root, alloc dir)")
     args = ap.parse_args()
     if args.tenant:
         return tenant_main(args)
@@ -6331,6 +7117,8 @@ def main() -> int:
         return agent_act_main(args)
     if args.agent == "E":
         return agent_mig_main(args)
+    if args.agent == "F":
+        return agent_rep_main(args)
     if args.agent:
         return agent_main(args)
 
@@ -6446,16 +7234,18 @@ def main() -> int:
                        srv, srv_streams, dev)
     migration = timed("migration", run_migration, torch, D, srv,
                       srv_streams, dev)
+    repartition = timed("repartition", run_repartition, torch, D, srv,
+                        srv_streams, dev)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
-    # runner's mesh runs + the tenants of phases 24 and 29, serving + the
-    # spec engine's fallback steps + the tenants of phases 24-29, train +
-    # LoRA + the sharded step + the ring + the MoE mesh step + both
-    # pipeline schedules + the runner's mesh runs + the tenants
+    # runner's mesh runs + the tenants of phases 24, 29 and 30, serving +
+    # the spec engine's fallback steps + the tenants of phases 24-30,
+    # train + LoRA + the sharded step + the ring + the MoE mesh step +
+    # both pipeline schedules + the runner's mesh runs + the tenants
     tenants = {k: sum(x.get("launches", {}).get(k, 0)
                       for x in (share, plugin, agent, observability,
-                                activation, migration))
+                                activation, migration, repartition))
                for k in KERNEL_NAMES}
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
@@ -6495,7 +7285,7 @@ def main() -> int:
               "device_share": share, "plugin_path": plugin,
               "agent_restart": agent, "observability": observability,
               "runtime_activation": activation, "migration": migration,
-              "kernels": kernel_recs,
+              "repartition": repartition, "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -6529,7 +7319,8 @@ def main() -> int:
                                 "agent_restart": agent,
                                 "observability": observability,
                                 "runtime_activation": activation,
-                                "migration": migration}}))
+                                "migration": migration,
+                                "repartition": repartition}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

@@ -15,6 +15,9 @@ Usage:
     # a pod's lifecycle history from the db, live agent or dead
     python3 -m elastic_tpu_agent_torch.cli node-doctor timeline \\
         --db-file /host/var/lib/elastic-tpu/meta.db --pod default/train
+    # its goodput ledger: each second of its life and what it went to
+    python3 -m elastic_tpu_agent_torch.cli node-doctor goodput \\
+        --db-file /host/var/lib/elastic-tpu/meta.db --pod default/train
     # the running agent's hottest stacks (needs --profile-hz > 0)
     python3 -m elastic_tpu_agent_torch.cli node-doctor profile \\
         --agent-url http://127.0.0.1:9478
@@ -33,9 +36,10 @@ with ``--nri-driver-lib`` mounts of host driver libraries, and with
 goes unhealthy. ``--sampler-period``/``--no-sampler`` set the
 utilization sampler, ``--drain-deadline``, ``--drain-period``,
 ``--preemption-notice`` and ``--maintenance-poll-ttl`` the drain, and
-``--migration-period``/``--no-migration`` the migration coordinator.
-``node-doctor goodput`` comes with the port's goodput ledger, and
-``perf-gate`` with the port's own bench history.
+``--migration-period``/``--no-migration`` the migration coordinator,
+``--repartition-period``, ``--no-repartition`` and ``--qos-evict-after``
+live re-partitioning, and ``--goodput-period`` the goodput ledger.
+``perf-gate`` comes with the port's own bench history.
 """
 
 from __future__ import annotations
@@ -153,6 +157,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="spot preemption notice window (seconds): a "
                         "preemption-triggered drain clamps its budget to "
                         "min(--drain-deadline, this); 0 disables the clamp")
+    p.add_argument("--goodput-period", type=float, default=10.0,
+                   help="seconds between goodput-ledger journal replays "
+                        "(per-pod productive/downtime partition and the "
+                        "downtime-by-cause metrics; goodput.py)")
+    p.add_argument("--repartition-period", type=float, default=10.0,
+                   help="seconds between repartition-controller passes "
+                        "(live quota moves between pods that opt in via "
+                        "elasticgpu.io/repartition; jittered 0.75x-1.25x)")
+    p.add_argument("--no-repartition", action="store_true",
+                   help="disable live re-partitioning and the QoS "
+                        "throttle/evict enforcement (static grants and "
+                        "overcommit alarms only)")
+    p.add_argument("--qos-evict-after", type=float, default=300.0,
+                   help="seconds between the overcommit throttle clamp "
+                        "and the binding reclaim of a pod that stays over "
+                        "quota (repartition.py)")
     p.add_argument("--migration-period", type=float, default=2.0,
                    help="seconds between migration-coordinator ticks (ack "
                         "consumption, early drain reclaim, MigrationRecord "
@@ -335,6 +355,73 @@ def timeline_main(argv=None) -> int:
     return 0
 
 
+# -- node-doctor goodput ------------------------------------------------------
+
+
+def parse_goodput_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        prog="elastic-gpu-agent node-doctor goodput",
+        description="Replay the checkpoint db's durable event journal "
+                    "into the goodput ledger: per-pod partitions of "
+                    "wall time into productive/checkpointing/migrating/"
+                    "draining/throttled/queued/unattributed, each "
+                    "non-productive interval attributed to its cause — "
+                    "works against a dead agent's db, like node-doctor "
+                    "timeline.",
+    )
+    p.add_argument(
+        "--db-file", default="/host/var/lib/elastic-tpu/meta.db",
+        help="checkpoint db holding the timeline journal and the goodput "
+             "anchors",
+    )
+    p.add_argument("--pod", default=None, metavar="NS/NAME",
+                   help="one pod's ledger (bare names accepted)")
+    p.add_argument("--slice", dest="slice_id", default=None,
+                   help="ledgers of one slice's member pods")
+    p.add_argument("--since", type=since_arg, default=None,
+                   help="keep pods whose lifetime reaches past this "
+                        "bound: unix seconds or a relative duration "
+                        "(15m, 2h, 90s, 1d)")
+    return p.parse_args(argv)
+
+
+def goodput_main(argv=None) -> int:
+    """``node-doctor goodput``: the ledger of a db, as JSON on stdout;
+    exits 1 when it cannot account for a pod's lifetime."""
+    args = parse_goodput_args(argv)
+    logging.basicConfig(
+        level=logging.WARNING,
+        format="%(levelname).1s %(name)s %(message)s",
+        stream=sys.stderr,
+    )
+    if not os.path.exists(args.db_file):
+        print(f"no db at {args.db_file}", file=sys.stderr)
+        return 1
+    from .goodput import build_goodput_block
+    from .storage import Storage
+
+    with Storage(args.db_file) as storage:
+        block = build_goodput_block(
+            storage, pod=args.pod, slice_id=args.slice_id,
+            since=args.since,
+        )
+    entity = {
+        k: v for k, v in (
+            ("pod", args.pod), ("slice", args.slice_id),
+            ("since", args.since),
+        ) if v is not None
+    }
+    json.dump({
+        "db_file": args.db_file,
+        "entity": entity,
+        "goodput": block,
+    }, sys.stdout, indent=2, sort_keys=True)
+    sys.stdout.write("\n")
+    # conservation is the contract: a ledger that cannot account for a
+    # pod's lifetime is a finding, and the exit code says so
+    return 1 if block.get("conservation_problems") else 0
+
+
 def parse_profile_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="elastic-gpu-agent node-doctor profile",
@@ -491,6 +578,8 @@ def bundle_main(argv=None) -> int:
 def doctor_main(argv=None) -> int:
     if argv and argv[0] == "timeline":
         return timeline_main(argv[1:])
+    if argv and argv[0] == "goodput":
+        return goodput_main(argv[1:])
     if argv and argv[0] == "profile":
         return profile_main(argv[1:])
     return bundle_main(argv)
@@ -522,8 +611,12 @@ def options_from_args(args: argparse.Namespace) -> ManagerOptions:
         drain_period_s=args.drain_period,
         preemption_notice_s=args.preemption_notice,
         maintenance_poll_ttl_s=args.maintenance_poll_ttl,
+        enable_repartition=not args.no_repartition,
+        repartition_period_s=args.repartition_period,
+        qos_evict_after_s=args.qos_evict_after,
         enable_migration=not args.no_migration,
         migration_period_s=args.migration_period,
+        goodput_period_s=args.goodput_period,
         slow_span_ms=args.slow_span_ms,
         profile_hz=args.profile_hz,
         storage_batch_window_s=args.storage_batch_window,

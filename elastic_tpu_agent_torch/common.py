@@ -3,8 +3,9 @@ injectable time source.
 
 The port's copy of what it needs from ``elastic_tpu_agent/common.py``:
 the extended resources and their granularity, the scheduler's pod
-annotations, the keys of the drain and the migration handshake (node and
-pod annotations, spec env, alloc-dir sidecars), the container env
+annotations, the keys of the drain, the migration handshake and the QoS
+throttle (node and pod annotations, spec env, alloc-dir sidecars), the
+container env
 contract, the kubelet's file system
 contract, ``StripedLockSet``, ``JitteredBackoff``, ``FileWatcher``, the
 process signals of the agent's entry point (``install_dump_signal``,
@@ -90,6 +91,13 @@ EnvRestoreTrace = "ELASTIC_TPU_RESTORE_TRACE"
 # The coordinator's stamp that ends a pre-copy stream: the workload
 # pauses, ships the final delta and acks.
 EnvCutover = "ELASTIC_TPU_CUTOVER"
+
+# -- QoS enforcement (repartition.py) -----------------------------------------
+# Restamped into an overcommitting pod's specs when its quota is clamped:
+# the reason, and the wall-clock deadline (unix seconds) of the binding
+# reclaim; removed when the throttle lifts.
+EnvThrottle = "ELASTIC_TPU_THROTTLE"
+EnvThrottleDeadline = "ELASTIC_TPU_THROTTLE_DEADLINE"
 
 # The pod side reads the same keys from workloads/contract.py, which this
 # module cannot import (the workloads package imports torch, and the

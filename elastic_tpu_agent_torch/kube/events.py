@@ -59,7 +59,12 @@ ReasonDrainCancelled = "TPUDrainCancelled"
 # durable and its record published; the replacement's resume verified
 ReasonMigrationRecorded = "TPUMigrationRecorded"
 ReasonMigrationCompleted = "TPUMigrationCompleted"
-# The repartition and slice reasons come with those subsystems.
+# live re-partitioning and QoS enforcement (repartition.py): a quota move,
+# a throttle clamp, an eviction past the throttle
+ReasonRepartitioned = "TPURepartitioned"
+ReasonThrottled = "TPUThrottled"
+ReasonQoSEvicted = "TPUQoSEvicted"
+# The slice reasons come with that subsystem.
 
 
 class EventRecorder:

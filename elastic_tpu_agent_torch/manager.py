@@ -2,7 +2,8 @@
 
 The port's counterpart of ``elastic_tpu_agent/manager.py``'s
 ``TPUManager``: the bind path, its observability plane, the utilization
-sampler, the drain and the migration handshake, wired in the agent's
+sampler, the drain, the migration handshake, live re-partitioning and the
+goodput ledger, wired in the agent's
 order: the event bus (on by default), the checkpoint store (with its
 group-commit window), the lifecycle timeline, the supervisor, the
 apiserver client and the sitter (whose pod deletions feed the GC queue
@@ -12,22 +13,27 @@ profiler, the tracer's slow-span listener, the CRD and Event recorders,
 the utilization sampler, the pod-resources client with one snapshot
 source shared by the core and memory locators, the plugin bundle (which
 folds the sampler's flags into its health), the reconciler, the drain
-orchestrator and the migration coordinator (both assigned to the
-reconciler, and the coordinator to the drain); then ``run()``:
+orchestrator, the migration coordinator (both assigned to the reconciler,
+and the coordinator to the drain), the repartition controller (with the
+sampler only: the sampler is its usage signal; assigned to the reconciler,
+its deltas to the sampler's grants, the coordinator to it) and the goodput
+ledger (always, attached to ``/debug/goodput``); then ``run()``:
 
 - ``agent_started`` is journaled and the build-info gauges set;
 - the sitter syncs, and the card inventory is published to the CRD;
-- the drain's and the coordinator's journaled state is resumed (the
-  cordon back up, replay suppression armed) before the boot pass, which
-  would otherwise replay the bindings a drain reclaimed;
+- the drain's, the coordinator's and the controller's journaled state
+  and the ledger's anchors are resumed (the cordon back up, replay
+  suppression armed, quotas re-asserted) before the boot pass, which
+  would otherwise replay the bindings a drain or an eviction reclaimed;
 - ``restore()``: one reconciler pass with boot semantics, before the
   device-plugin servers exist, so that no bind can be in flight. It
   re-creates the links a reboot wiped, resolves the binds a crash cut
   short, reclaims pods deleted while the agent was down, sweeps orphans
   and replays unbound kubelet assignments;
 - the device-plugin servers, GC, the health poll, the periodic reconciler,
-  the drain, the migration coordinator, the sampler, the profiler (with
-  ``profile_hz`` > 0), the NRI server (with ``nri_socket``), the CRD and
+  the drain, the migration coordinator, the repartition controller, the
+  sampler, the profiler (with ``profile_hz`` > 0), the goodput ledger,
+  the NRI server (with ``nri_socket``), the CRD and
   Event sink workers and the deferred allocatable check start as
   supervised subsystems.
 
@@ -43,8 +49,8 @@ grpc: the pod-resources client is built from ``rpc`` only when no
 they start. ``metrics`` is an ``AgentMetrics`` built by the caller (the
 CLI's ``--metrics-port``); without it nothing imports prometheus_client.
 
-The agent's goodput ledger, repartition controller and slice registry
-come with their slices: their options and flags come with them.
+The agent's slice registry comes with its slice, and so do its options
+and flags.
 """
 
 from __future__ import annotations
@@ -168,6 +174,16 @@ class ManagerOptions:
     # --no-migration / --migration-period)
     enable_migration: bool = True
     migration_period_s: float = 2.0
+    # live re-partitioning (repartition.py) for pods that opt in through
+    # elasticgpu.io/repartition, with throttle -> evict for a sustained
+    # overcommit; needs the sampler, its usage signal (CLI
+    # --no-repartition / --repartition-period / --qos-evict-after)
+    enable_repartition: bool = True
+    repartition_period_s: float = 10.0
+    qos_evict_after_s: float = 300.0
+    # the goodput ledger's journal-replay period (goodput.py; CLI
+    # --goodput-period)
+    goodput_period_s: float = 10.0
     # test seams: an apiserver client, an operator, a pod-resources
     # client (an object with ``list()`` and
     # ``get_allocatable_resources()``, as ``rpc.PodResourcesClient``) and
@@ -384,9 +400,35 @@ class NodeManager:
             # classifies its outcome by the acks
             self.reconciler.migration = self.migration
             self.drain.migration = self.migration
+        # live re-partitioning: the sampler is its usage signal, so no
+        # sampler means no controller
+        self.repartition = None
+        if opts.enable_repartition and self.sampler is not None:
+            from .repartition import RepartitionController
+
+            self.repartition = RepartitionController(
+                sampler=self.sampler, storage=self.storage,
+                sitter=self.sitter, plugin=self.plugin,
+                reconciler=self.reconciler, metrics=self.metrics,
+                events=self.events, timeline=self.timeline,
+                node_name=opts.node_name,
+                period_s=opts.repartition_period_s,
+                evict_after_s=opts.qos_evict_after_s,
+                lag_tracker=self.lag_tracker, bus=self.bus,
+                event_safety_net_factor=opts.event_safety_net_factor,
+            )
+            # evicted pods are not replayed; the overcommit alarm judges
+            # the effective grant; a throttled pod's checkpoint ack gates
+            # (and can advance) its eviction
+            self.reconciler.repartition = self.repartition
+            self.sampler.grant_adjust_fn = (
+                self.repartition.core_delta_percent)
+            self.sampler.repartition_status_fn = self.repartition.status
+            self.repartition.migration = self.migration
         if self.sampler is not None:
-            # self-reports steer attribution, so only opted-in pods'
-            # usage files are trusted
+            # self-reports steer attribution (and enforcement), so only
+            # opted-in pods' usage files are trusted, with the controller
+            # off too
             self.sampler.usage_report_allowed_fn = self._report_allowed
             self.sampler.reconcile_status_fn = self.reconciler.status
             self.sampler.drain_status_fn = self.drain.status
@@ -394,6 +436,17 @@ class NodeManager:
                 self.sampler.migration_status_fn = self.migration.status
             if self.bus is not None:
                 self.sampler.event_bus_stats_fn = self.bus.stats
+        # the goodput ledger replays the journal the subsystems above
+        # write, so it needs no hooks into them
+        from .goodput import GoodputLedger
+
+        self.goodput = GoodputLedger(
+            storage=self.storage, node_name=opts.node_name,
+            metrics=self.metrics, migration=self.migration,
+            period_s=opts.goodput_period_s, lag_tracker=self.lag_tracker,
+        )
+        if self.metrics is not None:
+            self.metrics.attach_goodput(self.goodput)
         self.nri_plugin = None
         if opts.nri_socket:
             from .nri import NRIPlugin
@@ -601,12 +654,17 @@ class NodeManager:
                 self.crd_recorder.publish_inventory(self.operator.devices())
             except Exception:  # noqa: BLE001 - observability, never fatal
                 logger.exception("inventory publication failed")
-        # the journaled drain and handshake state before the boot pass: a
-        # node restarted mid-drain re-cordons and arms replay suppression
-        # first, or restore() would replay what the drain reclaimed
+        # the journaled drain, handshake and quota state before the boot
+        # pass: a node restarted mid-drain re-cordons and arms replay
+        # suppression first, or restore() would replay what the drain or
+        # a QoS eviction reclaimed; a crash mid-restamp converges before
+        # binds resume; the ledger's anchors before its first replay
         self.drain.resume()
         if self.migration is not None:
             self.migration.resume()
+        if self.repartition is not None:
+            self.repartition.resume()
+        self.goodput.resume()
         self.restore()
         # Device-plugin serve loops: one per extended resource, CRITICAL:
         # a dead ListAndWatch leaves the kubelet advertising stale devices.
@@ -627,12 +685,19 @@ class NodeManager:
         if self.migration is not None:
             self.supervisor.register("migration", self.migration.run,
                                      DEGRADED)
+        if self.repartition is not None:
+            # DEGRADED: without it the static grants stay in force
+            self.supervisor.register("repartition", self.repartition.run,
+                                     DEGRADED)
         if self.sampler is not None:
             self.supervisor.register("sampler", self.sampler.run, DEGRADED)
         if self._opts.profile_hz > 0:
             # DEGRADED: observability never takes binding down; a crashed
             # profiler restarts with its table (same instance)
             self.supervisor.register("profiler", self.profiler.run, DEGRADED)
+        # DEGRADED: the journal accrues either way, and the next tick
+        # replays it all
+        self.supervisor.register("goodput", self.goodput.run, DEGRADED)
         if self.nri_plugin is not None:
             # DEGRADED: without NRI the node still binds, and the OCI hook
             # chain still injects where the runtime reads hooks.d
@@ -671,6 +736,10 @@ class NodeManager:
         # the drain and the coordinator journal, reclaim and publish
         self.supervisor.join("drain", timeout=10.0)
         self.supervisor.join("migration", timeout=10.0)
+        # the controller journals and restamps specs, the ledger reads
+        # the journal and writes its anchors: both before the db closes
+        self.supervisor.join("repartition", timeout=10.0)
+        self.supervisor.join("goodput", timeout=10.0)
         if self.nri_plugin is not None:
             self.nri_plugin.stop()
         self.plugin.core.stop_streams()

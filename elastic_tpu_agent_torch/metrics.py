@@ -3,12 +3,13 @@
 The port's copy of ``elastic_tpu_agent/metrics.py``. ``AgentMetrics``
 declares every family of the agent's, with its name, type and label set:
 they are a contract that dashboards and fleet aggregation read, and
-``tests/test_torch_metrics.py`` holds the two declarations equal. Families
-fed by subsystems the port has not yet (repartition, goodput, slices) are
-declared and stay unset until those subsystems come, and so does the
-agent's ``attach_goodput``: ``/debug/goodput`` answers 503, as the agent's
-does before attachment. ``attach_sampler`` points ``/debug/allocations``
-at the utilization sampler (503 until then).
+``tests/test_torch_metrics.py`` holds the two declarations equal. The
+repartition controller (repartition.py) feeds the repartition, throttle
+and QoS-eviction counters, the goodput ledger (goodput.py) the
+goodput-ratio and downtime families; the slice families stay unset until
+that subsystem comes. ``attach_sampler`` points ``/debug/allocations`` at
+the utilization sampler and ``attach_goodput`` ``/debug/goodput`` at the
+ledger (each 503 until then).
 
 One HTTP server serves:
 
@@ -916,6 +917,7 @@ class AgentMetrics:
         self._supervisor = None
         self._sitter = None
         self._timeline = None
+        self._goodput = None
         self._latency = None
         self._lag = None
         self._profiler = None
@@ -942,6 +944,12 @@ class AgentMetrics:
                 return 0.0
 
         self.timeline_evicted.set_function(_evicted)
+
+    def attach_goodput(self, ledger) -> None:
+        """Point /debug/goodput at the agent's GoodputLedger
+        (goodput.py); the endpoint answers 503 until attached, like
+        /debug/allocations and /debug/timeline."""
+        self._goodput = ledger
 
     def attach_serving(self, status_fn) -> None:
         """Export a live serving engine's stats()
@@ -1283,14 +1291,30 @@ class AgentMetrics:
                         payload["events"] = timeline.events(**params)
                         self._reply_json(payload)
                     elif parsed.path == "/debug/goodput":
-                        # 503 until the port's goodput ledger comes, as
-                        # the agent's answers before its ledger attaches
                         if not self._require_loopback():
                             return
+                        ledger = agent_metrics._goodput
+                        if ledger is None:
+                            self._reply_json(
+                                {"error": "goodput ledger not attached "
+                                          "(agent starting)"},
+                                code=503,
+                            )
+                            return
+                        q = parse_qs(parsed.query)
+                        pod = q.get("pod", [None])[0]
+                        since = None
+                        if q.get("since"):
+                            try:
+                                since = float(q["since"][0])
+                            except ValueError:
+                                self._reply_json(
+                                    {"error": "since must be numeric"},
+                                    code=400,
+                                )
+                                return
                         self._reply_json(
-                            {"error": "goodput ledger not attached "
-                                      "(agent starting)"},
-                            code=503,
+                            ledger.status(pod=pod, since=since)
                         )
                     elif parsed.path == "/debug/latency":
                         if not self._require_loopback():

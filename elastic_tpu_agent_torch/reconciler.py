@@ -33,14 +33,14 @@ at once, and the periodic sweep stretches by ``event_safety_net_factor``
 while the bus is healthy (never while the last pass left work
 outstanding).
 
-The drain and the migration coordinator are assigned after both exist
-(``drain``, ``migration``): while the drain has reclaimed this node's
-bindings past its deadline, the record walk rebuilds nothing and no
-kubelet assignment is replayed; an acked resident reclaimed early is not
-replayed until its pod is gone. ``reclaim_pods`` is their teardown, the
-dead-pod repair run under each owner's bind stripe. The agent's
-repartition and slice-reformer hooks come with those slices, and so do
-its slice passes.
+The drain, the repartition controller and the migration coordinator are
+assigned after all exist (``drain``, ``repartition``, ``migration``):
+while the drain has reclaimed this node's bindings past its deadline, the
+record walk rebuilds nothing and no kubelet assignment is replayed; a pod
+that QoS enforcement evicted, and an acked resident reclaimed early, are
+not replayed until the pod is gone. ``reclaim_pods`` is their teardown,
+the dead-pod repair run under each owner's bind stripe. The agent's
+slice-reformer hook comes with its slice, and so do its slice passes.
 """
 
 from __future__ import annotations
@@ -155,9 +155,11 @@ class Reconciler:
         self._crd = crd_recorder
         self._timeline = timeline
         self._lag = lag_tracker
-        # DrainOrchestrator and MigrationCoordinator, assigned by the
-        # manager once both exist (module docstring)
+        # DrainOrchestrator, RepartitionController and
+        # MigrationCoordinator, assigned by the manager once all exist
+        # (module docstring)
         self.drain = None
+        self.repartition = None
         self.migration = None
         self.period_s = period_s
         self.dry_run = dry_run
@@ -924,6 +926,12 @@ class Reconciler:
                 continue  # not our extended resource
             for alloc_hash in sorted(assignments[resource]):
                 owner, ids = assignments[resource][alloc_hash]
+                if self.repartition is not None and (
+                    self.repartition.replay_suppressed(owner.pod_key)
+                ):
+                    # evicted by the throttle escalation: replaying would
+                    # re-bind what it tore down
+                    continue
                 if self.migration is not None and (
                     self.migration.replay_suppressed(owner.pod_key)
                 ):

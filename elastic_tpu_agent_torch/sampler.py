@@ -26,8 +26,11 @@ this module audits them:
 
 The windows and the joined table are served at ``/debug/allocations``
 (metrics.py) and in the ``node-doctor`` bundle
-(``build_diagnostics_bundle``, ``validate_bundle``). The agent's slice,
-repartition, serving and goodput blocks come with those subsystems.
+(``build_diagnostics_bundle``, ``validate_bundle``), with the repartition
+controller's block (repartition.py) and the goodput ledger's replay of the
+db (goodput.py). The repartition controller's deltas make a pod's grant
+its effective grant (``grant_adjust_fn``). The agent's slice and serving
+blocks come with those subsystems.
 
 Like tracing.py this module imports nothing outside the standard library
 and is never load-bearing: a sampler failure must not affect binding.
@@ -85,6 +88,7 @@ _STATUS_BLOCKS = (
     ("bind", "bind_stats_fn"),
     ("reconcile", "reconcile_status_fn"),
     ("drain", "drain_status_fn"),
+    ("repartition", "repartition_status_fn"),
     ("migration", "migration_status_fn"),
     ("event_bus", "event_bus_stats_fn"),
 )
@@ -143,14 +147,21 @@ class UtilizationSampler:
         # Manager-set status hooks (() -> dict), each one block of
         # /debug/allocations and the doctor bundle (_STATUS_BLOCKS): the
         # locators' caches, the bind pipeline, the reconciler (open
-        # intents with their age), the drain, the migration coordinator
-        # and the event bus.
+        # intents with their age), the drain, the repartition
+        # controller, the migration coordinator and the event bus.
         self.locator_stats_fn: Optional[Callable[[], dict]] = None
         self.bind_stats_fn: Optional[Callable[[], dict]] = None
         self.reconcile_status_fn: Optional[Callable[[], dict]] = None
         self.drain_status_fn: Optional[Callable[[], dict]] = None
+        self.repartition_status_fn: Optional[Callable[[], dict]] = None
         self.migration_status_fn: Optional[Callable[[], dict]] = None
         self.event_bus_stats_fn: Optional[Callable[[], dict]] = None
+        # Manager-set: (pod_key) -> the signed core-percent delta the
+        # repartition controller applies on top of the pod's base grant.
+        # The overcommit detector judges usage against the effective
+        # grant: otherwise a borrower's growth would trip the very alarm
+        # that authorized it.
+        self.grant_adjust_fn: Optional[Callable[[str], float]] = None
         # Staleness bound on self-reported usage files (a test seam).
         self.usage_report_ttl_s = USAGE_REPORT_TTL_S
         # Manager-set: (pod_key) -> whether the pod's self-reports are
@@ -584,6 +595,15 @@ class UtilizationSampler:
         self, key: str, pod: dict, used: float, now: float
     ) -> None:
         granted = pod["granted_percent"]
+        if self.grant_adjust_fn is not None:
+            # the controller's grow or shrink on top of the base grant
+            try:
+                adjust = float(self.grant_adjust_fn(key))
+            except Exception:  # noqa: BLE001 - never load-bearing
+                adjust = 0.0
+            if adjust:
+                granted = max(0.0, granted + adjust)
+                pod["effective_granted_percent"] = round(granted, 3)
         if granted <= 0 or used <= granted + self.overcommit_margin:
             self._overcommit_streak[key] = 0
             if key in self._overcommit_active:
@@ -946,6 +966,14 @@ def build_diagnostics_bundle(
             }
         except Exception as e:  # noqa: BLE001 - partial bundles beat none
             logger.warning("doctor: timeline read failed: %s", e)
+        # the goodput ledger replayed from the db's journal and anchors:
+        # the db is its whole input, so a dead agent's reads the same
+        try:
+            from .goodput import build_goodput_block
+
+            bundle["goodput"] = build_goodput_block(storage)
+        except Exception as e:  # noqa: BLE001 - partial bundles beat none
+            logger.warning("doctor: goodput replay failed: %s", e)
     # The reconciler's state from the live hook, else the db's open
     # intents: a crash mid-bind must be readable with the agent down.
     live_reconcile = bundle["allocations"].get("reconcile")
@@ -1095,6 +1123,33 @@ def validate_bundle(bundle: dict) -> List[str]:
                 isinstance(migration.get("suppressed_pods", []), list),
                 "allocations.migration.suppressed_pods must be a list",
             )
+    if isinstance(allocations, dict) and "repartition" in allocations:
+        # absent when no controller is attached (sampler off, standalone
+        # node-doctor)
+        rep = allocations["repartition"]
+        _check_block(problems, expect, rep, "allocations.repartition",
+                     ("enabled", "edges", "throttled_pods",
+                      "repartitions_total"))
+        if isinstance(rep, dict):
+            edges = rep.get("edges", [])
+            expect(isinstance(edges, list),
+                   "allocations.repartition.edges must be a list")
+            for i, edge in enumerate(
+                edges if isinstance(edges, list) else []
+            ):
+                if not isinstance(edge, dict):
+                    problems.append(
+                        f"allocations.repartition.edges[{i}] must be an "
+                        "object"
+                    )
+                    continue
+                for field in ("donor", "borrower", "chip", "core_units"):
+                    expect(field in edge,
+                           f"allocations.repartition.edges[{i}] missing "
+                           f"{field!r}")
+            expect(isinstance(rep.get("throttled_pods", {}), dict),
+                   "allocations.repartition.throttled_pods must be an "
+                   "object")
     windows = bundle.get("sampler_windows")
     expect(isinstance(windows, dict), "sampler_windows must be an object")
     if isinstance(windows, dict):
@@ -1161,6 +1216,10 @@ def validate_bundle(bundle: dict) -> List[str]:
             for field in ("total_events", "evicted_total"):
                 expect(isinstance(timeline.get(field), int),
                        f"timeline.{field} must be an int")
+    if "goodput" in bundle:  # absent only without a checkpoint db
+        from .goodput import validate_goodput_block
+
+        problems.extend(validate_goodput_block(bundle["goodput"]))
     if "latency" in bundle:
         latency = bundle["latency"]
         expect(isinstance(latency, dict), "latency must be an object")

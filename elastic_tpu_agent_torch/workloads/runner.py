@@ -682,6 +682,7 @@ def _train(args, cfg, applied, device, parser, layout, distributed) -> int:
         SIGNAL_CUTOVER,
         SIGNAL_DRAIN,
         SIGNAL_REFORM,
+        SIGNAL_THROTTLE,
         LifecycleWatcher,
     )
     from .telemetry import FlightRecorder
@@ -868,6 +869,11 @@ def _train(args, cfg, applied, device, parser, layout, distributed) -> int:
         "active": False, "round": 0, "delta": None, "sig": None,
         "deadline_ts": None, "seen_ts": None,
     }
+    # A QoS throttle (the agent's repartition controller clamped this
+    # pod's quota): the card is reclaimed at its deadline unless usage
+    # returns within quota. A checkpoint acked once durable lets the agent
+    # evict early with the work kept; training goes on meanwhile.
+    throttle_sig = None
 
     def timed_io(fn):
         """fn() after the queued steps drain; returns (fn's result, ms)."""
@@ -956,6 +962,11 @@ def _train(args, cfg, applied, device, parser, layout, distributed) -> int:
                 # and the ack lands once it is durable (after ckpt.wait())
                 lifecycle_sig["sig"] = sig
                 stop = True
+            elif (
+                sig is not None and sig.kind == SIGNAL_THROTTLE
+                and ckpt is not None and not precopy["active"]
+            ):
+                throttle_sig = sig
             if precopy["active"] and not stop:
                 cut = sig is not None and sig.kind == SIGNAL_CUTOVER
                 if not cut and precopy["deadline_ts"]:
@@ -984,11 +995,20 @@ def _train(args, cfg, applied, device, parser, layout, distributed) -> int:
             if ckpt is not None and (
                 (stop and precopy.get("final") is None)
                 or (every > 0 and (step + 1) % every == 0)
+                or throttle_sig is not None
             ):
                 _, ms = timed_io(lambda: save_checkpoint(step))
                 # the copy to the host; a thread writes the files
                 recorder.record("checkpoint_save", step=step, duration_ms=ms)
                 last_saved_step = step
+            if throttle_sig is not None and not stop:
+                # the ack only once the checkpoint is durable: the agent
+                # may evict on it
+                if root:
+                    ckpt.wait()
+                    watcher.ack(step, checkpoint_dir=ckpt_dir,
+                                signal=throttle_sig.value)
+                throttle_sig = None
             if stop:
                 break
         _sync(device)

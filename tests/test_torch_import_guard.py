@@ -6,18 +6,20 @@ its ttrpc and mux, rpc, gen, slices, storage, kube, supervisor,
 reconciler, manager, cli, faults, tracing, the native helpers' builder,
 and the observability plane: events, timeline, the batcher, async_sink,
 kube.events, crd, crd_recorder, latency, profiler, metrics; the
-utilization sampler, the drain and the migration coordinator) loads no
+utilization sampler, the drain, the migration coordinator, the
+repartition controller and the goodput ledger) loads no
 torch, its allocation logic and plain injection run with grpc and
 protobuf absent too, the node agent's modules (the NRI server's included)
 import with grpc, protobuf and requests absent, a manager with an NRI
 socket builds without them, and so does one with the sampler, the drain
-and the migration coordinator on, which sample and tick; only metrics
+and the migration coordinator on, which sample and tick, and one with the
+repartition controller and the goodput ledger on, which tick; only metrics
 needs prometheus_client, and chip_smoke.py and the NRI runtime stand-in it
 loads import nothing of the JAX package.
 
 The agent side keeps its own copies of what it reads of the pod side
-(whose package imports torch): ``common.py``'s handshake keys equal
-``workloads/contract.py``'s, and ``migration.py``'s ack reader,
+(whose package imports torch): ``common.py``'s handshake and throttle
+keys equal ``workloads/contract.py``'s, and ``migration.py``'s ack reader,
 ``world_size_of`` and delta-chain check answer as ``workloads/
 lifecycle.py`` and ``checkpointing.py`` on the same files."""
 
@@ -55,7 +57,7 @@ new = {"export", "parallel", "ring_attention", "pipeline",
        "podresources_pb2", "podresources_v1_pb2", "events", "timeline",
        "batcher", "async_sink", "crd", "crd_recorder", "metrics",
        "latency", "profiler", "ttrpc", "mux", "ttrpc_pb2", "build",
-       "sampler", "drain", "migration"}
+       "sampler", "drain", "migration", "repartition", "goodput"}
 missing = sorted(new - {n.rsplit(".", 1)[-1] for n in names})
 print(len(names), missing, leaked)
 """
@@ -70,7 +72,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     count, missing, leaked = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 83         # workloads and every module in it,
+    assert int(count) >= 85         # workloads and every module in it,
     #                                 the device layer, the agent side
     assert missing == "[]"          # export, mesh, ring, pipelines, serving,
     #                                 the device layer, plugins, injection
@@ -91,7 +93,8 @@ for name in ("plugins", "plugins.base", "plugins.gpushare", "nri",
              "manager", "cli", "faults", "tracing", "common", "device",
              "events", "timeline", "storage.batcher", "async_sink",
              "kube.events", "crd", "crd_recorder", "latency", "profiler",
-             "metrics", "sampler", "drain", "migration"):
+             "metrics", "sampler", "drain", "migration", "repartition",
+             "goodput"):
     importlib.import_module("elastic_tpu_agent_torch." + name)
 print(sorted(m for m in sys.modules if sys.modules[m] is not None and
              m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent")))
@@ -172,7 +175,8 @@ for name in ("manager", "cli", "storage", "storage.store", "kube",
              "nri.plugin", "native.build",
              "events", "timeline", "storage.batcher", "async_sink",
              "kube.events", "crd", "crd_recorder", "latency", "profiler",
-             "metrics", "sampler", "drain", "migration"):
+             "metrics", "sampler", "drain", "migration", "repartition",
+             "goodput"):
     importlib.import_module("elastic_tpu_agent_torch." + name)
 print(sorted(m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent", "grpc",
@@ -273,6 +277,46 @@ print(state, rows, sorted(m for m in sys.modules if sys.modules[m] is not None
                                or m.startswith("google.protobuf"))))
 """
 
+# a manager with the repartition controller and the goodput ledger on
+# (the defaults), each ticked by hand, the block of /debug/allocations and
+# the ledger's status read: no torch, grpc or protobuf
+REPARTITION_MANAGER = r"""
+import os, sys, tempfile
+for blocked in ("torch", "grpc", "google.protobuf", "elastic_tpu_agent"):
+    sys.modules[blocked] = None
+from elastic_tpu_agent_torch.kube.client import KubeClient
+from elastic_tpu_agent_torch.manager import ManagerOptions, NodeManager
+
+class PodResources:
+    def list(self):
+        return type("R", (), {"pod_resources": []})()
+
+root = tempfile.mkdtemp(dir="/tmp")
+os.makedirs(os.path.join(root, "dev"))
+mgr = NodeManager(ManagerOptions(
+    node_name="node-a", db_path=os.path.join(root, "meta.db"),
+    operator_kind="stub:1", dev_root=os.path.join(root, "dev"),
+    alloc_spec_dir=os.path.join(root, "alloc"),
+    kube_client=KubeClient("http://127.0.0.1:9"),
+    pod_resources_client=PodResources(), enable_event_bus=False,
+    enable_events=False, enable_crd=False))
+mgr.sampler.sample_once()
+mgr.repartition.resume()
+mgr.goodput.resume()
+moved = mgr.repartition.tick()
+mgr.goodput.tick()
+block = mgr.sampler.allocations_snapshot()["repartition"]
+wired = (mgr.reconciler.repartition is mgr.repartition
+         and mgr.sampler.grant_adjust_fn == mgr.repartition.core_delta_percent
+         and mgr.repartition.migration is mgr.migration)
+problems = mgr.goodput.status()["conservation_problems"]
+mgr.stop()
+print(sorted(moved.values()), block["enabled"], wired, problems,
+      sorted(m for m in sys.modules if sys.modules[m] is not None
+             and (m.split(".")[0] in ("torch", "grpc")
+                  or m.startswith("google.protobuf"))))
+"""
+
 # chip_smoke.py and the NRI runtime stand-in it loads from tests/, with the
 # JAX package blocked: importing them loads none of it
 CHIP_SMOKE = r"""
@@ -325,15 +369,21 @@ def test_a_manager_with_the_handshake_on_loads_no_grpc_protobuf_or_torch():
     assert _run(HANDSHAKE_MANAGER) == "active [0] []"
 
 
+def test_a_manager_with_repartition_and_goodput_loads_no_grpc_protobuf_or_torch(
+        ):
+    assert _run(REPARTITION_MANAGER) == "[0, 0, 0, 0] True True [] []"
+
+
 def test_agent_side_copies_of_the_pod_contract_are_equal():
     from elastic_tpu_agent_torch import common
     from elastic_tpu_agent_torch.workloads import contract
 
     keys = [k for k in vars(contract) if k[0].isupper()]
     shared = [k for k in keys if hasattr(common, k)]
-    # every key the agent side reads or writes; the throttle keys come
-    # with the repartition controller
-    assert set(keys) - set(shared) == {"EnvThrottle", "EnvThrottleDeadline"}
+    # every key the agent side reads or writes, the throttle keys of the
+    # repartition controller included
+    assert set(keys) == set(shared)
+    assert {"EnvThrottle", "EnvThrottleDeadline"} <= set(shared)
     assert {k: getattr(common, k) for k in shared} == {
         k: getattr(contract, k) for k in shared}
     assert common.AllocSidecarSubdirs == (

@@ -83,7 +83,7 @@ AGENT_BIND_PATH = dict(
 # drain, as the agent's, is always on)
 PORT_BIND_PATH = dict(enable_event_bus=False, enable_events=False,
                       enable_crd=False, enable_sampler=False,
-                      enable_migration=False)
+                      enable_migration=False, enable_repartition=False)
 # the observability plane on both sides, with every option of the slice
 AGENT_OBS = dict(AGENT_BIND_PATH, enable_event_bus=True, enable_events=True,
                  enable_crd=True)
@@ -458,8 +458,8 @@ def test_subsystems_are_the_agents_bind_path(flows):
     assert set(to_agent(port["subsystems"], {})) <= set(agent["subsystems"])
     assert port["subsystems"] == [
         "allocatable-check", "device-plugin:elasticgpu.io/gpu-core",
-        "device-plugin:elasticgpu.io/gpu-memory", "drain", "gc", "health",
-        "reconciler", "sitter"]
+        "device-plugin:elasticgpu.io/gpu-memory", "drain", "gc", "goodput",
+        "health", "reconciler", "sitter"]
 
 
 # -- the CLI -------------------------------------------------------------------
@@ -644,11 +644,9 @@ def test_observability_flags_match_the_agents():
 
 NRI_FLAGS = ["--plugin", "gpushare", "--nri-socket", "/run/nri/nri.sock",
              "--nri-evict-on-chip-failure"]
-# the agent's flags the port lacks: those of items 10.5-10.7 (repartition,
-# goodput, slices) and --nri-libtpu, whose counterpart is --nri-driver-lib
-MISSING_FLAGS = {
-    "repartition_period", "no_repartition", "qos_evict_after",
-    "goodput_period", "slice_membership_ttl", "nri_libtpu"}
+# the agent's flags the port lacks: the slice registry's (item 10.7) and
+# --nri-libtpu, whose counterpart is --nri-driver-lib
+MISSING_FLAGS = {"slice_membership_ttl", "nri_libtpu"}
 
 
 def test_nri_flags_match_the_agents():
@@ -704,6 +702,41 @@ def test_handshake_flags_match_the_agents(argv):
         (True, 1.0, 120.0, 0.5, 20.0, 5.0, True, 0.25)
         if argv is HANDSHAKE_FLAGS
         else (False, 10.0, 300.0, 2.0, 30.0, None, False, 2.0))
+
+
+REPARTITION_FLAGS = ["--repartition-period", "0.5", "--qos-evict-after",
+                     "75", "--goodput-period", "2.5"]
+REPARTITION_OPTIONS = ("enable_repartition", "repartition_period_s",
+                       "qos_evict_after_s", "goodput_period_s")
+
+
+@pytest.mark.parametrize("argv,expect", [
+    ([], (True, 10.0, 300.0, 10.0)),
+    (REPARTITION_FLAGS, (True, 0.5, 75.0, 2.5)),
+    (["--no-repartition"], (False, 10.0, 300.0, 10.0)),
+], ids=["defaults", "periods", "off"])
+def test_repartition_and_goodput_flags_match_the_agents(argv, expect):
+    """The four flags parse as the agent's (defaults, types, the store_true
+    switch) and set the options the agent's main sets from them, whose
+    defaults are the agent's ManagerOptions'."""
+    from elastic_tpu_agent.manager import ManagerOptions as AgentOptions
+
+    port = vars(cli.parse_args(argv))
+    agent = vars(agent_cli.parse_args(argv))
+    flags = ("repartition_period", "no_repartition", "qos_evict_after",
+             "goodput_period")
+    assert {k: (port[k], type(port[k])) for k in flags} == {
+        k: (agent[k], type(agent[k])) for k in flags}
+    opts = cli.options_from_args(cli.parse_args(argv))
+    assert tuple(getattr(opts, f) for f in REPARTITION_OPTIONS) == expect
+    # the agent's main: enable_repartition=not args.no_repartition, the
+    # periods passed through
+    assert expect == (not agent["no_repartition"],
+                      agent["repartition_period"], agent["qos_evict_after"],
+                      agent["goodput_period"])
+    assert tuple(getattr(ManagerOptions(), f) for f in REPARTITION_OPTIONS
+                 ) == tuple(getattr(AgentOptions(), f)
+                            for f in REPARTITION_OPTIONS)
 
 
 def test_the_flags_the_port_lacks_are_those_of_later_items():
@@ -814,11 +847,49 @@ def _doctor(mod, argv):
     return res.returncode, res.stdout, res.stderr
 
 
+GOODPUT_ARGV = [[], ["--pod", "d/a"], ["--pod", "b"], ["--slice", "S"],
+                ["--since", "15m"], ["--since", "1000000005"]]
+
+
+@pytest.mark.parametrize("argv", GOODPUT_ARGV,
+                         ids=["all", "pod", "bare", "slice", "relative",
+                              "since"])
+def test_node_doctor_goodput_prints_the_agents_block(tmp_path, argv):
+    """``node-doctor goodput`` of both packages on one db (a pod bound,
+    throttled and evicted, one live, the ledger's anchors journaled)
+    prints the same JSON and exit code; a missing db exits 1 in both."""
+    import contextlib
+    import io
+
+    from test_torch_goodput import _ledger_db
+
+    db = str(tmp_path / "meta.db")
+    _ledger_db(db)
+    outs = []
+    for main in (cli.doctor_main, agent_cli.doctor_main):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(["goodput", "--db-file", db, *argv])
+        outs.append((rc, json.loads(buf.getvalue())))
+    if argv[-1:] == ["15m"]:
+        # a relative bound is taken from each call's own wall clock
+        since = [o[1]["entity"].pop("since") for o in outs]
+        assert abs(since[0] - since[1]) < 60
+    assert outs[0] == outs[1]
+    rc, payload = outs[0]
+    assert rc == 0 and payload["goodput"]["conservation_problems"] == []
+    if not argv:
+        assert sorted(payload["goodput"]["pods"]) == ["d/a", "d/b"]
+    missing = ["goodput", "--db-file", str(tmp_path / "none.db")]
+    assert cli.doctor_main(missing) == agent_cli.doctor_main(missing) == 1
+
+
 def test_main_serves_metrics_and_node_doctor_reads_it():
     """``main()`` with --metrics-port and --profile-hz: /metrics lints
     clean, /healthz answers, the journal holds the boot; node-doctor
     profile reads the live agent, /debug/allocations holds the sampler's
-    table with the drain and migration blocks, node-doctor's bundle of
+    table with the drain, migration and repartition blocks,
+    /debug/goodput answers the ledger, node-doctor's bundle of
     the live agent passes both packages' --validate, and node-doctor
     timeline reads its db after SIGTERM, each as the agent's subcommand
     does."""
@@ -874,6 +945,9 @@ def test_main_serves_metrics_and_node_doctor_reads_it():
         assert code == 200 and [c["chip"] for c in table["chips"]] == [0, 1]
         assert table["drain"]["state"] == "active"
         assert table["migration"]["completed_total"] == 0
+        assert table["repartition"]["enabled"] is True
+        code, text = _get(base + "/debug/goodput")
+        assert code == 200 and json.loads(text)["conservation_problems"] == []
         rc, out, err = _doctor("elastic_tpu_agent_torch.cli", [
             "--agent-url", base, "--operator", "stub:2", "--dev-root",
             str(root / "dev"), "--db-file", db, "--samples", "1",

@@ -25,6 +25,11 @@ package, on the side's ``ManualClock``, with an Event recorder that keeps
 a ``tests/fake_apiserver.py``; ``snapshot()`` reads what the three show.
 Tests drive ``tick()`` and ``sample_once()`` by hand: no sleeps, no
 threads.
+
+``RepartitionSide`` adds the side's repartition controller (wired as the
+manager wires it) over pods d, b, o and l sharing card 0, each opted in;
+``cycle(reports)`` writes usage reports, advances the clock a second,
+samples and ticks the controller.
 """
 
 import json
@@ -32,6 +37,7 @@ import os
 import re
 import shutil
 import tempfile
+import threading
 
 from prometheus_client import CollectorRegistry, generate_latest
 from prometheus_client.parser import text_string_to_metric_families
@@ -43,6 +49,7 @@ from elastic_tpu_agent import metrics as agent_metrics
 from elastic_tpu_agent import migration as agent_migration
 from elastic_tpu_agent import rpc as agent_rpc
 from elastic_tpu_agent import reconciler as agent_reconciler
+from elastic_tpu_agent import repartition as agent_repartition
 from elastic_tpu_agent import sampler as agent_sampler
 from elastic_tpu_agent import timeline as agent_timeline
 from elastic_tpu_agent import tracing as agent_tracing
@@ -54,7 +61,7 @@ from elastic_tpu_agent.storage import Storage as AgentStorage
 from elastic_tpu_agent.types import Device as AgentDevice
 from elastic_tpu_agent_torch import common as port_common
 from elastic_tpu_agent_torch import (
-    drain, faults, metrics, migration, reconciler, rpc,
+    drain, faults, metrics, migration, reconciler, repartition, rpc,
 )
 from elastic_tpu_agent_torch import sampler as sampler_mod
 from elastic_tpu_agent_torch import timeline as timeline_mod
@@ -68,6 +75,10 @@ from elastic_tpu_agent_torch.common import (
     container_annotation,
 )
 from elastic_tpu_agent_torch.device import StubOperator
+from elastic_tpu_agent_torch.device.qos import (
+    AnnotationQoSPriority,
+    AnnotationRepartition,
+)
 from elastic_tpu_agent_torch.device.stub import H100_SXM5_HBM_BYTES
 from elastic_tpu_agent_torch.kube import locator
 from elastic_tpu_agent_torch.kube.client import KubeClient
@@ -437,3 +448,130 @@ class HandshakeSide:
         self.node.close()
         self.api.stop()
         shutil.rmtree(self.root, ignore_errors=True)
+
+
+# the repartition node's pods, all on card 0: d (40 core units and a
+# quarter of the memory, high), b (20 and a quarter, high), o (10, low)
+# and l (20, low)
+REP_SETS = [("core", 0, range(0, 40)), ("mem", 0, range(UNITS // 4)),
+            ("core", 0, range(40, 60)),
+            ("mem", 0, range(UNITS // 4, UNITS // 2)),
+            ("core", 0, range(60, 70)), ("core", 0, range(70, 90))]
+REP_PODS = {"d": ("high", (0, 1)), "b": ("high", (2, 3)),
+            "o": ("low", (4,)), "l": ("low", (5,))}
+# the metric families and timeline kinds the controller and the ledger
+# feed, beside the handshake's
+REP_FAMILIES = HANDSHAKE_FAMILIES + (
+    "elastic_tpu_repartitions", "elastic_tpu_throttles",
+    "elastic_tpu_qos_evictions", "elastic_tpu_goodput",
+    "elastic_tpu_downtime")
+REP_KINDS = HANDSHAKE_KINDS + ("repartition", "throttle",
+                               "reconcile_repair", "bind_replay")
+QUOTA_KEYS = ("ELASTIC_TPU_CORE_UNITS", "ELASTIC_TPU_HBM_LIMIT_BYTES",
+              "ELASTIC_TPU_HBM_FRACTION", "ELASTIC_TPU_THROTTLE",
+              "ELASTIC_TPU_THROTTLE_DEADLINE")
+
+
+class RepartitionSide(HandshakeSide):
+    """One side's node with REP_PODS bound on card 0 (``pods`` of them,
+    each pod's ``annotations`` added), its handshake and its repartition
+    controller on the side's clock."""
+
+    def __init__(self, port: bool, pods=tuple(REP_PODS), annotations=None):
+        self.port = port
+        self.root = tempfile.mkdtemp(prefix="rp", dir="/tmp")
+        self.api = FakeAPIServer()
+        self.url = self.api.start()
+        self.api.add_node("node-a")
+        self.node = Node(self.root, port)
+        self.clock = clock_of(port)
+        self.limits = (300.0, 30.0)
+        self.faults = faults if port else agent_faults
+        self.boot()
+        for pod in pods:
+            priority, sets = REP_PODS[pod]
+            self.admit(pod, "0", uid=f"uid-{pod}")
+            self.annotate(pod, {AnnotationRepartition: "true",
+                                AnnotationQoSPriority: priority,
+                                **(annotations or {}).get(pod, {})})
+            for i in sets:
+                self.bind(*REP_SETS[i][:1], pod, *REP_SETS[i][1:])
+
+    def boot(self):
+        """A new generation with its handshake and controller, wired as
+        the manager wires them (an agent restart)."""
+        hs = super().boot()
+        gen = self.node.gen
+        self.rep = (repartition if self.port
+                    else agent_repartition).RepartitionController(
+            sampler=hs.sampler, storage=gen.storage, sitter=self.node.sitter,
+            plugin=gen.plugin, reconciler=gen.reconciler, metrics=hs.metrics,
+            events=hs.events, timeline=gen.timeline, node_name="node-a",
+            clock=self.clock)
+        gen.reconciler.repartition = self.rep
+        hs.sampler.grant_adjust_fn = self.rep.core_delta_percent
+        hs.sampler.repartition_status_fn = self.rep.status
+        self.rep.migration = hs.migration
+        return hs
+
+    def annotate(self, pod, annotations):
+        """Pod-controlled annotations, read live from the sitter."""
+        meta = self.node.sitter.pods[("default", pod)]["metadata"]
+        meta["annotations"].update(annotations)
+
+    def core_hash(self, pod):
+        kind, chip, units = REP_SETS[REP_PODS[pod][1][0]]
+        return self.hash(kind, chip, units)
+
+    def report(self, reports):
+        """Each pod's usage report (percent) at the clock's time, as the
+        pod side writes it."""
+        for pod, duty in reports.items():
+            path = os.path.join(self.node.alloc_dir, "usage")
+            os.makedirs(path, exist_ok=True)
+            with open(os.path.join(path, f"{self.core_hash(pod)}.json"),
+                      "w") as f:
+                json.dump({"ts": self.clock.time(),
+                           "duty_cycle_percent": float(duty),
+                           "hbm_used_bytes": 0}, f)
+
+    def cycle(self, reports, sample=True):
+        """Reports written, one second on, a sample (``sample``), a
+        controller tick; the tick's counts."""
+        self.report(reports)
+        self.clock.advance(1)
+        if sample:
+            self.hs.sampler.sample_once(now=self.clock.time())
+        return self.rep.tick()
+
+    def quotas(self):
+        """Each spec's quota and throttle keys."""
+        return {name: {k: v for k, v in spec.get("env", {}).items()
+                       if k in QUOTA_KEYS}
+                for name, spec in self.node.state()["specs"].items()}
+
+    def close(self):
+        self.node.close()
+        # the apiserver's shutdown waits out its 0.5 s poll: off the
+        # test's path
+        threading.Thread(target=self.api.stop, daemon=True).start()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+    def snapshot(self):
+        """The controller's status, the quotas, the records, the Events,
+        the samples and the timeline rows."""
+        text = generate_latest(self.hs.registry).decode()
+        samples = {
+            s.name + "{" + ",".join(
+                f"{k}={v}" for k, v in sorted(s.labels.items())) + "}":
+            s.value
+            for fam in text_string_to_metric_families(text)
+            for s in fam.samples if s.name.startswith(REP_FAMILIES)
+            and not s.name.endswith("_created")}
+        return dict(
+            status=self.rep.status(), quotas=self.quotas(),
+            records=sorted(self.node.state()["records"]),
+            events=list(self.hs.events.posted), samples=samples,
+            timeline=[(r["kind"], r["keys"].get("pod"), r["attrs"])
+                      for r in self.node.gen.storage.timeline_rows()
+                      if r["kind"] in REP_KINDS])
