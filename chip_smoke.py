@@ -11,8 +11,10 @@ around a tenant, the agent's runtime activation: its NRI server and
 the OCI hook chain, each starting a tenant, with a card-failure
 eviction, the agent's utilization sampler, drain and migration
 handshake around a runner tenant that is drained, reclaimed early and
-resumed, and the agent's live re-partitioning and goodput ledger around
-three tenants that report their own device-busy shares.
+resumed, the agent's live re-partitioning and goodput ledger around
+three tenants that report their own device-busy shares, and the agent's
+multi-host slice orchestration: two agents whose slice re-forms around a
+runner tenant when a member leaves and when one returns.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -142,13 +144,13 @@ shows; it then exits 1 before the summary lines. Phases:
    ring run on the kernels' plain versions on the CPU, 4 launches of each
    kernel a ring, and the ring's forward and forward + backward device
    times beside one flash call over the whole 4096 and SDPA;
-18. the summary, printed after phases 19-30: the device time of the
+18. the summary, printed after phases 19-31: the device time of the
    whole bf16 backward (delta, dK/dV and dQ) against SDPA's whole
    backward, each phase's host seconds, a
    ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
    summed over the paths it lies on: forward, LoRA, the sharded step, the
    ring, the MoE mesh step, both pipeline schedules, the runner's mesh
-   runs and the train tenants of phases 24, 29 and 30 for flash_fwd;
+   runs and the train tenants of phases 24, 29, 30 and 31 for flash_fwd;
    train, LoRA, the sharded step, the ring, the MoE mesh step, both
    pipeline schedules, the runner's mesh runs and the train tenants for
    the backward pair; serving, the speculative fallback and the serving
@@ -388,7 +390,31 @@ shows; it then exits 1 before the summary lines. Phases:
    each pod's goodput ratio and O's downtime by cause, and the phase's
    launches, beside the card's name and power limit.
    ``ELASTIC_TPU_CORE_UNITS`` is a hint on this card (nothing time-slices
-   SMs by it): the restamps are shown as restamps.
+   SMs by it): the restamps are shown as restamps;
+31. the agent's multi-host slice orchestration: two CLI ``main``s
+   (``python3 chip_smoke.py --agent G``, children without torch, phase
+   26's stand-ins, reconcile 0.5 s, ``--slice-membership-ttl 0.5``) over
+   one fake apiserver: agent A (node ``h100-a``, host h0) on the card,
+   agent B (node ``h100-b``, host h1) on a port StubOperator of one stub
+   H100. Slice ``s31`` (``h100-sxm5-16``, hosts annotated ``h1,h0``, 50
+   gpu-core units a member): p0 on A and p1 on B must stamp
+   ``TPU_WORKER_HOSTNAMES=h0,h1``, ids 0 and 1, epoch 0, no ICI bounds,
+   with empty validation problems, a ``slice_formed`` row on each agent,
+   ``elastic_tpu_slice_members{slice="s31"}`` 2 and one packing-span
+   observation a bind. ``elasticgpu.io/drain`` on B's node: B marks p1
+   ``elasticgpu.io/draining`` and A must re-form p0 to ``h0`` at epoch 1
+   (a ``TPUSliceReformed`` Event, a ``slice_reformed`` row losing h1). A
+   runner tenant trains from p0's env (world 1, the small preset, batch
+   8, seq 256, a checkpoint dir); p1 deleted, B's drain cancelled and a
+   replacement p1b bound on B, A must re-form p0 to ``h0,h1`` at epoch 2,
+   the tenant stop on ``reform``, save and ack at epoch 2, and p0's
+   goodput ledger close a ``checkpointing`` interval of cause
+   ``slice_reform`` at the ack. A runner restores from that checkpoint at
+   world 1 (one card cannot host NCCL's two ranks) at the acked step + 1
+   and its final loss must equal an uninterrupted run's (RESUME_TOL).
+   Prints the host ms from B's draining patch to A's restamp and from the
+   restamp to the ack, beside the card's name and power limit; the agents
+   import no torch.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -5080,7 +5106,8 @@ class _CRDLog(dict):
         return out
 
 
-def _cli_agent(d, argv_file, pods, flag_dir=None, follow=False):
+def _cli_agent(d, argv_file, pods, flag_dir=None, follow=False,
+               operator=None, setup=None):
     """The port's CLI ``main`` on the flags in ``d/argv_file``, in this
     process (a child without torch), with phase 26's stand-ins handed to
     the manager the CLI builds (``_agent_operator``, with ``flag_dir``, and
@@ -5089,7 +5116,9 @@ def _cli_agent(d, argv_file, pods, flag_dir=None, follow=False):
     ``pods`` is a list (each pod card.json's units) or a dict of pod ->
     (core units, memory units; 0: no memory). With ``follow``, the thread
     then binds the pods of each ``bind-<n>.json`` the parent writes (n =
-    1, 2, ...) and answers in ``bound-<n>.json``. SIGTERM ends ``main``.
+    1, 2, ...) and answers in ``bound-<n>.json``. ``operator(dev_root)``
+    replaces the counting NvidiaOperator, and ``setup(manager)`` runs once
+    the manager is built (phase 31's stub agent). SIGTERM ends ``main``.
     Returns (exit code, the manager)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import threading
@@ -5106,13 +5135,16 @@ def _cli_agent(d, argv_file, pods, flag_dir=None, follow=False):
                 return lambda: [i for i, _ in getattr(
                     self.plugin, kind).device_list()]
 
-            opts.operator = _agent_operator(opts.dev_root, flag_dir)
+            opts.operator = (operator(opts.dev_root) if operator
+                             else _agent_operator(opts.dev_root, flag_dir))
             opts.pod_resources_client = _PodResources(
                 os.path.join(d, "assign.json"), {
                     card["core_resource"]: advertised("core"),
                     card["mem_resource"]: advertised("memory")})
             super().__init__(opts)
             self.plugin.servers = []
+            if setup is not None:
+                setup(self)
             holder["m"] = self
 
     def drive():
@@ -7001,6 +7033,418 @@ def run_repartition(torch, D, srv, streams, dev) -> dict:
     return out
 
 
+# Phase 31: a two-host slice over two port agents, one on the card and one
+# on a stub card, re-formed when a member leaves and when one returns.
+SL_HOSTS = "h1,h0"               # the slice's hosts, deliberately unsorted
+SL_TYPE = "h100-sxm5-16"         # 16 cards, 8 a host: 2 hosts
+SL_CORE_UNITS = 50               # each member's gpu-core request
+SL_STEPS = 1500                  # the tenant's step budget (a reform ends it)
+SL_RESUME_STEPS = 10             # the resumed run's steps
+SL_WAIT_S = 60.0                 # each wait of the phase on an agent
+SL_FLAGS = ["--reconcile-period", "0.5", "--slice-membership-ttl", "0.5",
+            "--event-safety-net-factor", "1", "--drain-period", "0.5",
+            "--drain-deadline", "300", "--migration-period", "0.5",
+            "--goodput-period", "0.5", "--sampler-period", "1"]
+
+
+def agent_slice_main(args) -> int:
+    """Phase 31's agents (``--agent G``): ``_cli_agent`` on ``slice.json``'s
+    flags, binding the pods of ``pods.json`` and then those of each bind
+    request; ``card.json``'s ``stub`` gives the agent a port StubOperator
+    of one card in place of the card, and a drain that reads its node's
+    annotation every period. Prints one JSON line."""
+    from elastic_tpu_agent_torch.device import StubOperator
+
+    d = args.agent_dir
+    card = _read_json(os.path.join(d, "card.json"))
+    pods = {k: tuple(v) for k, v in _read_json(
+        os.path.join(d, "pods.json")).items()}
+    operator = setup = None
+    if card.get("stub"):
+        def operator(dev_root):
+            return StubOperator(dev_root, num_chips=1)
+
+        def setup(mgr):
+            mgr.drain.node_poll_ttl_s = 0.5
+    rc, mgr = _cli_agent(d, "slice.json", pods, follow=True,
+                         operator=operator, setup=setup)
+    print(json.dumps(dict(
+        rc=rc, torch_imported="torch" in sys.modules,
+        subsystems={k: v["state"] for k, v in
+                    mgr.supervisor.status().items()} if mgr else {})))
+    return 0
+
+
+def run_slices(torch, D, dev) -> dict:
+    """Phase 31: agent A (the card, host h0) and agent B (a stub card,
+    host h1) form slice s31 from members p0 and p1; B's drain makes A
+    re-form p0 at world 1; a runner tenant trains from p0's env; a
+    replacement p1b on B makes A re-form p0 at world 2, which the tenant
+    checkpoints and acks; a runner resumes from that checkpoint (module
+    docstring)."""
+    import shutil
+    import signal
+    import tempfile
+
+    from elastic_tpu_agent_torch.common import (
+        AnnotationAssumed, AnnotationDrain, AnnotationDraining,
+        AnnotationSliceID, AnnotationSliceName, AnnotationSliceWorkerHosts,
+        AnnotationSliceWorkerID, EnvSliceEpoch, ResourceGPUCore,
+        ResourceGPUMemory, container_annotation)
+    from elastic_tpu_agent_torch.device import NvidiaOperator
+    from elastic_tpu_agent_torch.migration import read_checkpoint_ack
+    from elastic_tpu_agent_torch.nri import plugin as NRI
+    from elastic_tpu_agent_torch.workloads import telemetry as T
+
+    props = torch.cuda.get_device_properties(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"launches": {k: 0 for k in KERNEL_NAMES}}
+    d = tempfile.mkdtemp(prefix="cs31", dir="/tmp")
+    api = None
+    alive = []
+    try:
+        chips = [c for c in NvidiaOperator(
+            "/dev", maintenance=lambda: None,
+            preemption=lambda: None).devices()
+            if _uuid_key(c.uuid) == _uuid_key(props.uuid)]
+        if len(chips) != 1:
+            fail(f"slices: no single card of uuid {props.uuid}")
+            return out
+        FA = _load_tests_module("fake_apiserver")
+
+        class Api(FA.FakeAPIServer):
+            """The fake apiserver, noting when each pod first carried
+            the draining annotation."""
+
+            draining_at: dict = {}
+
+            def _notify(self, event):
+                obj = event.get("object") or {}
+                meta = obj.get("metadata") or {}
+                if (meta.get("annotations") or {}).get(AnnotationDraining):
+                    self.draining_at.setdefault(meta.get("name"), time.time())
+                super()._notify(event)
+
+        api = Api()
+        url = api.start()
+        agents = {"a": ("h100-a", chips[0].index, False),
+                  "b": ("h100-b", 0, True)}
+        dirs, bases = {}, {}
+        for side, (node, index, stub) in agents.items():
+            api.add_node(node)
+            sd = dirs[side] = os.path.join(d, side)
+            os.makedirs(os.path.join(sd, "dev"))
+            _write_json(os.path.join(sd, "kubeconfig"), {
+                "current-context": "c",
+                "contexts": [{"name": "c", "context": {"cluster": "local",
+                                                       "user": "agent"}}],
+                "clusters": [{"name": "local", "cluster": {"server": url}}],
+                "users": [{"name": "agent", "user": {"token": "phase-31"}}]})
+            _write_json(os.path.join(sd, "card.json"), dict(
+                node=node, core_units=0, mem_units=0, stub=stub,
+                core_resource=ResourceGPUCore,
+                mem_resource=ResourceGPUMemory))
+            port = _free_port()
+            bases[side] = f"http://127.0.0.1:{port}"
+            _write_json(os.path.join(sd, "slice.json"), {"argv": [
+                "--node-name", node, "--db-file", os.path.join(sd, "meta.db"),
+                "--kubeconf", os.path.join(sd, "kubeconfig"),
+                "--operator", "stub:1" if stub else "nvidia",
+                "--dev-root", os.path.join(sd, "dev"),
+                "--alloc-spec-dir", os.path.join(sd, "alloc"),
+                "--device-plugin-dir", os.path.join(sd, "dp"),
+                "--pod-resources-socket", os.path.join(sd, "pr.sock"),
+                "--metrics-port", str(port), *SL_FLAGS]})
+
+        def admit(pod, side, wid):
+            node, index, _ = agents[side]
+            api.upsert_pod({"metadata": {
+                "namespace": "default", "name": pod, "uid": f"uid-{pod}",
+                "annotations": {
+                    AnnotationAssumed: "true",
+                    container_annotation("main"): str(index),
+                    AnnotationSliceID: "s31", AnnotationSliceName: SL_TYPE,
+                    AnnotationSliceWorkerID: str(wid),
+                    AnnotationSliceWorkerHosts: SL_HOSTS}},
+                "spec": {"nodeName": node, "containers": [{"name": "main"}]}})
+
+        # worker ids index SL_HOSTS: p0 is h0 (A), p1 is h1 (B)
+        admit("p0", "a", 1)
+        admit("p1", "b", 0)
+        _write_json(os.path.join(dirs["a"], "pods.json"),
+                    {"p0": [SL_CORE_UNITS, 0]})
+        _write_json(os.path.join(dirs["b"], "pods.json"),
+                    {"p1": [SL_CORE_UNITS, 0]})
+        children = {side: _AgentChild("G", dirs[side]) for side in agents}
+        alive += list(children.values())
+        bound = {side: _read_json(os.path.join(dirs[side], "bound.json"),
+                                  AGENT_WAIT_S) for side in agents}
+        if any(not b or "error" in b for b in bound.values()):
+            fail(f"slices: the agents never bound: {bound}")
+            return out
+        ha = bound["a"]["hashes"]["p0"][0]
+        hb = bound["b"]["hashes"]["p1"][0]
+
+        def env_of(side, h):
+            return _spec(dirs[side], h).get("env", {})
+
+        def world(env):
+            return {k: env.get(k) for k in (
+                "TPU_WORKER_ID", "TPU_WORKER_HOSTNAMES", EnvSliceEpoch)}
+
+        def slices_block(side):
+            return (_http_json(bases[side] + "/debug/allocations").get(
+                "slices") or {}).get("s31") or {}
+
+        def rows(side, pod, kind):
+            return [e for e in _http_json(
+                f"{bases[side]}/debug/timeline?pod=default/{pod}&limit=1000"
+            )["events"] if e["kind"] == kind]
+
+        # 1. formation
+        formed = {"a": world(env_of("a", ha)), "b": world(env_of("b", hb))}
+        blocks = {s: slices_block(s) for s in agents}
+        sm = {s: _samples(_http(bases[s] + "/metrics")[1]) for s in agents}
+        members = {s: sm[s].get(("elastic_tpu_slice_members",
+                                 (("slice", "s31"),))) for s in agents}
+        packed = {s: sm[s].get(("elastic_tpu_packing_ici_span_count", ()))
+                  for s in agents}
+        fchecks = {
+            "worlds": formed == {
+                "a": {"TPU_WORKER_ID": "0", "TPU_WORKER_HOSTNAMES": "h0,h1",
+                      EnvSliceEpoch: "0"},
+                "b": {"TPU_WORKER_ID": "1", "TPU_WORKER_HOSTNAMES": "h0,h1",
+                      EnvSliceEpoch: "0"}},
+            "type": env_of("a", ha).get("TPU_ACCELERATOR_TYPE") == SL_TYPE
+            and "TPU_HOST_BOUNDS" not in env_of("a", ha),
+            "validation": all(b.get("validation_problems") == []
+                              and b.get("world_size") == 2
+                              for b in blocks.values()),
+            "slice_formed rows": bool(rows("a", "p0", "slice_formed"))
+            and bool(rows("b", "p1", "slice_formed")),
+            "members gauge": members == {"a": 2.0, "b": 2.0},
+            "packing histogram": packed == {"a": 1.0, "b": 1.0},
+        }
+        print(f"slices formation ({smi}): p0 on A {formed['a']}, p1 on B "
+              f"{formed['b']}; members gauge {members}, packing spans "
+              f"counted {packed}; checks {fchecks}")
+        for k, ok in fchecks.items():
+            if not ok:
+                fail(f"slices formation check {k!r} failed")
+
+        # 2. proactive loss: B's drain marks p1 draining, A re-forms p0
+        t_drain = time.time()
+        api.annotate_node("h100-b", AnnotationDrain, "true")
+        lost = _wait("A's re-form to world 1", lambda: (
+            lambda e: e if e.get(EnvSliceEpoch) == "1" else None)(
+                env_of("a", ha)), timeout_s=SL_WAIT_S, period_s=0.005,
+            phase="slices") or {}
+        t_lost = time.time()
+        reformed1 = rows("a", "p0", "slice_reformed")
+        events = {(e["involvedObject"].get("name"), e["reason"])
+                  for e in api.core_events}
+        t_patch = api.draining_at.get("p1")
+        lchecks = {
+            "world 1": world(lost) == {"TPU_WORKER_ID": "0",
+                                       "TPU_WORKER_HOSTNAMES": "h0",
+                                       EnvSliceEpoch: "1"},
+            "draining patch": t_patch is not None,
+            "row": bool(reformed1)
+            and reformed1[-1]["attrs"].get("lost") == ["h1"],
+            "event": ("p0", "TPUSliceReformed") in events,
+        }
+        loss_ms = dict(
+            annotation_to_draining_patch=((t_patch - t_drain) * 1e3
+                                          if t_patch else None),
+            draining_patch_to_restamp=((t_lost - t_patch) * 1e3
+                                       if t_patch else None),
+            draining_patch_to_reform_row=(
+                (reformed1[-1]["ts"] - t_patch) * 1e3
+                if t_patch and reformed1 else None))
+        print(f"slices loss ({smi}): node annotation -> B's draining patch "
+              f"{loss_ms['annotation_to_draining_patch']} ms, draining "
+              f"patch -> A's restamp seen "
+              f"{loss_ms['draining_patch_to_restamp']} ms (-> A's "
+              f"slice_reformed row "
+              f"{loss_ms['draining_patch_to_reform_row']} ms) at reconcile "
+              f"0.5 s and membership TTL 0.5 s; p0 now {world(lost)}; checks "
+              f"{lchecks}")
+        for k, ok in lchecks.items():
+            if not ok:
+                fail(f"slices loss check {k!r} failed")
+
+        # 3. the tenant: the runner from p0's env, world 1 on the card
+        def pod_env(h, **over):
+            spec_path = os.path.join(dirs["a"], "alloc", f"{h}.json")
+            adj = NRI.plain_adjustment(_spec(dirs["a"], h), os.stat, "/dev",
+                                       spec_path)
+            return dict(adj["env"], TPU=h,
+                        ELASTIC_TPU_ALLOC_DIR=os.path.join(dirs["a"], "alloc"),
+                        ELASTIC_TPU_RESTORE_WAIT_S="0", **over)
+
+        data = _runtime_data(D, os.path.join(d, "tokens.bin"))
+        sched = f"--warmup-steps 5 --total-steps {SL_STEPS}"
+        ck = os.path.join(d, "ckpt")
+        fr = os.path.join(d, "fr.jsonl")
+        t_ten = _Tenant("sl_t", "train", d, env=pod_env(ha),
+                        strip=PLUGIN_ENV_STRIP, runner_args=(
+                            f"{data} --steps {SL_STEPS} {sched} "
+                            f"--checkpoint-every 0 --checkpoint-dir {ck} "
+                            f"--flight-recorder {fr}"))
+        alive.append(t_ten)
+        # three step records: the watcher has read epoch 1 as its baseline
+        _wait("the tenant's steps", lambda: os.path.exists(fr) and sum(
+            r["kind"] == "step" for r in T.load_jsonl(fr)) >= 3,
+            timeout_s=TENANT_TIMEOUT_S, phase="slices")
+
+        # 4. the return: p1 goes, B's drain is cancelled, p1b binds on B
+        api.delete_pod("default", "p1")
+        assigned = _read_json(os.path.join(dirs["b"], "assign.json")) or {}
+        assigned.pop("default/p1", None)
+        _write_json(os.path.join(dirs["b"], "assign.json"), assigned)
+        api.annotate_node("h100-b", AnnotationDrain, None)
+        _wait("B's drain cancelled", lambda: (_http_json(
+            bases["b"] + "/debug/allocations").get("drain") or {}).get(
+            "state") == "active", timeout_s=SL_WAIT_S, phase="slices")
+        admit("p1b", "b", 0)
+        _write_json(os.path.join(dirs["b"], "bind-1.json"),
+                    {"pods": {"p1b": [SL_CORE_UNITS, 0]}})
+        bound2 = _read_json(os.path.join(dirs["b"], "bound-1.json"),
+                            SL_WAIT_S) or {}
+        back = _wait("A's re-form to world 2", lambda: (
+            lambda e: e if e.get(EnvSliceEpoch) == "2" else None)(
+                env_of("a", ha)), timeout_s=SL_WAIT_S, period_s=0.005,
+            phase="slices") or {}
+        t_back = time.time()
+        trep = t_ten.result(time.perf_counter() + TENANT_TIMEOUT_S)
+        ack = read_checkpoint_ack(os.path.join(dirs["a"], "alloc"), ha) or {}
+        report = (trep or {}).get("report", {})
+        hb2 = ((bound2.get("hashes") or {}).get("p1b") or [""])[0]
+        steps_done = report.get("start_step", 0) + report.get("steps", 0)
+
+        def ledger():
+            entry = (_http_json(bases["a"] + "/debug/goodput").get("pods")
+                     or {}).get("default/p0") or {}
+            closed = [i for i in entry.get("intervals", [])
+                      if i["state"] == "checkpointing"
+                      and (i.get("cause") or {}).get("category")
+                      == "slice_reform" and ack.get("ts") is not None
+                      and abs(i["end"] - ack["ts"]) < 1e-3]
+            return (entry, closed) if closed else None
+
+        entry, closed = _wait("p0's checkpointing closed by the ack",
+                              ledger, timeout_s=SL_WAIT_S, period_s=0.1,
+                              phase="slices") or ({}, [])
+        reformed2 = rows("a", "p0", "slice_reformed")
+        rchecks = {
+            "world 2": world(back) == {"TPU_WORKER_ID": "0",
+                                       "TPU_WORKER_HOSTNAMES": "h0,h1",
+                                       EnvSliceEpoch: "2"},
+            "p1b bound": bool(hb2) and world(env_of("b", hb2)) == {
+                "TPU_WORKER_ID": "1", "TPU_WORKER_HOSTNAMES": "h0,h1",
+                EnvSliceEpoch: "0"},
+            "row": len(reformed2) >= 2
+            and reformed2[-1]["attrs"].get("joined") == ["h1"],
+            "reform signal": report.get("lifecycle_signal") == "reform"
+            and report.get("platform") == "gpu",
+            "ack": ack.get("epoch") == 2 and ack.get("step") is not None
+            and ack.get("step") == steps_done - 1
+            and ack.get("checkpoint_dir") == ck,
+            "flash launches": all((trep or {}).get("launches", {}).get(k, 0)
+                                  > 0 for k in KERNEL_NAMES[:3]),
+            "goodput": bool(closed),
+        }
+        back_ms = dict(
+            restamp_to_ack=((ack["ts"] - t_back) * 1e3
+                            if ack.get("ts") else None),
+            bind_to_restamp=((t_back - bound2["at"]) * 1e3
+                             if bound2.get("at") else None))
+        print(f"slices return ({smi}): p1b bound on B -> A's restamp seen "
+              f"{back_ms['bind_to_restamp']} ms, restamp -> the tenant's "
+              f"ack {back_ms['restamp_to_ack']} ms (the runner's watcher "
+              f"polls every 1 s, then saves); the tenant stopped on "
+              f"{report.get('lifecycle_signal')!r} after {steps_done} steps "
+              f"at {report.get('step_time_ms')} ms a step, acked step "
+              f"{ack.get('step')} at epoch {ack.get('epoch')}; p0's "
+              f"checkpointing interval {closed[-1] if closed else None}; "
+              f"checks {rchecks}")
+        for k, ok in rchecks.items():
+            if not ok:
+                fail(f"slices return check {k!r} failed")
+
+        # 5. the resume, at world 1: NCCL refuses two ranks on one card
+        print("slices resume: the restore runs at world 1 "
+              "(TPU_WORKER_HOSTNAMES=h0): the one card cannot host the "
+              "world of 2 the slice now has, since NCCL refuses two ranks "
+              "on one device")
+        step = ack.get("step")
+        resumed = ref = {}
+        if step is not None:
+            r_ten = _Tenant(
+                "sl_r", "train2", d, strip=PLUGIN_ENV_STRIP,
+                env=pod_env(ha, TPU_WORKER_HOSTNAMES="h0", TPU_WORKER_ID="0"),
+                runner_args=(f"{data} --steps {SL_RESUME_STEPS} {sched} "
+                             f"--checkpoint-every 0 --checkpoint-dir {ck}"),
+                runner_args2=(f"{data} --steps "
+                              f"{step + 1 + SL_RESUME_STEPS} {sched}"))
+            alive.append(r_ten)
+            rrep = r_ten.result(time.perf_counter() + TENANT_TIMEOUT_S)
+            runs = (rrep or {}).get("runs") or [{}, {}]
+            resumed = runs[0].get("report", {})
+            ref = runs[1].get("report", {})
+            for run in (trep or {}, rrep or {}):
+                for k in KERNEL_NAMES[:3]:
+                    out["launches"][k] += (run.get("launches") or {}).get(k, 0)
+        gap = (abs(resumed.get("final_loss", float("nan"))
+                   - ref.get("final_loss", float("nan")))
+               if resumed and ref else float("nan"))
+        uchecks = {
+            "start step": step is not None
+            and resumed.get("start_step") == step + 1
+            and resumed.get("steps") == SL_RESUME_STEPS
+            and resumed.get("devices") == 1,
+            "parameters": gap <= RESUME_TOL,
+        }
+        print(f"slices resume ({smi}): restored at step "
+              f"{resumed.get('start_step')} (acked {step}), "
+              f"{resumed.get('steps')} "
+              f"steps to final loss {resumed.get('final_loss')} vs the "
+              f"uninterrupted run's {ref.get('final_loss')}: gap {gap:.3g} "
+              f"(limit {RESUME_TOL}); phase launches {out['launches']}; "
+              f"checks {uchecks}")
+        for k, ok in uchecks.items():
+            if not ok:
+                fail(f"slices resume check {k!r} failed")
+        arep = {}
+        for side, child in children.items():
+            child.proc.send_signal(signal.SIGTERM)
+            arep[side] = child.result(time.perf_counter() + 60)
+        print(f"slices agents: {arep}")
+        if any(r.get("rc") != 0 or r.get("torch_imported") is not False
+               for r in arep.values()):
+            fail(f"slices agents: {arep}")
+        out.update(
+            card=smi, formation=dict(worlds=formed, members=members,
+                                     packing_counted=packed, checks=fchecks),
+            loss=dict(world=world(lost), host_ms=loss_ms, checks=lchecks),
+            back=dict(world=world(back), host_ms=back_ms, ack=ack,
+                      steps=steps_done, step_time_ms=report.get(
+                          "step_time_ms"), checks=rchecks),
+            resume=dict(start_step=resumed.get("start_step"),
+                        final_loss=resumed.get("final_loss"),
+                        reference_loss=ref.get("final_loss"), gap=gap,
+                        checks=uchecks))
+    finally:
+        for p in alive:
+            p.kill()
+        if api is not None:
+            api.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -7102,12 +7546,13 @@ def main() -> int:
     ap.add_argument("--hold", default="",
                     help="a tenant stays up after its work until "
                          "HOLD/stop exists (phase 30)")
-    ap.add_argument("--agent", choices=("A", "B", "C", "D", "E", "F"),
+    ap.add_argument("--agent", choices=("A", "B", "C", "D", "E", "F", "G"),
                     help="run as one of phase 26's agent processes (A, B), "
-                         "phase 27's (C), 28's (D), 29's (E) or 30's (F)")
+                         "phase 27's (C), 28's (D), 29's (E), 30's (F) or "
+                         "31's (G)")
     ap.add_argument("--agent-dir", default="",
-                    help="phase 26's, 27's, 28's, 29's or 30's directory "
-                         "(db, dev root, alloc dir)")
+                    help="phase 26's to 31's agent directory (db, dev root, "
+                         "alloc dir)")
     args = ap.parse_args()
     if args.tenant:
         return tenant_main(args)
@@ -7119,6 +7564,8 @@ def main() -> int:
         return agent_mig_main(args)
     if args.agent == "F":
         return agent_rep_main(args)
+    if args.agent == "G":
+        return agent_slice_main(args)
     if args.agent:
         return agent_main(args)
 
@@ -7236,16 +7683,18 @@ def main() -> int:
                       srv_streams, dev)
     repartition = timed("repartition", run_repartition, torch, D, srv,
                         srv_streams, dev)
+    slices = timed("slices", run_slices, torch, D, dev)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
-    # runner's mesh runs + the tenants of phases 24, 29 and 30, serving +
-    # the spec engine's fallback steps + the tenants of phases 24-30,
-    # train + LoRA + the sharded step + the ring + the MoE mesh step +
-    # both pipeline schedules + the runner's mesh runs + the tenants
+    # runner's mesh runs + the tenants of phases 24, 29, 30 and 31,
+    # serving + the spec engine's fallback steps + the tenants of phases
+    # 24-30, train + LoRA + the sharded step + the ring + the MoE mesh
+    # step + both pipeline schedules + the runner's mesh runs + the
+    # tenants
     tenants = {k: sum(x.get("launches", {}).get(k, 0)
                       for x in (share, plugin, agent, observability,
-                                activation, migration, repartition))
+                                activation, migration, repartition, slices))
                for k in KERNEL_NAMES}
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
@@ -7285,7 +7734,8 @@ def main() -> int:
               "device_share": share, "plugin_path": plugin,
               "agent_restart": agent, "observability": observability,
               "runtime_activation": activation, "migration": migration,
-              "repartition": repartition, "kernels": kernel_recs,
+              "repartition": repartition, "slices": slices,
+              "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -7320,7 +7770,8 @@ def main() -> int:
                                 "observability": observability,
                                 "runtime_activation": activation,
                                 "migration": migration,
-                                "repartition": repartition}}))
+                                "repartition": repartition,
+                                "slices": slices}}))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

@@ -38,7 +38,8 @@ utilization sampler, ``--drain-deadline``, ``--drain-period``,
 ``--preemption-notice`` and ``--maintenance-poll-ttl`` the drain, and
 ``--migration-period``/``--no-migration`` the migration coordinator,
 ``--repartition-period``, ``--no-repartition`` and ``--qos-evict-after``
-live re-partitioning, and ``--goodput-period`` the goodput ledger.
+live re-partitioning, ``--goodput-period`` the goodput ledger, and
+``--slice-membership-ttl`` the slice registry's membership snapshot.
 ``perf-gate`` comes with the port's own bench history.
 """
 
@@ -186,6 +187,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="seconds one maintenance-event/preempted metadata "
                         "fetch stays cached (default 30; env "
                         "ELASTIC_TPU_MAINTENANCE_POLL_TTL also honored)")
+    p.add_argument("--slice-membership-ttl", type=float, default=5.0,
+                   help="seconds one apiserver slice-membership snapshot "
+                        "stays fresh (slices/registry.py): bounds the "
+                        "slice orchestrator's apiserver traffic; lower it "
+                        "for faster member-loss detection")
     p.add_argument("--storage-batch-window", type=float, default=0.0,
                    help="group-commit window (seconds) of the checkpoint "
                         "store (storage/batcher.py): 0 = every write "
@@ -603,6 +609,7 @@ def options_from_args(args: argparse.Namespace) -> ManagerOptions:
         crash_loop_threshold=args.crash_loop_threshold,
         reconcile_period_s=args.reconcile_period,
         reconcile_dry_run=args.reconcile_dry_run,
+        slice_membership_ttl_s=args.slice_membership_ttl,
         enable_events=not args.no_events,
         enable_crd=not args.no_crd,
         enable_sampler=not args.no_sampler,

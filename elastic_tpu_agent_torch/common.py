@@ -55,8 +55,15 @@ AnnotationContainerPrefix = "elasticgpu.io/container-"
 # An admission-stamped correlation id a bind's trace adopts
 AnnotationTraceID = "elasticgpu.io/trace-id"
 
+# Multi-host slice annotations of the scheduler's contract (names kept):
+# the slice's type (``h100-sxm5-16``: device/topology.py), this pod's
+# worker id and the comma-separated hosts it indexes.
+AnnotationSliceName = "elasticgpu.io/tpu-slice"
+AnnotationSliceWorkerID = "elasticgpu.io/tpu-slice-worker-id"
+AnnotationSliceWorkerHosts = "elasticgpu.io/tpu-slice-hosts"
 # Job-unique slice identity: pods carrying the same id are members of one
-# logical slice (a draining agent annotates its resident members).
+# logical slice (slices/registry.py groups membership by it; a draining
+# agent annotates its resident members).
 AnnotationSliceID = "elasticgpu.io/tpu-slice-id"
 # The slice's identity and generation counter in the spec env.
 EnvSliceName = "ELASTIC_TPU_SLICE_NAME"

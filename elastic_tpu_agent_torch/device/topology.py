@@ -15,15 +15,24 @@ fallback sizes are the data sheets' decimal gigabytes, which lie below what
 each card reports (an SXM5 card reports 81,559 MiB), so a fallback never
 over-advertises memory units.
 
-A GPU host has no slice string: :class:`TopologyInfo` is built from the
-cards discovered and the hosts the slice env lists. One host has
-``num_hosts`` 1, for which the agent's slice env emits nothing; across
-hosts the agent stamps ``TPU_WORKER_ID`` and ``TPU_WORKER_HOSTNAMES``, which
-the port's runner reads (``workloads/runner.py`` ``slice_layout``).
+A GPU host has no slice string of its own: the host's :class:`TopologyInfo`
+is built from the cards discovered and the hosts the operator's env lists
+(``host_topology``). A slice scheduled across hosts is named by the
+``elasticgpu.io/tpu-slice`` annotation in the form ``<family>-<cards>``
+(``h100-sxm5-16``: 16 cards of the table's ``h100-sxm5`` family, 8 a host,
+so 2 hosts), which :func:`parse_accelerator_type` reads and
+:func:`topology_for_hosts` resizes when the slice re-forms. What the
+agent stamps from either (``slice_env.py``): ``TPU_WORKER_ID`` and
+``TPU_WORKER_HOSTNAMES``, which the port's runner reads
+(``workloads/runner.py`` ``slice_layout``), and ``TPU_ACCELERATOR_TYPE``,
+the annotation or the card product, verbatim; nothing for a single host
+with no slice annotation. The ICI grid bounds the agent derives from a
+TPU type have no counterpart on an NVSwitch host and are not stamped.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -92,4 +101,48 @@ def host_topology(product: str, chips_per_host: int,
         total_cores=total * spec.cores_per_chip,
         chips_per_host=chips_per_host,
         num_hosts=hosts,
+    )
+
+
+# the card table by family, the first half of a slice type string
+_FAMILIES: Dict[str, ChipSpec] = {s.family: s for s in CHIP_SPECS.values()}
+_TYPE_RE = re.compile(r"^(?P<family>[a-z0-9-]+?)-(?P<count>\d+)$")
+
+
+def parse_accelerator_type(acc_type: str) -> Optional[TopologyInfo]:
+    """Parse a slice type ``<family>-<cards>`` (``h100-sxm5-16``): the
+    family from the card table, the count in cards, at most the family's
+    cards a host, so ``h100-sxm5-16`` is 2 hosts of 8. None when the family
+    is unknown or the count is not positive. The type string is kept
+    verbatim."""
+    m = _TYPE_RE.match((acc_type or "").strip().lower())
+    if not m:
+        return None
+    spec = _FAMILIES.get(m.group("family"))
+    count = int(m.group("count"))
+    if spec is None or count <= 0:
+        return None
+    per_host = min(count, spec.max_chips_per_host)
+    return TopologyInfo(
+        accelerator_type=acc_type,
+        spec=spec,
+        total_chips=count,
+        total_cores=count * spec.cores_per_chip,
+        chips_per_host=per_host,
+        num_hosts=max(1, -(-count // per_host)),
+    )
+
+
+def topology_for_hosts(topo: TopologyInfo, num_hosts: int) -> TopologyInfo:
+    """``topo`` resized to ``num_hosts`` hosts, cards a host kept: the shape
+    of a slice re-formed at another world size. The type string stays
+    verbatim, so that the workload still sees what it was scheduled as."""
+    n = max(1, num_hosts)
+    return TopologyInfo(
+        accelerator_type=topo.accelerator_type,
+        spec=topo.spec,
+        total_chips=topo.chips_per_host * n,
+        total_cores=topo.chips_per_host * n * topo.spec.cores_per_chip,
+        chips_per_host=topo.chips_per_host,
+        num_hosts=n,
     )

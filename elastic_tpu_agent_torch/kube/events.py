@@ -64,7 +64,10 @@ ReasonMigrationCompleted = "TPUMigrationCompleted"
 ReasonRepartitioned = "TPURepartitioned"
 ReasonThrottled = "TPUThrottled"
 ReasonQoSEvicted = "TPUQoSEvicted"
-# The slice reasons come with that subsystem.
+# slice orchestration (slices/): a member re-formed at a new world size,
+# and a slice whose members derived inconsistent worlds
+ReasonSliceReformed = "TPUSliceReformed"
+ReasonSliceInconsistent = "TPUSliceInconsistent"
 
 
 class EventRecorder:

@@ -11,8 +11,10 @@ and mark the detection-lag origin), the device operator, the metrics'
 attachments, the latency observatory and detection-lag tracker, the
 profiler, the tracer's slow-span listener, the CRD and Event recorders,
 the utilization sampler, the pod-resources client with one snapshot
-source shared by the core and memory locators, the plugin bundle (which
-folds the sampler's flags into its health), the reconciler, the drain
+source shared by the core and memory locators, the slice registry, the
+plugin bundle (which folds the sampler's flags into its health and stamps
+slice members' env through the registry), the slice reformer and the
+reconciler (which re-forms a slice member through it), the drain
 orchestrator, the migration coordinator (both assigned to the reconciler,
 and the coordinator to the drain), the repartition controller (with the
 sampler only: the sampler is its usage signal; assigned to the reconciler,
@@ -49,8 +51,11 @@ grpc: the pod-resources client is built from ``rpc`` only when no
 they start. ``metrics`` is an ``AgentMetrics`` built by the caller (the
 CLI's ``--metrics-port``); without it nothing imports prometheus_client.
 
-The agent's slice registry comes with its slice, and so do its options
-and flags.
+The slice registry's apiserver membership snapshot stays fresh for
+``slice_membership_ttl_s`` (CLI ``--slice-membership-ttl``), which bounds
+what slice tracking costs the apiserver from the bind path and the
+reconciler alike; its status is the ``slices`` block of
+``/debug/allocations`` and of the doctor bundle.
 """
 
 from __future__ import annotations
@@ -125,6 +130,9 @@ class ManagerOptions:
     # pass always repairs)
     reconcile_period_s: float = DEFAULT_PERIOD_S
     reconcile_dry_run: bool = False
+    # how long one apiserver slice-membership snapshot stays fresh
+    # (slices/registry.py; CLI --slice-membership-ttl)
+    slice_membership_ttl_s: float = 5.0
     # publish bound allocations and the card inventory as ElasticTPU
     # objects (crd_recorder.py); auto-disables when the CRD is absent
     enable_crd: bool = True
@@ -323,6 +331,14 @@ class NodeManager:
         # prefetch warms both PreStarts.
         self.locator_source = PodResourcesSnapshotSource(
             pr_client, metrics=self.metrics, bus=self.bus)
+        from .slices import SliceRegistry, SliceReformer
+
+        # multi-host slices: PreStart stamps a member's env through the
+        # registry, and the reconciler's reformer advances it
+        self.slice_registry = SliceRegistry(
+            node_name=opts.node_name, kube_client=self.client,
+            metrics=self.metrics, events=self.events,
+            membership_ttl_s=opts.slice_membership_ttl_s)
         self.config = PluginConfig(
             node_name=opts.node_name,
             device_plugin_dir=opts.device_plugin_dir,
@@ -339,6 +355,7 @@ class NodeManager:
             timeline=self.timeline,
             lag_tracker=self.lag_tracker,
             sampler=self.sampler,
+            slice_registry=self.slice_registry,
             extra={"alloc_spec_dir": opts.alloc_spec_dir},
         )
         self.plugin = GPUSharePlugin(self.config)
@@ -348,6 +365,9 @@ class NodeManager:
             # the plugin's applied health view, not an operator probe from
             # the debug handler's thread
             self.sampler.unhealthy_view_fn = self.plugin.core.unhealthy_chips
+        self.slice_reformer = SliceReformer(
+            self.slice_registry, self.plugin, metrics=self.metrics,
+            events=self.events, timeline=self.timeline)
         self.reconciler = Reconciler(
             storage=self.storage,
             operator=self.operator,
@@ -360,6 +380,7 @@ class NodeManager:
             crd_recorder=self.crd_recorder,
             period_s=opts.reconcile_period_s,
             dry_run=opts.reconcile_dry_run,
+            slice_reformer=self.slice_reformer,
             timeline=self.timeline,
             lag_tracker=self.lag_tracker,
             bus=self.bus,
@@ -431,6 +452,7 @@ class NodeManager:
             # off too
             self.sampler.usage_report_allowed_fn = self._report_allowed
             self.sampler.reconcile_status_fn = self.reconciler.status
+            self.sampler.slice_status_fn = self.slice_registry.status
             self.sampler.drain_status_fn = self.drain.status
             if self.migration is not None:
                 self.sampler.migration_status_fn = self.migration.status

@@ -6,8 +6,9 @@ they are a contract that dashboards and fleet aggregation read, and
 ``tests/test_torch_metrics.py`` holds the two declarations equal. The
 repartition controller (repartition.py) feeds the repartition, throttle
 and QoS-eviction counters, the goodput ledger (goodput.py) the
-goodput-ratio and downtime families; the slice families stay unset until
-that subsystem comes. ``attach_sampler`` points ``/debug/allocations`` at
+goodput-ratio and downtime families, the slice registry (slices/) the
+slice-member and reform families and the plugins the packing histogram.
+``attach_sampler`` points ``/debug/allocations`` at
 the utilization sampler and ``attach_goodput`` ``/debug/goodput`` at the
 ledger (each 503 until then).
 

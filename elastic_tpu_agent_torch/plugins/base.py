@@ -12,8 +12,7 @@ not when this module is imported: ``PluginConfig`` and the plugins'
 allocation logic run where grpcio and protobuf are not installed.
 
 What the agent's config carries besides, and this copy does not: the
-slice registry seam and the ``dp.run`` failpoint; they come with the
-slices. The config carries the lag tracker, which the
+``dp.run`` failpoint. The config carries the lag tracker, which the
 agent's does not: the port's GC reports deletion-to-reclaim lag. The
 restart backoff is a constant, as nothing sets it; the
 gRPC pool size is the manager's (``--dp-pool-size``). The manager builds
@@ -79,6 +78,9 @@ class PluginConfig:
     # the utilization sampler (sampler.py): the health poll folds in the
     # cards whose telemetry it flags
     sampler: object = None
+    # the slice registry (slices/registry.py): PreStart stamps a slice
+    # member's env through it; None stamps from the annotations alone
+    slice_registry: object = None
     extra: dict = field(default_factory=dict)
 
 

@@ -64,8 +64,15 @@ path by which the drain's signal, the pre-copy cutover and the restore
 stamp reach a running pod's specs (``plugins.restamp_owner_env`` takes the
 owner's stripe around it).
 
-Not ported in this slice: the slice env, the ICI packing histogram and
-the repartition controller's quota restamps.
+The slice env is the agent's: a pod annotated as a member of a
+multi-host slice gets ``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES`` and
+``TPU_ACCELERATOR_TYPE`` (``slice_env.py``) with the slice's name and reform
+epoch, through the slice registry when the config carries one
+(``slices/registry.py``: the worker order of the host set, a re-formed
+world kept across a rebind, the ``slice_formed`` timeline row), else from
+the annotations and the operator's worker identity alone. The bind's trace
+carries the slice id and the card set's packing score, which the
+``elastic_tpu_packing_ici_span`` histogram counts per bind.
 """
 
 from __future__ import annotations
@@ -85,9 +92,12 @@ from ..common import (
     UNHEALTHY,
     AllocSidecarSubdirs,
     AnnotationAssumed,
+    AnnotationSliceID,
     AnnotationTraceID,
     BytesPerMemoryUnit,
     EnvAllocationHash,
+    EnvSliceEpoch,
+    EnvSliceName,
     GPUPercentEachCard,
     ResourceGPUCore,
     ResourceGPUMemory,
@@ -103,6 +113,7 @@ from ..kube.events import (
     ReasonChipUnhealthy,
     ReasonReclaimed,
 )
+from ..slice_env import slice_env_for_pod
 from ..slices import packing
 from ..tracing import get_tracer
 from ..types import AllocationRecord, Device, PodContainer
@@ -297,6 +308,9 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         self._crd = config.crd_recorder
         self._events = config.events
         self._timeline = config.timeline
+        self._slices = config.slice_registry
+        # (topology, worker id, hosts) of this host, probed once
+        self._host_facts = None
         self._bind_count_lock = threading.Lock()
         self._bind_counts = {"inflight": 0, "binds_total": 0,
                              "bind_failures_total": 0}
@@ -450,12 +464,18 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
     def GetPreferredAllocation(self, request, context):  # noqa: N802, ARG002
         from ..gen import deviceplugin_pb2 as dp
 
-        return dp.PreferredAllocationResponse(container_responses=[
-            dp.ContainerPreferredAllocationResponse(deviceIDs=self.preferred_ids(
-                creq.available_deviceIDs, creq.must_include_deviceIDs,
-                creq.allocation_size))
-            for creq in request.container_requests
-        ])
+        responses = []
+        for creq in request.container_requests:
+            ids = self.preferred_ids(creq.available_deviceIDs,
+                                     creq.must_include_deviceIDs,
+                                     creq.allocation_size)
+            # a proposal, not a bind: the trace only
+            self._note_packing(
+                (c for c in map(chip_of_device_id, ids) if c is not None),
+                observe=False)
+            responses.append(dp.ContainerPreferredAllocationResponse(
+                deviceIDs=ids))
+        return dp.PreferredAllocationResponse(container_responses=responses)
 
     # -- PreStartContainer ----------------------------------------------------
 
@@ -572,13 +592,17 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         return intent_id
 
     @staticmethod
-    def _bind_keys(owner, device: Device, chip_indexes: List[int]) -> Dict:
-        return {
+    def _bind_keys(owner, device: Device, chip_indexes: List[int],
+                   slice_id: str = "") -> Dict:
+        keys = {
             "pod": owner.pod_key,
             "container": owner.container,
             "hash": device.hash,
             "chips": list(chip_indexes),
         }
+        if slice_id:
+            keys["slice"] = slice_id
+        return keys
 
     def _emit_rollback(self, owner, device: Device, chip_indexes: List[int],
                        intent_id: int, reason: str) -> None:
@@ -589,8 +613,26 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                 resource=self.resource, intent_id=intent_id, reason=reason,
             )
 
+    def _note_packing(self, chip_indexes, observe: bool = True) -> None:
+        """The card set's packing score on the active trace
+        (``packing_span``) and, per bind, in the
+        ``elastic_tpu_packing_ici_span`` histogram. ``observe=False``
+        annotates the trace only: a preferred-allocation proposal may never
+        bind."""
+        span = packing.packing_score(chip_indexes)
+        get_tracer().annotate(packing_span=span)
+        if observe and self._metrics is not None:
+            try:
+                self._metrics.packing_span.observe(span)
+            except Exception:  # noqa: BLE001 - metrics never break a bind
+                pass
+
     def _bind_located(self, device: Device, owner, pod: dict) -> None:
         annotations = pod.get("metadata", {}).get("annotations", {}) or {}
+        slice_id = annotations.get(AnnotationSliceID, "")
+        if slice_id:
+            # every member bind of one slice can be followed by it
+            get_tracer().annotate(slice=slice_id)
         # crash-window failpoints (test-only): each names the window a
         # process death is injected into, proving the journal recovers it
         faults.fire("bind.pre_journal")
@@ -600,6 +642,7 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
             # cards' own nodes
             chip_indexes = self._chips_from_ids(device)
             self._require_known_chips(chip_indexes)
+            self._note_packing(chip_indexes)
             intent_id = self._journal_intent(owner, device, chip_indexes, [])
             try:
                 faults.fire("bind.post_journal")
@@ -632,6 +675,7 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         chip_indexes = packing.canonical_chip_order(
             _parse_chip_annotation(annotations[ann_key]))
         self._require_known_chips(chip_indexes)
+        self._note_packing(chip_indexes)
         planned = [f"{device.hash}-{p}" for p in range(len(chip_indexes))]
         intent_id = self._journal_intent(owner, device, chip_indexes, planned)
         try:
@@ -735,7 +779,9 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                 # (and its reconcile_repair event) narrates instead
                 self._timeline.emit(
                     tl.KIND_BIND_COMMIT,
-                    keys=self._bind_keys(owner, device, chip_indexes),
+                    keys=self._bind_keys(
+                        owner, device, chip_indexes,
+                        slice_id=annotations.get(AnnotationSliceID, "")),
                     resource=self.resource, intent_id=intent_id,
                     links=len(created),
                 )
@@ -770,6 +816,7 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         env = visibility_env(cards)
         env.update(qos_env(annotations, pod_spec=pod,
                            **self._qos_kwargs(device)))
+        env.update(self._slice_env(owner, chip_indexes, annotations))
         trace_id = get_tracer().current_id()
         if trace_id:
             env["ELASTIC_TPU_TRACE_ID"] = trace_id
@@ -785,6 +832,52 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
                 p for c in cards for p in c.extra_paths)),
             "env": env,
         }
+
+    def _host_slice_facts(self):
+        """(topology, worker id, hosts) of this host from the operator,
+        probed once: a host's identity is fixed for the agent's life."""
+        if self._host_facts is None:
+            op = self._operator
+            topo = getattr(op, "topology", None)
+            worker_id = op.worker_id() if hasattr(op, "worker_id") else 0
+            hostnames = (op.worker_hostnames()
+                         if hasattr(op, "worker_hostnames") else [])
+            self._host_facts = (topo, worker_id, hostnames)
+        return self._host_facts
+
+    def _slice_env(self, owner, chip_indexes: List[int],
+                   annotations: Dict) -> Dict[str, str]:
+        """The pod's slice env (module docstring). Through the registry,
+        a member's bind records it as a local member and journals
+        ``slice_formed``: the world and epoch the runner starts in, which
+        a later reform is read against."""
+        topo, worker_id, hostnames = self._host_slice_facts()
+        if self._slices is None:
+            return slice_env_for_pod(annotations, topo, worker_id, hostnames)
+        slice_env = self._slices.pod_env(annotations, topo, worker_id,
+                                         hostnames)
+        if slice_env.get(EnvSliceName):
+            try:
+                wid = int(slice_env.get("TPU_WORKER_ID", "0"))
+            except ValueError:
+                wid = 0
+            self._slices.record_local_pod(
+                slice_env[EnvSliceName], owner.pod_key, wid)
+            if self._timeline is not None:
+                try:
+                    epoch = int(slice_env.get(EnvSliceEpoch) or 0)
+                except ValueError:
+                    epoch = 0
+                self._timeline.emit(
+                    tl.KIND_SLICE_FORMED,
+                    keys={"pod": owner.pod_key,
+                          "container": owner.container,
+                          "slice": slice_env[EnvSliceName],
+                          "chips": list(chip_indexes)},
+                    resource=self.resource, epoch=epoch, worker_id=wid,
+                    hosts=slice_env.get("TPU_WORKER_HOSTNAMES", ""),
+                )
+        return slice_env
 
     def _sibling_specs(self, owner) -> List[Dict]:
         """Spec payloads already written for the same container by the
@@ -910,10 +1003,11 @@ class _GPUSharePluginBase(_ListAndWatchMixin):
         ``remove_keys`` in every on-disk spec of this container, in the
         merged env and the pre-merge ``own`` snapshot both, atomically per
         file, without re-running the bind: the cards stay as bound. The
-        drain's signal (and its removal on cancel), the cutover and the
-        restore stamp go through here. Returns the specs that carry the
-        env afterwards (an already-stamped spec counts and is not
-        rewritten, so that re-stamping every tick is cheap)."""
+        drain's signal (and its removal on cancel), the cutover, the
+        restore stamp and a slice reform's world go through here. Returns
+        the specs that carry the env afterwards (an already-stamped spec
+        counts and is not rewritten, so that re-stamping every tick is
+        cheap)."""
         restamped = 0
         for record in records.values():
             path = os.path.join(self._alloc_dir, f"{record.device.hash}.json")

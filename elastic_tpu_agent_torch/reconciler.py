@@ -39,8 +39,18 @@ while the drain has reclaimed this node's bindings past its deadline, the
 record walk rebuilds nothing and no kubelet assignment is replayed; a pod
 that QoS enforcement evicted, and an acked resident reclaimed early, are
 not replayed until the pod is gone. ``reclaim_pods`` is their teardown,
-the dead-pod repair run under each owner's bind stripe. The agent's
-slice-reformer hook comes with its slice, and so do its slice passes.
+the dead-pod repair run under each owner's bind stripe.
+
+Slice membership is a divergence class too (``slice_reformer``, a
+``slices.SliceReformer``): every pass diffs the hosts stamped into each
+slice member's specs against the members live at the shared apiserver and
+re-forms a member whose slice lost or regained a host. The boot pass first
+re-learns every stamped world and epoch, so that no rebind of the pass
+stamps a stale annotation world over a reformed spec. A reform needs two
+sightings, the second from a fresh LIST (a membership snapshot can outlive
+a pass); a membership the apiserver cannot answer is never counted as a
+loss: it is reported (``slice_check_errors``) and the node is not
+converged.
 """
 
 from __future__ import annotations
@@ -81,6 +91,7 @@ KIND_INTENT_COMMITTED = "intent_committed"  # journal row outlived its commit
 KIND_INTENT_ROLLED_BACK = "intent_rolled_back"  # crashed mid-bind: undo
 KIND_REPLAYED_BIND = "replayed_bind"        # kubelet assignment, no record
 KIND_REBOUND_DRIFT = "rebound_drift"        # kubelet reassigned device ids
+KIND_SLICE_REFORMED = "slice_reformed"      # slice membership changed: re-form
 
 # The single source of truth for divergence classes: metric label ->
 # report counter key. _count(), _new_report() and run()'s repaired sum
@@ -95,6 +106,7 @@ KIND_REPORT_KEY = {
     KIND_INTENT_ROLLED_BACK: "intents_rolled_back",
     KIND_REPLAYED_BIND: "replayed_binds",
     KIND_REBOUND_DRIFT: "rebound_drift",
+    KIND_SLICE_REFORMED: "slice_reforms",
 }
 ALL_KINDS = tuple(KIND_REPORT_KEY)
 
@@ -109,6 +121,8 @@ def _new_report(boot: bool, dry_run: bool) -> dict:
         "corrupt_records": 0,
         "sweep_failures": 0,
         "replay_failures": 0,
+        "slice_check_errors": 0,  # membership unknowable this pass
+        "slice_reform_failures": 0,
         "divergences_observed": 0,  # dry-run: repairs that WOULD run
         "snapshot_error": None,
         "boot": boot,
@@ -139,6 +153,7 @@ class Reconciler:
         period_s: float = DEFAULT_PERIOD_S,
         dry_run: bool = False,
         rng=None,
+        slice_reformer=None,
         timeline=None,
         lag_tracker=None,
         bus=None,
@@ -155,6 +170,9 @@ class Reconciler:
         self._crd = crd_recorder
         self._timeline = timeline
         self._lag = lag_tracker
+        # the SliceReformer (slices/recovery.py): member loss or return
+        # re-forms the member's slice
+        self._slices = slice_reformer
         # DrainOrchestrator, RepartitionController and
         # MigrationCoordinator, assigned by the manager once all exist
         # (module docstring)
@@ -168,6 +186,7 @@ class Reconciler:
         self._repairs: Dict[str, int] = {k: 0 for k in ALL_KINDS}
         self._sweep_failures_total = 0
         self._replay_failures_total = 0
+        self._slice_reform_failures_total = 0
         self._runs_total = 0
         self._last_run_ts: Optional[float] = None
         self._last_duration_s: Optional[float] = None
@@ -351,6 +370,12 @@ class Reconciler:
                     "(%s); skipping kubelet-diff repairs", e,
                 )
 
+        if boot and self._slices is not None:
+            # BEFORE any repair that can rebind (intent replay, drift
+            # rebind): a cold registry's pod_env would stamp the stale
+            # annotation world at epoch 0 over a reformed spec
+            with get_tracer().span("reconcile_slice_prelearn"):
+                self._prelearn_slices()
         with get_tracer().span("reconcile_intents"):
             self._resolve_intents(intents, report, boot, active)
         with get_tracer().span("reconcile_records"):
@@ -361,6 +386,9 @@ class Reconciler:
             )
         with get_tracer().span("reconcile_unbound"):
             self._replay_unbound(assignments, report, boot, active)
+        if self._slices is not None:
+            with get_tracer().span("reconcile_slices"):
+                self._reconcile_slices(report, boot, active)
         if boot and self._crd is not None:
             self._reconcile_crd()
 
@@ -398,6 +426,10 @@ class Reconciler:
             and report["corrupt_records"] == 0
             and report["divergences_observed"] == 0
             and report["pending_confirmation"] == 0
+            # a membership the apiserver cannot answer may hide a lost
+            # member: the apiserver's counterpart of snapshot_error
+            and report["slice_check_errors"] == 0
+            and report["slice_reform_failures"] == 0
         )
         wall_now = time.time()
         with self._lock:
@@ -1020,6 +1052,135 @@ class Reconciler:
         for key in [k for k in self._replay_backoff if k not in live_keys]:
             del self._replay_backoff[key]
 
+    # -- slice membership (slices/recovery.py) --------------------------------
+
+    def _prelearn_slices(self) -> None:
+        """Boot only: re-learn every stamped slice world and epoch from the
+        specs before any repair runs (module docstring)."""
+        for _key, info in list(self._storage.items()):
+            for by_resource in list(info.allocations.values()):
+                try:
+                    stamped = self._slices.stamped_view(by_resource)
+                except Exception:  # noqa: BLE001 - best-effort pre-learn
+                    continue
+                if stamped is not None:
+                    self._slices.observe(stamped)
+
+    def _reconcile_slices(self, report: dict, boot: bool,
+                          active: bool) -> None:
+        """For every bound pod carrying a slice stamp, diff the hosts in
+        its specs against the apiserver's live members; a divergence seen
+        on two passes, the second from a fresh LIST, re-forms the member
+        (``SliceReformer.reform``)."""
+        from .common import AnnotationSliceID
+        from .slices.recovery import SliceMembershipError
+
+        seen_slices: set = set()
+        local_members: Dict[str, set] = {}  # slice -> pod keys seen bound
+        live_cache: Dict[str, set] = {}  # one apiserver view a pass
+        for _key, info in list(self._storage.items()):
+            pod = self._sitter.get_pod(info.namespace, info.name)
+            ann = ((pod or {}).get("metadata", {}).get("annotations", {})
+                   or {})
+            slice_id = ann.get(AnnotationSliceID, "")
+            if slice_id:
+                seen_slices.add(slice_id)
+            for container, by_resource in list(info.allocations.items()):
+                if pod is not None and not slice_id:
+                    # the live pod carries no slice annotation: not a
+                    # member, and no spec is read for it
+                    continue
+                # The stamped spec is the durable membership record: read
+                # and re-learned even while the sitter cannot return the
+                # pod, so that a watch blip never prunes a live slice.
+                stamped = self._slices.stamped_view(by_resource)
+                if stamped is None:
+                    continue  # unstamped: nothing to diff or reform yet
+                seen_slices.add(stamped[0])
+                local_members.setdefault(stamped[0], set()).add(info.key)
+                self._slices.observe(stamped)
+                if pod is None:
+                    continue  # dead or unknown pods are the record walk's
+                stamped_slice = stamped[0]
+                owner = PodContainer(info.namespace, info.name, container)
+                try:
+                    div = self._slices.divergence(
+                        owner, by_resource, live_hosts_cache=live_cache,
+                        stamped=stamped)
+                except SliceMembershipError as e:
+                    # unknowable is never loss: reported, retried
+                    report["slice_check_errors"] += 1
+                    logger.warning(
+                        "reconcile: slice membership for %s unknowable: "
+                        "%s", stamped_slice, e)
+                    continue
+                if div is None:
+                    continue
+                skey = ("slice", stamped_slice, owner.pod_key, container,
+                        tuple(div["new_hosts"]))
+                if not active:
+                    self._candidate(skey)
+                    report["divergences_observed"] += 1
+                    continue
+                if not boot and not self._confirmed(skey):
+                    # first sighting: a member mid-registration (or a
+                    # watch blip) must not re-form the slice
+                    continue
+                if not boot:
+                    # The confirming sighting comes from an independent
+                    # LIST: with a period shorter than the membership
+                    # TTL, two passes could read one snapshot.
+                    try:
+                        fresh = {stamped_slice:
+                                 self._slices.registry.live_hosts(
+                                     stamped_slice, refresh=True)}
+                    except SliceMembershipError as e:
+                        report["slice_check_errors"] += 1
+                        logger.warning(
+                            "reconcile: slice %s reform confirmation "
+                            "blocked, membership unknowable: %s",
+                            stamped_slice, e)
+                        continue
+                    live_cache.update(fresh)
+                    div = self._slices.divergence(
+                        owner, by_resource, live_hosts_cache=fresh,
+                        stamped=stamped)
+                    if div is None:
+                        continue  # healthy on the fresh view after all
+                    fresh_skey = ("slice", stamped_slice, owner.pod_key,
+                                  container, tuple(div["new_hosts"]))
+                    if fresh_skey != skey:
+                        # the world moved between sightings: confirm the
+                        # new shape from scratch
+                        self._candidate(fresh_skey)
+                        continue
+                try:
+                    self._slices.reform(owner, by_resource, div)
+                    # the reformer journals the richer slice_reformed row
+                    # itself: a second row would read as a second reform
+                    self._count(report, KIND_SLICE_REFORMED, emit=False)
+                except Exception as e:  # noqa: BLE001 - retried next pass
+                    logger.warning(
+                        "reconcile: slice reform for %s (%s) failed: %s",
+                        owner.pod_key, stamped_slice, e)
+                    report["slice_reform_failures"] += 1
+                    with self._lock:
+                        self._slice_reform_failures_total += 1
+        if active:
+            # dry-run passes observe only: a prune moves registry state
+            registry = self._slices.registry
+            registry.prune(seen_slices)
+            # a reclaimed member (its record gone) leaves the slice's
+            # local members, re-checked per pod so that a bind landing
+            # mid-pass stays
+            for sid, st in registry.status().items():
+                for pod_key in list(st.get("local_pods", {})):
+                    if pod_key in local_members.get(sid, ()):
+                        continue
+                    ns, _, name = pod_key.partition("/")
+                    if self._storage.load(ns, name) is None:
+                        registry.drop_local_pod(sid, pod_key)
+
     # -- CRD inventory (boot only, as restore() always did) -------------------
 
     def _reconcile_crd(self) -> None:
@@ -1193,6 +1354,8 @@ class Reconciler:
                 },
                 "sweep_failures_total": self._sweep_failures_total,
                 "replay_failures_total": self._replay_failures_total,
+                "slice_reform_failures_total": (
+                    self._slice_reform_failures_total),
                 "last_error": self._last_error,
                 "pending_confirmation": len(self._prev_candidates),
                 "open_intents": intents,

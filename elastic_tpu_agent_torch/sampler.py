@@ -29,8 +29,9 @@ The windows and the joined table are served at ``/debug/allocations``
 (``build_diagnostics_bundle``, ``validate_bundle``), with the repartition
 controller's block (repartition.py) and the goodput ledger's replay of the
 db (goodput.py). The repartition controller's deltas make a pod's grant
-its effective grant (``grant_adjust_fn``). The agent's slice and serving
-blocks come with those subsystems.
+its effective grant (``grant_adjust_fn``). The slice registry's status is
+the ``slices`` block (``slice_status_fn``). The agent's serving block comes
+with that subsystem.
 
 Like tracing.py this module imports nothing outside the standard library
 and is never load-bearing: a sampler failure must not affect binding.
@@ -87,6 +88,7 @@ _STATUS_BLOCKS = (
     ("locator", "locator_stats_fn"),
     ("bind", "bind_stats_fn"),
     ("reconcile", "reconcile_status_fn"),
+    ("slices", "slice_status_fn"),
     ("drain", "drain_status_fn"),
     ("repartition", "repartition_status_fn"),
     ("migration", "migration_status_fn"),
@@ -147,11 +149,14 @@ class UtilizationSampler:
         # Manager-set status hooks (() -> dict), each one block of
         # /debug/allocations and the doctor bundle (_STATUS_BLOCKS): the
         # locators' caches, the bind pipeline, the reconciler (open
-        # intents with their age), the drain, the repartition
+        # intents with their age), the slice registry (each slice's
+        # world, epoch, local members, reforms and formation verdict),
+        # the drain, the repartition
         # controller, the migration coordinator and the event bus.
         self.locator_stats_fn: Optional[Callable[[], dict]] = None
         self.bind_stats_fn: Optional[Callable[[], dict]] = None
         self.reconcile_status_fn: Optional[Callable[[], dict]] = None
+        self.slice_status_fn: Optional[Callable[[], dict]] = None
         self.drain_status_fn: Optional[Callable[[], dict]] = None
         self.repartition_status_fn: Optional[Callable[[], dict]] = None
         self.migration_status_fn: Optional[Callable[[], dict]] = None
@@ -1088,6 +1093,21 @@ def validate_bundle(bundle: dict) -> List[str]:
             for field in ("pod", "granted_core_percent", "overcommit"):
                 expect(field in pod,
                        f"allocations.pods[{i}] missing {field!r}")
+    if isinstance(allocations, dict) and "slices" in allocations:
+        # absent when no slice registry is attached (standalone
+        # node-doctor)
+        slices = allocations["slices"]
+        expect(isinstance(slices, dict),
+               "allocations.slices must be an object")
+        for name, sl in (slices.items() if isinstance(slices, dict)
+                         else []):
+            if not isinstance(sl, dict):
+                problems.append(
+                    f"allocations.slices[{name!r}] must be an object")
+                continue
+            for field in ("hosts", "world_size", "epoch", "reforms_total"):
+                expect(field in sl,
+                       f"allocations.slices[{name!r}] missing {field!r}")
     if isinstance(allocations, dict) and "drain" in allocations:
         # absent when no drain hook is attached (standalone node-doctor)
         drain = allocations["drain"]

@@ -8,12 +8,24 @@ the fewest cards that can hold the request; among those, the sets holding
 the most cards the request's must-include ids already sit on; then the
 lowest indexes. A host has at most a few cards, so the search is
 exhaustive.
+
+The packing score (``packing_score``) keeps the agent's metric: the total
+pairwise hop count of a bind's card set, exported per bind as the
+``elastic_tpu_packing_ici_span`` histogram. Every pair of cards on one host
+is one NVSwitch hop, so a set of k cards scores k(k-1)/2.
 """
 
 from __future__ import annotations
 
 import itertools
 from typing import Dict, Iterable, List, Optional
+
+
+def packing_score(chip_indexes: Iterable[int]) -> int:
+    """Total pairwise hop count over a card set: 0 for at most one card,
+    k(k-1)/2 for k cards (each pair one NVSwitch hop apart)."""
+    k = len(set(chip_indexes))
+    return k * (k - 1) // 2
 
 
 def canonical_chip_order(chip_indexes: Iterable[int]) -> List[int]:

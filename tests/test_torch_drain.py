@@ -16,6 +16,11 @@ that resumes from the journal. After every step the states, the drain's
 status, the restamped specs, the records, the Events, the cordon, the
 drain's metric samples and its timeline rows must be equal once the
 names are mapped.
+
+Across agents: the draining node's slice member is counted lost by a peer's
+SliceRegistry (over the same apiserver) while its host still holds it, and
+the peer's SliceReformer re-forms its own member around the loss, then
+back when the drain is cancelled, on both sides alike.
 """
 
 import pytest
@@ -28,6 +33,19 @@ from elastic_tpu_agent_torch.common import (  # noqa: E402
     EnvDrain,
     EnvDrainDeadline,
 )
+
+from elastic_tpu_agent import slices as agent_slices  # noqa: E402
+from elastic_tpu_agent.kube.client import KubeClient as AgentKube  # noqa: E402
+from elastic_tpu_agent_torch import slices  # noqa: E402
+from elastic_tpu_agent_torch.common import (  # noqa: E402
+    AnnotationSliceID,
+    AnnotationSliceWorkerHosts,
+    AnnotationSliceWorkerID,
+    EnvSliceEpoch,
+    EnvSliceName,
+)
+from elastic_tpu_agent_torch.kube.client import KubeClient  # noqa: E402
+from elastic_tpu_agent_torch.types import PodContainer  # noqa: E402
 
 from torch_agent_rig import (  # noqa: E402
     HANDSHAKE_SETS,
@@ -230,3 +248,80 @@ def _restart(t):
 CHECKS = {"maintenance": _maintenance, "preemption": _preemption,
           "annotation": _annotation, "residents_exit": _residents_exit,
           "upgrade": _upgrade, "restart": _restart}
+
+
+class _PeerSpecs:
+    """The peer's member container: one spec, in memory."""
+
+    def __init__(self, env):
+        self.spec = {"env": dict(env)}
+
+    def read_alloc_spec(self, h):
+        return {"env": dict(self.spec["env"])} if h == "peer" else None
+
+    def restamp_spec_env_locked(self, owner, records, env_updates,
+                                remove_keys=()):
+        self.spec["env"].update(env_updates)
+        return 1
+
+
+def _member_lost_before_its_host_goes(port):
+    """Pod a (host h1 of slice job-1, on this draining node) and a peer's
+    member on h0; the peer's registry and reformer over the apiserver."""
+    side = HandshakeSide(port)
+    try:
+        hosts = {AnnotationSliceID: "job-1",
+                 AnnotationSliceWorkerHosts: "h0,h1"}
+        a = side.api.get_pod("default", "a")
+        a["metadata"]["annotations"].update(hosts)
+        a["metadata"]["annotations"][AnnotationSliceWorkerID] = "1"
+        side.api.upsert_pod(a)
+        side.api.upsert_pod({"metadata": {
+            "namespace": "default", "name": "peer", "uid": "uid-peer",
+            "annotations": dict(hosts, **{AnnotationSliceWorkerID: "0"})}})
+        sl = slices if port else agent_slices
+        registry = sl.SliceRegistry(
+            node_name="node-b", membership_ttl_s=0.0,
+            kube_client=(KubeClient if port else AgentKube)(side.url))
+        specs = _PeerSpecs({
+            "TPU_WORKER_ID": "0", "TPU_WORKER_HOSTNAMES": "h0,h1",
+            "TPU_ACCELERATOR_TYPE": "(unparsed)", EnvSliceName: "job-1",
+            EnvSliceEpoch: "0"})
+        reformer = sl.SliceReformer(
+            registry, type("P", (), {"core": specs})())
+        owner = PodContainer("default", "peer", "main")
+        records = {"peer": type("R", (), {"device": type(
+            "D", (), {"hash": "peer"})()})()}
+        out = [reformer.divergence(owner, records)]
+        side.api.annotate_node("node-a", AnnotationDrain, "true")
+        out.append(side.hs.drain.tick())
+        # the host still holds its member: bound, alive at the apiserver
+        out.append((sorted(side.node.state()["records"]),
+                    side.api.has_pod("default", "a")))
+        div = reformer.divergence(owner, records)
+        out += [div, reformer.reform(owner, records, div),
+                dict(specs.spec["env"])]
+        side.api.annotate_node("node-a", AnnotationDrain, None)
+        out.append(side.hs.drain.tick())
+        div = reformer.divergence(owner, records)
+        out += [div, reformer.reform(owner, records, div),
+                dict(specs.spec["env"]), registry.status()]
+        return out
+    finally:
+        side.close()
+
+
+def test_a_draining_member_is_lost_to_its_peer_before_its_host_goes():
+    port = _member_lost_before_its_host_goes(True)
+    assert port == _member_lost_before_its_host_goes(False)
+    assert port[0] is None
+    assert port[1] == "draining"
+    assert port[2] == (["default/a", "default/b"], True)
+    assert port[3]["lost"] == ["h1"] and port[3]["new_hosts"] == ["h0"]
+    assert port[4] == 1
+    assert (port[5]["TPU_WORKER_HOSTNAMES"], port[5][EnvSliceEpoch]) == (
+        "h0", "1")
+    assert port[6] == "active"
+    assert port[7]["joined"] == ["h1"] and port[8] == 2
+    assert port[9]["TPU_WORKER_HOSTNAMES"] == "h0,h1"
+    assert port[10]["job-1"]["reforms_total"] == 2

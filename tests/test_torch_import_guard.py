@@ -2,7 +2,8 @@
 package: every module of elastic_tpu_agent_torch imports in a fresh
 interpreter where importing jax, optax or orbax fails, and no
 elastic_tpu_agent module gets loaded. The agent side (plugins, nri with
-its ttrpc and mux, rpc, gen, slices, storage, kube, supervisor,
+its ttrpc and mux, rpc, gen, slices (packing, the registry and the
+reformer) with the slice env, storage, kube, supervisor,
 reconciler, manager, cli, faults, tracing, the native helpers' builder,
 and the observability plane: events, timeline, the batcher, async_sink,
 kube.events, crd, crd_recorder, latency, profiler, metrics; the
@@ -57,7 +58,8 @@ new = {"export", "parallel", "ring_attention", "pipeline",
        "podresources_pb2", "podresources_v1_pb2", "events", "timeline",
        "batcher", "async_sink", "crd", "crd_recorder", "metrics",
        "latency", "profiler", "ttrpc", "mux", "ttrpc_pb2", "build",
-       "sampler", "drain", "migration", "repartition", "goodput"}
+       "sampler", "drain", "migration", "repartition", "goodput",
+       "slice_env", "registry", "recovery"}
 missing = sorted(new - {n.rsplit(".", 1)[-1] for n in names})
 print(len(names), missing, leaked)
 """
@@ -72,7 +74,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     count, missing, leaked = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 85         # workloads and every module in it,
+    assert int(count) >= 89         # workloads and every module in it,
     #                                 the device layer, the agent side
     assert missing == "[]"          # export, mesh, ring, pipelines, serving,
     #                                 the device layer, plugins, injection
@@ -87,7 +89,8 @@ for name in ("plugins", "plugins.base", "plugins.gpushare", "nri",
              "nri.plugin", "nri.ttrpc", "nri.mux", "rpc", "gen",
              "gen.deviceplugin_pb2", "gen.nri_pb2", "gen.ttrpc_pb2",
              "native", "native.build", "gen.podresources_pb2",
-             "gen.podresources_v1_pb2", "slices", "slices.packing", "types",
+             "gen.podresources_v1_pb2", "slices", "slices.packing",
+             "slices.registry", "slices.recovery", "slice_env", "types",
              "storage", "storage.store", "kube", "kube.client",
              "kube.sitter", "kube.locator", "supervisor", "reconciler",
              "manager", "cli", "faults", "tracing", "common", "device",
@@ -172,8 +175,8 @@ for blocked in ("torch", "jax", "elastic_tpu_agent", "grpc",
 for name in ("manager", "cli", "storage", "storage.store", "kube",
              "kube.client", "kube.sitter", "kube.locator", "reconciler",
              "supervisor", "faults", "tracing", "plugins.gpushare", "nri",
-             "nri.plugin", "native.build",
-             "events", "timeline", "storage.batcher", "async_sink",
+             "nri.plugin", "native.build", "slice_env", "slices.registry",
+             "slices.recovery", "events", "timeline", "storage.batcher", "async_sink",
              "kube.events", "crd", "crd_recorder", "latency", "profiler",
              "metrics", "sampler", "drain", "migration", "repartition",
              "goodput"):
@@ -389,6 +392,21 @@ def test_agent_side_copies_of_the_pod_contract_are_equal():
     assert common.AllocSidecarSubdirs == (
         contract.UsageReportSubdir, contract.AckSubdir,
         contract.FlightSummarySubdir)
+
+
+def test_agent_side_scheduler_contract_equals_the_agents():
+    """The scheduler's annotations and the slice env keys the port reads
+    and writes keep the agent's spellings."""
+    from elastic_tpu_agent import common as agent_common
+    from elastic_tpu_agent_torch import common
+
+    names = ("AnnotationAssumed", "AnnotationContainerPrefix",
+             "AnnotationTraceID", "AnnotationSliceName",
+             "AnnotationSliceWorkerID", "AnnotationSliceWorkerHosts",
+             "AnnotationSliceID", "AnnotationDrain", "AnnotationDraining",
+             "EnvSliceName", "EnvSliceEpoch")
+    assert {n: getattr(common, n) for n in names} == {
+        n: getattr(agent_common, n) for n in names}
 
 
 def test_agent_side_ack_reader_and_world_size_agree_with_the_pod_side(

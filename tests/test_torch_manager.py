@@ -644,9 +644,9 @@ def test_observability_flags_match_the_agents():
 
 NRI_FLAGS = ["--plugin", "gpushare", "--nri-socket", "/run/nri/nri.sock",
              "--nri-evict-on-chip-failure"]
-# the agent's flags the port lacks: the slice registry's (item 10.7) and
-# --nri-libtpu, whose counterpart is --nri-driver-lib
-MISSING_FLAGS = {"slice_membership_ttl", "nri_libtpu"}
+# the agent's flag the port lacks: --nri-libtpu, whose counterpart is
+# --nri-driver-lib
+MISSING_FLAGS = {"nri_libtpu"}
 
 
 def test_nri_flags_match_the_agents():

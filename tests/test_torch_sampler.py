@@ -157,7 +157,8 @@ def test_a_malformed_bundle_is_refused_as_the_agent_refuses_it():
                          "stamped_pods": "a"},
                "migration": {"early_reclaims_total": 1.5,
                              "records_published_total": 0,
-                             "completed_total": 0, "acked_pods": []}},
+                             "completed_total": 0, "acked_pods": []},
+               "slices": {"s31": {"hosts": ["h0"], "epoch": 1}, "t": 3}},
            "sampler_windows": {"chips": {}, "pods": []}, "traces": {},
            "agent": {}, "memory": {"rss_bytes": "x"},
            "timeline": {"events": [{"seq": 2}, {"seq": 1}],

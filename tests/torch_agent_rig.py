@@ -10,8 +10,11 @@ port's modules or the agent's. Both sides get the port's 4-card
 of the side's own package: ``bus`` (an EventBus), ``metrics`` (an
 AgentMetrics), ``timeline=True`` (a Timeline over the generation's store,
 on ``clock``), ``events`` and ``crd_recorder`` (recorders),
-``lag_tracker`` (the port's only: the agent's plugins take none) and
-``batch_window_s`` (the store's group-commit window).
+``lag_tracker`` (the port's only: the agent's plugins take none),
+``batch_window_s`` (the store's group-commit window) and ``slice_kube``
+(an object with ``list_all_pods``: the generation's SliceRegistry lists
+membership from it, with ``slice_ttl_s``, and its SliceReformer is the
+reconciler's).
 
 ``to_agent`` maps the port's names onto the agent's (``gpu-`` ids and
 resources, their hashes) and sets aside what differs by design: the
@@ -51,6 +54,7 @@ from elastic_tpu_agent import rpc as agent_rpc
 from elastic_tpu_agent import reconciler as agent_reconciler
 from elastic_tpu_agent import repartition as agent_repartition
 from elastic_tpu_agent import sampler as agent_sampler
+from elastic_tpu_agent import slices as agent_slices
 from elastic_tpu_agent import timeline as agent_timeline
 from elastic_tpu_agent import tracing as agent_tracing
 from elastic_tpu_agent.kube.client import KubeClient as AgentKube
@@ -64,6 +68,7 @@ from elastic_tpu_agent_torch import (
     drain, faults, metrics, migration, reconciler, repartition, rpc,
 )
 from elastic_tpu_agent_torch import sampler as sampler_mod
+from elastic_tpu_agent_torch import slices as slices_mod
 from elastic_tpu_agent_torch import timeline as timeline_mod
 from elastic_tpu_agent_torch import tracing
 from elastic_tpu_agent_torch.common import (
@@ -101,9 +106,9 @@ TRACE_KEY = "ELASTIC_TPU_TRACE_ID"
 TRACE_ID = re.compile(r"[0-9a-f]{16}")
 NAMES = (("elastic-gpushare-", "elastic-tpushare-"), ("gpu-core", "tpu-core"),
          ("gpu-mem", "tpu-mem"))
-# report keys of the agent's hooks the port leaves to later slices
-AGENT_ONLY_REPORT = ("slice_reforms", "slice_check_errors",
-                     "slice_reform_failures")
+# report keys of the agent's hooks the port leaves to later slices (none
+# left: the slice keys are compared too)
+AGENT_ONLY_REPORT = ()
 
 
 def to_agent(obj, hashes):
@@ -216,7 +221,8 @@ class Generation:
 
     def __init__(self, node: Node, dry_run: bool, bus=None, metrics=None,
                  timeline=False, clock=None, events=None, crd_recorder=None,
-                 lag_tracker=None, batch_window_s=0.0) -> None:
+                 lag_tracker=None, batch_window_s=0.0, slice_kube=None,
+                 slice_ttl_s=0.0) -> None:
         port = node.port
         self.bus = bus
         self.storage = (Storage if port else AgentStorage)(
@@ -246,16 +252,28 @@ class Generation:
         )
         if port:
             wiring["lag_tracker"] = lag_tracker
+        sl = slices_mod if port else agent_slices
+        self.slices = self.reformer = None
+        if slice_kube is not None:
+            self.slices = sl.SliceRegistry(
+                node_name="node-a", kube_client=slice_kube, metrics=metrics,
+                events=events, membership_ttl_s=slice_ttl_s)
+            wiring["slice_registry"] = self.slices
         config = (PluginConfig if port else AgentConfig)(
             node_name="node-a", pod_resources_socket=sock, **wiring)
         self.plugin = (gpushare.GPUSharePlugin if port
                        else tpushare.TPUSharePlugin)(config)
+        if self.slices is not None:
+            self.reformer = sl.SliceReformer(
+                self.slices, self.plugin, metrics=metrics, events=events,
+                timeline=self.timeline)
         self.reconciler = (reconciler if port
                            else agent_reconciler).Reconciler(
             storage=self.storage, operator=self.operator,
             plugin=self.plugin, sitter=node.sitter,
             snapshot_source=self.source, alloc_spec_dir=node.alloc_dir,
-            dry_run=dry_run, lag_tracker=lag_tracker, bus=bus, **obs)
+            dry_run=dry_run, lag_tracker=lag_tracker, bus=bus,
+            slice_reformer=self.reformer, **obs)
 
     def plugin_of(self, kind):
         return self.plugin.core if kind == "core" else self.plugin.memory
