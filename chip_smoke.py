@@ -12,9 +12,11 @@ the OCI hook chain, each starting a tenant, with a card-failure
 eviction, the agent's utilization sampler, drain and migration
 handshake around a runner tenant that is drained, reclaimed early and
 resumed, the agent's live re-partitioning and goodput ledger around
-three tenants that report their own device-busy shares, and the agent's
+three tenants that report their own device-busy shares, the agent's
 multi-host slice orchestration: two agents whose slice re-forms around a
-runner tenant when a member leaves and when one returns.
+runner tenant when a member leaves and when one returns, and the agent's
+fleet simulator: a fleet of the port's agents whose node 0 is the card,
+with a tenant served from one of its binds.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -414,7 +416,39 @@ shows; it then exits 1 before the summary lines. Phases:
    and its final loss must equal an uninterrupted run's (RESUME_TOL).
    Prints the host ms from B's draining patch to A's restamp and from the
    restamp to the ack, beside the card's name and power limit; the agents
-   import no torch.
+   import no torch;
+32. the agent's fleet simulator (``elastic_tpu_agent_torch/sim/``): in this
+   process, complete port agents (``NodeManager`` with its gpushare
+   plugins and real gRPC servers, each over its own fake kubelet,
+   ``tests/torch_fake_kubelet.py``, and a private metrics endpoint), all
+   sharing one ``tests/fake_apiserver.py``. Node 0 of each fleet is the
+   card: an ``NvidiaOperator`` over the host's /dev (links under the
+   node's dev root, its nvidia-smi calls counted, maintenance and
+   preemption answered from settable state, never the metadata server);
+   its listing must be exactly torch's device. 32a, ``bench.py``'s fleet
+   leg size (``bench.py:543-546``): 8 nodes, reconcile 2 s, 2 binders a
+   node, 25 sampled traces; nodes 1-7 ``stub:8`` with 125 pods each;
+   node 0 admits only what its one card's gpu-core units hold (100 units
+   over 10 a pod: 10 pods), so the fleet holds 885 pods. Every bind must
+   land (stored binds equal the admissions a node; node 0's records on
+   the card), the scraped fleet bind p50/p99 (merged histograms) beside
+   the driver's stopwatch, every node's reconcile convergence after the
+   churn, kubelet Lists, apiserver requests and sink writes a bind
+   within the structural checker's bounds, each sampled admission trace
+   id on its binding node, and node 0's nvidia-smi calls at most one a
+   2 s TTL (the card node is never polled through ``op.resolve``). 32b: a
+   serving tenant started from the env and spec node 0 stamped for its
+   first pod (``nri.plain_adjustment``) serves phase 4's 16 requests and
+   must give phase 4's streams with its paged launches. 32c: the chaos
+   tests' compound scenario on a 2-node fleet (node 0 the card, node 1
+   ``stub:4``): a slice across both, node 1's maintenance drain (the
+   slice's reform on node 0) over a throttle on node 0, under a brownout,
+   a flaky group commit and a kubelet flap, over trace-driven traffic;
+   ``scale_problems`` must find nothing, the survivor must reach epoch 1,
+   and a sabotaged run (stub nodes) must trip the checker with its repro
+   line. 32d: ``ScaleHarness`` at 2 stub nodes x 32 pods, batched, with
+   its 10,500-series cardinality storm, clean under ``scale_problems``. Each leg's seconds go to the phase seconds
+   line.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -7445,6 +7479,414 @@ def run_slices(torch, D, dev) -> dict:
     return out
 
 
+# -- phase 32: the port's fleet simulator, node 0 on the card ----------------
+
+# 32a at bench.py's fleet leg size (bench.py:543-546)
+FL_NODES = 8
+FL_PODS = 125                    # pods a stub node
+FL_RECONCILE_S = 2.0
+FL_WORKERS = 2                   # concurrent binders a node
+FL_TRACES = 25                   # admissions followed to their node
+FL_STUB_KIND = "stub:8"
+# the structural checker's amplification bounds (sim/scale.py
+# scale_problems), held for 32a's fleet leg
+FL_AMP_BOUNDS = {"kubelet_lists_per_bind": 2.0,
+                 "apiserver_requests_per_bind": 6.0,
+                 "sink_writes_per_bind": 4.0}
+# 32c: the chaos tests' fleet settings (tests/test_chaos.py _chaos_fleet)
+# and their compound program: node 1's drain (the slice's reform on node
+# 0) over node 0's throttle, under a brownout, a flaky group commit and a
+# kubelet flap
+FL_CHAOS_FLEET = dict(
+    reconcile_period_s=0.5, slice_membership_ttl_s=0.25,
+    drain_deadline_s=30.0, drain_period_s=0.25, migration_period_s=0.1,
+    goodput_period_s=3600.0, enable_sampler=True, sampler_period_s=3600.0,
+    repartition_period_s=3600.0, storage_batch_window_s=0.004,
+    sink_flush_window_s=0.02)
+FL_CHAOS_ACTIONS = [
+    {"kind": "failpoint", "t": 0.2, "duration_s": 1.5,
+     "point": "storage.batch_flush", "spec": "prob:0.1:11"},
+    {"kind": "apiserver_brownout", "t": 0.3, "duration_s": 1.2,
+     "error_rate": 0.2, "latency_s": 0.001, "seed": 7},
+    {"kind": "throttle", "t": 0.4, "duration_s": 2.2, "node": 0},
+    {"kind": "maintenance_drain", "t": 0.5, "duration_s": 2.5, "node": 1},
+    {"kind": "kubelet_flap", "t": 1.0, "node": 0},
+]
+FL_CHAOS_FLOORS = {"min_goodput_percent": 10.0, "min_slo_attainment": 0.5}
+# 32d: 2 nodes, batched; 32 pods a node and the harness's own storm of
+# 10,500 series (at the agent's tests' 16 pods both packages read 5.9-6.4
+# apiserver requests a bind against the checker's bound of 6.0, and at
+# their storm of 1,200 series the agents' start-up memory read 69 KB a
+# series on the card against its ceiling of 64 KiB: fixed costs over a
+# small count)
+FL_SCALE = dict(nodes=2, pods_per_node=32, admission_waves=2,
+                drain_nodes=1, slice_world=2,
+                storage_batch_window_s=0.005, sink_flush_window_s=0.02,
+                reconcile_period_s=1.0, convergence_timeout_s=60.0,
+                phase_timeout_s=60.0)
+
+
+def _card_fleet(uuid):
+    """A FleetSim class whose ``nvidia`` nodes hold the host's cards: an
+    NvidiaOperator over the host's /dev, links under the node's dev root,
+    its nvidia-smi calls counted (``smi_calls``), and maintenance and
+    preemption answered from its own settable state (the sim's
+    ``trigger_maintenance``/``trigger_preemption`` set them; the metadata
+    server is never asked)."""
+    from elastic_tpu_agent_torch.device import NvidiaOperator
+    from elastic_tpu_agent_torch.device.nvidia import run_nvidia_smi
+    from elastic_tpu_agent_torch.sim import FleetSim
+
+    class Card(NvidiaOperator):
+        def __init__(self, dev_root):
+            self.smi_calls = 0
+            self.state = {"maintenance": "NONE", "preempted": "FALSE"}
+
+            def smi():
+                self.smi_calls += 1
+                return run_nvidia_smi()
+
+            super().__init__(dev_root, host_dev_scan_root="/dev", smi=smi,
+                             maintenance=lambda: self.state["maintenance"],
+                             preemption=lambda: self.state["preempted"],
+                             maintenance_poll_ttl_s=0.0)
+
+        def set_maintenance_event(self, event):
+            self.state["maintenance"] = event
+
+        def set_preempted(self, flag):
+            self.state["preempted"] = "TRUE" if flag else "FALSE"
+
+    class CardFleet(FleetSim):
+        def _operator_for(self, node):
+            if node.operator_kind != "nvidia":
+                return None
+            return Card(os.path.join(node.root, "dev"))
+
+        def card(self, idx=0):
+            """The card node's one card, None unless its listing is
+            exactly torch's device."""
+            chips = self.nodes[idx].manager.operator.devices()
+            if len(chips) != 1 or _uuid_key(chips[0].uuid) != _uuid_key(uuid):
+                return None
+            return chips[0]
+
+    return CardFleet
+
+
+def run_fleet(torch, srv, streams, dev) -> dict:
+    """Phase 32: the port's fleet simulator (module docstring)."""
+    import shutil
+    import tempfile
+
+    from elastic_tpu_agent_torch import faults
+    from elastic_tpu_agent_torch.common import EnvSliceEpoch, ResourceGPUCore
+    from elastic_tpu_agent_torch.nri import plugin as NRI
+    from elastic_tpu_agent_torch.sim import (
+        ChaosMatrix, ChaosProgram, FleetAggregator, ScaleHarness,
+        ScenarioRunner, TraceGenerator, repro_line, scale_problems)
+    from elastic_tpu_agent_torch.sim.fleet import CONTAINER
+
+    props = torch.cuda.get_device_properties(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
+    CardFleet = _card_fleet(props.uuid)
+    out = {"card": smi, "launches": {k: 0 for k in KERNEL_NAMES}}
+    d = tempfile.mkdtemp(prefix="cs32", dir="/tmp")
+    tenant = None
+    try:
+        # 32a: 8 nodes, node 0 the card; bench.py's fleet leg
+        t0 = time.perf_counter()
+        sim = CardFleet(os.path.join(d, "a"), nodes=FL_NODES,
+                        reconcile_period_s=FL_RECONCILE_S,
+                        operator_kinds=["nvidia"] + [FL_STUB_KIND] * (
+                            FL_NODES - 1))
+        os.makedirs(sim.base_dir)
+        sim.start()
+        try:
+            startup_s = time.perf_counter() - t0
+            card = sim.card(0)
+            if card is None:
+                fail(f"fleet: node 0 lists "
+                     f"{[c.uuid for c in sim.nodes[0].manager.operator.devices()]}"
+                     f", not the one card {props.uuid}")
+                return out
+            op0 = sim.nodes[0].manager.operator
+            # node 0 admits what its one card's gpu-core units hold
+            units = len(sim.nodes[0].manager.plugin.core.device_list())
+            card_pods = units // sim.core_units_per_pod
+            agg = FleetAggregator(sim.targets())
+            refs = (sim.admit_pods(card_pods, node_idxs=[0])
+                    + sim.admit_pods(FL_PODS, node_idxs=list(
+                        range(1, FL_NODES))))
+            sim.wait_synced(refs)
+            driver = sim.churn(refs, workers_per_node=FL_WORKERS)
+            t_churned = time.perf_counter()
+            convergence = agg.convergence_summary(agg.wait_converged(
+                driver["churn_end_ts"], timeout_s=60.0))
+            rollup = agg.rollup()
+            fleet = rollup["fleet"]
+            binds = fleet["binds_total"] or 0
+            api_total = sim.apiserver.requests_total()
+            amp = dict(
+                kubelet_lists_per_bind=fleet["request_amplification"][
+                    "kubelet_lists_per_bind"],
+                apiserver_requests_per_bind=(
+                    round(api_total / binds, 4) if binds else None),
+                sink_writes_per_bind=fleet["request_amplification"][
+                    "sink_writes_per_bind"])
+            stride = max(1, len(refs) // FL_TRACES)
+            sample = refs[::stride][:FL_TRACES]
+            continuity = agg.check_continuity([
+                (sim.nodes[r.node_idx].name, r.trace_id, r.pod_key)
+                for r in sample])
+            stored = sim.stored_binds()
+            admitted = {}
+            for r in refs:
+                admitted[sim.nodes[r.node_idx].name] = admitted.get(
+                    sim.nodes[r.node_idx].name, 0) + 1
+            placed = {}
+            for r in refs[:card_pods]:
+                info = sim.nodes[0].storage.load(r.namespace, r.name)
+                rec = info and info.allocations[CONTAINER][ResourceGPUCore]
+                placed[r.pod_key] = rec and (list(rec.chip_indexes),
+                                             len(rec.device.ids))
+            leg_s = time.perf_counter() - t0
+            smi_calls = op0.smi_calls
+            print(f"fleet 32a ({smi}): {FL_NODES} nodes (node 0 the card "
+                  f"{card.uuid}, index {card.index}, {units} gpu-core units: "
+                  f"{card_pods} pods; nodes 1-{FL_NODES - 1} {FL_STUB_KIND}, "
+                  f"{FL_PODS} pods each), {len(refs)} pods admitted, started "
+                  f"in {startup_s:.2f} s; churn {driver['bound']}/"
+                  f"{driver['pods']} bound by {driver['workers']} workers in "
+                  f"{driver['wall_s']:.2f} s ({driver['binds_per_s']:.1f} "
+                  f"binds/s), {driver['error_count']} errors; bind p50/p99 "
+                  f"scraped {fleet['fleet_bind_p50_ms']}/"
+                  f"{fleet['fleet_bind_p99_ms']} ms, stopwatch "
+                  f"{driver['bind_p50_ms']:.3f}/{driver['bind_p99_ms']:.3f} "
+                  f"ms")
+            print(f"fleet 32a convergence after the churn (s): "
+                  f"{convergence['per_node']} (median "
+                  f"{convergence['median_s']}, max {convergence['max_s']}, "
+                  f"unconverged {convergence['unconverged_nodes']}); per "
+                  f"bind: kubelet Lists {amp['kubelet_lists_per_bind']}, "
+                  f"apiserver requests {amp['apiserver_requests_per_bind']} "
+                  f"({api_total} of "
+                  f"{dict(sorted(sim.apiserver.request_counts.items()))}), "
+                  f"sink writes {amp['sink_writes_per_bind']}; trace "
+                  f"continuity {continuity['continuous']}/"
+                  f"{continuity['sampled']} (broken {continuity['broken']});"
+                  f" stored binds {stored} beside admitted {admitted}; node "
+                  f"0's records {sorted(set(map(str, placed.values())))}; "
+                  f"node 0's nvidia-smi calls {smi_calls} in {leg_s:.1f} s")
+            checks = {
+                "every bind": driver["bound"] == driver["pods"] == len(refs)
+                and driver["error_count"] == 0
+                and driver["timed_out_workers"] == 0,
+                "stored binds": stored == admitted,
+                "on the card": all(v == ([card.index],
+                                         sim.core_units_per_pod)
+                                   for v in placed.values())
+                and len(placed) == card_pods > 0,
+                "scraped quantiles": binds == len(refs)
+                and fleet["fleet_bind_p50_ms"] is not None
+                and fleet["fleet_bind_p99_ms"]
+                >= fleet["fleet_bind_p50_ms"],
+                "convergence": not convergence["unconverged_nodes"]
+                and convergence["converged_nodes"] == FL_NODES,
+                "amplification": all(
+                    v is not None and v <= FL_AMP_BOUNDS[k]
+                    for k, v in (
+                        ("kubelet_lists_per_bind",
+                         amp["kubelet_lists_per_bind"]),
+                        ("apiserver_requests_per_bind",
+                         amp["apiserver_requests_per_bind"]))
+                ) and all(v is not None
+                          and v <= FL_AMP_BOUNDS["sink_writes_per_bind"]
+                          for v in amp["sink_writes_per_bind"].values()),
+                "continuity": continuity["fraction"] == 1.0
+                and continuity["sampled"] == FL_TRACES
+                and any(r.node_idx == 0 for r in sample),
+                # one nvidia-smi -q -x serves every read of its 2 s TTL
+                "nvidia-smi calls": 1 <= smi_calls
+                <= math.ceil(leg_s / 2.0) + 2,
+            }
+            for k, ok in checks.items():
+                if not ok:
+                    fail(f"fleet 32a check {k!r} failed")
+            PHASE_SECONDS["fleet_32a"] = round(leg_s, 2)
+            out["a"] = dict(
+                startup_s=startup_s, pods=len(refs), card_pods=card_pods,
+                driver={k: driver[k] for k in (
+                    "pods", "bound", "error_count", "workers",
+                    "bind_p50_ms", "bind_p99_ms", "binds_per_s", "wall_s")},
+                scraped_p50_ms=fleet["fleet_bind_p50_ms"],
+                scraped_p99_ms=fleet["fleet_bind_p99_ms"],
+                convergence=convergence, amplification=amp,
+                apiserver_requests=api_total, continuity=continuity,
+                stored=stored, smi_calls=smi_calls, seconds=leg_s,
+                checks=checks)
+
+            # 32b: a serving tenant from the env and spec node 0 stamped
+            # for its first pod
+            t1 = time.perf_counter()
+            ref = refs[0]
+            h = sim.alloc_hash_of(ref)
+            alloc = sim.nodes[0].opts.alloc_spec_dir
+            spec = sim.nodes[0].manager.plugin.core.read_alloc_spec(h)
+            adj = NRI.plain_adjustment(spec, os.stat, "/dev",
+                                       os.path.join(alloc, f"{h}.json"))
+            env = dict(adj["env"], TPU=h, ELASTIC_TPU_ALLOC_DIR=alloc)
+            tenant = _Tenant("fl_serve", "serve", d, env=env,
+                             strip=PLUGIN_ENV_STRIP)
+            rep = tenant.result(time.perf_counter() + TENANT_TIMEOUT_S)
+        finally:
+            if tenant is not None:
+                tenant.kill()
+            sim.stop()
+        b_s = time.perf_counter() - t1
+        PHASE_SECONDS["fleet_32b"] = round(b_s, 2)
+        if rep:
+            q = rep["quota"]
+            bchecks = {
+                "one card": rep["device_count"] == 1
+                and rep["device_uuid"] == _uuid_key(props.uuid)
+                and _uuid_key(q["visible"]) == _uuid_key(props.uuid),
+                "streams": rep["streams"] == streams,
+                "launches": rep["launches"]["paged_decode"]
+                == srv["paged_launches"]
+                == SMALL["n_layers"] * rep["decode_steps"],
+                "grant": q["core_units"] == sim.core_units_per_pod,
+            }
+            print(f"fleet 32b ({smi}): a tenant from {ref.pod_key}'s spec on "
+                  f"node 0 (hash {h}): sees {rep['device_count']} card "
+                  f"{rep['device_uuid']}, streams equal phase 4's: "
+                  f"{bchecks['streams']}, launches {rep['launches']}, quota "
+                  f"{q}, {rep['tokens_per_s']:.1f} tokens/s (phase 4 "
+                  f"{srv['tokens_per_s']:.1f}), {rep['seconds']:.1f} s; "
+                  f"checks {bchecks}")
+            for k, ok in bchecks.items():
+                if not ok:
+                    fail(f"fleet 32b check {k!r} failed")
+            for k in KERNEL_NAMES:
+                out["launches"][k] += rep["launches"].get(k, 0)
+            out["b"] = dict(hash=h, launches=rep["launches"],
+                            tokens_per_s=rep["tokens_per_s"], quota=q,
+                            seconds=b_s, checks=bchecks)
+
+        # 32c: the compound scenario on a 2-node fleet, node 0 the card
+        t2 = time.perf_counter()
+        sim = CardFleet(os.path.join(d, "c"), nodes=2,
+                        operator_kinds=["nvidia", "stub:4"],
+                        **FL_CHAOS_FLEET)
+        os.makedirs(sim.base_dir)
+        sim.start()
+        try:
+            if sim.card(0) is None:
+                fail("fleet 32c: node 0 does not list the one card")
+                return out
+            slice_refs = sim.admit_slice("cx", [0, 1])
+            sim.wait_synced(slice_refs)
+            for r in slice_refs:
+                sim.bind_pod(r)
+            trace = TraceGenerator(seed=1001, duration_s=2.0, base_rps=10.0,
+                                   train_pods=1).generate()
+            program = ChaosProgram(2001, [dict(a) for a in FL_CHAOS_ACTIONS],
+                                   {"chaos_seed": 2001, "duration_s": 3.0,
+                                    "nodes": 2})
+            report = ScenarioRunner(sim, trace, program,
+                                    name="drain-reform-throttle").run()
+            problems = scale_problems(report, FL_CHAOS_FLOORS)
+            epoch = -1
+            deadline = time.monotonic() + 15.0
+            while time.monotonic() < deadline:
+                epoch = int(sim.slice_env_of(slice_refs[0]).get(
+                    EnvSliceEpoch, -1))
+                if epoch >= 1:
+                    break
+                time.sleep(0.1)
+            c_smi = sim.nodes[0].manager.operator.smi_calls
+        finally:
+            faults.get_registry().disarm()
+            sim.stop()
+        comp = report["compound"]
+        with tempfile.TemporaryDirectory(prefix="st", dir=d) as st:
+            matrix = ChaosMatrix(trace_seed=1, chaos_seed=1)
+            matrix.scenarios = [{
+                "name": "self-test", "index": 0,
+                "trace": {"duration_s": 1.0, "base_rps": 10.0,
+                          "flash_crowds": 0, "train_pods": 0},
+                "program": {"duration_s": 1.0, "include_drain": False}}]
+            verdict = matrix.self_test(st)
+        c_s = time.perf_counter() - t2
+        cchecks = {
+            "scale_problems": problems == [],
+            "streams": comp["streams"]["admitted"] > 0
+            and comp["streams"]["client_visible_drops"] == 0,
+            "throttled on the card": comp["throttled"].get("node-0") is True,
+            "reformed": epoch >= 1,
+            "repro": report["repro"] == repro_line(
+                1001, 2001, "drain-reform-throttle"),
+            "sabotage trips": verdict["tripped"]
+            and any("drops" in p for p in verdict["problems"])
+            and verdict["repro"] == repro_line(1, 1, "self-test"),
+        }
+        print(f"fleet 32c ({smi}): drain on node 1 during the slice's reform "
+              f"during a throttle on the card node, {report['wall_s']} s: "
+              f"problems {problems}; streams {comp['streams']}, handoffs "
+              f"{comp['handoffs']}, tokens {comp['tokens']}, binds "
+              f"{comp['binds']}, open intents {comp['open_intents']}, "
+              f"throttled {comp['throttled']}; goodput "
+              f"{report['goodput']['goodput_percent']}% (downtime by cause "
+              f"{report['goodput']['downtime_by_cause']}); SLO attainment "
+              f"{ {k: v.get('attainment') for k, v in report['slo'].items()} };"
+              f" the survivor's epoch {epoch}; node 0's nvidia-smi calls "
+              f"{c_smi}; sabotage: tripped {verdict['tripped']}, "
+              f"{verdict['problems']}, repro {verdict['repro']!r}; checks "
+              f"{cchecks}")
+        for k, ok in cchecks.items():
+            if not ok:
+                fail(f"fleet 32c check {k!r} failed")
+        PHASE_SECONDS["fleet_32c"] = round(c_s, 2)
+        out["c"] = dict(problems=problems, compound=comp,
+                        goodput=report["goodput"], slo=report["slo"],
+                        epoch=epoch, smi_calls=c_smi, sabotage=verdict,
+                        seconds=c_s, checks=cchecks)
+
+        # 32d: ScaleHarness, stub nodes, batched
+        t3 = time.perf_counter()
+        harness = ScaleHarness(os.path.join(d, "d"), **FL_SCALE)
+        os.makedirs(os.path.join(d, "d"))
+        srep = harness.run()
+        sproblems = scale_problems(srep)
+        d_s = time.perf_counter() - t3
+        print(f"fleet 32d: ScaleHarness {FL_SCALE['nodes']} x "
+              f"{FL_SCALE['pods_per_node']} batched: problems {sproblems}; "
+              f"pods {srep['pods']}, stored {srep['stored_binds']}, bind "
+              f"p50/p99 {srep['fleet_bind_p50_ms']}/"
+              f"{srep['fleet_bind_p99_ms']} ms, amplification "
+              f"{ {k: v for k, v in srep['amplification'].items() if k.endswith('per_bind')} },"
+              f" convergence {srep['reconcile_convergence_s']['max_s']} s, "
+              f"slice reform {srep['phases']['slice_reform']}, memory "
+              f"{srep['memory']['rss_delta_per_series_bytes']} B/series, "
+              f"{d_s:.1f} s")
+        if sproblems or srep["pods"] != srep["stored_binds"]:
+            fail(f"fleet 32d: {sproblems}")
+        PHASE_SECONDS["fleet_32d"] = round(d_s, 2)
+        out["d"] = dict(problems=sproblems, pods=srep["pods"],
+                        stored=srep["stored_binds"],
+                        p50_ms=srep["fleet_bind_p50_ms"],
+                        p99_ms=srep["fleet_bind_p99_ms"],
+                        amplification=srep["amplification"],
+                        seconds=d_s)
+    finally:
+        if tenant is not None:
+            tenant.kill()
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -7684,17 +8126,19 @@ def main() -> int:
     repartition = timed("repartition", run_repartition, torch, D, srv,
                         srv_streams, dev)
     slices = timed("slices", run_slices, torch, D, dev)
+    fleet = timed("fleet", run_fleet, torch, srv, srv_streams, dev)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
     # runner's mesh runs + the tenants of phases 24, 29, 30 and 31,
     # serving + the spec engine's fallback steps + the tenants of phases
-    # 24-30, train + LoRA + the sharded step + the ring + the MoE mesh
-    # step + both pipeline schedules + the runner's mesh runs + the
+    # 24-30 and 32, train + LoRA + the sharded step + the ring + the MoE
+    # mesh step + both pipeline schedules + the runner's mesh runs + the
     # tenants
     tenants = {k: sum(x.get("launches", {}).get(k, 0)
                       for x in (share, plugin, agent, observability,
-                                activation, migration, repartition, slices))
+                                activation, migration, repartition, slices,
+                                fleet))
                for k in KERNEL_NAMES}
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
@@ -7735,7 +8179,7 @@ def main() -> int:
               "agent_restart": agent, "observability": observability,
               "runtime_activation": activation, "migration": migration,
               "repartition": repartition, "slices": slices,
-              "kernels": kernel_recs,
+              "fleet": fleet, "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -7771,7 +8215,8 @@ def main() -> int:
                                 "runtime_activation": activation,
                                 "migration": migration,
                                 "repartition": repartition,
-                                "slices": slices}}))
+                                "slices": slices, "fleet": fleet}},
+                     default=str))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))
     print(card)

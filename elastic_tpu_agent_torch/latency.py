@@ -378,6 +378,15 @@ class DetectionLagTracker:
 
     # -- observations ---------------------------------------------------------
 
+    def detected(
+        self, loop: str, cls: str, key: str = "",
+        origin_ts: Optional[float] = None, trigger: str = "poll",
+    ) -> Optional[float]:
+        """Detection alone (the drain's maintenance and preemption
+        triggers): the mark stays for the repair that follows."""
+        return self._observe(loop, STAGE_DETECT, cls, key, origin_ts,
+                             clear=False, trigger=trigger)
+
     def repaired(
         self, loop: str, cls: str, key: str = "",
         origin_ts: Optional[float] = None, trigger: str = "poll",

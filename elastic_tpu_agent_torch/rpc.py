@@ -6,8 +6,10 @@ The port's copy of ``elastic_tpu_agent/rpc.py``: with no generated
 (``/v1beta1.Registration/Register``, ``/v1beta1.DevicePlugin/*``,
 ``/v1.PodResourcesLister/*`` and ``/v1alpha1.PodResourcesLister/List``) are
 bound explicitly against grpcio's generic handler API. The pod-resources
-servers are the kubelet's; tests serve them with the agent's fake kubelet,
-which speaks the same wire format.
+servers are the kubelet's; the agent never serves them, and the port's
+fake kubelet (``tests/torch_fake_kubelet.py``, the fleet simulator's)
+serves them through :func:`add_pod_resources_servicer` and
+:func:`add_pod_resources_v1_servicer`.
 
 This is the one module of the agent side that imports ``grpc`` at module
 level; the plugins' allocation logic (``plugins/gpushare.py``) does not, so
@@ -379,3 +381,72 @@ class PodResourcesClient:
 
     def close(self) -> None:
         self.reset()
+
+
+def add_pod_resources_servicer(
+    server: grpc.Server,
+    list_fn: Callable[[], pr.ListPodResourcesResponse],
+) -> None:
+    """Server side of v1alpha1 pod-resources: the kubelet serves it in
+    production, the fake kubelet in tests and the fleet simulator."""
+
+    def _list(request, context):  # noqa: ARG001
+        return list_fn()
+
+    handlers = {
+        "List": grpc.unary_unary_rpc_method_handler(
+            _list,
+            request_deserializer=pr.ListPodResourcesRequest.FromString,
+            response_serializer=pr.ListPodResourcesResponse.SerializeToString,
+        )
+    }
+    server.add_generic_rpc_handlers(
+        (grpc.method_handlers_generic_handler(
+            "v1alpha1.PodResourcesLister", handlers),)
+    )
+
+
+def add_pod_resources_v1_servicer(
+    server: grpc.Server,
+    list_fn: Callable[[], "prv1.ListPodResourcesResponse"],
+    allocatable_fn: Optional[
+        Callable[[], "prv1.AllocatableResourcesResponse"]
+    ] = None,
+) -> None:
+    """v1 pod-resources server (kubelet >= 1.20 shape): List and
+    GetAllocatableResources, so that the client's version negotiation is
+    testable against both shapes."""
+
+    def _list(request, context):  # noqa: ARG001
+        return list_fn()
+
+    def _allocatable(request, context):  # noqa: ARG001
+        # Real v1 kubelets always implement this RPC (the client uses it as
+        # its version probe): an unconfigured fake answers empty, never
+        # UNIMPLEMENTED, which would misread as a v1alpha1-only kubelet.
+        if allocatable_fn is None:
+            return prv1.AllocatableResourcesResponse()
+        return allocatable_fn()
+
+    handlers = {
+        "List": grpc.unary_unary_rpc_method_handler(
+            _list,
+            request_deserializer=prv1.ListPodResourcesRequest.FromString,
+            response_serializer=(
+                prv1.ListPodResourcesResponse.SerializeToString
+            ),
+        ),
+        "GetAllocatableResources": grpc.unary_unary_rpc_method_handler(
+            _allocatable,
+            request_deserializer=(
+                prv1.AllocatableResourcesRequest.FromString
+            ),
+            response_serializer=(
+                prv1.AllocatableResourcesResponse.SerializeToString
+            ),
+        ),
+    }
+    server.add_generic_rpc_handlers(
+        (grpc.method_handlers_generic_handler(
+            "v1.PodResourcesLister", handlers),)
+    )

@@ -352,6 +352,31 @@ def select_events(
     return selected
 
 
+def merge_node_events(per_node: Dict[str, List[dict]]) -> List[dict]:
+    """Interleave per-node journals into one fleet-ordered causal view.
+
+    K-way merge by wall time that NEVER reorders one node's events
+    against each other: within a node, seq order is the causal order
+    (the emitting thread journaled before the next transition ran), so
+    the merge only chooses *between* nodes by ts — adopted trace ids
+    then stitch the cross-node story (admission → bind → reform) that
+    no single clock could. Ties break by node name for determinism."""
+    heads = {
+        node: 0 for node, events in per_node.items() if events
+    }
+    out: List[dict] = []
+    while heads:
+        best_node = min(
+            heads,
+            key=lambda n: (per_node[n][heads[n]].get("ts", 0.0), n),
+        )
+        out.append(per_node[best_node][heads[best_node]])
+        heads[best_node] += 1
+        if heads[best_node] >= len(per_node[best_node]):
+            del heads[best_node]
+    return out
+
+
 def verify_bind_story(events: List[dict]) -> List[str]:
     """Consistency check over a (single- or merged-) journal's bind
     events; returns problems (empty = the story holds). The crash-replay

@@ -8,8 +8,10 @@ reconciler, manager, cli, faults, tracing, the native helpers' builder,
 and the observability plane: events, timeline, the batcher, async_sink,
 kube.events, crd, crd_recorder, latency, profiler, metrics; the
 utilization sampler, the drain, the migration coordinator, the
-repartition controller and the goodput ledger) loads no
-torch, its allocation logic and plain injection run with grpc and
+repartition controller and the goodput ledger; and the fleet simulator,
+``sim/``) loads no torch, a fleet of the port's agents started with jax
+blocked loads neither torch nor the JAX package (its fake kubelet is the
+port's own), its allocation logic and plain injection run with grpc and
 protobuf absent too, the node agent's modules (the NRI server's included)
 import with grpc, protobuf and requests absent, a manager with an NRI
 socket builds without them, and so does one with the sampler, the drain
@@ -59,7 +61,8 @@ new = {"export", "parallel", "ring_attention", "pipeline",
        "batcher", "async_sink", "crd", "crd_recorder", "metrics",
        "latency", "profiler", "ttrpc", "mux", "ttrpc_pb2", "build",
        "sampler", "drain", "migration", "repartition", "goodput",
-       "slice_env", "registry", "recovery"}
+       "slice_env", "registry", "recovery", "traffic", "aggregator",
+       "fleet", "scale", "chaos"}
 missing = sorted(new - {n.rsplit(".", 1)[-1] for n in names})
 print(len(names), missing, leaked)
 """
@@ -74,8 +77,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     count, missing, leaked = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 89         # workloads and every module in it,
-    #                                 the device layer, the agent side
+    assert int(count) >= 96         # workloads and every module in it,
+    #                                 the device layer, the agent side,
+    #                                 the fleet simulator
     assert missing == "[]"          # export, mesh, ring, pipelines, serving,
     #                                 the device layer, plugins, injection
     assert leaked == "[]"
@@ -97,10 +101,35 @@ for name in ("plugins", "plugins.base", "plugins.gpushare", "nri",
              "events", "timeline", "storage.batcher", "async_sink",
              "kube.events", "crd", "crd_recorder", "latency", "profiler",
              "metrics", "sampler", "drain", "migration", "repartition",
-             "goodput"):
+             "goodput", "sim", "sim.traffic", "sim.aggregator", "sim.fleet",
+             "sim.scale", "sim.chaos"):
     importlib.import_module("elastic_tpu_agent_torch." + name)
 print(sorted(m for m in sys.modules if sys.modules[m] is not None and
              m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent")))
+"""
+
+# a 1-node fleet of the port's agents started and stopped with jax blocked:
+# the fakes load at start() (the port's fake kubelet and the stand-alone
+# apiserver), which an import-only probe cannot see; neither the JAX
+# package nor torch gets loaded
+FLEET = r"""
+import sys, tempfile
+sys.modules["jax"] = None
+from elastic_tpu_agent_torch.sim import FleetSim
+with tempfile.TemporaryDirectory(prefix="etpu-ig", dir="/tmp") as tmp:
+    sim = FleetSim(tmp, nodes=1, reconcile_period_s=30.0)
+    sim.start()
+    try:
+        refs = sim.admit_pods(1)
+        sim.wait_synced(refs)
+        sim.bind_pod(refs[0])
+        bound = sim.stored_binds()
+    finally:
+        sim.stop()
+print(bound, sorted(m for m in sys.modules if sys.modules[m] is not None
+                    and m.split(".")[0] in ("torch", "jax",
+                                            "elastic_tpu_agent")),
+      "torch_fake_kubelet" in sys.modules, "fake_kubelet" in sys.modules)
 """
 
 # the allocation logic and the plain injection with grpc, protobuf and
@@ -347,6 +376,10 @@ def _run(code):
 
 def test_agent_side_loads_no_torch_and_no_agent():
     assert _run(AGENT_SIDE) == "[]"
+
+
+def test_a_started_fleet_loads_no_jax_package_and_no_torch():
+    assert _run(FLEET) == "{'sim-0': 1} [] True False"
 
 
 def test_observability_plane_needs_no_prometheus_without_metrics():
