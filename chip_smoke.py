@@ -16,7 +16,9 @@ three tenants that report their own device-busy shares, the agent's
 multi-host slice orchestration: two agents whose slice re-forms around a
 runner tenant when a member leaves and when one returns, and the agent's
 fleet simulator: a fleet of the port's agents whose node 0 is the card,
-with a tenant served from one of its binds.
+with a tenant served from one of its binds, and the serving proxy's
+measured costs beside the paged kernel's own traffic model, with the
+port's perf gate over the committed bench rounds.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a device it prints no result and exits
@@ -449,6 +451,20 @@ shows; it then exits 1 before the summary lines. Phases:
    line. 32d: ``ScaleHarness`` at 2 stub nodes x 32 pods, batched, with
    its 10,500-series cardinality storm, clean under ``scale_problems``. Each leg's seconds go to the phase seconds
    line.
+33. the measured costs and the perf gate. 33a:
+   ``serving_proxy.xla_measured_costs(device=cuda)`` at phase 4's paged
+   shape in f32 (8 slots, 8 kv heads, 2 query heads each, head_dim 64,
+   block 16, 32 table blocks, a 257-block pool): the gather reference and
+   the plain emulation of the kernel's walk, each tallied on the card
+   (``FlopCounterMode`` flops, dispatched tensor bytes) and timed, beside
+   one launch of the paged kernel with ``kernel_traffic``'s counts; each
+   leg within ``check_paged``'s f32 tolerance, exactly one launch, the
+   reference's flops equal to the model's for a full table and the
+   emulation's to 4 * bs * n * h per block the kernel streams. 33b: the
+   port's ``cli.main(["perf-gate", "--root", <checkout>, "--self-test"])``
+   green over the committed ``BENCH_r01-05.json`` (read as data), red on
+   a temp copy with one seeded ``bind_p99_ms`` regression round, and a
+   subprocess running it that loads no torch.
 
 ``--profile`` adds a torch.profiler pass over one forward, 20 decode
 steps and 3 train steps (device-busy share and top device ops, printed).
@@ -7887,6 +7903,139 @@ def run_fleet(torch, srv, streams, dev) -> dict:
     return out
 
 
+# -- phase 33: the measured costs beside the kernel's model; the perf gate ----
+
+# 33a at phase 4's paged shape (check_paged's serving rows), in f32
+MC_SHAPE = dict(slots=8, kv_heads=8, q_per_kv=2, head_dim=64, block_size=16,
+                n_blocks=257, table_blocks=32)
+MC_REGRESSION = 10.0             # 33b's seeded bind_p99_ms factor
+
+
+def _perf_gate(cli, argv) -> tuple:
+    """(exit code, stderr lines) of the port's ``perf-gate``."""
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["perf-gate", *argv])
+    return rc, err.getvalue().strip().splitlines()
+
+
+def run_costs(torch, PA, SP, dev) -> dict:
+    """Phase 33: the measured costs and the perf gate (module
+    docstring)."""
+    import glob
+    import shutil
+    import tempfile
+
+    from elastic_tpu_agent_torch import cli
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"card": card}
+
+    # 33a
+    t0 = time.perf_counter()
+    PA.PAGED_DECODE.launches = 0
+    mc = SP.xla_measured_costs(**MC_SHAPE, device=dev)
+    launches = PA.PAGED_DECODE.launches
+    sh = MC_SHAPE
+    g, bs, h = sh["kv_heads"], sh["block_size"], sh["head_dim"]
+    n, nb = g * sh["q_per_kv"], sh["table_blocks"]
+    kern = mc["paged_kernel"]
+    full = PA.kernel_traffic(sh["slots"], nb, bs, g, h, 4, n_heads=n)
+    streamed = 4 * bs * (kern["blocks_streamed"] // g) * n * h
+    for leg in ("gather_reference", "paged_interpret"):
+        x = mc[leg]
+        print(f"costs 33a {leg}: bytes {x['bytes_accessed']}, flops "
+              f"{x['flops']}, device ms {x['device_ms']:.4g} (queued "
+              f"{x['queued']}), max err {x['max_abs_err']:.3g}; the "
+              f"kernel's model: bytes {kern['bytes']}, kernel_bytes "
+              f"{kern['kernel_bytes']}; {card}")
+    print(f"costs 33a paged_kernel: bytes {kern['bytes']} (model), "
+          f"kernel_bytes {kern['kernel_bytes']}, flops {kern['flops']}, "
+          f"splits {kern['splits']}, blocks streamed "
+          f"{kern['blocks_streamed']}, device ms {kern['device_ms']:.4g} "
+          f"(queued {kern['queued']}), max err {kern['max_abs_err']:.3g}, "
+          f"launches {launches}; {card}")
+    tol = PAGED_TOL["float32"]
+    checks = {
+        "gather_within_tol": mc["gather_reference"]["max_abs_err"] <= tol,
+        "emulation_within_tol": mc["paged_interpret"]["max_abs_err"] <= tol,
+        "kernel_within_tol": kern["max_abs_err"] <= tol,
+        "one_launch": launches == 1,
+        "gather_flops_model": mc["gather_reference"]["flops"]
+        == full["flops"],
+        "emulation_flops_streamed": mc["paged_interpret"]["flops"]
+        == streamed >= kern["flops"],
+        "legs_move_the_bytes": min(
+            mc[leg]["bytes_accessed"] for leg in
+            ("gather_reference", "paged_interpret")) >= kern["bytes"],
+        "shape": mc["shape"]["slots"] == sh["slots"]
+        and mc["shape"]["table_blocks"] == nb,
+    }
+    for k, ok in checks.items():
+        if not ok:
+            fail(f"costs 33a check {k!r} failed")
+    a_s = time.perf_counter() - t0
+    PHASE_SECONDS["costs_33a"] = round(a_s, 2)
+    out["a"] = dict(measured=mc, launches=launches, streamed_flops=streamed,
+                    full_table_flops=full["flops"], checks=checks,
+                    seconds=a_s)
+    out["launches"] = launches
+
+    # 33b
+    t1 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    rounds = sorted(glob.glob(os.path.join(root, "BENCH_r*.json")))
+    green = _perf_gate(cli, ["--root", root, "--self-test"])
+    d = tempfile.mkdtemp(prefix="cs33", dir="/tmp")
+    try:
+        for path in rounds:
+            shutil.copy(path, d)
+        with open(rounds[-1]) as f:
+            seeded = json.load(f)
+        ours = seeded["parsed"]["extra"]["ours"]
+        seeded["n"] += 1
+        ours["bind_p99_ms"] = ours["bind_p99_ms"] * MC_REGRESSION
+        with open(os.path.join(d, f"BENCH_r{seeded['n']:02d}.json"),
+                  "w") as f:
+            json.dump(seeded, f)
+        red = _perf_gate(cli, ["--root", d])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    probe = ("import sys\n"
+             "from elastic_tpu_agent_torch import cli\n"
+             f"rc = cli.main(['perf-gate', '--root', {root!r}, "
+             "'--self-test'])\n"
+             "print(rc, sorted(m for m in sys.modules if sys.modules[m] "
+             "is not None and m.split('.')[0] in ('torch', 'jax', "
+             "'elastic_tpu_agent')))\n")
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", probe], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    sub = res.stdout.strip()
+    print(f"costs 33b perf-gate over {len(rounds)} committed rounds: rc "
+          f"{green[0]} ({green[1][-1:]}); seeded bind_p99_ms x"
+          f"{MC_REGRESSION}: rc {red[0]} ({red[1]}); subprocess {sub!r}")
+    bchecks = {
+        "committed_rounds": len(rounds) == 5,
+        "green": green[0] == 0,
+        "red": red[0] == 1 and any("REGRESSION bind_p99_ms" in line
+                                   for line in red[1]),
+        "subprocess_no_torch": res.returncode == 0 and sub == "0 []",
+    }
+    for k, ok in bchecks.items():
+        if not ok:
+            fail(f"costs 33b check {k!r} failed ({res.stderr[-500:]})")
+    b_s = time.perf_counter() - t1
+    PHASE_SECONDS["costs_33b"] = round(b_s, 2)
+    out["b"] = dict(rounds=len(rounds), green=green, red=red,
+                    subprocess=sub, checks=bchecks, seconds=b_s)
+    return out
+
+
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(
         evt, "self_cuda_time_total", 0.0)
@@ -8127,14 +8276,15 @@ def main() -> int:
                         srv_streams, dev)
     slices = timed("slices", run_slices, torch, D, dev)
     fleet = timed("fleet", run_fleet, torch, srv, srv_streams, dev)
+    costs = timed("costs", run_costs, torch, PA, SP, dev)
     # each kernel's launches over the main paths it lies on, each path
     # counted from 0 just before it: forward + LoRA + the sharded step +
     # the ring + the MoE mesh step + both pipeline schedules + the
     # runner's mesh runs + the tenants of phases 24, 29, 30 and 31,
     # serving + the spec engine's fallback steps + the tenants of phases
-    # 24-30 and 32, train + LoRA + the sharded step + the ring + the MoE
-    # mesh step + both pipeline schedules + the runner's mesh runs + the
-    # tenants
+    # 24-30 and 32 + phase 33a's one launch, train + LoRA + the sharded
+    # step + the ring + the MoE mesh step + both pipeline schedules + the
+    # runner's mesh runs + the tenants
     tenants = {k: sum(x.get("launches", {}).get(k, 0)
                       for x in (share, plugin, agent, observability,
                                 activation, migration, repartition, slices,
@@ -8145,7 +8295,8 @@ def main() -> int:
              runner_mesh["launches"])
     flash["launches"] += sum(x["flash_fwd"] for x in extra) + tenants[
         "flash_fwd"]
-    paged["launches"] += spec_launches + tenants["paged_decode"]
+    paged["launches"] += (spec_launches + tenants["paged_decode"]
+                          + costs["launches"])
     for rec in (dkdv, dq):
         k = rec["name"]
         rec["launches"] = launches[k] + sum(x[k] for x in extra) + tenants[k]
@@ -8179,7 +8330,7 @@ def main() -> int:
               "agent_restart": agent, "observability": observability,
               "runtime_activation": activation, "migration": migration,
               "repartition": repartition, "slices": slices,
-              "fleet": fleet, "kernels": kernel_recs,
+              "fleet": fleet, "costs": costs, "kernels": kernel_recs,
               "phase_seconds": PHASE_SECONDS,
               "flash_bwd_whole": bwd_whole}
     if args.profile:
@@ -8215,7 +8366,8 @@ def main() -> int:
                                 "runtime_activation": activation,
                                 "migration": migration,
                                 "repartition": repartition,
-                                "slices": slices, "fleet": fleet}},
+                                "slices": slices, "fleet": fleet,
+                                "costs": costs}},
                      default=str))
     print(json.dumps(
         {"kernels": [{k: x[k] for k in keys} for x in kernel_recs]}))

@@ -40,7 +40,9 @@ utilization sampler, ``--drain-deadline``, ``--drain-period``,
 ``--repartition-period``, ``--no-repartition`` and ``--qos-evict-after``
 live re-partitioning, ``--goodput-period`` the goodput ledger, and
 ``--slice-membership-ttl`` the slice registry's membership snapshot.
-``perf-gate`` comes with the port's own bench history.
+
+    # the perf-regression gate over BENCH_r*.json rounds (bench_history.py)
+    python3 -m elastic_tpu_agent_torch.cli perf-gate --root . --self-test
 """
 
 from __future__ import annotations
@@ -591,6 +593,90 @@ def doctor_main(argv=None) -> int:
     return bundle_main(argv)
 
 
+# -- perf-gate ----------------------------------------------------------------
+
+
+def parse_perf_gate_args(argv=None) -> argparse.Namespace:
+    from . import bench_history as bh
+
+    p = argparse.ArgumentParser(
+        prog="elastic-gpu-agent perf-gate",
+        description="Perf-regression ledger: parse the committed "
+                    "BENCH_r*.json trajectory into per-leg time series "
+                    "and fail when a tracked latency regresses beyond "
+                    "tolerance against the recent-median baseline.",
+    )
+    p.add_argument("--root", default=".",
+                   help="directory holding BENCH_r*.json rounds")
+    p.add_argument("--include", action="append", default=[],
+                   metavar="FILE",
+                   help="extra bench JSON file(s) to fold into the "
+                        "history (repeatable; e.g. a fresh uncommitted "
+                        "round)")
+    p.add_argument("--tolerance", type=float,
+                   default=bh.DEFAULT_TOLERANCE,
+                   help="allowed fractional regression over the "
+                        "baseline median (0.5 = +50%%)")
+    p.add_argument("--floor-ms", type=float, default=bh.DEFAULT_FLOOR_MS,
+                   help="absolute slack added to every limit — keeps "
+                        "sub-millisecond legs from tripping on noise")
+    p.add_argument("--window", type=int, default=bh.DEFAULT_WINDOW,
+                   help="prior rounds whose median forms the baseline")
+    p.add_argument("--series", action="store_true",
+                   help="print the parsed per-leg time series before "
+                        "gating (debugging aid)")
+    p.add_argument("--self-test", action="store_true",
+                   help="also seed a synthetic regression on top of the "
+                        "real history and fail unless the gate catches "
+                        "it on every tracked series")
+    return p.parse_args(argv)
+
+
+def perf_gate_main(argv=None) -> int:
+    from . import bench_history as bh
+
+    args = parse_perf_gate_args(argv)
+    rounds, problems = bh.load_history(args.root, include=args.include)
+    problems.extend(bh.validate_history(rounds))
+    if not problems:
+        if args.series:
+            all_tracked = (
+                *bh.TRACKED, *bh.TRACKED_RATIOS, *bh.TRACKED_EVENT,
+                *bh.TRACKED_MIGRATION,
+            )
+            for name, points in sorted(
+                bh.series(rounds, all_tracked).items()
+            ):
+                path = " ".join(
+                    f"r{n:02d}={v:.3f}" for n, v in points
+                )
+                print(f"# {name}: {path}", file=sys.stderr)
+        problems.extend(bh.perf_gate(
+            rounds, tolerance=args.tolerance,
+            floor_ms=args.floor_ms, window=args.window,
+        ))
+        if args.self_test:
+            problems.extend(bh.self_test(
+                rounds, tolerance=args.tolerance,
+                floor_ms=args.floor_ms, window=args.window,
+            ))
+    if problems:
+        for problem in problems:
+            print(f"PERF-GATE: {problem}", file=sys.stderr)
+        return 1
+    tracked = ", ".join(
+        name for name, _ in
+        (*bh.TRACKED, *bh.TRACKED_RATIOS, *bh.TRACKED_EVENT,
+         *bh.TRACKED_MIGRATION)
+    )
+    print(
+        f"perf-gate OK: {len(rounds)} round(s), tracked [{tracked}]"
+        + (" + self-test" if args.self_test else ""),
+        file=sys.stderr,
+    )
+    return 0
+
+
 def options_from_args(args: argparse.Namespace) -> ManagerOptions:
     return ManagerOptions(
         node_name=args.node_name,
@@ -640,6 +726,8 @@ def main(argv=None) -> int:
         argv = sys.argv[1:]
     if argv and argv[0] == "node-doctor":
         return doctor_main(argv[1:])
+    if argv and argv[0] == "perf-gate":
+        return perf_gate_main(argv[1:])
     args = parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,

@@ -114,7 +114,9 @@ class CudaKernel:
         self._fn = None
         self._err = None
 
-    def __call__(self, *args) -> None:
+    def load(self) -> None:
+        """Build and bind the entry point, launching nothing (a timed
+        first call then times the launch alone)."""
         if self._fn is None:
             lib = build_all()[self.source]
             fn = getattr(lib, self.symbol)
@@ -124,6 +126,9 @@ class CudaKernel:
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._fn, self._err = fn, err
+
+    def __call__(self, *args) -> None:
+        self.load()
         rc = self._fn(*args)
         if rc != 0:
             raise RuntimeError(

@@ -13,6 +13,9 @@ launch. ``paged_splits`` picks the number of splits and
 plain version is ``paged_decode_attention_reference``, the
 gather-based form; the wrapper takes it only for tensors on the CPU, and
 for a CUDA tensor launches the kernel or raises.
+``paged_decode_attention_emulated`` runs the kernel's own walk (splits,
+partials, combine) in plain PyTorch, as JAX's interpret mode runs its
+kernel; nothing on the main path calls it.
 """
 
 from __future__ import annotations
@@ -58,6 +61,17 @@ def paged_splits(slots: int, kv_heads: int, table_blocks: int,
                min(table_blocks, fill))
 
 
+def _attended(length: int, table_blocks: int, block_size: int,
+              window: int) -> Tuple[int, int]:
+    """The positions [first, end) the kernel reads for a row: the whole
+    table for a row of length 0, else from the window's first to the
+    row's length, never past the table."""
+    if length == 0:
+        return 0, table_blocks * block_size
+    first = max(0, length - window) if window > 0 else 0
+    return first, min(length, table_blocks * block_size)
+
+
 def paged_split_ranges(
     length: int, table_blocks: int, block_size: int, window: int,
     splits: int,
@@ -67,12 +81,8 @@ def paged_split_ranges(
     from the window's first to ceil(len / bs) (all of the table for a row
     of length 0), go in ``splits`` contiguous ranges of equal size, the
     last ones shorter or empty."""
-    nb, bs = table_blocks, block_size
-    if length == 0:
-        first, end = 0, nb * bs
-    else:
-        first = max(0, length - window) if window > 0 else 0
-        end = min(length, nb * bs)
+    bs = block_size
+    first, end = _attended(length, table_blocks, bs, window)
     j_lo = first // bs
     j_hi = max(j_lo, -(-end // bs))
     chunk = -(-(j_hi - j_lo) // splits)
@@ -223,6 +233,67 @@ def paged_decode_attention_reference(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("sgrS,sSgh->sgrh", probs, vg.float())
     return out.reshape(slots, n, h).to(q.dtype)
+
+
+def paged_decode_attention_emulated(
+    q, pool_k, pool_v, table, lengths, kv_heads: int, window: int = 0,
+    splits: Optional[int] = None,
+):
+    """Plain emulation of ``csrc/paged_decode.cu``'s walk, in the kernel's
+    order: for each (slot, split) of its grid (all kv heads at once), the
+    blocks of ``paged_split_ranges``'s range and no others, read straight
+    through the table; scores over whole blocks, with the positions
+    outside the attended range masked (and their K and V taken as zeros,
+    as the kernel never loads them); the split's partial (m, l, acc) in
+    f32; then the combine, each partial rescaled by exp(m_i - m) and the
+    sum divided by max(l, 1e-30). A row of length 0 reads its whole table
+    with every score equal (the mean of V, as JAX gives). Empty splits
+    carry (NEG_INF, 0, 0) in the kernel and add nothing, so they are
+    skipped. ``splits`` None: the policy's choice on an H100.
+
+    The counterpart of JAX's ``paged_decode_attention(..., interpret=
+    True)``: the kernel's own walk, run plainly. Nothing on the main path
+    calls it; it holds the split-K combine's arithmetic on the CPU, and
+    ``serving_proxy.xla_measured_costs`` tallies it. Its matmuls do
+    4 * bs * n * h flops for each block a split streams."""
+    _check(q, pool_k, pool_v, table, lengths, kv_heads)
+    slots, n, h = q.shape
+    g = kv_heads
+    r = n // g
+    nb, bs = table.shape[1], pool_k.shape[1]
+    if splits is None:
+        splits = paged_splits(slots, g, nb)
+    scale = 1.0 / math.sqrt(h)
+    rows = []
+    for s, length in enumerate(lengths.tolist()):
+        first, end = _attended(length, nb, bs, window)
+        qs = q[s].reshape(g, r, h).float()
+        ms, ls, accs = [], [], []
+        for b0, b1 in paged_split_ranges(length, nb, bs, window, splits):
+            if b0 == b1:
+                continue
+            blocks = table[s, b0:b1].long()
+            pos = torch.arange(b0 * bs, b1 * bs, device=q.device)
+            keep = (pos >= first) & (pos < end)                  # [P]
+            k = pool_k[blocks].reshape(-1, g, h).float()         # [P, g, h]
+            v = pool_v[blocks].reshape(-1, g, h).float()
+            k = torch.where(keep[:, None, None], k, 0.0)
+            v = torch.where(keep[:, None, None], v, 0.0)
+            scores = torch.matmul(qs, k.permute(1, 2, 0)) * scale  # [g,r,P]
+            if length == 0:
+                scores = torch.zeros_like(scores)
+            scores = torch.where(keep, scores, NEG_INF)
+            m = scores.amax(-1, keepdim=True)                    # [g, r, 1]
+            p = torch.where(keep, torch.exp(scores - m), 0.0)
+            ms.append(m)
+            ls.append(p.sum(-1, keepdim=True))
+            accs.append(torch.matmul(p, v.permute(1, 0, 2)))     # [g, r, h]
+        m = torch.stack(ms)                                      # [k, g, r, 1]
+        w = torch.exp(m - m.amax(0))
+        l_sum = (torch.stack(ls) * w).sum(0)
+        acc = (torch.stack(accs) * w).sum(0)
+        rows.append((acc / l_sum.clamp_min(1e-30)).reshape(n, h))
+    return torch.stack(rows).to(q.dtype)
 
 
 def kernel_traffic(

@@ -26,20 +26,32 @@ modeled gather/paged KV-byte ratio at the engine's own shape is at least
 plain version, which has no device memory to save, so the rule resolves
 off there; an explicit ``paged_kernel=True/False`` always wins.
 
-``serving_proxy_report`` carries JAX's keys. JAX's ``xla_cost_analysis``
-corroboration compiles both attention programs with XLA; the port has no
-XLA, so the key holds an error, as JAX's own ``except`` branch fills it.
-One key is the port's own: ``hopper_split_k``, the Hopper kernel's
-split-K traffic at the operating point.
+``serving_proxy_report`` carries JAX's keys. Its ``xla_cost_analysis``
+is ``xla_measured_costs``: JAX reads XLA's compiled cost analysis of the
+two attention programs; the port has no XLA and tallies the ops the two
+plain programs dispatch instead (its docstring says what is counted). One
+key is the port's own: ``hopper_split_k``, the Hopper kernel's split-K
+traffic at the operating point.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
-from .paged_attention import kernel_traffic, paged_splits
+from .paged_attention import (
+    PAGED_DECODE,
+    _sm_count,
+    kernel_traffic,
+    paged_decode_attention,
+    paged_decode_attention_emulated,
+    paged_decode_attention_reference,
+    paged_splits,
+)
 
 # The paged default goes on (native only) at this modeled gather/paged
 # KV-byte ratio; the model puts it at ~3 for every realistic shape, so 1.5
@@ -184,10 +196,156 @@ def hopper_split_k(cfg, slots: int = DEFAULT_SLOTS,
                                   "kernel_bytes")}}
 
 
+class _ByteTally(TorchDispatchMode):
+    """Sums, over every dispatched op that is not a view, the bytes of
+    its input and output tensors: each op's reads and writes as if every
+    operand went through memory once."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view:
+            self.bytes += sum(
+                t.numel() * t.element_size()
+                for t in tree_leaves((args, kwargs, out))
+                if isinstance(t, torch.Tensor)
+            )
+        return out
+
+
+# the card sleeps this many clock cycles (~0.1 s) before a timed leg, so
+# that the host queues the leg's launches before the card reaches them.
+# A kernel library's first launch in a process also starts its own CUDA
+# runtime, which outlasted even this on an H100: ``queued`` then reads
+# False and the time holds that start.
+_SLEEP_CYCLES = 200_000_000
+
+
+def _event_ms(fn):
+    """(fn()'s result, its device ms, whether the host had queued all of it
+    before the card started): CUDA events around one call queued behind a
+    sleep kernel."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(_SLEEP_CYCLES)
+    start.record()
+    out = fn()
+    end.record()
+    queued = not start.query()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), queued
+
+
+def _max_err(a, b) -> float:
+    return (a.double() - b.double()).abs().max().item()
+
+
+def xla_measured_costs(
+    slots: int = 4, kv_heads: int = 2, q_per_kv: int = 2,
+    head_dim: int = 8, block_size: int = 4, n_blocks: int = 17,
+    table_blocks: int = 4, device="cpu",
+) -> Dict:
+    """Corroboration by instrumentation, JAX's keys at JAX's shape and
+    inputs (``np.random.default_rng(0)``, drawn in JAX's order): the
+    gather reference (``gather_reference``) and the paged kernel's walk run
+    plainly (``paged_interpret``: ``paged_decode_attention_emulated``, the
+    counterpart of JAX's Pallas interpret), each leg's ``bytes_accessed``
+    and ``flops``.
+
+    These are dispatch tallies, not XLA's cost analysis: ``flops`` is
+    ``FlopCounterMode``'s count (matmul-class ops only, 2 a multiply-add);
+    ``bytes_accessed`` sums each dispatched op's input and output tensor
+    bytes, views skipped, with no fusion (XLA counts a fused program's
+    operands once). So the numbers are the port's own: the reference's
+    flops are ``kernel_traffic``'s for a full table, and the emulation's
+    are 4 * bs * n * h for each block the kernel streams.
+
+    Runs on the CPU by default, as JAX's does. With ``device="cuda"`` both
+    legs are tallied on the card, each leg carries its CUDA-event
+    ``device_ms`` (one call queued behind a sleep kernel; ``queued`` False
+    when the host had not queued it all in time, so the time includes
+    host gaps) and ``max_abs_err`` (the reference against itself in f64 on
+    the CPU, the emulation against the reference), and ``paged_kernel``
+    holds one launch of the Hopper kernel: ``kernel_traffic``'s ``bytes``,
+    ``kernel_bytes`` and ``flops`` for the drawn lengths and the card's
+    split count, its error against the reference and its device ms. The
+    kernel is launched through ctypes, which a dispatch mode cannot see,
+    so its counts are the model's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    g, r, h, bs, nb = kv_heads, q_per_kv, head_dim, block_size, table_blocks
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(slots, g * r, h))
+    pk = rng.normal(size=(n_blocks, bs, g, h))
+    pv = rng.normal(size=(n_blocks, bs, g, h))
+    table = rng.integers(1, n_blocks, size=(slots, nb))
+    lengths = rng.integers(1, nb * bs + 1, size=(slots,))
+    host = [torch.tensor(x, dtype=torch.float32) for x in (q, pk, pv)] + [
+        torch.tensor(x, dtype=torch.int32) for x in (table, lengths)]
+    args = [x.to(dev) for x in host]
+    # the kernel's own split count: the card's SMs, an H100's on the CPU
+    splits = (paged_splits(slots, g, nb, _sm_count(dev.index)) if cuda
+              else paged_splits(slots, g, nb))
+
+    def tally(fn):
+        with FlopCounterMode(display=False) as fc:
+            fn(*args, kv_heads=g)
+        with _ByteTally() as bt:
+            fn(*args, kv_heads=g)
+        leg = {"bytes_accessed": bt.bytes, "flops": fc.get_total_flops()}
+        if not cuda:
+            return leg, None
+        out, leg["device_ms"], leg["queued"] = _event_ms(
+            lambda: fn(*args, kv_heads=g))
+        return leg, out
+
+    def emulated(*a, kv_heads):
+        return paged_decode_attention_emulated(*a, kv_heads, splits=splits)
+
+    gather, ref = tally(paged_decode_attention_reference)
+    interp, emu = tally(emulated)
+    out = {
+        "shape": {
+            "slots": slots, "kv_heads": g, "q_per_kv": r,
+            "head_dim": h, "block_size": bs, "table_blocks": nb,
+        },
+        "gather_reference": gather,
+        "paged_interpret": interp,
+    }
+    if cuda:
+        want = paged_decode_attention_reference(
+            *(x.double() if x.is_floating_point() else x for x in host),
+            kv_heads=g)
+        gather["max_abs_err"] = _max_err(ref.cpu(), want)
+        interp["max_abs_err"] = _max_err(emu, ref)
+        PAGED_DECODE.load()
+        got, ms, queued = _event_ms(
+            lambda: paged_decode_attention(*args, kv_heads=g))
+        kt = kernel_traffic(slots, nb, bs, g, h, 4, n_heads=g * r,
+                            lengths=lengths.tolist(), splits=splits)
+        out["paged_kernel"] = {
+            "bytes": kt["bytes"], "kernel_bytes": kt["kernel_bytes"],
+            "flops": kt["flops"], "splits": splits,
+            "blocks_streamed": kt["blocks_streamed"],
+            "max_abs_err": _max_err(got, ref), "device_ms": ms,
+            "queued": queued,
+        }
+    return out
+
+
 def serving_proxy_report(cfg=None) -> Dict:
     """JAX's ``serving_proxy`` payload: modeled traffic at the reference
-    operating point (float and int8 pools), the threshold and the
-    resulting default, plus ``hopper_split_k``. Deterministic."""
+    operating point (float and int8 pools), the measured tally
+    (``xla_measured_costs``), the threshold and the resulting default,
+    plus ``hopper_split_k``. Deterministic."""
     if cfg is None:
         from .transformer import ModelConfig
 
@@ -198,6 +356,10 @@ def serving_proxy_report(cfg=None) -> Dict:
         )
     model = decode_step_traffic(cfg)
     model_int8 = decode_step_traffic(cfg, kv_int8=True)
+    try:
+        measured = xla_measured_costs()
+    except Exception as e:  # noqa: BLE001 - corroboration, not decision
+        measured = {"error": f"{type(e).__name__}: {e}"}
     return {
         "operating_point": {
             "model": {
@@ -236,12 +398,6 @@ def serving_proxy_report(cfg=None) -> Dict:
                 "modeled gather/paged KV-byte ratio >= threshold"
             ),
         },
-        "xla_cost_analysis": {
-            "error": (
-                "NotImplementedError: XLA's compiled cost analysis has no "
-                "counterpart in the PyTorch port (no XLA programs); the "
-                "analytic model is the decision input"
-            ),
-        },
+        "xla_cost_analysis": measured,
         "hopper_split_k": hopper_split_k(cfg),
     }

@@ -8,10 +8,11 @@ reconciler, manager, cli, faults, tracing, the native helpers' builder,
 and the observability plane: events, timeline, the batcher, async_sink,
 kube.events, crd, crd_recorder, latency, profiler, metrics; the
 utilization sampler, the drain, the migration coordinator, the
-repartition controller and the goodput ledger; and the fleet simulator,
-``sim/``) loads no torch, a fleet of the port's agents started with jax
-blocked loads neither torch nor the JAX package (its fake kubelet is the
-port's own), its allocation logic and plain injection run with grpc and
+repartition controller and the goodput ledger; the fleet simulator,
+``sim/``; and the perf-regression ledger, ``bench_history``, with a
+``perf-gate`` run through the CLI) loads no torch, a fleet of the port's
+agents started with jax blocked loads neither torch nor the JAX package
+(its fake kubelet is the port's own), its allocation logic and plain injection run with grpc and
 protobuf absent too, the node agent's modules (the NRI server's included)
 import with grpc, protobuf and requests absent, a manager with an NRI
 socket builds without them, and so does one with the sampler, the drain
@@ -62,7 +63,7 @@ new = {"export", "parallel", "ring_attention", "pipeline",
        "latency", "profiler", "ttrpc", "mux", "ttrpc_pb2", "build",
        "sampler", "drain", "migration", "repartition", "goodput",
        "slice_env", "registry", "recovery", "traffic", "aggregator",
-       "fleet", "scale", "chaos"}
+       "fleet", "scale", "chaos", "bench_history"}
 missing = sorted(new - {n.rsplit(".", 1)[-1] for n in names})
 print(len(names), missing, leaked)
 """
@@ -77,9 +78,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     count, missing, leaked = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 96         # workloads and every module in it,
+    assert int(count) >= 97         # workloads and every module in it,
     #                                 the device layer, the agent side,
-    #                                 the fleet simulator
+    #                                 the fleet simulator, bench_history
     assert missing == "[]"          # export, mesh, ring, pipelines, serving,
     #                                 the device layer, plugins, injection
     assert leaked == "[]"
@@ -102,10 +103,13 @@ for name in ("plugins", "plugins.base", "plugins.gpushare", "nri",
              "kube.events", "crd", "crd_recorder", "latency", "profiler",
              "metrics", "sampler", "drain", "migration", "repartition",
              "goodput", "sim", "sim.traffic", "sim.aggregator", "sim.fleet",
-             "sim.scale", "sim.chaos"):
+             "sim.scale", "sim.chaos", "bench_history"):
     importlib.import_module("elastic_tpu_agent_torch." + name)
-print(sorted(m for m in sys.modules if sys.modules[m] is not None and
-             m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent")))
+# the perf gate through the CLI, over the committed rounds
+from elastic_tpu_agent_torch import cli
+rc = cli.main(["perf-gate", "--root", ".", "--self-test"])
+print(rc, sorted(m for m in sys.modules if sys.modules[m] is not None and
+                 m.split(".")[0] in ("torch", "jax", "elastic_tpu_agent")))
 """
 
 # a 1-node fleet of the port's agents started and stopped with jax blocked:
@@ -375,7 +379,7 @@ def _run(code):
 
 
 def test_agent_side_loads_no_torch_and_no_agent():
-    assert _run(AGENT_SIDE) == "[]"
+    assert _run(AGENT_SIDE) == "0 []"
 
 
 def test_a_started_fleet_loads_no_jax_package_and_no_torch():

@@ -2,8 +2,9 @@
 paged_attention.py): its plain version against the JAX package's Pallas
 kernel in interpret mode, over random block tables and lengths (a row of
 length 0 included). float32; tolerance 1e-5 (summation order). Also the
-host side of the Hopper kernel: its split policy and cut, and its traffic
-model."""
+host side of the Hopper kernel: its split policy and cut, its traffic
+model, and the plain emulation of its walk (splits, partials, combine)
+against the Pallas interpret and the gather reference."""
 
 import numpy as np
 import pytest
@@ -173,3 +174,87 @@ def test_kernel_traffic_counts_attended_positions():
     assert tpa.kernel_traffic(
         1, 2, 4, 1, 8, 4, lengths=[100]
     )["positions_attended"] == 8
+
+
+def _jax_default_case():
+    """serving_proxy.xla_measured_costs's shape and inputs, in JAX's draw
+    order (lengths 10, 5, 11, 14)."""
+    slots, g, r, h, bs, n_blocks, nb = 4, 2, 2, 8, 4, 17, 4
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(slots, g * r, h)).astype(np.float32)
+    pk = rng.normal(size=(n_blocks, bs, g, h)).astype(np.float32)
+    pv = rng.normal(size=(n_blocks, bs, g, h)).astype(np.float32)
+    table = rng.integers(1, n_blocks, size=(slots, nb)).astype(np.int32)
+    lengths = rng.integers(1, nb * bs + 1, size=(slots,)).astype(np.int32)
+    return q, pk, pv, table, lengths
+
+
+def _zero_row(case):
+    q, pk, pv, table, lengths = case
+    lengths = lengths.copy()
+    lengths[1] = 0
+    return q, pk, pv, table, lengths
+
+
+@pytest.mark.parametrize("name,make,g,window,splits", [
+    ("jax_default", _jax_default_case, 2, 0, None),
+    ("zero_length_row", lambda: _zero_row(_jax_default_case()), 2, 0, None),
+    ("window", _jax_default_case, 2, 5, None),
+    ("uneven_splits", _jax_default_case, 2, 0, 3),
+    ("window_uneven_splits_zero_row",
+     lambda: _zero_row(_jax_default_case()), 2, 3, 2),
+    ("one_split", _jax_default_case, 2, 0, 1),
+    ("random_tables_splits", lambda: _random_case(
+        np.random.default_rng(5), 4, 2, 2, 8, 4, 24, 6), 2, 0, 4),
+    ("random_tables_window_splits", lambda: _random_case(
+        np.random.default_rng(6), 3, 1, 4, 8, 4, 24, 6), 1, 7, 5),
+])
+def test_emulated_walk_matches_pallas_and_reference(name, make, g, window,
+                                                    splits):
+    """The emulation of the Hopper kernel's walk against JAX's Pallas
+    kernel in interpret mode and the port's gather reference, within 1e-5
+    in f32: JAX's default inputs, a row of length 0 (the mean of V over
+    its table), a window, and splits over uneven (and empty) ranges."""
+    case = _jax_default_case() if make is None else make()
+    want = np.asarray(jpa.paged_decode_attention(
+        *(jnp.asarray(x) for x in case), g, interpret=True, window=window))
+    args = [torch.from_numpy(x) for x in case]
+    got = tpa.paged_decode_attention_emulated(*args, g, window=window,
+                                              splits=splits)
+    ref = tpa.paged_decode_attention_reference(*args, g, window=window)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    if splits and splits > 1:
+        lengths = case[4].tolist()
+        cuts = [tpa.paged_split_ranges(ln, case[3].shape[1],
+                                       case[1].shape[1], window, splits)
+                for ln in lengths]
+        assert any(len({b1 - b0 for b0, b1 in c}) > 1 for c in cuts)
+
+
+def test_emulated_walk_streams_only_its_blocks():
+    """Pool rows outside every split's range (and masked rows inside
+    them) never reach the output: NaN there leaves it finite and equal.
+    Each row's table holds blocks of its own."""
+    q, pk, pv, _, lengths = _jax_default_case()
+    table = np.arange(1, 17, dtype=np.int32).reshape(4, 4)
+    args = [torch.from_numpy(x) for x in (q, pk, pv, table, lengths)]
+    clean = tpa.paged_decode_attention_emulated(*args, 2, window=3)
+    used = set()
+    for s, ln in enumerate(lengths.tolist()):
+        for b0, b1 in tpa.paged_split_ranges(ln, 4, 4, 3, 4):
+            used.update(table[s, b0:b1].tolist())
+    pk2, pv2 = pk.copy(), pv.copy()
+    for blk in set(range(17)) - used:
+        pk2[blk] = pv2[blk] = np.nan
+    for s, ln in enumerate(lengths.tolist()):   # the masked head of a block
+        blk = table[s, (ln - 3) // 4]
+        if (ln - 3) % 4:
+            pk2[blk, 0] = pv2[blk, 0] = np.nan
+    dirty = tpa.paged_decode_attention_emulated(
+        *(torch.from_numpy(x) for x in (q, pk2, pv2, table, lengths)), 2,
+        window=3)
+    assert torch.isfinite(dirty).all()
+    assert torch.equal(dirty, clean)

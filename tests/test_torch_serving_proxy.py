@@ -2,11 +2,14 @@
 (``elastic_tpu_agent_torch/workloads/serving_proxy.py``) against the JAX
 package's ``serving_proxy.py``, on the CPU: the traffic dict equal key for
 key and value for value, the threshold's cases, the engine's auto default
-resolving through the rule, and the report's JAX keys. Mirrors
+resolving through the rule, the report's JAX keys, and the measured costs
+(``xla_measured_costs``: the port's dispatch tallies under JAX's keys,
+held against the paged kernel's own traffic model). Mirrors
 ``tests/test_serving_proxy.py``."""
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -142,9 +145,10 @@ def test_phase4_shape_resolves_on():
 
 def test_serving_proxy_report_matches_jax():
     """JAX's keys with JAX's values (the rule's wording names the CUDA
-    device, and XLA's cost analysis is an error with its reason), the
-    dtype string as numpy spells it, and the one extra key: the Hopper
-    kernel's split-K traffic at the operating point."""
+    device, and the measured costs are the port's dispatch tallies under
+    JAX's keys and shape), the dtype string as numpy spells it, and the
+    one extra key: the Hopper kernel's split-K traffic at the operating
+    point."""
     want = jsp.serving_proxy_report()
     got = tsp.serving_proxy_report()
     assert set(got) == set(want) | {"hopper_split_k"}
@@ -155,8 +159,11 @@ def test_serving_proxy_report_matches_jax():
     assert set(pk) == set(jpk)
     assert (pk["tpu_native"], pk["cpu_interpret"]) == (True, False)
     assert "CUDA device" in pk["rule"]
-    assert set(got["xla_cost_analysis"]) == {"error"}
-    assert "no counterpart" in got["xla_cost_analysis"]["error"]
+    xla, jxla = got["xla_cost_analysis"], want["xla_cost_analysis"]
+    assert set(xla) == set(jxla) == {"shape", "gather_reference",
+                                     "paged_interpret"}
+    assert xla["shape"] == jxla["shape"]
+    assert "error" not in xla
     split = got["hopper_split_k"]
     cfg = tt.ModelConfig(vocab=32768, d_model=2048, n_heads=16, n_layers=8,
                          d_ff=8192, max_seq=1024)
@@ -173,3 +180,54 @@ def test_serving_proxy_report_matches_jax():
     assert f32["operating_point"] == jf32["operating_point"]
     assert f32["int8_kv"] == jf32["int8_kv"]
     assert f32["operating_point"]["model"]["dtype"] == "float32"
+
+
+def test_xla_measured_costs_keys_and_the_kernel_model():
+    """JAX's function and the port's at JAX's default shape and inputs:
+    the same keys and shape, both legs nonzero on both sides. The port's
+    counts are dispatch tallies, not XLA's, so they are held against the
+    kernel's own model: the reference's flops are kernel_traffic's for a
+    full table (8,192), the emulation's are 4 * bs * n * h for each block
+    the kernel streams at the drawn lengths (12 blocks: 6,144, at least
+    the 5,120 of the attended positions), and each leg moves at least the
+    bytes the function needs."""
+    want = jsp.xla_measured_costs()
+    got = tsp.xla_measured_costs()
+    assert set(got) == set(want)
+    assert got["shape"] == want["shape"] == dict(
+        slots=4, kv_heads=2, q_per_kv=2, head_dim=8, block_size=4,
+        table_blocks=4)
+    for side in (got, want):
+        for leg in ("gather_reference", "paged_interpret"):
+            assert set(side[leg]) == {"bytes_accessed", "flops"}
+            assert side[leg]["bytes_accessed"] > 0 and side[leg]["flops"] > 0
+    shape = got["shape"]
+    slots, g, nb, bs = (shape[k] for k in ("slots", "kv_heads",
+                                           "table_blocks", "block_size"))
+    h, n = shape["head_dim"], g * shape["q_per_kv"]
+    rng = np.random.default_rng(0)      # JAX's draws, in JAX's order
+    for size in ((slots, n, h), (17, bs, g, h), (17, bs, g, h)):
+        rng.normal(size=size)
+    rng.integers(1, 17, size=(slots, nb))
+    lengths = rng.integers(1, nb * bs + 1, size=(slots,)).tolist()
+    assert lengths == [10, 5, 11, 14]
+    full = tpa.kernel_traffic(slots, nb, bs, g, h, 4, n_heads=n)
+    drawn = tpa.kernel_traffic(slots, nb, bs, g, h, 4, n_heads=n,
+                               lengths=lengths)
+    assert got["gather_reference"]["flops"] == full["flops"] == 8192
+    streamed = 4 * bs * (drawn["blocks_streamed"] // g) * n * h
+    assert got["paged_interpret"]["flops"] == streamed == 6144
+    assert streamed >= drawn["flops"] == 5120
+    assert got["gather_reference"]["bytes_accessed"] >= full["bytes"]
+    assert got["paged_interpret"]["bytes_accessed"] >= drawn["bytes"]
+
+
+def test_report_falls_back_to_an_error_as_jax_does(monkeypatch):
+    """A tally that raises leaves the report whole, with JAX's error
+    form in its place."""
+    def boom():
+        raise RuntimeError("no dispatch")
+
+    monkeypatch.setattr(tsp, "xla_measured_costs", boom)
+    assert tsp.serving_proxy_report()["xla_cost_analysis"] == {
+        "error": "RuntimeError: no dispatch"}
