@@ -1,0 +1,8 @@
+"""device_idle.complete: share of the traced window in which no kernel,
+copy or fill ran on the card, in %."""
+
+from benchmark.harness.readers import device_idle
+
+
+def read(run):
+    return device_idle(run)
