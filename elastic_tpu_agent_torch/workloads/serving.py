@@ -102,7 +102,6 @@ messages.
 from __future__ import annotations
 
 import math
-import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
 
@@ -129,6 +128,7 @@ from .speculative import (
     probs_rowwise,
     sample_from_probs,
 )
+from .telemetry import SPANS
 from .transformer import ModelConfig, _check_device, _rmsnorm, as_device, rope
 
 # physical block 0 is the JUNK block: never allocated, the write target
@@ -997,18 +997,16 @@ class ServingEngine:
             self._tensor(chunk), start, int(self._table[slot, start // bs]),
         )
 
-    def _prefill_tail_chunks(self, slot: int, seq, total: int, start: int,
-                             tkp) -> int:
+    def _prefill_tail_chunks(self, slot: int, seq, total: int, start: int):
         """Synchronous block-chunked prefill of positions [start, total)
         for an automatic prefix-cache hit, through the chunk-prefill
-        program. Returns the first generated token, sampled from the last
-        real prompt position."""
+        program. Returns the last chunk's logits and the position of its
+        first row."""
         pos = start
         while pos < total:
             logits = self._run_chunk(slot, seq, total, pos)
             pos += self.block_size
-        return self._sample_one(
-            logits[(total - 1) - (pos - self.block_size)][None], tkp)
+        return logits, pos - self.block_size
 
     def _pump_prefill(self) -> Dict[int, int]:
         """Advance the OLDEST pending admission by one chunk; on its final
@@ -1264,12 +1262,22 @@ class ServingEngine:
         emitting any of ``stop_tokens`` auto-finishes it (the stop token
         is part of the stream). ``slo`` ("ttft" | "tpot" | "batch",
         default batch) is an accounting annotation; it never changes
-        scheduling."""
-        t0 = time.perf_counter() if self._recorder is not None else 0.0
+        scheduling.
+
+        Writes a ``serving.admit`` span (counter ``live_rows``, the rows
+        live before it) around the phases ``.claim``, ``.forward`` (the
+        prefill's launches), ``.sample`` (the first token's read, where
+        the host waits for the card) and ``.finish``; a refused admission
+        leaves it open, so the log drops it."""
+        live_rows = len(self._slot_of)
+        outer = SPANS.open("serving.admit")
+        sp = SPANS.open("serving.admit.claim")
         c = self._claim_admission(
             prompt, prefix, temperature, top_k, top_p, need_bucket=True,
             slo=slo,
         )
+        SPANS.close(sp)
+        sp = SPANS.open("serving.admit.forward")
         p, bucket, plen, total = c["p"], c["bucket"], c["plen"], c["total"]
         slot, n_shared, seq, tkp = c["slot"], c["n_shared"], c["seq"], c["tkp"]
         bs = self.block_size
@@ -1282,8 +1290,11 @@ class ServingEngine:
             obs.stall_begin(id(self))
         if c["auto_hit"]:
             # cache hit: the tail prefills chunked, block by block
-            first = self._prefill_tail_chunks(
-                slot, seq, total, n_shared * bs, tkp)
+            logits, at = self._prefill_tail_chunks(
+                slot, seq, total, n_shared * bs)
+            SPANS.close(sp)
+            sp = SPANS.open("serving.admit.sample")
+            first = self._sample_one(logits[(total - 1) - at][None], tkp)
         else:
             padded = np.zeros((bucket,), np.int64)
             padded[:p] = c["prompt"]
@@ -1299,7 +1310,11 @@ class ServingEngine:
             logits = self._scratch_forward(
                 self._tensor(padded), c["pref_blocks"], pref_padded, plen,
                 phys)
+            SPANS.close(sp)
+            sp = SPANS.open("serving.admit.sample")
             first = self._sample_one(logits[:, p - 1], tkp)
+        SPANS.close(sp)
+        sp = SPANS.open("serving.admit.finish")
         self.prefilled_tokens_total += p
         self.admitted_tokens_total += total
         if self._prefix_cache is not None:
@@ -1329,10 +1344,12 @@ class ServingEngine:
             # publish-and-release: the cached blocks are the output; the
             # first token stays readable through release()
             self._finish(rid, "prefilled")
+        SPANS.close(sp)
+        t1 = SPANS.close(outer, (("live_rows", live_rows),))
         if self._recorder is not None:
             rec = dict(
                 rid=rid, prompt_len=p, prefix_len=plen, bucket=bucket,
-                duration_ms=round((time.perf_counter() - t0) * 1000, 3),
+                duration_ms=round((t1 - SPANS.t0_ns(outer)) / 1e6, 3),
                 used_blocks=self.used_blocks, slo=normalize_slo(slo),
             )
             if ouid is not None:
@@ -1385,12 +1402,24 @@ class ServingEngine:
         advances first; a row it activates sits this decode out and
         reports its first token instead. Rows that fill to max_len, emit a
         stop token or starve for pool blocks auto-finish
-        (``finish_reason`` says which)."""
-        t0 = time.perf_counter() if self._recorder is not None else 0.0
+        (``finish_reason`` says which).
+
+        Writes a ``serving.step`` span (counter ``live_rows``, at its
+        start) around the phases ``.prefill_chunk`` (when a chunked
+        admission is pending), ``.prepare`` (block tables and their copies
+        to the device), ``.forward`` (the decode's launches), ``.sync``
+        (the tokens' read, where the host waits for the card) and
+        ``.bookkeep``."""
+        outer = SPANS.open("serving.step")
+        live_rows = len(self._slot_of)
         obs = self._observatory
         ot0 = obs.clock.monotonic() if obs is not None else 0.0
         ev0 = self._evictions_total
-        activated = self._pump_prefill() if self._pending else {}
+        activated = {}
+        if self._pending:
+            sp = SPANS.open("serving.step.prefill_chunk")
+            activated = self._pump_prefill()
+            SPANS.close(sp)
         ot1 = obs.clock.monotonic() if obs is not None else 0.0
         self._settling = {
             self._slot_of[r] for r in activated if r in self._slot_of
@@ -1413,10 +1442,11 @@ class ServingEngine:
                 emitted_tokens=emitted, prefill_s=ot1 - ot0,
                 decode_s=obs.clock.monotonic() - ot1,
             )
+        t1 = SPANS.close(outer, (("live_rows", live_rows),))
         if self._recorder is not None:
             self._recorder.record(
                 "serving_step",
-                duration_ms=round((time.perf_counter() - t0) * 1000, 3),
+                duration_ms=round((t1 - SPANS.t0_ns(outer)) / 1e6, 3),
                 emitted_tokens=emitted,
                 live_requests=len(self._slot_of),
                 pending_prefills=len(self._pending),
@@ -1458,8 +1488,10 @@ class ServingEngine:
     def _step_plain(self) -> Dict[int, int]:
         if not self._slot_of:
             return {}
+        sp = SPANS.open("serving.step.prepare")
         backed = self._back_live_rows(1)
         if backed is None:
+            SPANS.close(sp)
             return {}
         live_slots, wblk, woff, n_b = backed
         live = sorted(live_slots)
@@ -1467,18 +1499,25 @@ class ServingEngine:
         active = self._tensor([s in live_slots for s in range(self.slots)])
         greedy = not (self._row_temp[live] > 0.0).any()
         step = self._step_kernel if self.paged_kernel else self._step_gather
-        nxt = step(
+        args = (
             table_b, active, greedy, self._tensor(self._row_temp),
             self._tensor(self._row_topk), self._tensor(self._row_topp),
             self._tensor(wblk[:, 0]), self._tensor(woff[:, 0]),
         )
+        SPANS.close(sp)
+        sp = SPANS.open("serving.step.forward")
+        nxt = step(*args)
         # frozen slots keep their token and length
         self._last = torch.where(active, nxt, self._last)
         self._lengths = torch.where(active, self._lengths + 1, self._lengths)
         self._host_len[live] += 1
         self.decode_steps_total += 1
-        out = {}
+        SPANS.close(sp)
+        sp = SPANS.open("serving.step.sync")
         toks = self._last.cpu().numpy()
+        SPANS.close(sp)
+        sp = SPANS.open("serving.step.bookkeep")
+        out = {}
         for rid, slot in list(self._slot_of.items()):
             if slot in self._settling:
                 continue
@@ -1493,6 +1532,7 @@ class ServingEngine:
                 self._finish(rid, "max_len")
             elif tok in self._stop[rid]:
                 self._finish(rid, "stop_token")
+        SPANS.close(sp)
         return out
 
     # -- speculative mode --------------------------------------------
@@ -1531,7 +1571,7 @@ class ServingEngine:
         gamma + 1 written positions scatter back to the pool (rejected
         tails stay stale but masked), then per-row accept/resample.
         Frozen rows keep their token and length. Returns (committed
-        [slots, gamma + 1], n_emit [slots]) on the host."""
+        [slots, gamma + 1], n_emit [slots]) on the device."""
         cfg, dcfg, gamma = self.cfg, self.draft_cfg, self.gamma
         vocab, dev, slots = cfg.vocab, self.device, self.slots
         lengths, toks = self._lengths, self._last
@@ -1593,7 +1633,7 @@ class ServingEngine:
         n_emit = torch.where(active, n_acc + 1, 0)
         self._lengths = (lengths + n_emit).to(torch.int32)
         self._last = torch.where(active, correction, toks)
-        return committed.cpu().numpy(), n_emit.cpu().numpy()
+        return committed, n_emit
 
     def _step_speculative(self) -> Dict[int, List[int]]:
         if not self._slot_of:
@@ -1604,19 +1644,31 @@ class ServingEngine:
         # max_len within a few of these)
         if any(int(self._host_len[s]) + g >= self.max_len
                for s in self._slot_of.values() if s not in self._settling):
+            sp = SPANS.open("serving.step.forward")
             self._draft_catchup()
+            SPANS.close(sp)
             return {rid: [tok] for rid, tok in self._step_plain().items()}
         # back the whole verify chunk (positions len..len+gamma) per slot
+        sp = SPANS.open("serving.step.prepare")
         backed = self._back_live_rows(g + 1)
         if backed is None:
+            SPANS.close(sp)
             return {}
         live_slots, wblk, woff, n_b = backed
-        committed, n_emit = self._spec_forward(
+        args = (
             self._tensor(self._table[:, :n_b], torch.int32),
             self._tensor([s in live_slots for s in range(self.slots)]),
             self._tensor(self._row_temp), self._tensor(wblk),
             self._tensor(woff),
         )
+        SPANS.close(sp)
+        sp = SPANS.open("serving.step.forward")
+        committed, n_emit = self._spec_forward(*args)
+        SPANS.close(sp)
+        sp = SPANS.open("serving.step.sync")
+        committed, n_emit = committed.cpu().numpy(), n_emit.cpu().numpy()
+        SPANS.close(sp)
+        sp = SPANS.open("serving.step.bookkeep")
         # per-row economics: gamma proposed, n_emit - 1 survived
         rows = [s for s in self._slot_of.values() if s not in self._settling]
         rounds, drafted, accepted = self.spec_stats
@@ -1641,6 +1693,7 @@ class ServingEngine:
                 self._finish(rid, "stop_token")
             elif int(self._host_len[slot]) >= self.max_len - 1:
                 self._finish(rid, "max_len")
+        SPANS.close(sp)
         return out
 
     def _finish(self, rid: int, reason: str = "released") -> None:

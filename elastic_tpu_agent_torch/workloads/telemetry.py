@@ -18,18 +18,29 @@ Records are JSONL tagged with the propagated ``ELASTIC_TPU_TRACE_ID``; the
 file rotates to ``<path>.1`` past ``max_bytes``, and an in-memory ring
 keeps the newest records for the end-of-run summary. Everything is
 best-effort: a broken disk must not fail a train step.
+
+Beside the recorder, ``SPANS`` is the process's phase-span log: the
+serving engine's admissions and decode steps and the train step write a
+span for each phase (``serving.admit.forward``, ``serving.step.sync``,
+``train.backward``, ...), with a few counters on the outer ones, into a
+bounded ring. Its clock is ``time.time_ns``, the wall clock on which
+``torch.profiler`` stamps device activity, so a span can be laid over a
+device trace; the engine's serving records take their times from its
+spans, and the recorder's step records read the same clock. The log is
+always on: a span costs two clock reads and a few list stores.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import logging
 import os
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -69,8 +80,89 @@ def device_memory_stats(device=None) -> Optional[dict]:
         return None
 
 
+SPAN_CAPACITY = 1 << 16
+
+
+class SpanLog:
+    """A bounded ring of phase spans ``(name, t0_ns, t1_ns, counters)``,
+    stamped with ``time.time_ns``. ``counters`` is a tuple of (name,
+    value) pairs. ``written`` counts every span ever opened: where it
+    exceeds ``capacity`` the oldest have been overwritten, and a reader
+    whose window starts before the oldest span left cannot trust the
+    ring for it.
+
+    ``open(name)`` returns the span's index and ``close(index,
+    counters)`` ends it. A span never closed (an exception between the
+    two calls, an admission refused) keeps ``t1_ns`` 0 and ``read``
+    leaves it out. Spans are kept in the order they opened, so a parent
+    precedes its children.
+
+    Spans carry no engine or thread: a reader that nests them by time
+    assumes one engine (or one train loop) writes in the process.
+    Writers in several threads each get a slot of their own; ``written``
+    never moves back, but may lag a span opened in the same instant
+    until the next open."""
+
+    __slots__ = ("capacity", "written", "_mask", "_seq", "_name", "_t0",
+                 "_t1", "_counters")
+
+    def __init__(self, capacity: int = SPAN_CAPACITY) -> None:
+        if capacity < 1 or capacity & (capacity - 1):
+            raise ValueError(f"capacity must be a power of two: {capacity}")
+        self.capacity = capacity
+        self.written = 0
+        self._mask = capacity - 1
+        self._seq = itertools.count()    # next() is atomic: one slot each
+        self._name: List[Optional[str]] = [None] * capacity
+        self._t0 = [0] * capacity
+        self._t1 = [0] * capacity
+        self._counters: List[tuple] = [()] * capacity
+
+    def open(self, name: str) -> int:
+        i = next(self._seq)
+        if i >= self.written:
+            self.written = i + 1
+        j = i & self._mask
+        self._name[j] = name
+        self._t1[j] = 0
+        self._counters[j] = ()
+        self._t0[j] = time.time_ns()
+        return i
+
+    def close(self, i: int, counters: tuple = ()) -> int:
+        """End span ``i`` (a no-op once the ring has overwritten it);
+        returns the end time."""
+        t1 = time.time_ns()
+        if self.written - i <= self.capacity:
+            j = i & self._mask
+            self._t1[j] = t1
+            if counters:
+                self._counters[j] = counters
+        return t1
+
+    def t0_ns(self, i: int) -> int:
+        """The start of span ``i``, while the ring still holds it."""
+        return self._t0[i & self._mask]
+
+    def read(self) -> Tuple[int, List[tuple]]:
+        """(written, the closed spans still in the ring, oldest first)."""
+        n = self.written
+        out = []
+        for i in range(max(0, n - self.capacity), n):
+            j = i & self._mask
+            if self._t1[j]:
+                out.append((self._name[j], self._t0[j], self._t1[j],
+                            self._counters[j]))
+        return n, out
+
+
+# the process's span log: every engine and train step writes here
+SPANS = SpanLog()
+
+
 class StepTimer:
-    """Context manager timing one step; created by FlightRecorder.step."""
+    """Context manager timing one step on the span log's clock
+    (``time.time_ns``); created by FlightRecorder.step."""
 
     def __init__(self, recorder: "FlightRecorder", step: int,
                  tokens: Optional[int], attrs: Dict) -> None:
@@ -78,18 +170,19 @@ class StepTimer:
         self.step = step
         self.tokens = tokens
         self.attrs = dict(attrs)
-        self._t0 = 0.0
+        self._t0 = 0
 
     def set(self, **attrs) -> None:
         self.attrs.update(attrs)
 
     def __enter__(self) -> "StepTimer":
-        self._t0 = time.perf_counter()
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        dt = time.perf_counter() - self._t0
-        fields = {"step": self.step, "duration_ms": round(dt * 1000, 3)}
+        dt = (time.time_ns() - self._t0) / 1e9
+        fields = {"step": self.step, "duration_ms": round(dt * 1000, 3),
+                  "t0_ns": self._t0}
         if self.tokens is not None and dt > 0:
             fields["tokens"] = self.tokens
             fields["tokens_per_s"] = round(self.tokens / dt, 3)

@@ -61,6 +61,7 @@ from .parallel import (  # noqa: F401 - make_mesh: JAX keeps it here
 )
 from .quantize import embed_lookup, is_quantized, wdense
 from .ring_attention import ring_attention
+from .telemetry import SPANS
 from .weights import _tree_map, jax_layout_shapes
 
 
@@ -369,14 +370,19 @@ def loss_and_grads(
     its gradient as a tree shaped like ``params`` in each leaf's dtype
     (``jax.value_and_grad(loss_fn)`` in the JAX ``make_train_step``). The
     caller's tensors are left as they are: the gradient is taken through
-    aliases that require grad."""
+    aliases that require grad. Writes a ``train.forward`` and a
+    ``train.backward`` span."""
     device = as_device(device)
+    fwd = SPANS.open("train.forward")
     tokens = torch.as_tensor(tokens, device=device).long()
     live = _tree_map(lambda path, p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
         logits, aux = forward_with_aux(live, tokens[:, :-1], cfg, device)
         loss = _nll(logits, tokens[:, 1:]) + cfg.moe_aux_coef * aux
+        SPANS.close(fwd)
+        bwd = SPANS.open("train.backward")
         grads = torch.autograd.grad(loss, _leaves(live))
+        SPANS.close(bwd)
     return loss.detach(), _like(params, grads)
 
 
@@ -407,14 +413,19 @@ def _local_loss_and_grads(
     aux loss is the global batch's on every rank, and its gradient reaches
     only the rank's own tokens' router probabilities: the gradient takes
     the whole term, the returned value 1 / (dp * sp) of it, so that the
-    sum over dp and sp counts it once."""
+    sum over dp and sp counts it once. Writes a ``train.forward`` and a
+    ``train.backward`` span."""
+    fwd = SPANS.open("train.forward")
     inputs, targets, off, count = _local_chunk(tokens, view)
     live = _tree_map(lambda path, p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
         logits, aux = _forward(live, inputs, cfg, device, view, off)
         nll = vocab_parallel_nll_sum(logits, targets, view) / count
         loss = nll + cfg.moe_aux_coef * aux
+        SPANS.close(fwd)
+        bwd = SPANS.open("train.backward")
         grads = torch.autograd.grad(loss, _leaves(live))
+        SPANS.close(bwd)
     if not cfg.moe_experts:
         return loss.detach(), list(grads)
     share = cfg.moe_aux_coef * aux.detach() / (view.dp_size * view.sp_size)
@@ -620,8 +631,14 @@ def make_train_step(
         return _local_loss_and_grads(params, tokens, cfg, device, view)
 
     def grads_of(params, tokens):
+        """``one`` writes a ``train.forward`` and a ``train.backward``
+        span a micro-batch; ``train.reduce`` spans hold the f32 sum over
+        micro-batches, their mean, the all-reduce and the cast back."""
         if accum_steps == 1:
             loss, grads = one(params, tokens)
+            if view is None:
+                return loss, _like(params, grads)
+            sp = SPANS.open("train.reduce")
         else:
             if tokens.dim() != 3 or tokens.shape[0] != accum_steps:
                 raise ValueError(
@@ -631,12 +648,15 @@ def make_train_step(
             gsum, lsum = None, None
             for micro in tokens:
                 loss, grads = one(params, micro)
+                sp = SPANS.open("train.reduce")
                 g32 = [g.float() for g in grads]
                 if gsum is None:
                     gsum, lsum = g32, loss
                 else:
                     torch._foreach_add_(gsum, g32)
                     lsum = lsum + loss
+                SPANS.close(sp)
+            sp = SPANS.open("train.reduce")
             torch._foreach_div_(gsum, accum_steps)
             loss, grads = lsum / accum_steps, gsum
         if view is not None:   # the global mean's loss and gradients
@@ -645,12 +665,17 @@ def make_train_step(
             loss = loss[0]
         if accum_steps > 1 and not master_weights:
             grads = [g.to(p.dtype) for g, p in zip(grads, _leaves(params))]
+        SPANS.close(sp)
         return loss, _like(params, grads)
 
     def train_step(params, opt_state, tokens):
+        step = SPANS.open("train.step")
         tokens = torch.as_tensor(tokens, device=device).long()
         loss, grads = grads_of(params, tokens)
+        sp = SPANS.open("train.optimizer")
         optimizer.update_(grads, opt_state, params)
+        SPANS.close(sp)
+        SPANS.close(step)
         return params, opt_state, loss
 
     def init_all(generator: torch.Generator):
