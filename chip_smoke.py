@@ -44,7 +44,9 @@ shows; it then exits 1 before the summary lines. Phases:
    preset, through the flash kernel, against the same model forced onto
    the reference attention;
 4. the ServingEngine at the same preset: 16 requests (admit and enqueue,
-   greedy and sampled) through the paged-decode kernel; then a float32
+   greedy and sampled) through the paged-decode kernel, each prefill from
+   position 0 through the flash forward kernel (one launch a layer a
+   request); then a float32
    two-layer copy whose kernel-path greedy streams must equal the gather
    path's and ``generate()``'s;
 5. the train step at the same preset (batch 8, seq 256, lr 1e-3, f32
@@ -152,9 +154,10 @@ shows; it then exits 1 before the summary lines. Phases:
    whole bf16 backward (delta, dK/dV and dQ) against SDPA's whole
    backward, each phase's host seconds, a
    ``paths`` JSON line, a ``kernels`` JSON line (each kernel's launches
-   summed over the paths it lies on: forward, LoRA, the sharded step, the
-   ring, the MoE mesh step, both pipeline schedules, the runner's mesh
-   runs and the train tenants of phases 24, 29, 30 and 31 for flash_fwd;
+   summed over the paths it lies on: forward, phase 4's prefills, LoRA,
+   the sharded step, the ring, the MoE mesh step, both pipeline
+   schedules, the runner's mesh runs and the tenants of phases 24-32
+   (train steps, and serving prefills from position 0) for flash_fwd;
    train, LoRA, the sharded step, the ring, the MoE mesh step, both
    pipeline schedules, the runner's mesh runs and the train tenants for
    the backward pair; serving, the speculative fallback and the serving
@@ -691,11 +694,24 @@ def check_flash(torch, A, dev):
         ("bf16 causal batch 2", torch.bfloat16, A.FlashConfig()),
         ("f32 causal", torch.float32, A.FlashConfig()),
         ("f32 non-causal", torch.float32, A.FlashConfig(causal=False)),
+        # the serving prefill's call (generate._forward_chunk from
+        # position 0) at StarCoder2-3B's attention shape, with its window
+        # and with one that binds
+        ("bf16 prefill window 4096", torch.bfloat16,
+         A.FlashConfig(window=4096)),
+        ("bf16 prefill window 512", torch.bfloat16,
+         A.FlashConfig(window=512)),
     ]
     err_max = 0.0
     for label, dtype, fc in cases:
         bc = 2 if "batch 2" in label else b   # a pipeline microbatch
-        if "fused" in label:   # views of one [b, s, 3, n, h] projection
+        if "prefill" in label:
+            # q [1, 2048, 24, 128] over 2 kv heads, k/v views of one
+            # [1, 2, t, g, h] projection (generate._qkv)
+            q = randn(torch, rng, (1, 2048, 24, 128), dtype, dev)
+            kv = randn(torch, rng, (1, 2, 2048, 2, 128), dtype, dev)
+            k, v = kv[:, 0], kv[:, 1]
+        elif "fused" in label:   # views of one [b, s, 3, n, h] projection
             qkv = randn(torch, rng, (bc, s, 3, n, h), dtype, dev)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
@@ -707,8 +723,9 @@ def check_flash(torch, A, dev):
         e_o = (o.float() - o_ref.float()).abs().max().item()
         e_l = (lse - lse_ref).abs().max().item()
         name = str(dtype).split(".")[-1]
-        print(f"flash_fwd {label} [{bc},{s},{n},{h}]: max|o| err {e_o:.3g}, "
-              f"max|lse| err {e_l:.3g}")
+        shape = ",".join(map(str, q.shape))
+        print(f"flash_fwd {label} [{shape}] over {k.shape[2]} kv heads: "
+              f"max|o| err {e_o:.3g}, max|lse| err {e_l:.3g}")
         if not (e_o <= FLASH_TOL[name] and e_l <= LSE_TOL):
             fail(f"flash_fwd {label}: o err {e_o}, lse err {e_l}")
         err_max = max(err_max, e_o, e_l)
@@ -1075,6 +1092,7 @@ def _serving_requests(cfg, seed):
 def run_serving(torch, W, PA, cfg, params, tree, dev):
     n_req, new_tokens = 16, 64
     prompts, kinds = _serving_requests(cfg, SEED + 4)
+    from elastic_tpu_agent_torch.workloads import attention as A
     from elastic_tpu_agent_torch.workloads import serving as SV
 
     # the auto default resolves through the traffic model's rule: record
@@ -1091,6 +1109,7 @@ def run_serving(torch, W, PA, cfg, params, tree, dev):
         fail("paged_kernel auto did not resolve ON on the card")
     step_times = []
     PA.PAGED_DECODE.launches = 0
+    A.FLASH_FWD.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     streams = serve(W, eng, prompts, kinds, new_tokens, step_times)
@@ -1100,6 +1119,13 @@ def run_serving(torch, W, PA, cfg, params, tree, dev):
     steps = eng.decode_steps_total
     if launches != cfg.n_layers * steps or steps == 0:
         fail(f"paged_decode launched {launches}x over {steps} decode steps")
+    # every prefill starts at position 0 (no prefix cache): admit's bare
+    # prompt and enqueue's first block chunk attend through flash_fwd once
+    # a layer; enqueue's later chunks and the decode steps do not
+    prefill_launches = A.FLASH_FWD.launches
+    if prefill_launches != cfg.n_layers * n_req:
+        fail(f"serving prefills launched flash_fwd {prefill_launches}x, "
+             f"want {cfg.n_layers * n_req}")
     for i, s in enumerate(streams):
         if len(s) != new_tokens or not all(0 <= t < cfg.vocab for t in s):
             fail(f"request {i}: stream of {len(s)} tokens {s[:4]}...")
@@ -1109,6 +1135,7 @@ def run_serving(torch, W, PA, cfg, params, tree, dev):
     st_ms = np.asarray(step_times) * 1e3
     print(f"serving small preset: {n_req} requests x {new_tokens} tokens, "
           f"{steps} decode steps, paged_decode launches {launches}, "
+          f"prefill flash_fwd launches {prefill_launches}, "
           f"{tokens / wall:.1f} tokens/s, step p50 {np.median(st_ms):.2f} ms")
 
     # float32 two-layer copy: kernel path vs gather path vs generate()
@@ -1135,7 +1162,8 @@ def run_serving(torch, W, PA, cfg, params, tree, dev):
         requests=n_req, new_tokens=new_tokens, decode_steps=steps,
         wall_s=wall, tokens_per_s=tokens / wall,
         step_ms_mean=float(st_ms.mean()), step_ms_p50=float(np.median(st_ms)),
-        paged_launches=launches, f32_forward_err=f32_err,
+        paged_launches=launches, flash_prefill_launches=prefill_launches,
+        f32_forward_err=f32_err,
         f32_streams_equal=same, paged_kernel=eng.paged_kernel,
         paged_rule_calls=[dict(kw, resolved=got) for kw, got in asked],
         block_size=eng.block_size, streams=streams,
@@ -1352,8 +1380,9 @@ def run_runtime(torch, A, dev, tmp) -> dict:
             step_ms=[r["duration_ms"] for r in steps], device_memory=mem,
         )
 
-        # decode from that checkpoint (generate's cached attention: no
-        # hand-written kernel on this path)
+        # decode from that checkpoint (generate: the prompt pass from
+        # position 0 through flash_fwd, the decode steps through the
+        # cached einsum attention)
         for kern in kerns:
             kern.launches = 0
         dec = _runner(R, f"--mode decode --preset small --batch 8 "
@@ -6220,8 +6249,8 @@ def run_migration(torch, D, srv, streams, dev) -> dict:
                      "phase 4's")
             if srep["launches"]["paged_decode"] != srv["paged_launches"]:
                 fail(f"migration: serving launches {srep['launches']}")
-            out["launches"]["paged_decode"] += srep["launches"][
-                "paged_decode"]
+            for k in ("flash_fwd", "paged_decode"):   # prefills, decode
+                out["launches"][k] += srep["launches"][k]
         if listed != ["default/pod-s", "default/pod-t"] or not have_1m:
             fail(f"migration: /debug/allocations pods {listed}, card row "
                  f"{chip_rows[0]}")
@@ -8278,9 +8307,10 @@ def main() -> int:
     fleet = timed("fleet", run_fleet, torch, srv, srv_streams, dev)
     costs = timed("costs", run_costs, torch, PA, SP, dev)
     # each kernel's launches over the main paths it lies on, each path
-    # counted from 0 just before it: forward + LoRA + the sharded step +
-    # the ring + the MoE mesh step + both pipeline schedules + the
-    # runner's mesh runs + the tenants of phases 24, 29, 30 and 31,
+    # counted from 0 just before it: forward + phase 4's prefills + LoRA +
+    # the sharded step + the ring + the MoE mesh step + both pipeline
+    # schedules + the runner's mesh runs + the tenants of phases 24-32
+    # (their train steps, and their serving prefills from position 0),
     # serving + the spec engine's fallback steps + the tenants of phases
     # 24-30 and 32 + phase 33a's one launch, train + LoRA + the sharded
     # step + the ring + the MoE mesh step + both pipeline schedules + the
@@ -8293,8 +8323,9 @@ def main() -> int:
     extra = (lora_launches, mesh["launches"], ring["launches"],
              moe_mesh["launches"], pipeline["launches"],
              runner_mesh["launches"])
-    flash["launches"] += sum(x["flash_fwd"] for x in extra) + tenants[
-        "flash_fwd"]
+    flash["launches"] += (srv["flash_prefill_launches"]
+                          + sum(x["flash_fwd"] for x in extra)
+                          + tenants["flash_fwd"])
     paged["launches"] += (spec_launches + tenants["paged_decode"]
                           + costs["launches"])
     for rec in (dkdv, dq):

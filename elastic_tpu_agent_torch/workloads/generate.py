@@ -8,7 +8,10 @@ writes the cache tensors in place and returns them; the decode loop is a
 Python loop (PyTorch runs eagerly, so there is no scan to compile).
 
 The cached attention is materialised-scores ``einsum`` over the cache, as
-in the JAX package (no Pallas kernel there either). MoE layers take the
+in the JAX package (no Pallas kernel there either), with one exception: a
+chunk that starts at position 0 on a CUDA bf16 cache attends only to its
+own keys, so it runs the flash forward kernel on its own q, k and v
+(``_chunk_self_attends``). MoE layers take the
 JAX capacity policy: a prefill chunk routes with the training capacity
 factor, drops included; a decode step is drop-free. The chunk forward's
 ``ring=`` mode writes one token into a ring-buffer cache for streaming
@@ -35,7 +38,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from .attention import NEG_INF
+from .attention import NEG_INF, FlashConfig, flash_attention, supports_flash
 from .moe import moe_mlp
 from .parallel import (
     LocalView,
@@ -136,6 +139,25 @@ def _cached_attention(
     return out.reshape(b, t, n, h)
 
 
+def _chunk_self_attends(
+    t: int, cache: KVCache, q_dtype: torch.dtype, device_type: str,
+    head_dim: int, positions: Optional[torch.Tensor] = None,
+    ring: Optional[Tuple[int, torch.Tensor]] = None,
+) -> bool:
+    """Whether a chunk of t tokens runs its attention as causal
+    self-attention of the chunk through the flash kernel. From position 0
+    with slot j holding position j, every key at a position <= a row's own
+    is the chunk's, and every cache slot past the chunk is masked, so this
+    equals ``_cached_attention``. Only bf16 CUDA chunks whose cache holds
+    q's dtype take the kernel; every other chunk keeps the einsum."""
+    return (
+        cache.length == 0 and positions is None and ring is None
+        and t <= cache.k.shape[2] and cache.k.dtype == q_dtype
+        and q_dtype == torch.bfloat16 and device_type == "cuda"
+        and supports_flash(t, head_dim)
+    )
+
+
 def _cache_write(
     cache_layer: torch.Tensor,        # [b, max_len, g, h]
     kv: torch.Tensor,                 # [b, t, g, h]
@@ -193,7 +215,11 @@ def _forward_chunk(
     key_positions [cache_len] maps every slot to its absolute position for
     the mask. RoPE still rotates by the absolute position cache.length.
     Exclusive with positions; the returned length is unchanged (the caller
-    tracks the stream position)."""
+    tracks the stream position).
+
+    A chunk that ``_chunk_self_attends`` attends through the flash kernel
+    on its own rotated k/v (the values the cache gets), without autograd;
+    the cache is written all the same."""
     b, t = tokens.shape
     if ring is not None and (positions is not None or t != 1):
         raise ValueError(
@@ -201,6 +227,9 @@ def _forward_chunk(
         )
     dev = tokens.device
     pos = cache.length if positions is None else positions
+    self_attn = _chunk_self_attends(
+        t, cache, cfg.dtype, dev.type, cfg.head_dim, positions, ring
+    )
     x = embed_lookup(params, tokens, cfg.dtype)
     if positions is None:
         posmat = pos + torch.arange(t, device=dev)                  # [t]
@@ -220,12 +249,19 @@ def _forward_chunk(
             q = rope(q, posmat, cfg.rope_theta)
             k_c = rope(k_c, posmat, cfg.rope_theta)
         write_at = pos if ring is None else ring[0]
-        _cache_write(cache.k[i], k_c.to(cache.k.dtype), write_at)
-        _cache_write(cache.v[i], v_c.to(cache.v.dtype), write_at)
-        attn = _cached_attention(
-            q, cache.k[i], cache.v[i], pos, cfg,
-            key_positions=None if ring is None else ring[1],
-        )
+        k_c, v_c = k_c.to(cache.k.dtype), v_c.to(cache.v.dtype)
+        _cache_write(cache.k[i], k_c, write_at)
+        _cache_write(cache.v[i], v_c, write_at)
+        if self_attn:
+            with torch.no_grad():
+                attn = flash_attention(
+                    q, k_c, v_c, FlashConfig(causal=True, window=cfg.window)
+                )
+        else:
+            attn = _cached_attention(
+                q, cache.k[i], cache.v[i], pos, cfg,
+                key_positions=None if ring is None else ring[1],
+            )
         out = torch.einsum(
             "btnh,nhd->btd", attn, wdense(layer, "wo", cfg.dtype)
         )

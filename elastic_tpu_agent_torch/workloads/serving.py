@@ -108,6 +108,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .attention import FLASH_FWD
 from .generate import (
     KVCache,
     _chunk_mlp,
@@ -1266,9 +1267,10 @@ class ServingEngine:
 
         Writes a ``serving.admit`` span (counter ``live_rows``, the rows
         live before it) around the phases ``.claim``, ``.forward`` (the
-        prefill's launches), ``.sample`` (the first token's read, where
-        the host waits for the card) and ``.finish``; a refused admission
-        leaves it open, so the log drops it."""
+        prefill's launches; counter ``self_attn_kernel``, 1 where the
+        flash kernel launched in it), ``.sample`` (the first token's
+        read, where the host waits for the card) and ``.finish``; a
+        refused admission leaves it open, so the log drops it."""
         live_rows = len(self._slot_of)
         outer = SPANS.open("serving.admit")
         sp = SPANS.open("serving.admit.claim")
@@ -1288,13 +1290,12 @@ class ServingEngine:
         if obs is not None and ouid is not None:
             obs.prefill_start(ouid)
             obs.stall_begin(id(self))
+        flash_before = FLASH_FWD.launches
         if c["auto_hit"]:
             # cache hit: the tail prefills chunked, block by block
             logits, at = self._prefill_tail_chunks(
                 slot, seq, total, n_shared * bs)
-            SPANS.close(sp)
-            sp = SPANS.open("serving.admit.sample")
-            first = self._sample_one(logits[(total - 1) - at][None], tkp)
+            first_row = (total - 1) - at
         else:
             padded = np.zeros((bucket,), np.int64)
             padded[:p] = c["prompt"]
@@ -1309,10 +1310,12 @@ class ServingEngine:
                 phys[j] = self._table[slot, j]
             logits = self._scratch_forward(
                 self._tensor(padded), c["pref_blocks"], pref_padded, plen,
-                phys)
-            SPANS.close(sp)
-            sp = SPANS.open("serving.admit.sample")
-            first = self._sample_one(logits[:, p - 1], tkp)
+                phys)[0]
+            first_row = p - 1
+        SPANS.close(sp, (
+            ("self_attn_kernel", int(FLASH_FWD.launches > flash_before)),))
+        sp = SPANS.open("serving.admit.sample")
+        first = self._sample_one(logits[first_row][None], tkp)
         SPANS.close(sp)
         sp = SPANS.open("serving.admit.finish")
         self.prefilled_tokens_total += p

@@ -14,6 +14,8 @@ where the TPU kernels do, so they differ by an output ulp in a few
 elements; chip_smoke.py's limits, set from sound and planted-fault
 readings)."""
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -373,3 +375,130 @@ def test_flash_autograd_launches_the_backward_kernels(dev):
         A.flash_bwd_dq(q, k, v, w, torch.zeros(2, 4, 130, device=dev).half(),
                        torch.zeros(2, 4, 130, device=dev), A.FlashConfig())
     assert A.FLASH_BWD_DQ.launches == before[1] + 1
+
+
+# -- the prefill's attention through the flash kernel ----------------------
+
+def _sc2_attention_model(dev, window):
+    """Two layers at StarCoder2-3B's attention shape: 24 query heads over
+    2 kv heads, head_dim 128, RoPE at its theta, bf16; narrow elsewhere."""
+    from elastic_tpu_agent_torch.workloads import transformer as T
+
+    cfg = T.ModelConfig(vocab=512, d_model=3072, n_heads=24, n_kv_heads=2,
+                        n_layers=2, d_ff=256, max_seq=4160, pos="rope",
+                        rope_theta=999999.44, window=window,
+                        dtype=torch.bfloat16)
+    return cfg, T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+
+
+def _generate_module():
+    # the package re-exports the function `generate`, which shadows the
+    # module of that name
+    return importlib.import_module(
+        "elastic_tpu_agent_torch.workloads.generate")
+
+
+def _einsum_only(monkeypatch):
+    """Refuse the kernel path in the chunk forward: every chunk runs
+    ``_cached_attention``."""
+    monkeypatch.setattr(_generate_module(), "_chunk_self_attends",
+                        lambda *a, **k: False)
+
+
+# logits of the kernel path against the einsum path, max |diff| over
+# max |einsum|: both round the probabilities to bf16 before P.V, at other
+# points (the einsum after normalising, the kernel before), so the
+# attention outputs differ by about an ulp. On the H100 the two read
+# 0.0079-0.0091 (logits and deeper cache layers, buckets 2048 and 4096,
+# windows 512 and 4096); q and k rounded through fp8 e4m3 in the kernel
+# path read 0.041-0.045, the window left out where it binds 0.59-0.62
+PREFILL_LOGIT_TOL = 2e-2
+
+
+@pytest.mark.parametrize("real,t,window", [
+    (1448, 2048, 4096),     # a padded bucket under the cell's window
+    (4096, 4096, 4096),     # the largest bucket
+    (1448, 2048, 512),      # a window the kernel's tile skip applies
+], ids=["bucket-2048", "bucket-4096", "window-512"])
+def test_prefill_chunk_takes_the_flash_kernel(dev, monkeypatch, real, t,
+                                              window):
+    """A chunk forward from position 0 launches ``flash_fwd`` once a layer
+    and gives the einsum path's logits on the real rows within bf16
+    rounding; its first layer's cache is written bit for bit, the rest
+    within the same rounding."""
+    G = _generate_module()
+    cfg, params = _sc2_attention_model(dev, window)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.zeros((1, t), dtype=torch.long)
+    toks[0, :real] = torch.randint(1, cfg.vocab, (real,), generator=gen)
+    toks = toks.to(dev)
+
+    def run():
+        cache = G.KVCache.empty(cfg, 1, t, device=dev)
+        with torch.no_grad():
+            logits, cache = G._forward_chunk(params, toks, cache, cfg)
+        torch.cuda.synchronize()
+        return logits[0, :real], cache
+
+    assert G._chunk_self_attends(t, G.KVCache.empty(cfg, 1, t, device=dev),
+                                 cfg.dtype, "cuda", cfg.head_dim)
+    before = A.FLASH_FWD.launches
+    got, kcache = run()
+    assert A.FLASH_FWD.launches == before + cfg.n_layers
+    with monkeypatch.context() as m:
+        _einsum_only(m)
+        want, ecache = run()
+    assert A.FLASH_FWD.launches == before + cfg.n_layers
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err <= PREFILL_LOGIT_TOL, err
+    for a, b in ((kcache.k, ecache.k), (kcache.v, ecache.v)):
+        assert torch.equal(a[0], b[0])
+        deep = ((a[1:, :, :real].float() - b[1:, :, :real].float()).abs()
+                .max() / b[1:, :, :real].float().abs().max()).item()
+        assert deep <= PREFILL_LOGIT_TOL, deep
+
+
+def test_serving_greedy_streams_hold_to_the_einsum_path(dev, monkeypatch):
+    """A ServingEngine whose prefills attend through the kernel (one
+    launch a layer an admission) serves greedy tokens that the einsum
+    path's forward over the prompt and the served tokens ranks best,
+    within PREFILL_LOGIT_TOL of its largest logit, as the engine whose
+    prefills run the einsum does. The streams themselves need not be
+    equal: the untrained model's two best logits lie within bf16 rounding
+    of each other at 1-2% of positions, so a stream may take the other."""
+    G = _generate_module()
+    from elastic_tpu_agent_torch.workloads import serving as S
+
+    cfg, params = _sc2_attention_model(dev, 4096)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in
+               (300, 777, 1448, 2048)]
+
+    def streams():
+        eng = S.ServingEngine(params, cfg, slots=4, max_len=2112,
+                              prompt_buckets=(512, 2048), block_size=16,
+                              device=dev)
+        rids = [eng.admit(p) for p in prompts]
+        for _ in range(8):
+            eng.step()
+        return [eng.release(r) for r in rids]
+
+    before = A.FLASH_FWD.launches
+    got = streams()
+    assert A.FLASH_FWD.launches == before + len(prompts) * cfg.n_layers
+    with monkeypatch.context() as m:
+        _einsum_only(m)
+        want = streams()
+        for stream in (got, want):
+            for prompt, served in zip(prompts, stream):
+                assert len(served) == 9
+                seq = torch.tensor([prompt + served[:-1]], device=dev)
+                cache = G.KVCache.empty(cfg, 1, seq.shape[1], device=dev)
+                with torch.no_grad():
+                    logits = G._forward_chunk(params, seq, cache, cfg)[0][0]
+                rows = logits[len(prompt) - 1:]
+                best = rows.max(-1).values
+                picked = rows[torch.arange(len(served)),
+                              torch.tensor(served, device=dev)]
+                gap = ((best - picked).max() / rows.abs().max()).item()
+                assert gap <= PREFILL_LOGIT_TOL, gap

@@ -39,10 +39,18 @@ def _models(**kw):
 @pytest.mark.parametrize(
     "kw",
     [dict(), dict(n_kv_heads=2, pos="rope"), dict(pos="rope", window=6),
+     dict(n_kv_heads=2, pos="rope", window=6),
      dict(moe_experts=4), dict(moe_experts=2, moe_every=1, pos="rope")],
-    ids=["mha-learned", "gqa-rope", "rope-window", "moe4", "moe2-all-rope"],
+    ids=["mha-learned", "gqa-rope", "rope-window", "gqa-rope-window", "moe4",
+         "moe2-all-rope"],
 )
-def test_greedy_generate_token_exact(kw):
+def test_greedy_generate_token_exact(monkeypatch, kw):
+    """On the CPU the prompt pass from position 0 keeps the einsum: the
+    flash kernel's entry is never called."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU chunk called flash_attention")
+
+    monkeypatch.setattr(tg, "flash_attention", refuse)
     jcfg, tcfg, tree, params = _models(**kw)
     prompt = np.random.default_rng(0).integers(0, 97, size=(2, 7))
     want = jg.generate(tree, jnp.asarray(prompt, jnp.int32), jcfg, 12)
@@ -173,3 +181,43 @@ def test_generate_guards():
         tg.generate(params, [[1, 2]], tcfg, 200, device="cpu")
     with pytest.raises(ValueError, match="params live on"):
         tg.generate(params, [[1, 2]], tcfg, 2, device="meta")
+
+
+# -- the prefill's self-attention rule -------------------------------------
+
+BF16 = torch.bfloat16
+# a chunk the flash kernel takes: 16 tokens from position 0 into a 16-slot
+# bf16 cache, head_dim 128, on a CUDA device
+ACCEPT = dict(t=16, length=0, width=16, cache_dtype=BF16, q_dtype=BF16,
+              device="cuda", head_dim=128, positions=None, ring=None)
+
+
+@pytest.mark.parametrize("change,takes", [
+    (dict(), True),
+    (dict(t=12), True),                       # a padded bucket's prompt
+    (dict(head_dim=64), True),
+    (dict(length=4), False),                  # a prefix tail
+    (dict(positions=torch.tensor([0])), False),
+    (dict(ring=(0, torch.arange(16))), False),
+    (dict(cache_dtype=torch.int8), False),
+    (dict(cache_dtype=torch.float32), False),  # f32 cache, bf16 q
+    (dict(cache_dtype=torch.float32, q_dtype=torch.float32), False),
+    (dict(head_dim=96), False),
+    (dict(device="cpu"), False),
+    (dict(t=32), False),                      # wider than the cache
+], ids=["accepts", "accepts-short-chunk", "accepts-h64", "prefix-tail",
+        "positions", "ring", "int8-cache", "f32-cache-bf16-q", "f32",
+        "head-dim-96", "cpu", "chunk-past-cache"])
+def test_chunk_self_attends_rule(change, takes):
+    """The one rule that sends a chunk's attention to the flash kernel:
+    from position 0, no per-row positions or ring, within the cache, a
+    bf16 cache under bf16 q, on a CUDA device, in the kernel's gate. The
+    device type and q's dtype are plain values, so no card is needed."""
+    a = {**ACCEPT, **change}
+    shape = (1, 1, a["width"], 2, a["head_dim"])
+    cache = tg.KVCache(k=torch.zeros(shape, dtype=a["cache_dtype"]),
+                       v=torch.zeros(shape, dtype=a["cache_dtype"]),
+                       length=a["length"])
+    got = tg._chunk_self_attends(a["t"], cache, a["q_dtype"], a["device"],
+                                 a["head_dim"], a["positions"], a["ring"])
+    assert got is takes

@@ -104,7 +104,9 @@ def test_admit_and_step_write_their_phase_spans(log, params):
     assert [s[0] for s in spans] == ADMIT
     _check_nesting(spans)
     assert dict(spans[0][3]) == {"live_rows": 0}
-    assert all(s[3] == () for s in spans[1:])
+    # on the CPU the prefill's attention is the einsum, never the kernel
+    assert [dict(s[3]) for s in spans[1:]] == [
+        {}, {"self_attn_kernel": 0}, {}, {}]
     used = eng.used_blocks
     out, spans = _calls(log, eng.step)
     assert list(out) == [rid]
@@ -135,6 +137,8 @@ def test_cache_hit_admission_and_chunked_step(log, params):
     assert [s[0] for s in spans] == ADMIT
     _check_nesting(spans)
     assert dict(spans[0][3]) == {"live_rows": 1}
+    # the tail's chunks start past the shared blocks: no kernel
+    assert dict(spans[2][3]) == {"self_attn_kernel": 0}
     assert eng.adoptions_total == 1
     rid = eng.enqueue([61, 3, 88, 24, 7, 7, 13, 2, 90, 41, 5])
     _, spans = _calls(log, eng.step)
@@ -187,3 +191,27 @@ def test_step_timer_records_its_span(log):
     assert 1.0 <= r["duration_ms"] <= (after - r["t0_ns"]) / 1e6
     assert r["tokens_per_s"] == pytest.approx(
         64 / (r["duration_ms"] / 1e3), rel=1e-3)
+
+
+@pytest.mark.cuda
+def test_bare_prompt_admission_counts_the_kernel_on_a_card(log):
+    """On a card a bf16 prompt admitted from position 0 takes the flash
+    kernel (``self_attn_kernel`` 1, one launch a layer); a prefix-hit
+    admission's tail chunks do not (0, no launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from elastic_tpu_agent_torch.workloads import attention as ta
+
+    cfg = tt.ModelConfig(vocab=97, d_model=256, n_heads=2, n_kv_heads=1,
+                         n_layers=2, d_ff=64, max_seq=96, pos="rope")
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    eng = ts.ServingEngine(params, cfg, slots=3, max_len=64,
+                           prompt_buckets=(16, 32), block_size=4,
+                           prefix_cache=True, device="cuda")
+    prompt = [5, 17, 42, 9, 1, 2, 3, 4, 6]
+    for want, p in ((1, prompt), (0, prompt + [7, 8])):
+        before = ta.FLASH_FWD.launches
+        _, spans = _calls(log, lambda: eng.admit(p))
+        assert [s[0] for s in spans] == ADMIT
+        assert dict(spans[2][3]) == {"self_attn_kernel": want}
+        assert ta.FLASH_FWD.launches - before == want * cfg.n_layers
